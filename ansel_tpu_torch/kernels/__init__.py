@@ -1,0 +1,2 @@
+"""Hand-written CUDA kernels (sources in ../csrc) with their plain torch
+twins; see rcd.py and pointwise.py."""

@@ -1,0 +1,241 @@
+"""The port's config-1 slice against ansel_tpu: plan and coefficient
+parity, the whole slice on the CPU, fused groups, the branches that raise
+while planning, no silent CPU, and no JAX behind `import ansel_tpu_torch`."""
+
+import dataclasses
+import enum
+import os
+import subprocess
+import sys
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import ansel_tpu
+import ansel_tpu_torch
+from ansel_tpu.io.synthetic import synth_raw
+from ansel_tpu.kernels.rcd_pallas import rcd_demosaic_pallas
+from ansel_tpu.ops.base import pad_to
+from ansel_tpu.pipeline import engine as ref_engine
+from ansel_tpu_torch.core import types as port_types
+from ansel_tpu_torch.io import encode
+
+torch.set_num_threads(2)
+
+CONFIG1 = [("exposure", {"exposure": 0.5}), ("channelmixerrgb", {}),
+           ("filmicrgb", {})]
+DISPLAY_QUANTUM = 1.0 / 255.0
+
+
+def _hist(pkg, items):
+    return [pkg.HistoryItem(op, params) for op, params in items]
+
+
+def _plain(v):
+    """Plan values with each package's enums replaced by their values."""
+    if isinstance(v, enum.Enum):
+        return v.value
+    if dataclasses.is_dataclass(v):
+        return tuple(_plain(getattr(v, f.name))
+                     for f in dataclasses.fields(v))
+    if isinstance(v, (tuple, list)):
+        return tuple(_plain(x) for x in v)
+    return v
+
+
+def _variant(exposure=0.5, filmic=None):
+    return [("exposure", {"exposure": exposure}), ("channelmixerrgb", {}),
+            ("filmicrgb", filmic or {})]
+
+
+@pytest.mark.parametrize("items", [
+    CONFIG1,
+    _variant(exposure=-1.0),
+    _variant(exposure=2.0),
+    _variant(filmic={"version": 5}),
+    _variant(filmic={"version": 6}),
+    _variant(filmic={"version": 8}),
+    _variant(filmic={"version": 9}),
+], ids=["config1", "ev-1", "ev+2", "agx-v6", "agx-v7", "agx-v9", "agx-v10"])
+def test_plan_and_coeffs_equal_reference(items):
+    _, meta, _ = synth_raw(h=144, w=400)
+    ref = ansel_tpu.Pipeline(meta, _hist(ansel_tpu, items))
+    port = ansel_tpu_torch.Pipeline(meta, _hist(ansel_tpu_torch, items),
+                                    device="cpu")
+    assert [s.name for s in port.stages] == [s.name for s in ref.stages]
+    assert len(port.stages) == 9 and not port.windowed and not ref.windowed
+    for p, r in zip(port.stages, ref.stages):
+        assert _plain(p.plan.spec_in) == _plain(r.plan.spec_in)
+        assert _plain(p.plan.spec_out) == _plain(r.plan.spec_out)
+        assert _plain(p.plan.static) == _plain(r.plan.static), p.name
+    for p, r in zip(port.coeffs(), ref.coeffs()):
+        assert (p is None) == (r is None)
+        assert sorted(p or {}) == sorted(r or {})
+        for k in p or {}:
+            assert np.array_equal(np.asarray(p[k]), np.asarray(r[k])), k
+
+
+def test_windowed_plan_equals_reference_and_crops_the_full_run():
+    raw, meta, _ = synth_raw(h=144, w=400)
+    win = (24, 40, 64, 200)
+    ref = ansel_tpu.Pipeline(meta, _hist(ansel_tpu, CONFIG1), out_window=win)
+    port = ansel_tpu_torch.Pipeline(meta, _hist(ansel_tpu_torch, CONFIG1),
+                                    device="cpu", out_window=win)
+    assert port.windowed and ref.windowed
+    for p, r in zip(port.stages, ref.stages):
+        assert _plain(p.plan.spec_in) == _plain(r.plan.spec_in), p.name
+        assert _plain(p.plan.static) == _plain(r.plan.static), p.name
+    got = ansel_tpu_torch.pipeline.engine.CompiledPipe(port).output_array(raw)
+    full = ansel_tpu_torch.compile_pipeline(
+        meta, _hist(ansel_tpu_torch, CONFIG1), device="cpu").output_array(raw)
+    y0, x0, h, w = win
+    assert got.shape == (3, h, w)
+    # the demosaic window keeps an 18-px halo, so the crop is exact
+    assert np.array_equal(got, full[:, y0:y0 + h, x0:x0 + w])
+
+
+def test_resolve_history_matches_reference_for_config1():
+    _, meta, _ = synth_raw(h=144, w=400)
+    port = ansel_tpu_torch.pipeline.engine.resolve_history(
+        meta, _hist(ansel_tpu_torch, CONFIG1))
+    ref = ref_engine.resolve_history(meta, _hist(ansel_tpu, CONFIG1))
+    assert [h.op for h in port] == [h.op for h in ref if h.enabled]
+
+
+@pytest.fixture(scope="module")
+def slice144():
+    """The config-1 slice on synth_raw(144, 400): the port's output on the
+    CPU, the reference in its TPU form (Pallas RCD and the fused chain in
+    interpret mode) and its CPU CompiledPipe."""
+    raw, meta, _ = synth_raw(h=144, w=400)
+    port = ansel_tpu_torch.compile_pipeline(
+        meta, _hist(ansel_tpu_torch, CONFIG1), device="cpu")
+    got = port.output_array(raw)
+
+    ref = ansel_tpu.Pipeline(meta, _hist(ansel_tpu, CONFIG1))
+    co = ref.coeffs()
+    x = ref.trace_fn(0, 3)(jnp.asarray(pad_to(raw, ref.spec_in)), co[0:3])
+    rgb = rcd_demosaic_pallas(x, ref.stages[3].plan.spec_in.cfa,
+                              co[3]["scaler"], interpret=True)
+    ref_engine._FORCE_FUSION_INTERPRET = True
+    ref_engine._COMPILE_CACHE.clear()
+    try:
+        tpu_form = np.asarray(ref.trace_fn(4, 9)(rgb, co[4:9]))[:, :144, :400]
+    finally:
+        ref_engine._FORCE_FUSION_INTERPRET = False
+        ref_engine._COMPILE_CACHE.clear()
+    cpu_form = ansel_tpu.compile_pipeline(
+        meta, _hist(ansel_tpu, CONFIG1)).output_array(raw)
+    return port, got, tpu_form, cpu_form
+
+
+def test_slice_matches_tpu_form_full_frame(slice144):
+    _, got, tpu_form, _ = slice144
+    assert got.shape == tpu_form.shape == (3, 144, 400)
+    assert np.isfinite(got).all() and got.min() >= 0.0 and got.max() <= 1.0
+    d = np.abs(got - tpu_form)
+    assert d.max() <= DISPLAY_QUANTUM and d.mean() <= 1e-4
+
+
+def test_slice_matches_cpu_pipe_interior(slice144):
+    # ansel_tpu's CPU path runs kernels/rcd.py, which pads rows by 8 and
+    # wraps columns: its border differs by design, so drop a 16-px ring
+    _, got, _, cpu_form = slice144
+    ring = (slice(None), slice(16, -16), slice(16, -16))
+    assert np.abs(got[ring] - cpu_form[ring]).max() <= DISPLAY_QUANTUM
+
+
+def test_config1_fuses_stages_4_to_8_into_one_chain(slice144):
+    port = slice144[0]
+    assert port.fused_groups() == [["exposure", "colorin", "channelmixerrgb",
+                                    "filmicrgb", "colorout"]]
+    assert [k for k, *_ in port.steps] == ["stage"] * 4 + ["chain"]
+
+
+def _gain_maps(meta):
+    maps = tuple(port_types.DngGainMap(
+        top=t, left=l, bottom=meta.height, right=meta.width,
+        map_points_v=2, map_points_h=2, map_gain=(1.0,) * 4)
+        for t in (0, 1) for l in (0, 1))
+    return dataclasses.replace(meta, gain_maps=maps)
+
+
+@pytest.mark.parametrize("items,meta_fn,kw", [
+    ([("highlights", {"mode": 1})], None, {}),
+    ([("highlights", {"mode": 2})], None, {}),
+    ([("highlights", {"mode": 3})], None, {}),
+    ([("highlights", {"mode": 4})], None, {}),
+    ([("demosaic", {"demosaicing_method": 0})], None, {}),   # PPG
+    ([("demosaic", {"demosaicing_method": 1})], None, {}),   # AMaZE
+    ([("demosaic", {"demosaicing_method": 7})], None, {}),   # fallback
+    ([("demosaic", {"green_eq": 1})], None, {}),
+    ([("demosaic", {"color_smoothing": 2})], None, {}),
+    ([("rawprepare", {"flat_field": 1})], _gain_maps, {}),
+    ([("filmicrgb", {"version": 4})], None, {}),             # spline v5
+    ([("filmicrgb", {"version": 0})], None, {}),             # spline v1
+    ([("exposure", {"exposure": 5.0}), ("filmicrgb", {})], None, {}),
+    ([("colorin", {"type": 0})], None, {}),                  # ICC file
+    ([("colorout", {"type": 0})], None, {}),                 # ICC file
+    ([("colorbalancergb", {})], None, {}),                   # not ported
+    (CONFIG1, None, {"pipe_type": "preview"}),
+    (CONFIG1, None, {"scale": 0.5}),
+], ids=["lch", "inpaint", "laplacian", "harmonic", "ppg", "amaze",
+        "bilinear", "green-eq", "smoothing", "gain-map", "filmic-v5",
+        "filmic-v1", "filmic-reconstruct", "colorin-icc", "colorout-icc",
+        "unported-op", "preview", "scaled"])
+def test_unported_branches_raise_at_plan_time(items, meta_fn, kw):
+    _, meta, _ = synth_raw(h=64, w=128)
+    if meta_fn is not None:
+        meta = meta_fn(meta)
+    with pytest.raises(NotImplementedError):
+        ansel_tpu_torch.Pipeline(meta, _hist(ansel_tpu_torch, items),
+                                 device="cpu", **kw)
+
+
+def test_xtrans_raises_at_plan_time():
+    _, meta, _ = synth_raw(h=60, w=120)
+    meta = dataclasses.replace(meta, xtrans=(1,) * 36)
+    with pytest.raises(NotImplementedError):
+        ansel_tpu_torch.Pipeline(meta, [], device="cpu")
+
+
+def test_blend_raises_at_plan_time():
+    _, meta, _ = synth_raw(h=64, w=128)
+    item = ansel_tpu_torch.HistoryItem("exposure", {"exposure": 1.0},
+                                       blend_params=b"\0" * 8)
+    with pytest.raises(NotImplementedError):
+        ansel_tpu_torch.Pipeline(meta, [item], device="cpu")
+
+
+def test_cuda_device_is_never_replaced_by_the_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    _, meta, _ = synth_raw(h=64, w=128)
+    with pytest.raises(RuntimeError):
+        ansel_tpu_torch.compile_pipeline(
+            meta, _hist(ansel_tpu_torch, CONFIG1), device="cuda")
+
+
+def test_import_loads_no_jax():
+    code = ("import sys, ansel_tpu_torch; "
+            "bad = sorted(m for m in sys.modules "
+            "if m.split('.')[0] in ('jax', 'jaxlib', 'ansel_tpu')); "
+            "print(bad); sys.exit(1 if bad else 0)")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=root,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_png16_writes_without_pil(tmp_path, slice144):
+    got = slice144[1]
+    path = str(tmp_path / "out.png")
+    encode.write_image(path, got, bpp=16, icc=None)
+    with open(path, "rb") as f:
+        head = f.read(33)
+    assert head[:8] == b"\x89PNG\r\n\x1a\n"
+    assert int.from_bytes(head[16:20], "big") == 400      # width
+    assert int.from_bytes(head[20:24], "big") == 144      # height
+    assert head[24] == 16                                 # bit depth
