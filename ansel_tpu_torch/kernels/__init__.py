@@ -1,2 +1,2 @@
 """Hand-written CUDA kernels (sources in ../csrc) with their plain torch
-twins; see rcd.py and pointwise.py."""
+twins: rcd.py, pointwise.py, sepblur.py, eaw.py and nlm.py."""

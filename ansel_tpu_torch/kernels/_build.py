@@ -18,11 +18,12 @@ import shutil
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "ansel_tpu_torch"
-KERNELS = ("rcd", "pointwise_chain")
+KERNELS = ("rcd", "pointwise_chain", "sepblur", "eaw", "nlm")
 
 # --fmad=false and no --use_fast_math: the kernels round like their plain
 # torch versions, operation for operation.
@@ -77,8 +78,12 @@ def load(name: str) -> ctypes.CDLL:
 
 
 def build_all() -> float:
-    """Build and load every kernel of the package; -> seconds taken."""
+    """Build every kernel of the package, one nvcc per source, all
+    started together, then load them; -> seconds taken."""
     t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=len(KERNELS)) as pool:
+        for future in [pool.submit(build, name) for name in KERNELS]:
+            future.result()
     for name in KERNELS:
         load(name)
     return time.perf_counter() - t0

@@ -6,6 +6,7 @@ from . import (  # noqa: F401
     colorin,
     colorout,
     demosaic,
+    denoiseprofile,
     exposure,
     filmicrgb,
     highlights,

@@ -148,6 +148,13 @@ def all_ops() -> Dict[str, Op]:
     return dict(_OPS)
 
 
+def full_dims(spec: ImageSpec):
+    """(full_h, full_w) of the frame this spec belongs to: size-adaptive
+    planning (wavelet scale counts) uses the whole frame's dims, so a
+    windowed pipe plans the same algorithm as the full one."""
+    return (spec.full_h or spec.height, spec.full_w or spec.width)
+
+
 def pad_to(img: np.ndarray, spec: ImageSpec) -> np.ndarray:
     """Edge-replicate pad a host image up to the spec's padded shape."""
     if img.ndim == 2:

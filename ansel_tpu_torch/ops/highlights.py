@@ -2,9 +2,11 @@
 
 Reference: `ansel/src/iop/highlights/` — params struct common.h:428-446;
 modes common.h:403-410.  Planning is copied from
-`ansel_tpu/ops/highlights.py`.  Only CLIP (hard clamp at the threshold,
-highlights/clip.c) is ported; LCH, INPAINT, LAPLACIAN and HARMONIC raise
-at plan time.
+`ansel_tpu/ops/highlights.py`.  Ported: CLIP (hard clamp at the
+threshold, highlights/clip.c) and the guided LAPLACIAN on Bayer mosaics
+(highlights/laplacian.c via kernels/highlights_laplacian.py) without its
+noise salt.  LCH, INPAINT, HARMONIC, LAPLACIAN on X-Trans and LAPLACIAN
+with noise_level > 0 raise at plan time.
 """
 
 from __future__ import annotations
@@ -14,7 +16,7 @@ import dataclasses
 import torch
 
 from ..core.params import cfield, params
-from ..core.types import Colorspace, ImageSpec
+from ..core.types import CFAPattern, Colorspace, ImageSpec
 from .base import Op, OpPlan, PlanContext, not_ported, register
 
 MODE_CLIP = 0   # DT_IOP_HIGHLIGHTS_CLIP
@@ -24,7 +26,7 @@ MODE_LAPLACIAN = 3
 MODE_HARMONIC = 4
 
 _MODE_NAMES = {MODE_LCH: "LCH", MODE_INPAINT: "INPAINT",
-               MODE_LAPLACIAN: "LAPLACIAN", MODE_HARMONIC: "HARMONIC"}
+               MODE_HARMONIC: "HARMONIC"}
 
 
 @params(op="highlights", version=4)
@@ -73,6 +75,12 @@ class Highlights(Op):
     def plan(self, ctx: PlanContext, spec_in: ImageSpec, p) -> OpPlan:
         if p.mode in _MODE_NAMES:
             raise not_ported(self.name, f"mode {_MODE_NAMES[p.mode]}")
+        if p.mode == MODE_LAPLACIAN:
+            if spec_in.cfa is CFAPattern.XTRANS:
+                raise not_ported(self.name, "mode LAPLACIAN on X-Trans")
+            if round(float(p.noise_level), 6) > 0.0:
+                raise not_ported(self.name, "mode LAPLACIAN with noise "
+                                 "(its jax.random salt)")
         # reference clamps processed_maximum to the clip threshold
         pmax = tuple(m if m > 0 else 1.0 for m in ctx.processed_maximum)
         clipval = p.clip * min(pmax)
@@ -90,10 +98,13 @@ class Highlights(Op):
                               round(float(p.solid_color), 6)))
 
     def roi_in(self, plan: OpPlan, ctx: PlanContext, win):
-        # CLIP is a local mosaic op; 6 preserves CFA window alignment
+        # CLIP is a local mosaic op (6 preserves CFA window alignment);
+        # the multiscale reconstruction needs the frame
         si, so = plan.spec_in, plan.spec_out
         if tuple(win) == (0, 0, so.height, so.width):
             return (0, 0, si.height, si.width)
+        if plan.static[0] != MODE_CLIP:
+            return None
         halo = 6
         y0 = max(0, win[0] - halo)
         x0 = max(0, win[1] - halo)
@@ -106,4 +117,11 @@ class Highlights(Op):
                 "clips": list(ctx.notes["highlights_clips"])}
 
     def apply(self, x, c, plan: OpPlan, ctx: PlanContext):
+        mode, scales_p, iters, noise_lv, solid = plan.static
+        if mode == MODE_LAPLACIAN and plan.spec_in.cfa is not None:
+            from ..kernels import highlights_laplacian as hl
+
+            return hl.laplacian_reconstruct(
+                x, c["clips"], plan.spec_in.cfa, scales_p, iters, noise_lv,
+                solid, zoom=max(ctx.scale, 1e-6))
         return torch.minimum(x, c["clip"])

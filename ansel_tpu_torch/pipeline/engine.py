@@ -227,10 +227,12 @@ def coeffs_to_device(coeffs, device) -> List[Optional[dict]]:
 
 
 class Pipeline:
-    """A planned pipe for one (image, history) on one device."""
+    """A planned pipe for one (image, history) on one device: the CUDA
+    card unless `device` names another; a missing card raises
+    RuntimeError rather than falling back to the CPU."""
 
     def __init__(self, meta: RawMeta, history: List[HistoryItem], *,
-                 device, scale: float = 1.0, order_version=None,
+                 device="cuda", scale: float = 1.0, order_version=None,
                  pipe_type: str = PipeType.EXPORT,
                  out_window: Optional[Tuple[int, int, int, int]] = None,
                  roi: bool = True):
@@ -466,8 +468,8 @@ class CompiledPipe:
         return y[: so.height, : so.width]
 
 
-def compile_pipeline(meta: RawMeta, history: List[HistoryItem], *, device,
-                     scale: float = 1.0, order_version=None,
+def compile_pipeline(meta: RawMeta, history: List[HistoryItem], *,
+                     device="cuda", scale: float = 1.0, order_version=None,
                      pipe_type: str = PipeType.EXPORT) -> CompiledPipe:
     return CompiledPipe(Pipeline(meta, history, device=device, scale=scale,
                                  order_version=order_version,

@@ -3,40 +3,65 @@
 
     python3 chip_smoke.py
 
-Drives bench config 1 (a 24 MP Bayer raw through exposure +0.5,
-channelmixerrgb and filmicrgb) through `compile_pipeline` and
-`output_array`, the entry points a user calls, after building both CUDA
-kernels from `ansel_tpu_torch/csrc/` and holding each against its plain
-torch version on the card.  One line per phase; the line before the last
-is the kernels' JSON record, the last line the device record.  Any
-failure raises, so the script then exits non-zero without the last line.
-It needs a CUDA device and imports neither JAX nor `ansel_tpu`.
+Builds every CUDA kernel from `ansel_tpu_torch/csrc/` (one nvcc per
+source, all started together), holds each kernel against its plain torch
+version on the card at the shapes the main paths give it, and drives
+both main paths through `compile_pipeline` and `output_array`, the entry
+points a user calls, at the full 24 MP (4000 x 6016):
+
+  * bench config 1 (exposure +0.5, channelmixerrgb, filmicrgb): RCD and
+    the fused colour chain;
+  * bench config 2, the high-ISO denoise stack (highlights guided
+    Laplacian, denoiseprofile wavelets and NLM, exposure, filmicrgb):
+    RCD, the chain, the sepblur, EAW and NLM kernels.
+
+Each path runs with the launch counts set to 0 just before it and read
+just after.  One line per phase; the line before the last is the
+kernels' JSON record, the last line the device record.  Any failure
+raises, so the script then exits non-zero without the last line.  It
+needs a CUDA device and imports neither JAX nor `ansel_tpu`.
 """
 
+import contextlib
 import json
 import os
 import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 import ansel_tpu_torch as port
+from ansel_tpu_torch.io import configs
 from ansel_tpu_torch.io.encode import write_image
 from ansel_tpu_torch.io.synthetic import synth_raw
-from ansel_tpu_torch.kernels import _build
+from ansel_tpu_torch.kernels import _build, eaw, nlm, rcd, sepblur
 from ansel_tpu_torch.kernels import pointwise as pw
-from ansel_tpu_torch.kernels import rcd
 
-H, W = 4000, 6016  # bench config 1 (bench.py:22-26)
-HISTORY = [
-    port.HistoryItem("exposure", {"exposure": 0.5}),
-    port.HistoryItem("channelmixerrgb", {}),
-    port.HistoryItem("filmicrgb", {}),
-]
-REPEATS = 10
+H, W = configs.BENCH_H, configs.BENCH_W
+LAUNCHES2 = {"rcd": 1, "chain": 1, "eaw": 7, "nlm": 1, "sepblur": 360}
+NOISE_SIGMA = 200.0  # sensor units of 16383: a high-ISO mosaic
+REPEATS = 10         # kernel timings
+PLAIN_REPEATS = 2    # plain twins at 24 MP take up to 0.6 s each
+PIPE2_REPEATS = 3
+
+# H100 SXM peaks (NVIDIA's data sheet, at the 700 W limit): device
+# memory rate and float32 rate outside the tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS_PER_S = 67e12
+SPIN_CLOCK_HZ = 1.98e9  # boost clock: sizes the spin kernel of median_ms
+# float32 operations per output pixel (per tap or offset where named),
+# counted from each kernel's source; the fast exponentials count 4 and a
+# transcendental of the chain 20
+FLOPS_RCD = 330
+FLOPS_CHAIN = 400
+FLOPS_SEPBLUR_PER_TAP = 4        # two passes, a multiply and an add each
+FLOPS_EAW = 25 * 24 + 10         # 25 taps; the divide and the detail
+FLOPS_NLM_PER_OFFSET = 35        # d2 11, box sum 8, weight 9, sums 7
 
 # RCD: the kernel does the plain version's float32 operations in the same
 # order (built with --fmad=false; division and sqrt are IEEE), so the two
@@ -47,6 +72,10 @@ RCD_TOL = 1e-6
 # may differ by an ulp, and the filmic spline and gamut map amplify that
 # on steep parts of the curve; display values are in [0, 1].
 CHAIN_MAX_TOL, CHAIN_MEAN_TOL = 1e-4, 1e-6
+# sepblur, EAW, NLM: the kernels repeat their twins' float32 operations in
+# the same order and the fast exponentials are bit tricks; inputs are
+# below ~10 (the VST'd and normalised planes).
+STENCIL_TOL = 1e-5
 # the whole pipe against the plain functions composed: one display code
 PIPE_TOL = 1.0 / 255.0
 
@@ -59,14 +88,23 @@ def card_line():
     return out.splitlines()[0]
 
 
-def median_ms(fn):
-    """Median over REPEATS of one call, timed with CUDA events."""
+def median_ms(fn, repeats=REPEATS):
+    """Median over `repeats` of one call's device time, CUDA events.  A
+    spin kernel as long as the host took to enqueue the warm-up call (at
+    most 50 ms) runs before each, so the events bracket the card's work
+    and not the host's launch overhead (a wrapper's ctypes call and
+    allocation cost tens of microseconds, which a 0.07 ms kernel would
+    otherwise carry)."""
+    t = time.perf_counter()
     fn()
+    host_s = time.perf_counter() - t
     torch.cuda.synchronize()
+    spin_cycles = int((min(host_s, 0.05) + 1e-3) * SPIN_CLOCK_HZ)
     times = []
-    for _ in range(REPEATS):
+    for _ in range(repeats):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(spin_cycles)
         a.record()
         fn()
         b.record()
@@ -88,25 +126,110 @@ def compare(a, b):
     return d.max().item(), d.mean().item()
 
 
-def main():
-    if not torch.cuda.is_available():
-        raise SystemExit("chip_smoke: no CUDA device")
-    card = card_line()
-    print(f"[card] torch {torch.__version__} cuda {torch.version.cuda} | "
-          f"{card}", flush=True)
+def bound(bytes_moved, flops):
+    """Least time on the card (ms) and what sets it."""
+    t_bytes = bytes_moved / HBM_BYTES_PER_S
+    t_ops = flops / FP32_FLOPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
 
-    t0 = time.perf_counter()
-    build_s = _build.build_all()
-    print(f"[build] nvcc built and loaded {', '.join(_build.KERNELS)} in "
-          f"{build_s:.1f} s", flush=True)
 
-    raw, meta, _ = synth_raw(h=H, w=W, kind="gradients")
-    pipe = port.compile_pipeline(meta, HISTORY, device="cuda")
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def reset_launches():
+    for mod in (rcd, pw, sepblur, eaw, nlm):
+        mod.LAUNCHES = 0
+
+
+def read_launches():
+    return {"rcd": rcd.LAUNCHES, "chain": pw.LAUNCHES, "eaw": eaw.LAUNCHES,
+            "nlm": nlm.LAUNCHES, "sepblur": sepblur.LAUNCHES}
+
+
+@contextlib.contextmanager
+def swapped(swaps):
+    """Replace module attributes for the duration: (module, name, fn)."""
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
+    try:
+        for mod, name, fn in swaps:
+            setattr(mod, name, fn)
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def plain_twins():
+    """Each wrapper's kernel entry swapped for its plain twin (this
+    script's own switch: the package has none), so a run composes the
+    twins."""
+    return swapped([
+        (rcd, "rcd_demosaic", rcd.rcd_demosaic_reference),
+        (pw, "pointwise_chain", pw.pointwise_chain_reference),
+        (sepblur, "sep_blur", sepblur.sep_blur_reference),
+        (eaw, "eaw_dn_coarse",
+         lambda x, s, c: eaw.eaw_coarse_reference(x, s, c, eaw.DN)),
+        (nlm, "nlm", nlm.nlm_reference),
+    ])
+
+
+@contextlib.contextmanager
+def timed(phases, name):
+    """Add the seconds the block takes to phases[name]."""
+    t = time.perf_counter()
+    try:
+        yield
+    finally:
+        phases[name] = phases.get(name, 0.0) + time.perf_counter() - t
+
+
+def noisy_like(raw_dev, sigma, seed=8):
+    """`synth_raw`'s noise step on the card: the clean mosaic plus
+    N(0, sigma) sensor units, clipped to [0, 65535]."""
+    gen = torch.Generator(device=raw_dev.device).manual_seed(seed)
+    noise = torch.randn(raw_dev.shape, generator=gen, device=raw_dev.device)
+    return (raw_dev + sigma * noise).clamp_(0.0, 65535.0)
+
+
+def captured_inputs(pipe, raw_dev):
+    """Run the pipe once on a device-resident raw and keep the arguments
+    its new kernels were called with: the first sepblur call at each
+    dilation, every EAW scale and the NLM pass."""
+    calls = {"sepblur": {}, "eaw": [], "nlm": []}
+    real_sb, real_eaw, real_nlm = sepblur.sep_blur, eaw.eaw_dn_coarse, nlm.nlm
+
+    def sb(x, taps, d=1):
+        calls["sepblur"].setdefault(d, (x, taps, d))
+        return real_sb(x, taps, d)
+
+    def ew(*args):
+        calls["eaw"].append(args)
+        return real_eaw(*args)
+
+    def nl(*args):
+        calls["nlm"].append(args)
+        return real_nlm(*args)
+
+    with swapped([(sepblur, "sep_blur", sb), (eaw, "eaw_dn_coarse", ew),
+                  (nlm, "nlm", nl)]):
+        pipe.run_padded(raw_dev)
+    expect(sorted(calls["sepblur"]) == [1, 2, 4, 8, 16, 32]
+           and len(calls["eaw"]) == 7 and len(calls["nlm"]) == 1,
+           f"unexpected kernel calls {[(k, len(v)) for k, v in calls.items()]}")
+    return calls
+
+
+def run_config1(card, record, raw, raw_dev, meta, pool):
+    """Config 1's kernel checks and pipe; returns the future of its
+    16-bit PNG size (encoded on a host thread)."""
+    pipe = port.compile_pipeline(meta, configs.history(1))
+    expect(pipe.device.type == "cuda", "compile_pipeline left the card")
     stages = [s.name for s in pipe.pipe.stages]
     expect(stages[3] == "demosaic" and pipe.fused_groups() == [stages[4:]],
            f"unexpected plan {stages}, chains {pipe.fused_groups()}")
     expect(raw.shape == pipe.pipe.spec_in.array_shape, "raw needs padding")
-    raw_dev = torch.from_numpy(raw).cuda()
     mosaic = pipe.pipe.trace_fn(0, 3)(raw_dev, pipe.coeffs[0:3])
     cfa = pipe.pipe.stages[3].plan.spec_in.cfa
     scaler = pipe.coeffs[3]["scaler"]
@@ -123,31 +246,43 @@ def main():
         errs.append(f"{name} max {mx:.3g} mean {mean:.3g}")
     rcd_ms = median_ms(lambda: rcd.rcd_demosaic(mosaic, cfa, scaler))
     rcd_plain_ms = median_ms(
-        lambda: rcd.rcd_demosaic_reference(mosaic, cfa, scaler))
+        lambda: rcd.rcd_demosaic_reference(mosaic, cfa, scaler),
+        PLAIN_REPEATS)
+    rgb = rcd.rcd_demosaic(mosaic, cfa, scaler)
+    record["rcd"] = dict(max_abs_err=rcd_err, ms=rcd_ms,
+                         plain_ms=rcd_plain_ms, library_ms=None)
+    record["rcd"]["bound_ms"], record["rcd"]["bound_by"] = bound(
+        nbytes(mosaic, rgb), FLOPS_RCD * mosaic.numel())
     print(f"[rcd] {H}x{W} kernel vs plain: {'; '.join(errs)} "
           f"(tol {RCD_TOL:g} x scaler {s:.4g}) | kernel {rcd_ms:.3f} ms, "
-          f"plain {rcd_plain_ms:.3f} ms", flush=True)
+          f"plain {rcd_plain_ms:.3f} ms, bound "
+          f"{record['rcd']['bound_ms']:.3f} ms", flush=True)
 
     # -- chain kernel vs plain on the demosaic output
-    rgb = rcd.rcd_demosaic(mosaic, cfa, scaler)
     chain = next(a for kind, _, _, a in pipe.steps if kind == "chain")
     ch_max, ch_mean = compare(pw.pointwise_chain(rgb, chain),
                               pw.pointwise_chain_reference(rgb, chain))
     expect(ch_max <= CHAIN_MAX_TOL and ch_mean <= CHAIN_MEAN_TOL,
            f"chain: max {ch_max}, mean {ch_mean}")
     ch_ms = median_ms(lambda: pw.pointwise_chain(rgb, chain))
-    ch_plain_ms = median_ms(lambda: pw.pointwise_chain_reference(rgb, chain))
+    ch_plain_ms = median_ms(lambda: pw.pointwise_chain_reference(rgb, chain),
+                            PLAIN_REPEATS)
+    record["chain"] = dict(max_abs_err=ch_max, ms=ch_ms, plain_ms=ch_plain_ms,
+                           library_ms=None)
+    record["chain"]["bound_ms"], record["chain"]["bound_by"] = bound(
+        2 * nbytes(rgb), FLOPS_CHAIN * mosaic.numel())
     print(f"[chain] 3x{H}x{W} {'+'.join(stages[4:])} kernel vs plain: max "
           f"{ch_max:.3g} mean {ch_mean:.3g} (tol {CHAIN_MAX_TOL:g} / "
           f"{CHAIN_MEAN_TOL:g}) | kernel {ch_ms:.3f} ms, plain "
-          f"{ch_plain_ms:.3f} ms", flush=True)
+          f"{ch_plain_ms:.3f} ms, bound {record['chain']['bound_ms']:.3f} ms",
+          flush=True)
 
     # -- the full pipe through the user's entry point, launches counted
-    rcd.LAUNCHES = 0
-    pw.LAUNCHES = 0
+    reset_launches()
     out = pipe.output_array(raw)
-    launches = {"rcd": rcd.LAUNCHES, "chain": pw.LAUNCHES}
-    expect(launches == {"rcd": 1, "chain": 1}, f"launches {launches}")
+    launches = read_launches()
+    expect(launches == {"rcd": 1, "chain": 1, "eaw": 0, "nlm": 0,
+                        "sepblur": 0}, f"launches {launches}")
     expect(out.shape == (3, H, W), f"output shape {out.shape}")
     expect(bool(np.isfinite(out).all()) and out.min() >= 0.0
            and out.max() <= 1.0, "output not finite or outside [0, 1]")
@@ -157,39 +292,251 @@ def main():
     pipe_err = float(np.abs(out - plain[:, :so.height, :so.width]
                             .cpu().numpy()).max())
     expect(pipe_err <= PIPE_TOL, f"pipe vs plain: max {pipe_err}")
-    for _ in range(2):
-        pipe.run_padded(raw_dev)
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    for _ in range(REPEATS):
-        pipe.run_padded(raw_dev)
-    torch.cuda.synchronize()
-    per_img = (time.perf_counter() - t) / REPEATS
-    with tempfile.TemporaryDirectory() as tmp:
-        png = os.path.join(tmp, "config1.png")
-        write_image(png, out, bpp=16, icc=None)
-        png_bytes = os.path.getsize(png)
-    expect(png_bytes > 0, "empty PNG")
+    per_img = time_pipe(pipe, raw_dev, REPEATS)
     print(f"[pipe] config 1 {H}x{W}: {len(stages)} stages, chains "
           f"{pipe.fused_groups()}, launches {launches}, vs plain max "
           f"{pipe_err:.3g} (tol 1/255), range [{out.min():.3g}, "
           f"{out.max():.3g}] | {1.0 / per_img:.2f} img/s, "
           f"{H * W / per_img / 1e6:.1f} MP/s ({per_img * 1e3:.1f} ms/img, "
-          f"device-resident input) on {card} | 16-bit PNG {png_bytes} B | "
-          f"total {time.perf_counter() - t0:.0f} s", flush=True)
+          f"device-resident input) on {card}", flush=True)
+    return pool.submit(png_size, out, "config1.png")
 
-    kernels = [
-        {"name": "rcd_demosaic", "route": "cuda",
-         "source": "ansel_tpu_torch/csrc/rcd.cu",
-         "replaces": "ansel_tpu/kernels/rcd_pallas.py:189",
-         "launches": launches["rcd"], "max_abs_err": rcd_err,
-         "ms": rcd_ms, "plain_ms": rcd_plain_ms},
-        {"name": "pointwise_chain", "route": "cuda",
-         "source": "ansel_tpu_torch/csrc/pointwise_chain.cu",
-         "replaces": "ansel_tpu/kernels/pointwise.py:30",
-         "launches": launches["chain"], "max_abs_err": ch_max,
-         "ms": ch_ms, "plain_ms": ch_plain_ms},
-    ]
+
+def time_pipe(pipe, raw_dev, repeats, warmups=2):
+    """Seconds per image of run_padded, device-resident, after warm-ups."""
+    for _ in range(warmups):
+        pipe.run_padded(raw_dev)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(repeats):
+        pipe.run_padded(raw_dev)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t) / repeats
+
+
+def png_size(out, name):
+    with tempfile.TemporaryDirectory() as tmp:
+        png = os.path.join(tmp, name)
+        write_image(png, out, bpp=16, icc=None)
+        size = os.path.getsize(png)
+    expect(size > 0, "empty PNG")
+    return size
+
+
+def check_sepblur(inputs, record):
+    """The (4, H/4, W/4) Laplacian stacks at dilations 1-32."""
+    err, lib_err, rows, ms, plain_ms, lib_ms = 0.0, 0.0, [], [], [], []
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False  # the yardstick in float32
+    try:
+        for label, calls in inputs:
+            for d, (x, taps, _) in sorted(calls.items()):
+                mx, _ = compare(sepblur.sep_blur(x, taps, d),
+                                sepblur.sep_blur_reference(x, taps, d))
+                expect(mx <= STENCIL_TOL, f"sepblur {label} d={d}: max {mx}")
+                err = max(err, mx)
+                if label != "clean":
+                    continue
+                k = torch.tensor(taps, device=x.device)
+                weight = torch.outer(k, k).expand(x.shape[0], 1, 5, 5)
+                weight = weight.contiguous()
+                xp = F.pad(x[None], (2 * d,) * 4, mode="replicate")
+                conv = F.conv2d(xp, weight, dilation=d, groups=x.shape[0])[0]
+                lx, _ = compare(conv, sepblur.sep_blur_reference(x, taps, d))
+                expect(lx <= 1e-3, f"conv2d yardstick d={d}: {lx}")
+                lib_err = max(lib_err, lx)
+                ms.append(median_ms(lambda: sepblur.sep_blur(x, taps, d)))
+                plain_ms.append(median_ms(
+                    lambda: sepblur.sep_blur_reference(x, taps, d)))
+                lib_ms.append(median_ms(lambda: F.conv2d(
+                    xp, weight, dilation=d, groups=x.shape[0])))
+                rows.append(f"d={d} {ms[-1]:.4f}/{plain_ms[-1]:.3f}/"
+                            f"{lib_ms[-1]:.3f}")
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    x, taps, _ = inputs[0][1][1]
+    b_ms, b_by = bound(2 * nbytes(x),
+                       FLOPS_SEPBLUR_PER_TAP * len(taps) * x.numel())
+    record["sepblur"] = dict(max_abs_err=err, ms=float(np.mean(ms)),
+                             plain_ms=float(np.mean(plain_ms)),
+                             library_ms=float(np.mean(lib_ms)),
+                             bound_ms=b_ms, bound_by=b_by)
+    print(f"[sepblur] {tuple(x.shape)} B3 kernel vs plain on clean and "
+          f"noisy stacks: max {err:.3g} (tol {STENCIL_TOL:g}); conv2d vs plain "
+          f"max {lib_err:.3g} | ms kernel/plain/conv2d: {', '.join(rows)} | "
+          f"bound {b_ms:.4f} ms ({b_by})", flush=True)
+
+
+def check_eaw(inputs, record):
+    """Config 2's seven wavelet scales (the Y0U0V0 VST of the demosaic
+    output, then each scale's coarse image), and one atrous check."""
+    err, rows, ms, plain_ms = 0.0, [], [], []
+    for label, calls in inputs:
+        for x, scale, inv_sigma2 in calls:
+            got = eaw.eaw_dn_coarse(x, scale, inv_sigma2)
+            want = eaw.eaw_coarse_reference(x, scale, inv_sigma2, eaw.DN)
+            for g, w_ in zip(got, want):
+                mx, _ = compare(g, w_)
+                expect(mx <= STENCIL_TOL, f"eaw {label} s={scale}: max {mx}")
+                err = max(err, mx)
+            if label != "clean":
+                continue
+            ms.append(median_ms(lambda: eaw.eaw_dn_coarse(x, scale,
+                                                          inv_sigma2)))
+            plain_ms.append(median_ms(
+                lambda: eaw.eaw_coarse_reference(x, scale, inv_sigma2,
+                                                 eaw.DN), PLAIN_REPEATS))
+            rows.append(f"s{scale} {ms[-1]:.3f}/{plain_ms[-1]:.1f}")
+        x = calls[3][0]
+        got = eaw.eaw_atrous_coarse(x, 3, 2.0)
+        want = eaw.eaw_coarse_reference(x, 3, 2.0, eaw.ATROUS)
+        for g, w_ in zip(got, want):
+            mx, _ = compare(g, w_)
+            expect(mx <= STENCIL_TOL, f"eaw atrous {label}: max {mx}")
+            err = max(err, mx)
+    x = inputs[0][1][0][0]
+    b_ms, b_by = bound(3 * nbytes(x), FLOPS_EAW * x[0].numel())
+    record["eaw"] = dict(max_abs_err=err, ms=float(np.mean(ms)),
+                         plain_ms=float(np.mean(plain_ms)), library_ms=None,
+                         bound_ms=b_ms, bound_by=b_by)
+    print(f"[eaw] {tuple(x.shape)} dn scales 0-6 and atrous scale 3, kernel "
+          f"vs plain on the clean and noisy config-2 scales: max {err:.3g} (tol "
+          f"{STENCIL_TOL:g}) | ms kernel/plain: {', '.join(rows)} | bound "
+          f"{b_ms:.3f} ms per scale ({b_by})", flush=True)
+
+
+def check_nlm(inputs, record):
+    """Config 2's NLM pass (variant 1) on its own input, and variant 0."""
+    err = 0.0
+    for label, calls in inputs:
+        v, *args1 = calls[0]
+        offs, P = args1[0], args1[1]
+        args0 = (offs, P, (1.0, 0.5, 0.5), 0.02, 0.0, 1.0, 0)
+        for args in (args1, args0):
+            mx, _ = compare(nlm.nlm(v, *args), nlm.nlm_reference(v, *args))
+            expect(mx <= STENCIL_TOL, f"nlm {label} variant {args[-1]}: {mx}")
+            err = max(err, mx)
+        if label == "clean":
+            ms = median_ms(lambda: nlm.nlm(v, *args1))
+            plain_ms = median_ms(lambda: nlm.nlm_reference(v, *args1),
+                                 PLAIN_REPEATS)
+    b_ms, b_by = bound(2 * nbytes(v),
+                       FLOPS_NLM_PER_OFFSET * len(offs) * v[0].numel())
+    record["nlm"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                         library_ms=None, bound_ms=b_ms, bound_by=b_by)
+    print(f"[nlm] {tuple(v.shape)} {len(offs)} offsets P={P}, variants 1 and "
+          f"0, kernel vs plain on clean and noisy: max {err:.3g} (tol "
+          f"{STENCIL_TOL:g}) | kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, "
+          f"bound {b_ms:.3f} ms ({b_by})", flush=True)
+
+
+def run_config2(card, record, raw, raw_dev, meta, pool, phases, pngs):
+    """Config 2's pipe, then its kernel checks on the arguments the pipe
+    hands them (clean and noisy mosaic) while the PNGs encode, then the
+    pipe's timing; `pngs` are the PNG futures to wait for before it."""
+    pipe = port.compile_pipeline(meta, configs.history(2))
+    stages = [s.name for s in pipe.pipe.stages]
+    expect(stages == ["rawprepare", "temperature", "highlights", "demosaic",
+                      "denoiseprofile", "denoiseprofile", "exposure",
+                      "colorin", "filmicrgb", "colorout"],
+           f"unexpected config-2 plan {stages}")
+    expect(pipe.fused_groups() == [stages[6:]],
+           f"unexpected chains {pipe.fused_groups()}")
+    expect(raw.shape == pipe.pipe.spec_in.array_shape, "raw needs padding")
+
+    # -- config 2 through the user's entry point, launches counted
+    with timed(phases, "pipe2 vs plain"):
+        reset_launches()
+        out = pipe.output_array(raw)
+        launches = read_launches()
+        expect(launches == LAUNCHES2, f"config-2 launches {launches}")
+        expect(out.shape == (3, H, W), f"output shape {out.shape}")
+        expect(bool(np.isfinite(out).all()) and out.min() >= 0.0
+               and out.max() <= 1.0, "output not finite or outside [0, 1]")
+        pngs.append(pool.submit(png_size, out, "config2.png"))
+        reset_launches()
+        with plain_twins():
+            plain = pipe.output_array(raw)
+        expect(all(v == 0 for v in read_launches().values()),
+               f"the plain composition launched kernels: {read_launches()}")
+        pipe_err = float(np.abs(out - plain).max())
+        expect(pipe_err <= PIPE_TOL, f"config 2 vs plain: max {pipe_err}")
+    with timed(phases, "capture"):
+        calls = [(label, captured_inputs(pipe, r)) for label, r in
+                 (("clean", raw_dev),
+                  ("noisy", noisy_like(raw_dev, NOISE_SIGMA)))]
+    with timed(phases, "sepblur"):
+        check_sepblur([(label, c["sepblur"]) for label, c in calls], record)
+    with timed(phases, "eaw"):
+        check_eaw([(label, c["eaw"]) for label, c in calls], record)
+    with timed(phases, "nlm"):
+        check_nlm([(label, c["nlm"]) for label, c in calls], record)
+    del calls
+
+    with timed(phases, "png wait"):
+        png_bytes = [f.result() for f in pngs]
+    with timed(phases, "pipe2 timing"):
+        per_img = time_pipe(pipe, raw_dev, PIPE2_REPEATS, warmups=1)
+    print(f"[pipe2] config 2 {H}x{W}: {len(stages)} stages, chains "
+          f"{pipe.fused_groups()}, launches {launches}, vs plain max "
+          f"{pipe_err:.3g} (tol 1/255), range [{out.min():.3g}, "
+          f"{out.max():.3g}] | {1.0 / per_img:.3f} img/s, "
+          f"{per_img * 1e3:.1f} ms/img (device-resident input, "
+          f"{PIPE2_REPEATS} repeats) on {card}", flush=True)
+    print(f"[png] 16-bit PNG of config 1 {png_bytes[0]} B, config 2 "
+          f"{png_bytes[1]} B (encoded on a host thread)", flush=True)
+    return launches
+
+
+def main():
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device")
+    t0 = time.perf_counter()
+    phases = {}
+    # float32 products, as the JAX package's HIGHEST precision (the resize)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = card_line()
+    print(f"[card] torch {torch.__version__} cuda {torch.version.cuda} | "
+          f"{card}", flush=True)
+    record = {}
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        # the 24 MP mosaic is made on a host thread while nvcc builds
+        with timed(phases, "build + mosaic"):
+            synth = pool.submit(synth_raw, h=H, w=W, kind="gradients")
+            build_s = _build.build_all()
+            print(f"[build] nvcc built and loaded "
+                  f"{', '.join(_build.KERNELS)} in {build_s:.1f} s",
+                  flush=True)
+            raw, meta, _ = synth.result()
+            raw_dev = torch.from_numpy(raw).cuda()
+        with timed(phases, "config 1"):
+            png1 = run_config1(card, record, raw, raw_dev, meta, pool)
+        launches = run_config2(card, record, raw, raw_dev, meta, pool,
+                               phases, [png1])
+    print(f"[done] total {time.perf_counter() - t0:.1f} s | "
+          + ", ".join(f"{k} {v:.1f} s" for k, v in phases.items()),
+          flush=True)
+
+    sources = {
+        "rcd": ("rcd_demosaic", "rcd.cu", "ansel_tpu/kernels/rcd_pallas.py:189"),
+        "chain": ("pointwise_chain", "pointwise_chain.cu",
+                  "ansel_tpu/kernels/pointwise.py:30"),
+        "sepblur": ("sep_blur", "sepblur.cu",
+                    "ansel_tpu/kernels/sepblur_pallas.py:189"),
+        "eaw": ("eaw_dn_coarse", "eaw.cu",
+                "ansel_tpu/kernels/eaw_pallas.py:199"),
+        "nlm": ("nlm", "nlm.cu", "ansel_tpu/kernels/nlm_pallas.py:186"),
+    }
+    kernels = []
+    for key, (name, src, replaces) in sources.items():
+        r = record[key]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"ansel_tpu_torch/csrc/{src}", "replaces": replaces,
+            "launches": launches[key], "max_abs_err": r["max_abs_err"],
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,120 @@
+#!/usr/bin/env python3
+"""Where the time goes in the PyTorch/CUDA port's pipe, on one GPU.
+
+    python3 scripts/torch_profile.py [--config 1|2] [--images 3]
+
+Plans bench config 1 or 2 at 4000 x 6016 through `compile_pipeline`,
+warms up, then runs `run_padded` on a device-resident raw `--images`
+times without the profiler and `--images` times under torch.profiler.
+Prints one line per group of device kernels (ms per image and launches
+per image), the device busy share of the profiled loop (kernel time over
+wall time), the host's enqueue time per image and img/s of both loops.
+Needs a CUDA device.
+"""
+
+import argparse
+import os
+import re
+import subprocess
+import sys
+import time
+from collections import defaultdict
+
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+import ansel_tpu_torch as port  # noqa: E402
+from ansel_tpu_torch.io.configs import BENCH_H as H  # noqa: E402
+from ansel_tpu_torch.io.configs import BENCH_W as W  # noqa: E402
+from ansel_tpu_torch.io.configs import HISTORIES, history  # noqa: E402
+from ansel_tpu_torch.io.synthetic import synth_raw  # noqa: E402
+from ansel_tpu_torch.kernels import _build  # noqa: E402
+
+# device kernel name -> group; anything else is a torch operation
+GROUPS = {
+    "sep_blur_kernel": "sepblur kernel", "eaw_kernel": "EAW kernel",
+    "nlm_kernel": "NLM kernel", "chain": "chain kernel",
+    "pad_normalize": "RCD kernels", "filters": "RCD kernels",
+    "stats": "RCD kernels", "green": "RCD kernels",
+    "chroma_rb": "RCD kernels", "finish": "RCD kernels",
+}
+
+
+def group_of(name):
+    for key, group in GROUPS.items():
+        if re.search(rf"(^|::|\s){key}\(", name):
+            return group
+    if "gemm" in name.lower():
+        return "torch matmul (resize)"
+    if "reduce" in name.lower():
+        return "torch reductions"
+    return "torch elementwise, copies, pads"
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--config", type=int, choices=sorted(HISTORIES), default=2)
+    ap.add_argument("--images", type=int, default=3)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("torch_profile: no CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    _build.build_all()
+    raw, meta, _ = synth_raw(h=H, w=W, kind="gradients")
+    t = time.perf_counter()
+    pipe = port.compile_pipeline(meta, history(args.config), device="cuda")
+    plan_s = time.perf_counter() - t
+    raw_dev = torch.from_numpy(raw).cuda()
+    for _ in range(2):
+        pipe.run_padded(raw_dev)
+    torch.cuda.synchronize()
+
+    n = args.images
+    t = time.perf_counter()
+    for _ in range(n):
+        pipe.run_padded(raw_dev)
+    torch.cuda.synchronize()
+    bare = time.perf_counter() - t
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
+            as prof:
+        t = time.perf_counter()
+        for _ in range(n):
+            pipe.run_padded(raw_dev)
+        enqueue = time.perf_counter() - t
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+
+    ms, count = defaultdict(float), defaultdict(int)
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "device_time_total", None)
+        if dev_us is None:
+            dev_us = ev.cuda_time_total
+        if dev_us <= 0 or ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        g = group_of(ev.key)
+        ms[g] += dev_us / 1e3 / n
+        count[g] += ev.count / n
+    busy = sum(ms.values()) * n / 1e3 / wall
+    print(f"[card] {card} | config {args.config} {H}x{W}, {n} images, "
+          f"plan {plan_s:.2f} s", flush=True)
+    for g in sorted(ms, key=ms.get, reverse=True):
+        print(f"[device] {g}: {ms[g]:.3f} ms/img, {count[g]:.0f} "
+              f"launches/img", flush=True)
+    print(f"[loop] under the profiler: {n / wall:.3f} img/s, "
+          f"{wall / n * 1e3:.1f} ms/img wall, host enqueue "
+          f"{enqueue / n * 1e3:.1f} ms/img, device busy {100 * busy:.1f}%",
+          flush=True)
+    print(f"[bare] the same loop before it, without the profiler: "
+          f"{n / bare:.3f} img/s, {bare / n * 1e3:.1f} ms/img wall",
+          flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -14,9 +14,12 @@ import torch
 
 import ansel_tpu_torch as port
 from ansel_tpu_torch.core.types import CFAPattern, Colorspace
+from ansel_tpu_torch.io import configs
 from ansel_tpu_torch.io.synthetic import synth_raw
+from ansel_tpu_torch.kernels import eaw, nlm, sepblur
 from ansel_tpu_torch.kernels import pointwise as pw
 from ansel_tpu_torch.kernels import rcd
+from ansel_tpu_torch.pixel.nlmeans import search_offsets
 from ansel_tpu_torch.pipeline import engine
 
 torch.set_num_threads(2)
@@ -26,6 +29,28 @@ torch.set_num_threads(2)
 # powf/log2f/expf may differ from torch's by an ulp.
 RCD_TOL = 1e-6
 CHAIN_MAX_TOL, CHAIN_MEAN_TOL = 1e-4, 1e-6
+# sepblur, EAW and NLM repeat their twins' float32 operations in the same
+# order, and the fast exponentials are bit tricks; values are below ~2.5.
+STENCIL_TOL = 1e-5
+
+# ragged frames: a block's tile divides none of them
+FRAMES = [(5, 7), (136, 400), (64, 1000)]
+B3 = (1 / 16, 4 / 16, 6 / 16, 4 / 16, 1 / 16)
+
+
+def _spacings(n, limit=1 << 30):
+    """1, 2, 4, ... up to the first spacing whose B3 reach (2 x spacing)
+    passes n px, or the largest within `limit`."""
+    out = [1]
+    while 2 * out[-1] <= n and 4 * out[-1] <= limit:
+        out.append(2 * out[-1])
+    return out
+
+
+SEP_CASES = [(hw, c, d) for hw in FRAMES for c in (None, 4)
+             for d in _spacings(max(hw), sepblur.MAX_REACH)]
+EAW_CASES = [(hw, d.bit_length() - 1, v) for hw in FRAMES
+             for v in ("dn", "atrous") for d in _spacings(max(hw))]
 
 
 @pytest.fixture
@@ -83,8 +108,7 @@ def _cmx(**kw):
 
 
 CHAINS = {
-    "config1": [("exposure", {"exposure": 0.5}), ("channelmixerrgb", {}),
-                ("filmicrgb", {})],
+    "config1": list(configs.HISTORIES[1]),
     "cmx-bradford-v1": _cmx(adaptation=0, version=0,
                             saturation=(0.3, -0.2, 0.1, 0.0),
                             lightness=(0.1, 0.0, -0.1, 0.0)),
@@ -157,5 +181,89 @@ def test_pipe_on_cuda_matches_cpu(cuda):
     rcd.LAUNCHES = pw.LAUNCHES = 0
     got = on_card.output_array(raw)
     assert (rcd.LAUNCHES, pw.LAUNCHES) == (1, 1)
+    want = port.compile_pipeline(meta, hist, device="cpu").output_array(raw)
+    assert np.abs(got - want).max() <= 1.0 / 255.0
+
+
+def _noisy(shape, seed, cuda):
+    rng = np.random.default_rng(seed)
+    x = rng.random(shape).astype(np.float32)
+    x[..., shape[-2] // 4: shape[-2] // 2, shape[-1] // 4: shape[-1] // 2] += 1.5
+    return torch.from_numpy(x).to(cuda)
+
+
+@pytest.mark.parametrize("hw,c,d", SEP_CASES)
+def test_sepblur_kernel_matches_plain(cuda, hw, c, d):
+    x = _noisy(hw if c is None else (c,) + hw, d, cuda)
+    before = sepblur.LAUNCHES
+    got = sepblur.sep_blur(x, B3, d)
+    assert sepblur.LAUNCHES == before + 1
+    want = sepblur.sep_blur_reference(x, B3, d)
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() <= STENCIL_TOL
+
+
+def test_sepblur_kernel_long_taps_and_refusals(cuda):
+    x = _noisy((3, 64, 1000), 7, cuda)
+    taps = [0.05, -0.1, 0.2, 0.3, 0.2, -0.1, 0.05, 0.1, 0.3]
+    got = sepblur.sep_blur(x, taps, 9)
+    want = sepblur.sep_blur_reference(x, taps, 9)
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() <= STENCIL_TOL
+    with pytest.raises(ValueError):
+        sepblur.sep_blur(x, B3, 129)            # reach 258 > 256
+    with pytest.raises(ValueError):
+        sepblur.sep_blur(x.double(), B3, 1)
+    with pytest.raises(ValueError):
+        sepblur.sep_blur(x.transpose(1, 2), B3, 1)
+
+
+@pytest.mark.parametrize("hw,scale,variant", EAW_CASES)
+def test_eaw_kernel_matches_plain(cuda, hw, scale, variant):
+    x = _noisy((3,) + hw, scale, cuda)
+    const = 1.0 / 1.25 ** (2 * scale) if variant == "dn" else 3.0
+    fn = eaw.eaw_dn_coarse if variant == "dn" else eaw.eaw_atrous_coarse
+    before = eaw.LAUNCHES
+    got = fn(x, scale, const)
+    assert eaw.LAUNCHES == before + 1
+    want = eaw.eaw_coarse_reference(
+        x, scale, const, eaw.DN if variant == "dn" else eaw.ATROUS)
+    torch.cuda.synchronize()
+    for g, w_ in zip(got, want):
+        assert torch.isfinite(g).all()
+        assert (g - w_).abs().max().item() <= STENCIL_TOL
+
+
+@pytest.mark.parametrize("hw", FRAMES)
+@pytest.mark.parametrize("variant,P,K,scattering", [
+    (1, 1, 7, 0.0), (0, 2, 3, 0.0), (1, 1, 4, 0.3)])
+def test_nlm_kernel_matches_plain(cuda, hw, variant, P, K, scattering):
+    x = _noisy((3,) + hw, K, cuda)
+    offs = search_offsets(K, scattering)
+    if variant == 1:
+        n = 2 * P + 1
+        args = (torch.tensor(0.005, device=cuda), 0.1 * n * n, 1.0 / 1.1)
+    else:
+        args = (0.02, 0.0, 1.0)
+    before = nlm.LAUNCHES
+    got = nlm.nlm(x, offs, P, (1.0, 0.5, 0.7), *args, variant)
+    assert nlm.LAUNCHES == before + 1
+    want = nlm.nlm_reference(x, offs, P, (1.0, 0.5, 0.7), *args, variant)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max().item() <= STENCIL_TOL
+
+
+def test_config2_pipe_on_cuda_matches_cpu(cuda):
+    raw, meta, _ = synth_raw(h=160, w=240, kind="gradients")
+    hist = configs.history(2)
+    on_card = port.compile_pipeline(meta, hist)
+    assert on_card.device.type == "cuda"
+    for mod in (rcd, pw, sepblur, eaw, nlm):
+        mod.LAUNCHES = 0
+    got = on_card.output_array(raw)
+    # 5 wavelet scales at this size; 30 iterations x 2 passes x 6 scales
+    assert ((rcd.LAUNCHES, pw.LAUNCHES, eaw.LAUNCHES, nlm.LAUNCHES,
+             sepblur.LAUNCHES) == (1, 1, 5, 1, 360))
     want = port.compile_pipeline(meta, hist, device="cpu").output_array(raw)
     assert np.abs(got - want).max() <= 1.0 / 255.0

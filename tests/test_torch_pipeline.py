@@ -20,12 +20,11 @@ from ansel_tpu.kernels.rcd_pallas import rcd_demosaic_pallas
 from ansel_tpu.ops.base import pad_to
 from ansel_tpu.pipeline import engine as ref_engine
 from ansel_tpu_torch.core import types as port_types
-from ansel_tpu_torch.io import encode
+from ansel_tpu_torch.io import configs, encode
 
 torch.set_num_threads(2)
 
-CONFIG1 = [("exposure", {"exposure": 0.5}), ("channelmixerrgb", {}),
-           ("filmicrgb", {})]
+CONFIG1 = list(configs.HISTORIES[1])
 DISPLAY_QUANTUM = 1.0 / 255.0
 
 
@@ -165,7 +164,7 @@ def _gain_maps(meta):
 @pytest.mark.parametrize("items,meta_fn,kw", [
     ([("highlights", {"mode": 1})], None, {}),
     ([("highlights", {"mode": 2})], None, {}),
-    ([("highlights", {"mode": 3})], None, {}),
+    ([("highlights", {"mode": 3, "noise_level": 0.1})], None, {}),  # salt
     ([("highlights", {"mode": 4})], None, {}),
     ([("demosaic", {"demosaicing_method": 0})], None, {}),   # PPG
     ([("demosaic", {"demosaicing_method": 1})], None, {}),   # AMaZE
@@ -179,12 +178,13 @@ def _gain_maps(meta):
     ([("colorin", {"type": 0})], None, {}),                  # ICC file
     ([("colorout", {"type": 0})], None, {}),                 # ICC file
     ([("colorbalancergb", {})], None, {}),                   # not ported
+    ([("denoiseprofile", {})], None, {}),          # automatic noise profile
     (CONFIG1, None, {"pipe_type": "preview"}),
     (CONFIG1, None, {"scale": 0.5}),
 ], ids=["lch", "inpaint", "laplacian", "harmonic", "ppg", "amaze",
         "bilinear", "green-eq", "smoothing", "gain-map", "filmic-v5",
         "filmic-v1", "filmic-reconstruct", "colorin-icc", "colorout-icc",
-        "unported-op", "preview", "scaled"])
+        "unported-op", "denoise-auto-profile", "preview", "scaled"])
 def test_unported_branches_raise_at_plan_time(items, meta_fn, kw):
     _, meta, _ = synth_raw(h=64, w=128)
     if meta_fn is not None:
@@ -216,6 +216,16 @@ def test_cuda_device_is_never_replaced_by_the_cpu():
     with pytest.raises(RuntimeError):
         ansel_tpu_torch.compile_pipeline(
             meta, _hist(ansel_tpu_torch, CONFIG1), device="cuda")
+
+
+def test_entry_points_default_to_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    _, meta, _ = synth_raw(h=64, w=128)
+    with pytest.raises(RuntimeError):
+        ansel_tpu_torch.compile_pipeline(meta, _hist(ansel_tpu_torch, CONFIG1))
+    with pytest.raises(RuntimeError):
+        ansel_tpu_torch.Pipeline(meta, _hist(ansel_tpu_torch, CONFIG1))
 
 
 def test_import_loads_no_jax():

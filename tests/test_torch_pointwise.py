@@ -15,6 +15,7 @@ from ansel_tpu.io.synthetic import synth_raw
 from ansel_tpu.pipeline import engine as ref_engine
 from ansel_tpu_torch import interop
 from ansel_tpu_torch.core.types import Colorspace
+from ansel_tpu_torch.io import configs
 from ansel_tpu_torch.kernels import pointwise as pw
 from ansel_tpu_torch.pipeline import engine
 
@@ -26,8 +27,7 @@ torch.set_num_threads(2)
 # own fused and per-op paths differ by 2.7e-5 max (mean 2.0e-7) here.
 MAX_TOL, MEAN_TOL = 1e-4, 1e-6
 
-CONFIG1 = [("exposure", {"exposure": 0.5}), ("channelmixerrgb", {}),
-           ("filmicrgb", {})]
+CONFIG1 = list(configs.HISTORIES[1])
 
 
 @pytest.fixture
