@@ -2,16 +2,19 @@
 for the protocol).  Only ported ops are registered."""
 
 from . import (  # noqa: F401
+    bilat,
     channelmixerrgb,
     colorin,
     colorout,
     demosaic,
     denoiseprofile,
+    diffuse,
     exposure,
     filmicrgb,
     highlights,
     rawprepare,
     temperature,
+    toneequal,
 )
 
 from .base import all_ops

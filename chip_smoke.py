@@ -6,14 +6,17 @@
 Builds every CUDA kernel from `ansel_tpu_torch/csrc/` (one nvcc per
 source, all started together), holds each kernel against its plain torch
 version on the card at the shapes the main paths give it, and drives
-both main paths through `compile_pipeline` and `output_array`, the entry
-points a user calls, at the full 24 MP (4000 x 6016):
+the three main paths through `compile_pipeline` and `output_array`, the
+entry points a user calls, at their full frames:
 
-  * bench config 1 (exposure +0.5, channelmixerrgb, filmicrgb): RCD and
-    the fused colour chain;
-  * bench config 2, the high-ISO denoise stack (highlights guided
-    Laplacian, denoiseprofile wavelets and NLM, exposure, filmicrgb):
-    RCD, the chain, the sepblur, EAW and NLM kernels.
+  * bench config 1 at 24 MP (4000 x 6016; exposure +0.5,
+    channelmixerrgb, filmicrgb): RCD and the fused colour chain;
+  * bench config 2 at 24 MP, the high-ISO denoise stack (highlights
+    guided Laplacian, denoiseprofile wavelets and NLM, exposure,
+    filmicrgb): RCD, the chain, the sepblur, EAW and NLM kernels;
+  * bench config 3 at 45 MP (5504 x 8256), the heavy iterative stack
+    (diffuse 4 iterations, toneequal, local-Laplacian bilat, exposure,
+    filmicrgb): RCD, the chain, sepblur, the IIR and diffuse kernels.
 
 Each path runs with the launch counts set to 0 just before it and read
 just after.  One line per phase; the line before the last is the
@@ -39,15 +42,28 @@ import ansel_tpu_torch as port
 from ansel_tpu_torch.io import configs
 from ansel_tpu_torch.io.encode import write_image
 from ansel_tpu_torch.io.synthetic import synth_raw
-from ansel_tpu_torch.kernels import _build, eaw, nlm, rcd, sepblur
+from ansel_tpu_torch.kernels import _build, diffuse, eaw, iir, nlm, rcd, sepblur
 from ansel_tpu_torch.kernels import pointwise as pw
+from ansel_tpu_torch.ops.base import pad_to
 
 H, W = configs.BENCH_H, configs.BENCH_W
-LAUNCHES2 = {"rcd": 1, "chain": 1, "eaw": 7, "nlm": 1, "sepblur": 360}
+H3, W3 = configs.BENCH3_H, configs.BENCH3_W
+NO_LAUNCHES = {"rcd": 0, "chain": 0, "eaw": 0, "nlm": 0, "sepblur": 0,
+               "iir": 0, "diffuse": 0}
+LAUNCHES1 = dict(NO_LAUNCHES, rcd=1, chain=1)
+LAUNCHES2 = dict(NO_LAUNCHES, rcd=1, chain=1, eaw=7, nlm=1, sepblur=360)
+# config 3: chains [exposure], [colorin], [filmicrgb, _convert],
+# [_convert, colorout]; the 10-level local Laplacian blurs 9 + 6 x 18 + 9
+# times; toneequal's guided mask one IIR pair; diffuse one per iteration
+LAUNCHES3 = dict(NO_LAUNCHES, rcd=1, chain=4, sepblur=126, iir=1, diffuse=4)
+STAGES3 = ["rawprepare", "temperature", "highlights", "demosaic", "exposure",
+           "toneequal", "colorin", "diffuse", "filmicrgb", "_convert",
+           "bilat", "_convert", "colorout"]
 NOISE_SIGMA = 200.0  # sensor units of 16383: a high-ISO mosaic
 REPEATS = 10         # kernel timings
 PLAIN_REPEATS = 2    # plain twins at 24 MP take up to 0.6 s each
 PIPE2_REPEATS = 3
+PIPE3_REPEATS = 3
 
 # H100 SXM peaks (NVIDIA's data sheet, at the 700 W limit): device
 # memory rate and float32 rate outside the tensor cores.
@@ -62,6 +78,12 @@ FLOPS_CHAIN = 400
 FLOPS_SEPBLUR_PER_TAP = 4        # two passes, a multiply and an add each
 FLOPS_EAW = 25 * 24 + 10         # 25 taps; the divide and the detail
 FLOPS_NLM_PER_OFFSET = 35        # d2 11, box sum 8, weight 9, sums 7
+FLOPS_IIR = 30                   # per value: 15 per axis, both recursions
+# diffuse, per channel-pixel and scale: the B3 decompose (two 5-tap
+# passes and HF) and the isotropic PDE step (q 6, box 4, energy 6,
+# stencils 2 x 8, four kernels 7, update 5)
+FLOPS_DIFFUSE_DECOMPOSE = 19
+FLOPS_DIFFUSE_PDE_ISO = 44
 
 # RCD: the kernel does the plain version's float32 operations in the same
 # order (built with --fmad=false; division and sqrt are IEEE), so the two
@@ -70,7 +92,10 @@ FLOPS_NLM_PER_OFFSET = 35        # d2 11, box sum 8, weight 9, sums 7
 RCD_TOL = 1e-6
 # chain: powf/log2f/expf in the kernel and torch's pow/log2 on the card
 # may differ by an ulp, and the filmic spline and gamut map amplify that
-# on steep parts of the curve; display values are in [0, 1].
+# on steep parts of the curve; display values are in [0, 1].  A chain
+# that ends in Lab (config 3's [filmicrgb, _convert]) gives values up to
+# 100, whose ulp is 100 times larger: there both bounds scale with the
+# output's largest magnitude.
 CHAIN_MAX_TOL, CHAIN_MEAN_TOL = 1e-4, 1e-6
 # sepblur, EAW, NLM: the kernels repeat their twins' float32 operations in
 # the same order and the fast exponentials are bit tricks; inputs are
@@ -138,14 +163,17 @@ def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+KERNEL_MODULES = {"rcd": rcd, "chain": pw, "eaw": eaw, "nlm": nlm,
+                  "sepblur": sepblur, "iir": iir, "diffuse": diffuse}
+
+
 def reset_launches():
-    for mod in (rcd, pw, sepblur, eaw, nlm):
+    for mod in KERNEL_MODULES.values():
         mod.LAUNCHES = 0
 
 
 def read_launches():
-    return {"rcd": rcd.LAUNCHES, "chain": pw.LAUNCHES, "eaw": eaw.LAUNCHES,
-            "nlm": nlm.LAUNCHES, "sepblur": sepblur.LAUNCHES}
+    return {k: mod.LAUNCHES for k, mod in KERNEL_MODULES.items()}
 
 
 @contextlib.contextmanager
@@ -172,6 +200,8 @@ def plain_twins():
         (eaw, "eaw_dn_coarse",
          lambda x, s, c: eaw.eaw_coarse_reference(x, s, c, eaw.DN)),
         (nlm, "nlm", nlm.nlm_reference),
+        (iir, "gaussian_iir", iir.gaussian_iir_reference),
+        (diffuse, "diffuse_iteration", diffuse.diffuse_iteration_reference),
     ])
 
 
@@ -281,8 +311,7 @@ def run_config1(card, record, raw, raw_dev, meta, pool):
     reset_launches()
     out = pipe.output_array(raw)
     launches = read_launches()
-    expect(launches == {"rcd": 1, "chain": 1, "eaw": 0, "nlm": 0,
-                        "sepblur": 0}, f"launches {launches}")
+    expect(launches == LAUNCHES1, f"launches {launches}")
     expect(out.shape == (3, H, W), f"output shape {out.shape}")
     expect(bool(np.isfinite(out).all()) and out.min() >= 0.0
            and out.max() <= 1.0, "output not finite or outside [0, 1]")
@@ -488,6 +517,161 @@ def run_config2(card, record, raw, raw_dev, meta, pool, phases, pngs):
     return launches
 
 
+def captured3(pipe, raw_dev):
+    """Run config 3 once on a device-resident raw and keep the arguments
+    of every kernel call: RCD, the IIR, the four diffuse iterations, the
+    four chains and the 126 blurs."""
+    calls = {"rcd": [], "iir": [], "diffuse": [], "chain": [], "sepblur": []}
+    real = {"rcd": rcd.rcd_demosaic, "iir": iir.gaussian_iir,
+            "diffuse": diffuse.diffuse_iteration,
+            "chain": pw.pointwise_chain, "sepblur": sepblur.sep_blur}
+
+    def keep(key):
+        def call(*args):
+            calls[key].append(args)
+            return real[key](*args)
+        return call
+
+    with swapped([(rcd, "rcd_demosaic", keep("rcd")),
+                  (iir, "gaussian_iir", keep("iir")),
+                  (diffuse, "diffuse_iteration", keep("diffuse")),
+                  (pw, "pointwise_chain", keep("chain")),
+                  (sepblur, "sep_blur", keep("sepblur"))]):
+        pipe.run_padded(raw_dev)
+    counts = {k: len(v) for k, v in calls.items()}
+    expect(counts == {k: LAUNCHES3[k] for k in calls},
+           f"unexpected kernel calls {counts}")
+    return calls
+
+
+def check_reused3(calls):
+    """The kernels of configs 1 and 2 on config 3's shapes: RCD on the
+    45 MP mosaic, the four chains (work/Lab conversions among them) and
+    the local Laplacian's 126 blurs (45 MP planes down to 11 x 17)."""
+    m, cfa, scaler = calls["rcd"][0]
+    s = float(scaler)
+    rcd_err, _ = compare(rcd.rcd_demosaic(m, cfa, scaler),
+                         rcd.rcd_demosaic_reference(m, cfa, scaler))
+    expect(rcd_err <= RCD_TOL * s, f"rcd: max {rcd_err} > {RCD_TOL} x {s}")
+    chains = []
+    for x, chain in calls["chain"]:
+        want = pw.pointwise_chain_reference(x, chain)
+        mx, mean = compare(pw.pointwise_chain(x, chain), want)
+        scale = max(1.0, want.abs().max().item())
+        expect(mx <= CHAIN_MAX_TOL * scale and mean <= CHAIN_MEAN_TOL * scale,
+               f"chain: max {mx}, mean {mean} (output scale {scale:.3g})")
+        chains.append(f"max {mx:.3g} mean {mean:.3g} (scale {scale:.3g})")
+    sb_err = 0.0
+    for x, taps, *d in calls["sepblur"]:
+        mx, _ = compare(sepblur.sep_blur(x, taps, *d),
+                        sepblur.sep_blur_reference(x, taps, *d))
+        expect(mx <= STENCIL_TOL, f"sepblur {tuple(x.shape)}: max {mx}")
+        sb_err = max(sb_err, mx)
+    print(f"[reuse3] kernel vs plain on config 3's arguments: rcd "
+          f"{tuple(m.shape)} max {rcd_err:.3g}; chains {', '.join(chains)}; "
+          f"{len(calls['sepblur'])} blurs "
+          f"{tuple(calls['sepblur'][0][0].shape)} and down, max "
+          f"{sb_err:.3g}", flush=True)
+
+
+def check_iir(calls, record):
+    """toneequal's (average, square) pair at 1/4 size, sigma ~103."""
+    x, coef, lo, hi = calls[0]
+    mx, mean = compare(iir.gaussian_iir(x, coef, lo, hi),
+                       iir.gaussian_iir_reference(x, coef, lo, hi))
+    expect(mx <= STENCIL_TOL, f"iir: max {mx}")
+    ms = median_ms(lambda: iir.gaussian_iir(x, coef, lo, hi))
+    plain_ms = median_ms(lambda: iir.gaussian_iir_reference(x, coef, lo, hi),
+                         PLAIN_REPEATS)
+    b_ms, b_by = bound(2 * nbytes(x), FLOPS_IIR * x.numel())
+    record["iir"] = dict(max_abs_err=mx, ms=ms, plain_ms=plain_ms,
+                         library_ms=None, bound_ms=b_ms, bound_by=b_by)
+    print(f"[iir] {tuple(x.shape)} order 0, kernel vs plain on the config-3 "
+          f"pair: max {mx:.3g} mean {mean:.3g} (tol {STENCIL_TOL:g}) | "
+          f"kernel {ms:.4f} ms, plain {plain_ms:.1f} ms, bound {b_ms:.4f} ms "
+          f"({b_by})", flush=True)
+
+
+def check_diffuse(calls, record):
+    """Config 3's first and last diffuse iterations on their own inputs."""
+    err, means = 0.0, []
+    for args in (calls[0], calls[-1]):
+        mx, mean = compare(diffuse.diffuse_iteration(*args),
+                           diffuse.diffuse_iteration_reference(*args))
+        expect(mx <= STENCIL_TOL, f"diffuse: max {mx}")
+        err = max(err, mx)
+        means.append(f"{mean:.3g}")
+    x, c, scales, modes = calls[0]
+    expect(tuple(modes) == (0, 0, 0, 0), f"modes {modes}: the operation "
+           "count below is the isotropic one")
+    ms = median_ms(lambda: diffuse.diffuse_iteration(x, c, scales, modes))
+    plain_ms = median_ms(
+        lambda: diffuse.diffuse_iteration_reference(x, c, scales, modes),
+        PLAIN_REPEATS)
+    flops = (FLOPS_DIFFUSE_DECOMPOSE + FLOPS_DIFFUSE_PDE_ISO) * scales \
+        * x.numel()
+    b_ms, b_by = bound(2 * nbytes(x), flops)
+    record["diffuse"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                             library_ms=None, bound_ms=b_ms, bound_by=b_by)
+    print(f"[diffuse] {tuple(x.shape)} {scales} scales, modes {modes}, kernel "
+          f"vs plain on iterations 1 and 4 of config 3: max {err:.3g} mean "
+          f"{', '.join(means)} (tol {STENCIL_TOL:g}) | kernel {ms:.3f} ms, "
+          f"plain {plain_ms:.1f} ms, bound {b_ms:.3f} ms ({b_by})",
+          flush=True)
+
+
+def run_config3(card, record, raw, meta, phases):
+    """Config 3's pipe at 45 MP against the composed twins, its two new
+    kernels on the arguments the pipe hands them, then its timing."""
+    pipe = port.compile_pipeline(meta, configs.history(3))
+    stages = [s.name for s in pipe.pipe.stages]
+    expect(stages == STAGES3, f"unexpected config-3 plan {stages}")
+    expect(pipe.fused_groups() == [["exposure"], ["colorin"],
+                                   ["filmicrgb", "_convert"],
+                                   ["_convert", "colorout"]],
+           f"unexpected chains {pipe.fused_groups()}")
+    static = pipe.pipe.stages[stages.index("diffuse")].plan.static
+    expect(static == (5, 4, (0, 0, 0, 0), False), f"diffuse plan {static}")
+    # the pipe runs 8256 columns padded to 8320 (a multiple of 128)
+    raw_dev = torch.from_numpy(pad_to(raw, pipe.pipe.spec_in)).cuda()
+
+    # -- config 3 through the user's entry point, launches counted
+    with timed(phases, "pipe3 vs plain"):
+        reset_launches()
+        out = pipe.output_array(raw)
+        launches = read_launches()
+        expect(launches == LAUNCHES3, f"config-3 launches {launches}")
+        expect(out.shape == (3, H3, W3), f"output shape {out.shape}")
+        expect(bool(np.isfinite(out).all()) and out.min() >= 0.0
+               and out.max() <= 1.0, "output not finite or outside [0, 1]")
+        reset_launches()
+        with plain_twins():
+            plain = pipe.output_array(raw)
+        expect(all(v == 0 for v in read_launches().values()),
+               f"the plain composition launched kernels: {read_launches()}")
+        pipe_err = float(np.abs(out - plain).max())
+        expect(pipe_err <= PIPE_TOL, f"config 3 vs plain: max {pipe_err}")
+        del plain
+    with timed(phases, "capture3"):
+        calls = captured3(pipe, raw_dev)
+    with timed(phases, "iir"):
+        check_iir(calls["iir"], record)
+    with timed(phases, "diffuse"):
+        check_diffuse(calls["diffuse"], record)
+    with timed(phases, "reuse3"):
+        check_reused3(calls)
+    del calls
+    with timed(phases, "pipe3 timing"):
+        per_img = time_pipe(pipe, raw_dev, PIPE3_REPEATS, warmups=1)
+    print(f"[pipe3] config 3 {H3}x{W3}: {len(stages)} stages, chains "
+          f"{pipe.fused_groups()}, launches {launches}, vs plain max "
+          f"{pipe_err:.3g} (tol 1/255), range [{out.min():.3g}, "
+          f"{out.max():.3g}] | {1.0 / per_img:.3f} img/s, "
+          f"{per_img * 1e3:.1f} ms/img (device-resident input, "
+          f"{PIPE3_REPEATS} repeats) on {card}", flush=True)
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
@@ -499,10 +683,12 @@ def main():
     print(f"[card] torch {torch.__version__} cuda {torch.version.cuda} | "
           f"{card}", flush=True)
     record = {}
-    with ThreadPoolExecutor(max_workers=2) as pool:
-        # the 24 MP mosaic is made on a host thread while nvcc builds
+    with ThreadPoolExecutor(max_workers=3) as pool:
+        # the mosaics are made on host threads, the 24 MP one while nvcc
+        # builds, the 45 MP one while configs 1 and 2 run
         with timed(phases, "build + mosaic"):
             synth = pool.submit(synth_raw, h=H, w=W, kind="gradients")
+            synth3 = pool.submit(synth_raw, h=H3, w=W3, kind="gradients")
             build_s = _build.build_all()
             print(f"[build] nvcc built and loaded "
                   f"{', '.join(_build.KERNELS)} in {build_s:.1f} s",
@@ -513,6 +699,13 @@ def main():
             png1 = run_config1(card, record, raw, raw_dev, meta, pool)
         launches = run_config2(card, record, raw, raw_dev, meta, pool,
                                phases, [png1])
+        del raw_dev
+        with timed(phases, "mosaic3 wait"):
+            raw3, meta3, _ = synth3.result()
+        launches3 = run_config3(card, record, raw3, meta3, phases)
+    # launches per image: config 2's for the first five kernels, config
+    # 3's for the IIR and diffuse kernels
+    launches.update(iir=launches3["iir"], diffuse=launches3["diffuse"])
     print(f"[done] total {time.perf_counter() - t0:.1f} s | "
           + ", ".join(f"{k} {v:.1f} s" for k, v in phases.items()),
           flush=True)
@@ -526,6 +719,10 @@ def main():
         "eaw": ("eaw_dn_coarse", "eaw.cu",
                 "ansel_tpu/kernels/eaw_pallas.py:199"),
         "nlm": ("nlm", "nlm.cu", "ansel_tpu/kernels/nlm_pallas.py:186"),
+        "iir": ("gaussian_iir", "iir.cu",
+                "ansel_tpu/kernels/iir_pallas.py:113"),
+        "diffuse": ("diffuse_iteration", "diffuse.cu",
+                    "ansel_tpu/kernels/diffuse_pallas.py:218"),
     }
     kernels = []
     for key, (name, src, replaces) in sources.items():

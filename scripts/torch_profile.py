@@ -1,14 +1,15 @@
 #!/usr/bin/env python3
 """Where the time goes in the PyTorch/CUDA port's pipe, on one GPU.
 
-    python3 scripts/torch_profile.py [--config 1|2] [--images 3]
+    python3 scripts/torch_profile.py [--config 1|2|3] [--images 3]
 
-Plans bench config 1 or 2 at 4000 x 6016 through `compile_pipeline`,
-warms up, then runs `run_padded` on a device-resident raw `--images`
+Plans bench config 1, 2 (4000 x 6016) or 3 (5504 x 8256) through
+`compile_pipeline`, warms up, then runs `run_padded` on a device-resident raw `--images`
 times without the profiler and `--images` times under torch.profiler.
 Prints one line per group of device kernels (ms per image and launches
 per image), the device busy share of the profiled loop (kernel time over
-wall time), the host's enqueue time per image and img/s of both loops.
+wall time), the host's enqueue time per image and img/s of both loops,
+and the host's time in each step of one image.
 Needs a CUDA device.
 """
 
@@ -26,11 +27,10 @@ from torch.profiler import ProfilerActivity, profile
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import ansel_tpu_torch as port  # noqa: E402
-from ansel_tpu_torch.io.configs import BENCH_H as H  # noqa: E402
-from ansel_tpu_torch.io.configs import BENCH_W as W  # noqa: E402
-from ansel_tpu_torch.io.configs import HISTORIES, history  # noqa: E402
+from ansel_tpu_torch.io.configs import FRAMES, HISTORIES, history  # noqa: E402
 from ansel_tpu_torch.io.synthetic import synth_raw  # noqa: E402
 from ansel_tpu_torch.kernels import _build  # noqa: E402
+from ansel_tpu_torch.ops.base import pad_to  # noqa: E402
 
 # device kernel name -> group; anything else is a torch operation
 GROUPS = {
@@ -39,6 +39,8 @@ GROUPS = {
     "pad_normalize": "RCD kernels", "filters": "RCD kernels",
     "stats": "RCD kernels", "green": "RCD kernels",
     "chroma_rb": "RCD kernels", "finish": "RCD kernels",
+    "iir_lines": "IIR kernel", "blur_v": "diffuse kernels",
+    "blur_h": "diffuse kernels", "pde": "diffuse kernels",
 }
 
 
@@ -66,11 +68,12 @@ def main():
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
     _build.build_all()
+    H, W = FRAMES[args.config]
     raw, meta, _ = synth_raw(h=H, w=W, kind="gradients")
     t = time.perf_counter()
     pipe = port.compile_pipeline(meta, history(args.config), device="cuda")
     plan_s = time.perf_counter() - t
-    raw_dev = torch.from_numpy(raw).cuda()
+    raw_dev = torch.from_numpy(pad_to(raw, pipe.pipe.spec_in)).cuda()
     for _ in range(2):
         pipe.run_padded(raw_dev)
     torch.cuda.synchronize()
@@ -79,8 +82,19 @@ def main():
     t = time.perf_counter()
     for _ in range(n):
         pipe.run_padded(raw_dev)
+    bare_enqueue = time.perf_counter() - t
     torch.cuda.synchronize()
     bare = time.perf_counter() - t
+
+    # the host's time in each step of one image, nothing synchronised
+    # between steps: where the enqueue waits
+    p, cur, steps = pipe.pipe, raw_dev, []
+    for step in pipe.steps:
+        t = time.perf_counter()
+        cur = p.run_steps(cur, [step])
+        names = "+".join(s.name for s in p.stages[step[1]:step[2]])
+        steps.append(f"{names} {(time.perf_counter() - t) * 1e3:.1f}")
+    torch.cuda.synchronize()
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
             as prof:
@@ -112,7 +126,9 @@ def main():
           f"{enqueue / n * 1e3:.1f} ms/img, device busy {100 * busy:.1f}%",
           flush=True)
     print(f"[bare] the same loop before it, without the profiler: "
-          f"{n / bare:.3f} img/s, {bare / n * 1e3:.1f} ms/img wall",
+          f"{n / bare:.3f} img/s, {bare / n * 1e3:.1f} ms/img wall, host "
+          f"enqueue {bare_enqueue / n * 1e3:.1f} ms/img", flush=True)
+    print(f"[steps] host ms per step of one image: {'; '.join(steps)}",
           flush=True)
 
 

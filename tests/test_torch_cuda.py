@@ -16,9 +16,10 @@ import ansel_tpu_torch as port
 from ansel_tpu_torch.core.types import CFAPattern, Colorspace
 from ansel_tpu_torch.io import configs
 from ansel_tpu_torch.io.synthetic import synth_raw
-from ansel_tpu_torch.kernels import eaw, nlm, sepblur
+from ansel_tpu_torch.kernels import diffuse, eaw, iir, nlm, sepblur
 from ansel_tpu_torch.kernels import pointwise as pw
 from ansel_tpu_torch.kernels import rcd
+from ansel_tpu_torch.pixel.blur import _deriche_coeffs
 from ansel_tpu_torch.pixel.nlmeans import search_offsets
 from ansel_tpu_torch.pipeline import engine
 
@@ -31,6 +32,8 @@ RCD_TOL = 1e-6
 CHAIN_MAX_TOL, CHAIN_MEAN_TOL = 1e-4, 1e-6
 # sepblur, EAW and NLM repeat their twins' float32 operations in the same
 # order, and the fast exponentials are bit tricks; values are below ~2.5.
+# The IIR and diffuse kernels too: their rsqrtf and expf are the calls
+# torch.rsqrt and torch.exp make on the card.
 STENCIL_TOL = 1e-5
 
 # ragged frames: a block's tile divides none of them
@@ -265,5 +268,94 @@ def test_config2_pipe_on_cuda_matches_cpu(cuda):
     # 5 wavelet scales at this size; 30 iterations x 2 passes x 6 scales
     assert ((rcd.LAUNCHES, pw.LAUNCHES, eaw.LAUNCHES, nlm.LAUNCHES,
              sepblur.LAUNCHES) == (1, 1, 5, 1, 360))
+    want = port.compile_pipeline(meta, hist, device="cpu").output_array(raw)
+    assert np.abs(got - want).max() <= 1.0 / 255.0
+
+
+IIR_CASES = [((5, 7), 0, None), ((1, 37, 53), 0, None), ((3, 64, 1000), 1, None),
+             ((2, 136, 400), 2, None), ((2, 37, 53), 0, (0.0, 1.0)),
+             ((2, 1376, 2064), 0, None)]
+
+
+@pytest.mark.parametrize("shape,order,clip", IIR_CASES)
+def test_iir_kernel_matches_plain(cuda, shape, order, clip):
+    x = _noisy(shape, order, cuda)
+    sigma = max(shape[-1] / 20.0, 1.0)
+    coef = _deriche_coeffs(sigma, order)
+    lo, hi = clip or (None, None)
+    before = iir.LAUNCHES
+    got = iir.gaussian_iir(x, coef, lo, hi)
+    assert iir.LAUNCHES == before + 1
+    want = iir.gaussian_iir_reference(x, coef, lo, hi)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max().item() <= STENCIL_TOL
+
+
+def test_iir_kernel_refuses_bad_input(cuda):
+    x = torch.zeros((2, 16, 16), device=cuda)
+    coef = _deriche_coeffs(3.0)
+    with pytest.raises(ValueError):
+        iir.gaussian_iir(x.double(), coef)
+    with pytest.raises(ValueError):
+        iir.gaussian_iir(x.transpose(1, 2), coef)
+    with pytest.raises(ValueError):
+        iir.gaussian_iir(x, coef[:6])
+
+
+def _diffuse_coeffs(scales, cuda, seed=1):
+    rng = np.random.default_rng(seed)
+    c = {"aniso": np.float32([1.5, 0.7, 2.0, 0.3]),
+         "ABCD": rng.uniform(-0.05, 0.05, (scales, 4)),
+         "strength": rng.uniform(0.9, 1.2, scales),
+         "norm_reg": rng.uniform(0.1, 0.5, scales),
+         "variance_threshold": 0.05}
+    return {k: torch.as_tensor(np.float32(v), device=cuda)
+            for k, v in c.items()}
+
+
+DIFFUSE_CASES = [((5, 7), 1, (0, 0, 0, 0)), ((5, 7), 3, (1, 2, 0, 1)),
+                 ((37, 50), 2, (2, 0, 1, 0)), ((37, 50), 5, (0, 2, 2, 1)),
+                 ((136, 400), 4, (1, 1, 2, 2)), ((136, 400), 5, (0, 0, 0, 0)),
+                 ((64, 1000), 3, (2, 1, 0, 2)), ((1376, 2064), 5, (1, 0, 2, 0))]
+
+
+@pytest.mark.parametrize("hw,scales,modes", DIFFUSE_CASES)
+def test_diffuse_kernel_matches_plain(cuda, hw, scales, modes):
+    x = _noisy((3,) + hw, scales, cuda) * 0.5 + 0.05
+    c = _diffuse_coeffs(scales, cuda, hw[0])
+    before = diffuse.LAUNCHES
+    got = diffuse.diffuse_iteration(x, c, scales, modes)
+    assert diffuse.LAUNCHES == before + 1
+    want = diffuse.diffuse_iteration_reference(x, c, scales, modes)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max().item() <= STENCIL_TOL
+
+
+def test_diffuse_kernel_refuses_bad_input(cuda):
+    x = torch.rand((3, 16, 16), device=cuda)
+    c = _diffuse_coeffs(2, cuda)
+    with pytest.raises(ValueError):
+        diffuse.diffuse_iteration(x, c, 6, (0, 0, 0, 0))
+    with pytest.raises(ValueError):
+        diffuse.diffuse_iteration(x, c, 2, (0, 3, 0, 0))
+    with pytest.raises(ValueError):
+        diffuse.diffuse_iteration(x[:2], c, 2, (0, 0, 0, 0))
+    with pytest.raises(ValueError):
+        diffuse.diffuse_iteration(x, {k: v.cpu() for k, v in c.items()}, 2,
+                                  (0, 0, 0, 0))
+
+
+def test_config3_pipe_on_cuda_matches_cpu(cuda):
+    raw, meta, _ = synth_raw(h=160, w=240, kind="gradients")
+    hist = configs.history(3)
+    on_card = port.compile_pipeline(meta, hist)
+    mods = (rcd, pw, sepblur, eaw, nlm, iir, diffuse)
+    for mod in mods:
+        mod.LAUNCHES = 0
+    got = on_card.output_array(raw)
+    # 4 chains; a 6-level pyramid at this size: 14 x 5 blurs
+    assert [m.LAUNCHES for m in mods] == [1, 4, 70, 0, 0, 1, 4]
     want = port.compile_pipeline(meta, hist, device="cpu").output_array(raw)
     assert np.abs(got - want).max() <= 1.0 / 255.0

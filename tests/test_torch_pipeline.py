@@ -179,12 +179,15 @@ def _gain_maps(meta):
     ([("colorout", {"type": 0})], None, {}),                 # ICC file
     ([("colorbalancergb", {})], None, {}),                   # not ported
     ([("denoiseprofile", {})], None, {}),          # automatic noise profile
+    ([("diffuse", {"radius": 12})], None, {}),     # 6 wavelet scales
+    ([("bilat", {"mode": 0})], None, {}),          # bilateral grid
     (CONFIG1, None, {"pipe_type": "preview"}),
     (CONFIG1, None, {"scale": 0.5}),
 ], ids=["lch", "inpaint", "laplacian", "harmonic", "ppg", "amaze",
         "bilinear", "green-eq", "smoothing", "gain-map", "filmic-v5",
         "filmic-v1", "filmic-reconstruct", "colorin-icc", "colorout-icc",
-        "unported-op", "denoise-auto-profile", "preview", "scaled"])
+        "unported-op", "denoise-auto-profile", "diffuse-6-scales",
+        "bilat-grid", "preview", "scaled"])
 def test_unported_branches_raise_at_plan_time(items, meta_fn, kw):
     _, meta, _ = synth_raw(h=64, w=128)
     if meta_fn is not None:
