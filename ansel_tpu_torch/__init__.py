@@ -9,8 +9,9 @@ nvcc at first use (`kernels/_build.py`).  It imports neither JAX nor
 Ported so far: the bench config-1 path (rawprepare, temperature,
 highlights CLIP, RCD demosaic, exposure, colorin, channelmixerrgb,
 filmicrgb AgX, colorout), the config-2 denoise stack (highlights
-guided LAPLACIAN, denoiseprofile wavelets and NLM) and the config-3
-iterative stack (diffuse, toneequal, bilat local Laplacian).  Anything else
+guided LAPLACIAN, denoiseprofile wavelets and NLM), the config-3
+iterative stack (diffuse, toneequal, bilat local Laplacian) and the
+config-4 X-Trans path (Markesteijn demosaic, lens).  Anything else
 raises NotImplementedError while the pipe is planned.  The entry points
 run on the CUDA card unless the caller passes device="cpu".
 """

@@ -12,6 +12,7 @@ from . import (  # noqa: F401
     exposure,
     filmicrgb,
     highlights,
+    lens,
     rawprepare,
     temperature,
     toneequal,

@@ -4,8 +4,8 @@ The reference addresses CFA sites through the FC() macro and a position
 index ``((row + phase_y) & 1) << 1 | ((col + phase_x) & 1)``
 (`ansel/src/iop/rawprepare.c:385-390`).  As in the JAX package, parity
 maps come from `arange` and the 4-way choice is three `where`s, so no
-table is copied from the host to the device.  X-Trans helpers wait for
-the X-Trans slice.
+table is copied from the host to the device.  The X-Trans helpers build
+one 6 x 6 period on the device and tile it.
 """
 
 from __future__ import annotations
@@ -70,3 +70,32 @@ def color_masks(cfa: CFAPattern, h: int, w: int, device=None) -> torch.Tensor:
                     sel = sel | (pos == y * 2 + x)
         masks.append(sel)
     return torch.stack(masks).float()
+
+
+def xtrans_period(pattern6, device):
+    """(6, 6) int64 colour index of one X-Trans period, built on `device`
+    from arange (no host copy)."""
+    pos = torch.arange(36, device=device).reshape(6, 6)
+    color = torch.zeros((6, 6), dtype=torch.int64, device=device)
+    for k, c in enumerate(pattern6):
+        if c:
+            color = torch.where(pos == k, c, color)
+    return color
+
+
+def tile6(period, h: int, w: int) -> torch.Tensor:
+    """A (6, 6) period repeated over an (h, w) frame."""
+    return period.repeat(-(-h // 6), -(-w // 6))[:h, :w]
+
+
+def xtrans_color_select(vals_rgb, pattern6, h: int, w: int,
+                        device=None) -> torch.Tensor:
+    """(h, w) float32 plane: vals_rgb[colour] at each site of a 6x6 X-Trans
+    pattern (a tuple of 36 colour ids, row-major); vals_rgb is a tensor or
+    a sequence of three 0-dim tensors or Python floats."""
+    if isinstance(vals_rgb, torch.Tensor):
+        device = vals_rgb.device
+    v = [torch.as_tensor(vals_rgb[i], dtype=torch.float32, device=device)
+         for i in range(3)]
+    period = torch.stack([v[c] for c in pattern6]).reshape(6, 6)
+    return tile6(period, h, w)

@@ -4,8 +4,8 @@ Reference: `ansel/src/iop/temperature.c` — params {red, green, blue, g2}
 (temperature.c:117-123); commit maps them to per-color coeffs with a
 NaN-g2 fallback to green, process multiplies each CFA site by its color's
 coefficient and scales processed_maximum by the coeffs.  Planning is
-copied from `ansel_tpu/ops/temperature.py`; X-Trans mosaics raise at
-plan time.
+copied from `ansel_tpu/ops/temperature.py`; on an X-Trans mosaic the
+coefficient of each site comes from the 6x6 pattern (`RawMeta.xtrans`).
 """
 
 from __future__ import annotations
@@ -16,7 +16,7 @@ import math
 from ..core.params import cfield, params
 from ..core.types import CFAPattern, Colorspace, ImageSpec, RawMeta
 from . import _bayer
-from .base import Op, OpPlan, PlanContext, not_ported, register
+from .base import Op, OpPlan, PlanContext, register
 
 
 @params(op="temperature", version=3)
@@ -64,8 +64,6 @@ class Temperature(Op):
         return [p.red, p.green, p.blue, g2]
 
     def plan(self, ctx: PlanContext, spec_in: ImageSpec, p) -> OpPlan:
-        if spec_in.cfa is CFAPattern.XTRANS:
-            raise not_ported(self.name, "the X-Trans mosaic")
         coeffs = self._commit(p)
         pm = ctx.processed_maximum
         ctx.processed_maximum = tuple(pm[i] * coeffs[i] for i in range(3))
@@ -77,5 +75,8 @@ class Temperature(Op):
 
     def apply(self, x, c, plan: OpPlan, ctx: PlanContext):
         spec = plan.spec_in
+        if spec.cfa is CFAPattern.XTRANS:
+            return x * _bayer.xtrans_color_select(
+                c["coeffs"], ctx.meta.xtrans, spec.pad_h, spec.pad_w)
         return x * _bayer.color_select(c["coeffs"], spec.cfa, spec.pad_h,
                                        spec.pad_w, device=x.device)

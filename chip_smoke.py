@@ -16,7 +16,10 @@ entry points a user calls, at their full frames:
     filmicrgb): RCD, the chain, the sepblur, EAW and NLM kernels;
   * bench config 3 at 45 MP (5504 x 8256), the heavy iterative stack
     (diffuse 4 iterations, toneequal, local-Laplacian bilat, exposure,
-    filmicrgb): RCD, the chain, sepblur, the IIR and diffuse kernels.
+    filmicrgb): RCD, the chain, sepblur, the IIR and diffuse kernels;
+  * bench config 4 at 24 MP (an X-Trans 4000 x 6000 mosaic; Markesteijn,
+    lens with TCA, exposure, filmicrgb): the Markesteijn and warp
+    kernels and the chain.
 
 Each path runs with the launch counts set to 0 just before it and read
 just after.  One line per phase; the line before the last is the
@@ -42,14 +45,16 @@ import ansel_tpu_torch as port
 from ansel_tpu_torch.io import configs
 from ansel_tpu_torch.io.encode import write_image
 from ansel_tpu_torch.io.synthetic import synth_raw
-from ansel_tpu_torch.kernels import _build, diffuse, eaw, iir, nlm, rcd, sepblur
+from ansel_tpu_torch.kernels import (_build, diffuse, eaw, iir, markesteijn,
+                                     nlm, rcd, sepblur, warp)
 from ansel_tpu_torch.kernels import pointwise as pw
 from ansel_tpu_torch.ops.base import pad_to
 
 H, W = configs.BENCH_H, configs.BENCH_W
 H3, W3 = configs.BENCH3_H, configs.BENCH3_W
+H4, W4 = configs.BENCH4_H, configs.BENCH4_W
 NO_LAUNCHES = {"rcd": 0, "chain": 0, "eaw": 0, "nlm": 0, "sepblur": 0,
-               "iir": 0, "diffuse": 0}
+               "iir": 0, "diffuse": 0, "markesteijn": 0, "warp": 0}
 LAUNCHES1 = dict(NO_LAUNCHES, rcd=1, chain=1)
 LAUNCHES2 = dict(NO_LAUNCHES, rcd=1, chain=1, eaw=7, nlm=1, sepblur=360)
 # config 3: chains [exposure], [colorin], [filmicrgb, _convert],
@@ -59,11 +64,16 @@ LAUNCHES3 = dict(NO_LAUNCHES, rcd=1, chain=4, sepblur=126, iir=1, diffuse=4)
 STAGES3 = ["rawprepare", "temperature", "highlights", "demosaic", "exposure",
            "toneequal", "colorin", "diffuse", "filmicrgb", "_convert",
            "bilat", "_convert", "colorout"]
+# config 4: Markesteijn 1 pass, the lens warp, one chain
+LAUNCHES4 = dict(NO_LAUNCHES, chain=1, markesteijn=1, warp=1)
+STAGES4 = ["rawprepare", "temperature", "highlights", "demosaic", "lens",
+           "exposure", "colorin", "filmicrgb", "colorout"]
 NOISE_SIGMA = 200.0  # sensor units of 16383: a high-ISO mosaic
 REPEATS = 10         # kernel timings
 PLAIN_REPEATS = 2    # plain twins at 24 MP take up to 0.6 s each
 PIPE2_REPEATS = 3
 PIPE3_REPEATS = 3
+PIPE4_REPEATS = 10
 
 # H100 SXM peaks (NVIDIA's data sheet, at the 700 W limit): device
 # memory rate and float32 rate outside the tensor cores.
@@ -84,6 +94,19 @@ FLOPS_IIR = 30                   # per value: 15 per axis, both recursions
 # stencils 2 x 8, four kernels 7, update 5)
 FLOPS_DIFFUSE_DECOMPOSE = 19
 FLOPS_DIFFUSE_PDE_ISO = 44
+# Markesteijn per pixel, each step counted only at the sites that need it
+# and averaged over the 6 x 6 period (16 non-green, 4 solitary-green and
+# 16 2x2-green sites of 36): greens 45 at non-green sites (20),
+# solitary-green R/B 122 at solitary greens (14), R@B/B@R 60 at non-green
+# sites (27), 2x2 fill 45 at 2x2 greens (20), per direction YPbPr once (9)
+# and its derivative (14), counts 4 + 17 per direction, vote 8 per
+# direction (the 5x5 box sum taken separably) + 40: 317 for 1 pass; 3
+# passes add the recalculation (60 at non-green sites, 27), two more R/B
+# sets (122) and 8 directions in place of 4 (698)
+FLOPS_MARKESTEIJN = {1: 317, 3: 698}
+# the lens warp per pixel, three channels: the map 25 once, per channel
+# the TCA factor 5, the coordinates 4 and the bilinear sample 25
+FLOPS_WARP = 125
 
 # RCD: the kernel does the plain version's float32 operations in the same
 # order (built with --fmad=false; division and sqrt are IEEE), so the two
@@ -101,6 +124,9 @@ CHAIN_MAX_TOL, CHAIN_MEAN_TOL = 1e-4, 1e-6
 # the same order and the fast exponentials are bit tricks; inputs are
 # below ~10 (the VST'd and normalised planes).
 STENCIL_TOL = 1e-5
+# Markesteijn and the warp: the twins' float32 operations in the same order,
+# true divisions, no transcendental; an ulp would move a direction
+MARK_TOL = WARP_TOL = 1e-5
 # the whole pipe against the plain functions composed: one display code
 PIPE_TOL = 1.0 / 255.0
 
@@ -164,7 +190,8 @@ def nbytes(*tensors):
 
 
 KERNEL_MODULES = {"rcd": rcd, "chain": pw, "eaw": eaw, "nlm": nlm,
-                  "sepblur": sepblur, "iir": iir, "diffuse": diffuse}
+                  "sepblur": sepblur, "iir": iir, "diffuse": diffuse,
+                  "markesteijn": markesteijn, "warp": warp}
 
 
 def reset_launches():
@@ -202,6 +229,9 @@ def plain_twins():
         (nlm, "nlm", nlm.nlm_reference),
         (iir, "gaussian_iir", iir.gaussian_iir_reference),
         (diffuse, "diffuse_iteration", diffuse.diffuse_iteration_reference),
+        (markesteijn, "xtrans_markesteijn",
+         markesteijn.xtrans_markesteijn_reference),
+        (warp, "lens_warp", warp.lens_warp_reference),
     ])
 
 
@@ -672,6 +702,151 @@ def run_config3(card, record, raw, meta, phases):
     return launches
 
 
+def xtrans_raw(h, w):
+    """synth_raw's scene through the X-Trans pattern, as bench.py does."""
+    _, meta, scene = synth_raw(h=h, w=w, kind="gradients")
+    return configs.remosaic_xtrans(meta, scene)
+
+
+def captured4(pipe, raw_dev):
+    """Run config 4 once on a device-resident raw and keep the arguments of
+    its Markesteijn and warp calls."""
+    calls = {"markesteijn": [], "warp": []}
+    real = {"markesteijn": markesteijn.xtrans_markesteijn,
+            "warp": warp.lens_warp}
+
+    def keep(key):
+        def call(*args):
+            calls[key].append(args)
+            return real[key](*args)
+        return call
+
+    with swapped([(markesteijn, "xtrans_markesteijn", keep("markesteijn")),
+                  (warp, "lens_warp", keep("warp"))]):
+        pipe.run_padded(raw_dev)
+    counts = {k: len(v) for k, v in calls.items()}
+    expect(counts == {"markesteijn": 1, "warp": 1},
+           f"unexpected kernel calls {counts}")
+    return calls
+
+
+def check_markesteijn(calls, record):
+    """The config-4 mosaic (4000 x 6016) demosaiced in 1 pass, as the pipe
+    does, and in 3 passes (what a sidecar with 0x1002 runs)."""
+    x, pattern6, passes = calls[0]
+    expect(passes == 1, f"config 4 ran {passes} passes")
+    rows, err, ms = [], 0.0, {}
+    for p in (1, 3):
+        mx, mean = compare(markesteijn.xtrans_markesteijn(x, pattern6, p),
+                           markesteijn.xtrans_markesteijn_reference(
+                               x, pattern6, p))
+        expect(mx <= MARK_TOL, f"markesteijn {p} passes: max {mx}")
+        err = max(err, mx)
+        ms[p] = median_ms(lambda: markesteijn.xtrans_markesteijn(
+            x, pattern6, p))
+        plain_ms = median_ms(lambda: markesteijn.xtrans_markesteijn_reference(
+            x, pattern6, p), 1)
+        b_ms, b_by = bound(4 * nbytes(x), FLOPS_MARKESTEIJN[p] * x.numel())
+        rows.append(f"{p} pass{'es' if p > 1 else ''}: max {mx:.3g} mean "
+                    f"{mean:.3g}, kernel {ms[p]:.3f} ms, plain {plain_ms:.1f} "
+                    f"ms, bound {b_ms:.3f} ms ({b_by})")
+        if p == 1:
+            record["markesteijn"] = dict(ms=ms[1], plain_ms=plain_ms,
+                                         library_ms=None, bound_ms=b_ms,
+                                         bound_by=b_by)
+    record["markesteijn"]["max_abs_err"] = err
+    print(f"[markesteijn] {tuple(x.shape)} X-Trans, kernel vs plain on the "
+          f"config-4 mosaic (tol {MARK_TOL:g}): {'; '.join(rows)}",
+          flush=True)
+
+
+def check_warp(calls, record):
+    """Config 4's lens warp on the demosaiced (3, 4000, 6016) image, and
+    grid_sample on the same per-channel coordinates as the yardstick."""
+    x, k, model, flags, cy, cx, rn = calls[0]
+    mx, mean = compare(warp.lens_warp(x, k, model, flags, cy, cx, rn),
+                       warp.lens_warp_reference(x, k, model, flags, cy, cx,
+                                                rn))
+    expect(mx <= WARP_TOL, f"warp: max {mx}")
+    ms = median_ms(lambda: warp.lens_warp(x, k, model, flags, cy, cx, rn))
+    plain_ms = median_ms(lambda: warp.lens_warp_reference(
+        x, k, model, flags, cy, cx, rn), PLAIN_REPEATS)
+    _, h, w = x.shape
+    grid = []
+    for ch in range(3):
+        sy, sx = warp.lens_coords(k, model, flags, h, w, cy, cx, rn, ch)
+        grid.append(torch.stack([sx / (w - 1) * 2 - 1,
+                                 sy / (h - 1) * 2 - 1], -1))
+    grid = torch.stack(grid)
+    planes = x[:, None]
+
+    def library():
+        return F.grid_sample(planes, grid, mode="bilinear",
+                             padding_mode="border", align_corners=True)
+
+    lx, _ = compare(library()[:, 0],
+                    warp.lens_warp_reference(x, k, model, flags, cy, cx, rn))
+    expect(lx <= 1e-3, f"grid_sample yardstick: {lx}")
+    lib_ms = median_ms(library)
+    b_ms, b_by = bound(2 * nbytes(x), FLOPS_WARP * x[0].numel())
+    record["warp"] = dict(max_abs_err=mx, ms=ms, plain_ms=plain_ms,
+                          library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+    print(f"[warp] {tuple(x.shape)} lens model {model} flags {flags}, kernel "
+          f"vs plain: max {mx:.3g} mean {mean:.3g} (tol {WARP_TOL:g}); "
+          f"grid_sample vs plain max {lx:.3g} | kernel {ms:.3f} ms, plain "
+          f"{plain_ms:.1f} ms, grid_sample {lib_ms:.3f} ms, bound "
+          f"{b_ms:.3f} ms ({b_by})", flush=True)
+
+
+def run_config4(card, record, raw, meta, phases):
+    """Config 4's pipe at 24 MP X-Trans against the composed twins, its two
+    new kernels on the arguments the pipe hands them, then its timing."""
+    pipe = port.compile_pipeline(meta, configs.history(4))
+    stages = [s.name for s in pipe.pipe.stages]
+    expect(stages == STAGES4, f"unexpected config-4 plan {stages}")
+    expect(pipe.fused_groups() == [STAGES4[5:]],
+           f"unexpected chains {pipe.fused_groups()}")
+    statics = [pipe.pipe.stages[i].plan.static[:1] for i in (3, 4)]
+    expect(statics == [(0x1001,), (2,)], f"demosaic/lens plan {statics}")
+    raw_dev = torch.from_numpy(pad_to(raw, pipe.pipe.spec_in)).cuda()
+
+    # -- config 4 through the user's entry point, launches counted
+    with timed(phases, "pipe4 vs plain"):
+        reset_launches()
+        out = pipe.output_array(raw)
+        launches = read_launches()
+        expect(launches == LAUNCHES4, f"config-4 launches {launches}")
+        expect(out.shape == (3, H4, W4), f"output shape {out.shape}")
+        expect(bool(np.isfinite(out).all()) and out.min() >= 0.0
+               and out.max() <= 1.0, "output not finite or outside [0, 1]")
+        reset_launches()
+        with plain_twins():
+            plain = pipe.output_array(raw)
+        expect(all(v == 0 for v in read_launches().values()),
+               f"the plain composition launched kernels: {read_launches()}")
+        pipe_err = float(np.abs(out - plain).max())
+        expect(pipe_err <= PIPE_TOL, f"config 4 vs plain: max {pipe_err}")
+        del plain
+    with timed(phases, "capture4"):
+        calls = captured4(pipe, raw_dev)
+    with timed(phases, "markesteijn"):
+        check_markesteijn(calls["markesteijn"], record)
+    with timed(phases, "warp"):
+        check_warp(calls["warp"], record)
+    del calls
+    with timed(phases, "pipe4 timing"):
+        per_img = time_pipe(pipe, raw_dev, PIPE4_REPEATS)
+    lens_static = pipe.pipe.stages[4].plan.static
+    print(f"[pipe4] config 4 {H4}x{W4} X-Trans: {len(stages)} stages, "
+          f"demosaic 0x{pipe.pipe.stages[3].plan.static[0]:x} (1 pass), lens "
+          f"{lens_static}, chains {pipe.fused_groups()}, launches {launches}, "
+          f"vs plain max {pipe_err:.3g} (tol 1/255), range [{out.min():.3g}, "
+          f"{out.max():.3g}] | {1.0 / per_img:.2f} img/s, "
+          f"{per_img * 1e3:.2f} ms/img (device-resident input, "
+          f"{PIPE4_REPEATS} repeats) on {card}", flush=True)
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
@@ -683,12 +858,13 @@ def main():
     print(f"[card] torch {torch.__version__} cuda {torch.version.cuda} | "
           f"{card}", flush=True)
     record = {}
-    with ThreadPoolExecutor(max_workers=3) as pool:
+    with ThreadPoolExecutor(max_workers=4) as pool:
         # the mosaics are made on host threads, the 24 MP one while nvcc
-        # builds, the 45 MP one while configs 1 and 2 run
+        # builds, the 45 MP and X-Trans ones while configs 1 and 2 run
         with timed(phases, "build + mosaic"):
             synth = pool.submit(synth_raw, h=H, w=W, kind="gradients")
             synth3 = pool.submit(synth_raw, h=H3, w=W3, kind="gradients")
+            synth4 = pool.submit(xtrans_raw, H4, W4)
             build_s = _build.build_all()
             print(f"[build] nvcc built and loaded "
                   f"{', '.join(_build.KERNELS)} in {build_s:.1f} s",
@@ -703,9 +879,16 @@ def main():
         with timed(phases, "mosaic3 wait"):
             raw3, meta3, _ = synth3.result()
         launches3 = run_config3(card, record, raw3, meta3, phases)
+        del raw3
+        with timed(phases, "mosaic4 wait"):
+            raw4, meta4 = synth4.result()
+        launches4 = run_config4(card, record, raw4, meta4, phases)
     # launches per image: config 2's for the first five kernels, config
-    # 3's for the IIR and diffuse kernels
-    launches.update(iir=launches3["iir"], diffuse=launches3["diffuse"])
+    # 3's for the IIR and diffuse kernels, config 4's for Markesteijn and
+    # the warp
+    launches.update(iir=launches3["iir"], diffuse=launches3["diffuse"],
+                    markesteijn=launches4["markesteijn"],
+                    warp=launches4["warp"])
     print(f"[done] total {time.perf_counter() - t0:.1f} s | "
           + ", ".join(f"{k} {v:.1f} s" for k, v in phases.items()),
           flush=True)
@@ -723,6 +906,10 @@ def main():
                 "ansel_tpu/kernels/iir_pallas.py:113"),
         "diffuse": ("diffuse_iteration", "diffuse.cu",
                     "ansel_tpu/kernels/diffuse_pallas.py:218"),
+        "markesteijn": ("xtrans_markesteijn", "markesteijn.cu",
+                        "ansel_tpu/kernels/markesteijn_pallas.py:372"),
+        "warp": ("lens_warp", "warp.cu",
+                 "ansel_tpu/kernels/warp_pallas.py:121"),
     }
     kernels = []
     for key, (name, src, replaces) in sources.items():

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Where the time goes in the PyTorch/CUDA port's pipe, on one GPU.
 
-    python3 scripts/torch_profile.py [--config 1|2|3] [--images 3]
+    python3 scripts/torch_profile.py [--config 1|2|3|4] [--images 3]
 
-Plans bench config 1, 2 (4000 x 6016) or 3 (5504 x 8256) through
+Plans bench config 1, 2 (4000 x 6016), 3 (5504 x 8256) or 4 (an X-Trans
+4000 x 6000 mosaic) through
 `compile_pipeline`, warms up, then runs `run_padded` on a device-resident raw `--images`
 times without the profiler and `--images` times under torch.profiler.
 Prints one line per group of device kernels (ms per image and launches
@@ -27,7 +28,8 @@ from torch.profiler import ProfilerActivity, profile
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import ansel_tpu_torch as port  # noqa: E402
-from ansel_tpu_torch.io.configs import FRAMES, HISTORIES, history  # noqa: E402
+from ansel_tpu_torch.io.configs import (  # noqa: E402
+    FRAMES, HISTORIES, XTRANS_CONFIGS, history, remosaic_xtrans)
 from ansel_tpu_torch.io.synthetic import synth_raw  # noqa: E402
 from ansel_tpu_torch.kernels import _build  # noqa: E402
 from ansel_tpu_torch.ops.base import pad_to  # noqa: E402
@@ -41,6 +43,7 @@ GROUPS = {
     "chroma_rb": "RCD kernels", "finish": "RCD kernels",
     "iir_lines": "IIR kernel", "blur_v": "diffuse kernels",
     "blur_h": "diffuse kernels", "pde": "diffuse kernels",
+    r"mk_\w+(<\d>)?": "Markesteijn kernels", "lens_warp_kernel": "warp kernel",
 }
 
 
@@ -69,7 +72,9 @@ def main():
         capture_output=True, text=True, check=True).stdout.strip()
     _build.build_all()
     H, W = FRAMES[args.config]
-    raw, meta, _ = synth_raw(h=H, w=W, kind="gradients")
+    raw, meta, scene = synth_raw(h=H, w=W, kind="gradients")
+    if args.config in XTRANS_CONFIGS:
+        raw, meta = remosaic_xtrans(meta, scene)
     t = time.perf_counter()
     pipe = port.compile_pipeline(meta, history(args.config), device="cuda")
     plan_s = time.perf_counter() - t

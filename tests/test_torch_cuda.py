@@ -16,7 +16,8 @@ import ansel_tpu_torch as port
 from ansel_tpu_torch.core.types import CFAPattern, Colorspace
 from ansel_tpu_torch.io import configs
 from ansel_tpu_torch.io.synthetic import synth_raw
-from ansel_tpu_torch.kernels import diffuse, eaw, iir, nlm, sepblur
+from ansel_tpu_torch.kernels import (diffuse, eaw, iir, markesteijn, nlm,
+                                     sepblur, warp)
 from ansel_tpu_torch.kernels import pointwise as pw
 from ansel_tpu_torch.kernels import rcd
 from ansel_tpu_torch.pixel.blur import _deriche_coeffs
@@ -35,6 +36,9 @@ CHAIN_MAX_TOL, CHAIN_MEAN_TOL = 1e-4, 1e-6
 # The IIR and diffuse kernels too: their rsqrtf and expf are the calls
 # torch.rsqrt and torch.exp make on the card.
 STENCIL_TOL = 1e-5
+# Markesteijn and the warp repeat their twins' float32 operations in the
+# same order with true divisions and no transcendental; a differing ulp
+# would move a Markesteijn direction, so the bound is the stencils' one.
 
 # ragged frames: a block's tile divides none of them
 FRAMES = [(5, 7), (136, 400), (64, 1000)]
@@ -357,5 +361,101 @@ def test_config3_pipe_on_cuda_matches_cpu(cuda):
     got = on_card.output_array(raw)
     # 4 chains; a 6-level pyramid at this size: 14 x 5 blurs
     assert [m.LAUNCHES for m in mods] == [1, 4, 70, 0, 0, 1, 4]
+    want = port.compile_pipeline(meta, hist, device="cpu").output_array(raw)
+    assert np.abs(got - want).max() <= 1.0 / 255.0
+
+
+# tiny, odd and a 1000 x 1500-class frame
+MARK_FRAMES = [(5, 7), (37, 101), (1002, 1499)]
+
+
+def _mosaic(h, w, seed, smooth):
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w]
+    scene = np.stack([0.2 + 0.6 * xx / w, 0.3 + 0.5 * yy / h,
+                      0.25 + 0.2 * np.sin(xx / 7.0)])
+    if not smooth:
+        scene = scene + 0.3 * rng.random(scene.shape)
+    sel = np.asarray(configs.XTRANS6).reshape(6, 6)[yy % 6, xx % 6]
+    return np.take_along_axis(scene, sel[None], 0)[0].astype(np.float32)
+
+
+@pytest.mark.parametrize("passes", [1, 3])
+@pytest.mark.parametrize("smooth", [True, False])
+@pytest.mark.parametrize("hw", MARK_FRAMES)
+def test_markesteijn_kernel_matches_plain(cuda, hw, smooth, passes):
+    x = torch.from_numpy(_mosaic(*hw, hw[0] + passes, smooth)).to(cuda)
+    before = markesteijn.LAUNCHES
+    got = markesteijn.xtrans_markesteijn(x, configs.XTRANS6, passes)
+    assert markesteijn.LAUNCHES == before + 1
+    want = markesteijn.xtrans_markesteijn_reference(x, configs.XTRANS6,
+                                                    passes)
+    torch.cuda.synchronize()
+    assert got.shape == (3, *hw)
+    assert (got - want).abs().max().item() <= STENCIL_TOL
+
+
+def test_markesteijn_kernel_refuses_bad_input(cuda):
+    x = torch.zeros((12, 12), device=cuda)
+    with pytest.raises(ValueError):
+        markesteijn.xtrans_markesteijn(x, configs.XTRANS6, passes=2)
+    with pytest.raises(ValueError):
+        markesteijn.xtrans_markesteijn(x.double(), configs.XTRANS6)
+    with pytest.raises(ValueError):
+        markesteijn.xtrans_markesteijn(x, (3,) * 36)
+
+
+def _lens_consts(model, tca, device):
+    c = {"a": -0.02 if model != warp.DIST_POLY3 else 0.03, "b": 0.01,
+         "c": -0.005, "scale": 0.98,
+         "tca_r": [1.0005, 2e-4, -1e-4] if tca else [1.0, 0.0, 0.0],
+         "tca_b": [0.9995, -2e-4, 1e-4] if tca else [1.0, 0.0, 0.0]}
+    return warp.pack_consts({k: torch.tensor(v, dtype=torch.float32,
+                                             device=device)
+                             for k, v in c.items()})
+
+
+@pytest.mark.parametrize("tca", [True, False])
+@pytest.mark.parametrize("model", [warp.DIST_NONE, warp.DIST_POLY3,
+                                   warp.DIST_PTLENS, warp.DIST_POLY5])
+@pytest.mark.parametrize("hw", [(2, 3), (136, 400), (1000, 1504)])
+def test_warp_kernel_matches_plain(cuda, hw, model, tca):
+    h, w = hw
+    rng = np.random.default_rng(h + model)
+    x = torch.from_numpy(rng.uniform(0, 1, (3, h, w)).astype(np.float32)
+                         ).to(cuda)
+    k = _lens_consts(model, tca, cuda)
+    flags = warp.MODIFY_DISTORTION | (warp.MODIFY_TCA if tca else 0)
+    cy, cx = (h - 1) / 2.0, (w - 1) / 2.0
+    rn = float(np.hypot(cy, cx))
+    before = warp.LAUNCHES
+    got = warp.lens_warp(x, k, model, flags, cy, cx, rn)
+    assert warp.LAUNCHES == before + 1
+    want = warp.lens_warp_reference(x, k, model, flags, cy, cx, rn)
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() <= STENCIL_TOL
+
+
+def test_lens_vignetting_on_cuda_matches_cpu(cuda):
+    raw, meta, scene = synth_raw(h=96, w=288, kind="gradients")
+    raw, meta = configs.remosaic_xtrans(meta, scene)
+    hist = [port.HistoryItem("lens", {"dist_a": -0.02, "tca_r": 1.0005,
+                                      "tca_b": 0.9995, "vig_k1": -0.3,
+                                      "vig_k2": 0.1, "vig_k3": -0.02})]
+    got = port.compile_pipeline(meta, hist).output_array(raw)
+    want = port.compile_pipeline(meta, hist, device="cpu").output_array(raw)
+    assert np.abs(got - want).max() <= 1.0 / 255.0
+
+
+def test_config4_pipe_on_cuda_matches_cpu(cuda):
+    raw, meta, scene = synth_raw(h=96, w=288, kind="gradients")
+    raw, meta = configs.remosaic_xtrans(meta, scene)
+    hist = configs.history(4)
+    on_card = port.compile_pipeline(meta, hist)
+    mods = (rcd, pw, markesteijn, warp, sepblur, eaw, nlm, iir, diffuse)
+    for mod in mods:
+        mod.LAUNCHES = 0
+    got = on_card.output_array(raw)
+    assert [m.LAUNCHES for m in mods] == [0, 1, 1, 1, 0, 0, 0, 0, 0]
     want = port.compile_pipeline(meta, hist, device="cpu").output_array(raw)
     assert np.abs(got - want).max() <= 1.0 / 255.0

@@ -161,6 +161,10 @@ def _gain_maps(meta):
     return dataclasses.replace(meta, gain_maps=maps)
 
 
+def _xtrans(meta):
+    return dataclasses.replace(meta, xtrans=configs.XTRANS6)
+
+
 @pytest.mark.parametrize("items,meta_fn,kw", [
     ([("highlights", {"mode": 1})], None, {}),
     ([("highlights", {"mode": 2})], None, {}),
@@ -181,13 +185,17 @@ def _gain_maps(meta):
     ([("denoiseprofile", {})], None, {}),          # automatic noise profile
     ([("diffuse", {"radius": 12})], None, {}),     # 6 wavelet scales
     ([("bilat", {"mode": 0})], None, {}),          # bilateral grid
+    ([("demosaic", {"demosaicing_method": 0x3001})], _xtrans, {}),  # dual
+    ([("demosaic", {"color_smoothing": 2})], _xtrans, {}),
+    ([("highlights", {"mode": 3})], _xtrans, {}),  # Laplacian on X-Trans
     (CONFIG1, None, {"pipe_type": "preview"}),
     (CONFIG1, None, {"scale": 0.5}),
 ], ids=["lch", "inpaint", "laplacian", "harmonic", "ppg", "amaze",
         "bilinear", "green-eq", "smoothing", "gain-map", "filmic-v5",
         "filmic-v1", "filmic-reconstruct", "colorin-icc", "colorout-icc",
         "unported-op", "denoise-auto-profile", "diffuse-6-scales",
-        "bilat-grid", "preview", "scaled"])
+        "bilat-grid", "xtrans-dual", "xtrans-smoothing",
+        "xtrans-laplacian", "preview", "scaled"])
 def test_unported_branches_raise_at_plan_time(items, meta_fn, kw):
     _, meta, _ = synth_raw(h=64, w=128)
     if meta_fn is not None:
@@ -198,10 +206,13 @@ def test_unported_branches_raise_at_plan_time(items, meta_fn, kw):
 
 
 def test_xtrans_raises_at_plan_time():
+    """X-Trans plans Markesteijn; its VNG (kernels/vng.py) is not ported."""
     _, meta, _ = synth_raw(h=60, w=120)
-    meta = dataclasses.replace(meta, xtrans=(1,) * 36)
+    meta = _xtrans(meta)
+    ansel_tpu_torch.Pipeline(meta, [], device="cpu")
     with pytest.raises(NotImplementedError):
-        ansel_tpu_torch.Pipeline(meta, [], device="cpu")
+        ansel_tpu_torch.Pipeline(meta, _hist(ansel_tpu_torch, [
+            ("demosaic", {"demosaicing_method": 0x1000})]), device="cpu")
 
 
 def test_blend_raises_at_plan_time():
