@@ -1,5 +1,6 @@
-"""The bench configurations the port runs (`bench.py:CONFIGS`), defined
-once for the chip smoke, the profile script and the tests.
+"""The bench configurations the port runs (`bench.py:CONFIGS`), and the
+port's own config 7, defined once for the chip smoke, the profile script
+and the tests.
 
 Each history is a tuple of (op, params) pairs, so that a test can build
 the JAX package's `HistoryItem`s from the same pairs as the port's.
@@ -42,11 +43,25 @@ HISTORIES = {
         ("lens", {"tca_r": 1.0005, "tca_b": 0.9995, "dist_a": -0.02}),
         ("exposure", {"exposure": 0.5}),
         ("filmicrgb", {})),
+    # the bilateral-grid stack, the port's own history: bench.py has no
+    # config 7 (its 5 is the library path and its 6 a sidecar the repo
+    # lacks).  The surface-blur bilateral (radius 15, three grids of 32
+    # range bins), shadows & highlights softened by the bilateral grid
+    # (radius 100), local contrast in bilateral mode (bilat mode 0, every
+    # pre-3.0 bilat v1 sidecar) and sharpen: five grid slices per image
+    7: (("bilateral", {}),
+        ("exposure", {"exposure": 0.5}),
+        ("filmicrgb", {}),
+        ("shadhi", {"shadhi_algo": 1}),
+        ("bilat", {"mode": 0, "sigma_r": 20.0, "sigma_s": 50.0,
+                   "detail": 0.25}),
+        ("sharpen", {})),
 }
 
 # each config's frame (height, width)
 FRAMES = {1: (BENCH_H, BENCH_W), 2: (BENCH_H, BENCH_W),
-          3: (BENCH3_H, BENCH3_W), 4: (BENCH4_H, BENCH4_W)}
+          3: (BENCH3_H, BENCH3_W), 4: (BENCH4_H, BENCH4_W),
+          7: (BENCH_H, BENCH_W)}
 # configs whose raw is an X-Trans mosaic (`remosaic_xtrans`)
 XTRANS_CONFIGS = (4,)
 

@@ -24,7 +24,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "ansel_tpu_torch"
 KERNELS = ("rcd", "pointwise_chain", "sepblur", "eaw", "nlm", "iir",
-           "diffuse", "markesteijn", "warp")
+           "diffuse", "markesteijn", "warp", "bgrid")
 
 # --fmad=false and no --use_fast_math: the kernels round like their plain
 # torch versions, operation for operation.

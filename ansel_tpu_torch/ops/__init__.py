@@ -3,17 +3,25 @@ for the protocol).  Only ported ops are registered."""
 
 from . import (  # noqa: F401
     bilat,
+    bilateral,
     channelmixerrgb,
     colorin,
     colorout,
+    colorreconstruct,
     demosaic,
     denoiseprofile,
     diffuse,
     exposure,
     filmicrgb,
     highlights,
+    highpass,
     lens,
+    lowpass,
+    monochrome,
     rawprepare,
+    shadhi,
+    sharpen,
+    soften,
     temperature,
     toneequal,
 )

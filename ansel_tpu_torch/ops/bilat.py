@@ -1,14 +1,13 @@
-"""bilat — "local contrast" through the local Laplacian.
+"""bilat — "local contrast" (local Laplacian or bilateral grid).
 
 Reference: `ansel/src/iop/bilat.c` (params v3, bilat.c:78-86).  Planning
 is copied from `ansel_tpu/ops/bilat.py`.  Mode 1 (the default) runs the
 local Laplacian on Lab L (`pixel/locallaplacian.py`) with shadows =
 sigma_s / 100, highlights = sigma_r / 100, clarity = detail and the
-midtone as its sigma.
-
-Not ported, refused while planning: mode 0, the bilateral grid
-(`pixel/bilateralgrid.grid_filter`), whose slice is the TPU kernel
-`bgrid_pallas.slice_grid` that a later slice ports.
+midtone as its sigma.  Mode 0 runs the bilateral grid on L
+(`pixel/bilateralgrid.grid_filter`, src/pixel/bilateral.c) with the
+detail-boost slicing of dt_bilateral_slice_to_output:
+out = in + detail * (in - base).
 """
 
 from __future__ import annotations
@@ -19,8 +18,9 @@ import torch
 
 from ..core.params import cfield, params
 from ..core.types import Colorspace
+from ..pixel.bilateralgrid import grid_filter
 from ..pixel.locallaplacian import local_laplacian
-from .base import Op, OpPlan, PlanContext, not_ported, register
+from .base import Op, OpPlan, PlanContext, register
 
 # dt_iop_bilat_mode_t (bilat.c:71-75): 0 = bilateral grid, 1 = local
 # laplacian; default mode is 1 (bilat.c:80)
@@ -60,15 +60,17 @@ class Bilat(Op):
     input_colorspace = Colorspace.LAB
 
     def plan(self, ctx: PlanContext, spec_in, p: BilatParams) -> OpPlan:
-        if p.mode == MODE_BILATERAL:
-            raise not_ported(self.name, "the bilateral grid (mode 0)")
         return OpPlan(spec_in=spec_in, spec_out=spec_in,
                       static=(p.mode, round(max(p.midtone, 1e-3), 5),
                               round(p.sigma_s, 4), round(p.sigma_r, 4),
                               round(p.detail, 4)))
 
     def apply(self, x, c, plan: OpPlan, ctx: PlanContext):
-        _, midtone, sigma_s, sigma_r, detail = plan.static
+        mode, midtone, sigma_s, sigma_r, detail = plan.static
+        if mode == MODE_BILATERAL:
+            L = grid_filter(x[0], x[0:1], max(sigma_s * ctx.scale, 1.0),
+                            max(sigma_r, 1.0), 0.0, 100.0, detail=detail)[0]
+            return torch.stack([torch.clamp(L, min=0.0), x[1], x[2]])
         L = local_laplacian(x[0] / 100.0, midtone, sigma_s / 100.0,
                             sigma_r / 100.0, detail)
         return torch.stack([torch.clamp(L * 100.0, min=0.0), x[1], x[2]])

@@ -1,5 +1,8 @@
 """Blurs (`ansel_tpu/pixel/blur.py`; reference `src/pixel/box_filters.c`,
-`src/pixel/gaussian.c`): box means and the Deriche recursive Gaussian.
+`src/pixel/gaussian.c`): box means, the Deriche recursive Gaussian and
+the Gaussians built on them (`gaussian_blur`: the separable FIR for
+sigma <= 4, the IIR beyond; `gaussian_blur_fast`: block mean, IIR,
+bilinear upsample; `fast_gaussian`: three box means).
 
 `gaussian_iir` always goes to the IIR kernel's wrapper (`kernels/iir.py`):
 the CUDA kernel on the device, its plain twin on the CPU.  The JAX
@@ -13,10 +16,13 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from ..kernels import iir
+from .bilateralgrid import upsample_axis
+from .shifts import pad_tail, sep_filter
 
 
 def box_blur_1d(x: torch.Tensor, radius: int, axis: int) -> torch.Tensor:
@@ -42,8 +48,6 @@ def box_blur(x: torch.Tensor, radius: int) -> torch.Tensor:
     if radius <= 0:
         return x
     if radius <= 7 and x.dim() >= 2:
-        from .shifts import sep_filter
-
         n = 2 * radius + 1
         return sep_filter(x, [1.0 / n] * n)
     return box_blur_1d(box_blur_1d(x, radius, -2), radius, -1)
@@ -86,3 +90,51 @@ def gaussian_iir(x: torch.Tensor, sigma: float, order: int = 0,
         return x
     return iir.gaussian_iir(x.contiguous(), _deriche_coeffs(sigma, order),
                             vmin, vmax)
+
+
+def gaussian_blur(x: torch.Tensor, sigma: float,
+                  truncate: float = 4.0) -> torch.Tensor:
+    """Separable FIR Gaussian (the sepblur kernel) for sigma <= 4, the
+    Deriche IIR beyond."""
+    if sigma <= 0:
+        return x
+    if sigma > 4.0:
+        return gaussian_iir(x, sigma)
+    r = max(1, int(math.ceil(truncate * sigma)))
+    t = np.arange(-r, r + 1, dtype=np.float32)
+    k = np.exp(-0.5 * (t / sigma) ** 2)
+    k /= k.sum()
+    return sep_filter(x, [float(v) for v in k])
+
+
+def gaussian_blur_fast(x: torch.Tensor, sigma: float,
+                       max_ds: int = 8) -> torch.Tensor:
+    """Large-sigma Gaussian: a ds x ds block mean, the IIR Gaussian at
+    sigma / ds (the block mean's variance taken out), then the
+    cell-centred bilinear upsample back (`bilateralgrid.upsample_axis`).
+    Below sigma 16, `gaussian_blur`."""
+    if sigma < 16.0:
+        return gaussian_blur(x, sigma)
+    ds = int(min(max_ds, sigma // 8))
+    H, W = x.shape[-2:]
+    Hp, Wp = -(-H // ds) * ds, -(-W // ds) * ds
+    xp = pad_tail(x, Hp - H, Wp - W)
+    lead = tuple(xp.shape[:-2])
+    small = xp.reshape(lead + (Hp // ds, ds, Wp // ds, ds)).mean(dim=(-3, -1))
+    sig_ds = math.sqrt(max(sigma * sigma - ds * ds / 12.0, 1e-6)) / ds
+    small = gaussian_blur(small.contiguous(), sig_ds)
+    out = upsample_axis(upsample_axis(small, ds, axis=-2), ds, axis=-1)
+    return out[..., :H, :W]
+
+
+def fast_gaussian(x: torch.Tensor, sigma: float) -> torch.Tensor:
+    """Three iterated box means approximating a Gaussian of `sigma` (the
+    ideal box width for three passes), at a cost independent of it."""
+    if sigma <= 0:
+        return x
+    wi = math.sqrt(4.0 * sigma * sigma / 3.0 + 1.0)
+    r = max(1, int((wi - 1) / 2))
+    y = x
+    for _ in range(3):
+        y = box_blur(y, r)
+    return y

@@ -27,6 +27,17 @@ def pad2d(x: torch.Tensor, margin: int, mode: str = "edge") -> torch.Tensor:
     return p.reshape(tuple(lead) + tuple(p.shape[-2:]))
 
 
+def pad_tail(x: torch.Tensor, ph: int, pw: int) -> torch.Tensor:
+    """Edge-pad the last two axes of `x` by `ph` rows below and `pw`
+    columns to the right."""
+    if ph == 0 and pw == 0:
+        return x
+    lead = x.shape[:-2]
+    flat = x.reshape((-1, 1) + tuple(x.shape[-2:]))
+    p = F.pad(flat, (0, pw, 0, ph), mode="replicate")
+    return p.reshape(tuple(lead) + tuple(p.shape[-2:]))
+
+
 class PaddedView:
     """Pad an (..., H, W) tensor once by `margin` and serve shifted views:
     at(dy, dx)[..., y, x] = padded x[..., y + dy, x + dx]."""

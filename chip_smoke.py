@@ -19,7 +19,10 @@ entry points a user calls, at their full frames:
     filmicrgb): RCD, the chain, sepblur, the IIR and diffuse kernels;
   * bench config 4 at 24 MP (an X-Trans 4000 x 6000 mosaic; Markesteijn,
     lens with TCA, exposure, filmicrgb): the Markesteijn and warp
-    kernels and the chain.
+    kernels and the chain;
+  * the port's config 7 at 24 MP (4000 x 6016), the bilateral-grid stack
+    (bilateral, exposure, filmicrgb, shadhi and bilat mode 0 through the
+    grid, sharpen): RCD, the chain, sepblur and the grid-slice kernel.
 
 Each path runs with the launch counts set to 0 just before it and read
 just after.  One line per phase; the line before the last is the
@@ -45,8 +48,8 @@ import ansel_tpu_torch as port
 from ansel_tpu_torch.io import configs
 from ansel_tpu_torch.io.encode import write_image
 from ansel_tpu_torch.io.synthetic import synth_raw
-from ansel_tpu_torch.kernels import (_build, diffuse, eaw, iir, markesteijn,
-                                     nlm, rcd, sepblur, warp)
+from ansel_tpu_torch.kernels import (_build, bgrid, diffuse, eaw, iir,
+                                     markesteijn, nlm, rcd, sepblur, warp)
 from ansel_tpu_torch.kernels import pointwise as pw
 from ansel_tpu_torch.ops.base import pad_to
 
@@ -54,7 +57,8 @@ H, W = configs.BENCH_H, configs.BENCH_W
 H3, W3 = configs.BENCH3_H, configs.BENCH3_W
 H4, W4 = configs.BENCH4_H, configs.BENCH4_W
 NO_LAUNCHES = {"rcd": 0, "chain": 0, "eaw": 0, "nlm": 0, "sepblur": 0,
-               "iir": 0, "diffuse": 0, "markesteijn": 0, "warp": 0}
+               "iir": 0, "diffuse": 0, "markesteijn": 0, "warp": 0,
+               "bgrid": 0}
 LAUNCHES1 = dict(NO_LAUNCHES, rcd=1, chain=1)
 LAUNCHES2 = dict(NO_LAUNCHES, rcd=1, chain=1, eaw=7, nlm=1, sepblur=360)
 # config 3: chains [exposure], [colorin], [filmicrgb, _convert],
@@ -68,12 +72,20 @@ STAGES3 = ["rawprepare", "temperature", "highlights", "demosaic", "exposure",
 LAUNCHES4 = dict(NO_LAUNCHES, chain=1, markesteijn=1, warp=1)
 STAGES4 = ["rawprepare", "temperature", "highlights", "demosaic", "lens",
            "exposure", "colorin", "filmicrgb", "colorout"]
+# config 7: three chains, sharpen's blur, five grid slices (bilateral's
+# three channels, shadhi's three-channel grid, bilat's)
+LAUNCHES7 = dict(NO_LAUNCHES, rcd=1, chain=3, sepblur=1, bgrid=5)
+STAGES7 = ["rawprepare", "temperature", "highlights", "demosaic",
+           "bilateral", "exposure", "colorin", "_convert", "sharpen",
+           "_convert", "filmicrgb", "_convert", "shadhi", "bilat",
+           "_convert", "colorout"]
 NOISE_SIGMA = 200.0  # sensor units of 16383: a high-ISO mosaic
 REPEATS = 10         # kernel timings
 PLAIN_REPEATS = 2    # plain twins at 24 MP take up to 0.6 s each
 PIPE2_REPEATS = 3
 PIPE3_REPEATS = 3
 PIPE4_REPEATS = 10
+PIPE7_REPEATS = 5
 
 # H100 SXM peaks (NVIDIA's data sheet, at the 700 W limit): device
 # memory rate and float32 rate outside the tensor cores.
@@ -107,6 +119,12 @@ FLOPS_MARKESTEIJN = {1: 317, 3: 698}
 # the lens warp per pixel, three channels: the map 25 once, per channel
 # the TCA factor 5, the coordinates 4 and the bilinear sample 25
 FLOPS_WARP = 125
+# the grid slice per pixel: the row weights 15, the bins 3 and their four
+# tests; per channel and valid bin (b0, and b0 + 1 unless b0 = D - 1) the
+# two column blends 6, the row blend 3 and the bin weight 2 (b0: 1 - f
+# and the product) or 1 (b0 + 1), and the two bins' sum 1
+FLOPS_BGRID_PIXEL = 22
+FLOPS_BGRID_BIN0, FLOPS_BGRID_BIN1, FLOPS_BGRID_SUM = 11, 10, 1
 
 # RCD: the kernel does the plain version's float32 operations in the same
 # order (built with --fmad=false; division and sqrt are IEEE), so the two
@@ -127,8 +145,16 @@ STENCIL_TOL = 1e-5
 # Markesteijn and the warp: the twins' float32 operations in the same order,
 # true divisions, no transcendental; an ulp would move a direction
 MARK_TOL = WARP_TOL = 1e-5
+# the grid slice: its twin's float32 operations in the same order, no
+# transcendental, a true division: bit for bit
+BGRID_TOL = 0.0
 # the whole pipe against the plain functions composed: one display code
 PIPE_TOL = 1.0 / 255.0
+# config 7 with only the chain kernel kept against the rest's twins: every
+# other kernel on its path (RCD, sepblur, the grid slice) matches its twin
+# bit for bit and the splat between them is deterministic (a scatter that
+# does not accumulate, a float32 bmm), so the outputs are equal
+PIPE7_REST_TOL = 0.0
 
 
 def card_line():
@@ -191,7 +217,7 @@ def nbytes(*tensors):
 
 KERNEL_MODULES = {"rcd": rcd, "chain": pw, "eaw": eaw, "nlm": nlm,
                   "sepblur": sepblur, "iir": iir, "diffuse": diffuse,
-                  "markesteijn": markesteijn, "warp": warp}
+                  "markesteijn": markesteijn, "warp": warp, "bgrid": bgrid}
 
 
 def reset_launches():
@@ -216,11 +242,11 @@ def swapped(swaps):
             setattr(mod, name, fn)
 
 
-def plain_twins():
+def plain_twins(keep=()):
     """Each wrapper's kernel entry swapped for its plain twin (this
     script's own switch: the package has none), so a run composes the
-    twins."""
-    return swapped([
+    twins; the modules in `keep` launch their kernels."""
+    return swapped([swap for swap in [
         (rcd, "rcd_demosaic", rcd.rcd_demosaic_reference),
         (pw, "pointwise_chain", pw.pointwise_chain_reference),
         (sepblur, "sep_blur", sepblur.sep_blur_reference),
@@ -232,7 +258,8 @@ def plain_twins():
         (markesteijn, "xtrans_markesteijn",
          markesteijn.xtrans_markesteijn_reference),
         (warp, "lens_warp", warp.lens_warp_reference),
-    ])
+        (bgrid, "slice_grid", bgrid.slice_grid_reference),
+    ] if swap[0] not in keep])
 
 
 @contextlib.contextmanager
@@ -847,6 +874,172 @@ def run_config4(card, record, raw, meta, phases):
     return launches
 
 
+def captured7(pipe, raw_dev):
+    """Run config 7 once on a device-resident raw and keep the arguments of
+    its five grid slices."""
+    calls, real = [], bgrid.slice_grid
+
+    def keep(*args):
+        calls.append(args)
+        return real(*args)
+
+    with swapped([(bgrid, "slice_grid", keep)]):
+        pipe.run_padded(raw_dev)
+    shapes = [(tuple(g.shape[:2]), ss) for g, _, ss in calls]
+    expect(shapes == [((32, 1), 15)] * 3 + [((4, 3), 100), ((6, 1), 50)],
+           f"unexpected grid slices {shapes}")
+    return calls
+
+
+def bgrid_work(g, z):
+    """One slice's (bytes, operations): z read and the C output planes
+    written once, the grid and the column taps read once; the operations
+    that this z needs (the second bin is skipped where z is D - 1)."""
+    D, C, _, _ = g.shape
+    n = z.numel()
+    second = int((torch.floor(z) + 1.0 <= D - 1).sum().item())
+    flops = FLOPS_BGRID_PIXEL * n + C * (
+        (FLOPS_BGRID_BIN0 + FLOPS_BGRID_SUM) * n + FLOPS_BGRID_BIN1 * second)
+    return nbytes(g, z) + 4 * C * n + 16 * z.shape[1], flops
+
+
+def grid_sample_slice(g, z, ss):
+    """The same trilinear slice as one F.grid_sample over the grid as a
+    (1, C, D, gh, gw) volume: cell-centred x and y, z mapped onto the bins,
+    border padding; returns the call (its coordinates precomputed)."""
+    D, C, gh, gw = g.shape
+    Hp, Wp = z.shape
+    dev = z.device
+    xs = (torch.arange(Wp, device=dev, dtype=torch.float32) + 0.5) * 2.0 / Wp
+    ys = (torch.arange(Hp, device=dev, dtype=torch.float32) + 0.5) * 2.0 / Hp
+    coords = torch.stack([(xs - 1.0)[None, :].expand(Hp, Wp),
+                          (ys - 1.0)[:, None].expand(Hp, Wp),
+                          (2.0 * z + 1.0) / D - 1.0], -1)[None, None]
+    vol = g.permute(1, 0, 2, 3)[None].contiguous()
+
+    def call():
+        return F.grid_sample(vol, coords, mode="bilinear",
+                             padding_mode="border", align_corners=False)
+    return call
+
+
+def check_bgrid(calls, record):
+    """The five config-7 slices (bilateral's three at ss 15 and 32 bins on
+    4005 x 6030, shadhi's three-channel grid at ss 100 on 4000 x 6100,
+    bilat's at ss 50 on 4000 x 6050), then two synthetic classes: ss 1 at
+    32 bins (bilat mode 0 at its default sigma_s 0.5) over 2000 x 2000,
+    and ss 10 with three channels and 4 bins (lowpass's bilateral
+    algorithm at its default radius) over 4000 x 6020."""
+    err, mean_err, lib_err, rows, synth = 0.0, 0.0, 0.0, [], []
+    ms, plain_ms, lib_ms, work = [], [], [], []
+    for g, z, ss in calls:
+        want = bgrid.slice_grid_reference(g, z, ss)
+        mx, mean = compare(bgrid.slice_grid(g, z, ss), want)
+        expect(mx <= BGRID_TOL, f"bgrid {tuple(g.shape)} ss {ss}: max {mx}")
+        err, mean_err = max(err, mx), max(mean_err, mean)
+        library = grid_sample_slice(g, z, ss)
+        lx, _ = compare(library()[0, :, 0], want)
+        scale = max(1.0, want.abs().max().item())
+        expect(lx <= 1e-3 * scale, f"grid_sample yardstick: {lx}")
+        lib_err = max(lib_err, lx / scale)
+        del want
+        ms.append(median_ms(lambda: bgrid.slice_grid(g, z, ss)))
+        plain_ms.append(median_ms(
+            lambda: bgrid.slice_grid_reference(g, z, ss), PLAIN_REPEATS))
+        lib_ms.append(median_ms(library))
+        del library
+        work.append(bgrid_work(g, z))
+        b_ms, b_by = bound(*work[-1])
+        rows.append(f"{tuple(g.shape)} ss {ss} on {tuple(z.shape)}: "
+                    f"{ms[-1]:.4f}/{plain_ms[-1]:.2f}/{lib_ms[-1]:.3f}/"
+                    f"{b_ms:.4f} ({b_by})")
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    for D, C, gh, gw, ss in ((32, 1, 2000, 2000, 1), (4, 3, 400, 602, 10)):
+        g = torch.rand((D, C, gh, gw), generator=gen, device="cuda")
+        z = torch.rand((gh * ss, gw * ss), generator=gen,
+                       device="cuda") * (D - 1)
+        z[:8] = torch.floor(z[:8])                  # integers: one bin each
+        z[8] = D - 1                                # the last bin exactly
+        mx, mean = compare(bgrid.slice_grid(g, z, ss),
+                           bgrid.slice_grid_reference(g, z, ss))
+        expect(mx <= BGRID_TOL, f"bgrid synthetic ss {ss}: max {mx}")
+        err, mean_err = max(err, mx), max(mean_err, mean)
+        k_ms = median_ms(lambda: bgrid.slice_grid(g, z, ss))
+        b_ms, b_by = bound(*bgrid_work(g, z))
+        synth.append(f"{(D, C)} ss {ss} on {tuple(z.shape)}: max {mx:.3g}, "
+                     f"kernel {k_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+        del g, z
+    # per launch, averaged over the five slices of one image
+    b_ms, b_by = bound(sum(b for b, _ in work) / len(work),
+                       sum(f for _, f in work) / len(work))
+    record["bgrid"] = dict(max_abs_err=err, ms=float(np.mean(ms)),
+                           plain_ms=float(np.mean(plain_ms)),
+                           library_ms=float(np.mean(lib_ms)),
+                           bound_ms=b_ms, bound_by=b_by)
+    print(f"[bgrid] kernel vs plain on config 7's five slices and two "
+          f"synthetic classes: max {err:.3g} mean {mean_err:.3g} (tol "
+          f"{BGRID_TOL:g}); grid_sample "
+          f"vs plain max {lib_err:.3g} of the largest value | ms "
+          f"kernel/plain/grid_sample/bound: {'; '.join(rows)} | "
+          f"{'; '.join(synth)}", flush=True)
+
+
+def run_config7(card, record, raw, raw_dev, meta, phases):
+    """Config 7's pipe at 24 MP against the composed twins, the grid slice
+    on the arguments the pipe hands it, then the pipe's timing."""
+    pipe = port.compile_pipeline(meta, configs.history(7))
+    stages = [s.name for s in pipe.pipe.stages]
+    expect(stages == STAGES7, f"unexpected config-7 plan {stages}")
+    expect(pipe.fused_groups() == [["exposure", "colorin", "_convert"],
+                                   ["_convert", "filmicrgb", "_convert"],
+                                   ["_convert", "colorout"]],
+           f"unexpected chains {pipe.fused_groups()}")
+    expect(raw.shape == pipe.pipe.spec_in.array_shape, "raw needs padding")
+
+    # -- config 7 through the user's entry point, launches counted
+    with timed(phases, "pipe7 vs plain"):
+        reset_launches()
+        out = pipe.output_array(raw)
+        launches = read_launches()
+        expect(launches == LAUNCHES7, f"config-7 launches {launches}")
+        expect(out.shape == (3, H, W), f"output shape {out.shape}")
+        expect(bool(np.isfinite(out).all()) and out.min() >= 0.0
+               and out.max() <= 1.0, "output not finite or outside [0, 1]")
+        reset_launches()
+        with plain_twins():
+            plain = pipe.output_array(raw)
+        expect(all(v == 0 for v in read_launches().values()),
+               f"the plain composition launched kernels: {read_launches()}")
+        pipe_err = float(np.abs(out - plain).max())
+        expect(pipe_err <= PIPE_TOL, f"config 7 vs plain: max {pipe_err}")
+        # the chain kernel kept: its Lab conversions round an ulp away
+        # from its twin's ([reuse3]), the rest of the path should not
+        reset_launches()
+        with plain_twins(keep=(pw,)):
+            plain = pipe.output_array(raw)
+        expect(read_launches() == dict(NO_LAUNCHES, chain=3),
+               f"the plain composition launched {read_launches()}")
+        rest_err = float(np.abs(out - plain).max())
+        expect(rest_err <= PIPE7_REST_TOL,
+               f"config 7 vs plain, chain kernel kept: max {rest_err}")
+        del plain
+    with timed(phases, "capture7"):
+        calls = captured7(pipe, raw_dev)
+    with timed(phases, "bgrid"):
+        check_bgrid(calls, record)
+    del calls
+    with timed(phases, "pipe7 timing"):
+        per_img = time_pipe(pipe, raw_dev, PIPE7_REPEATS)
+    print(f"[pipe7] config 7 {H}x{W}: {len(stages)} stages, chains "
+          f"{pipe.fused_groups()}, launches {launches}, vs plain max "
+          f"{pipe_err:.3g} (tol 1/255; with the chain kernel kept, max "
+          f"{rest_err:.3g}, tol {PIPE7_REST_TOL:g}), range [{out.min():.3g}, {out.max():.3g}] | "
+          f"{1.0 / per_img:.2f} img/s, {per_img * 1e3:.2f} ms/img "
+          f"(device-resident input, {PIPE7_REPEATS} repeats) on {card}",
+          flush=True)
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
@@ -875,6 +1068,7 @@ def main():
             png1 = run_config1(card, record, raw, raw_dev, meta, pool)
         launches = run_config2(card, record, raw, raw_dev, meta, pool,
                                phases, [png1])
+        launches7 = run_config7(card, record, raw, raw_dev, meta, phases)
         del raw_dev
         with timed(phases, "mosaic3 wait"):
             raw3, meta3, _ = synth3.result()
@@ -885,10 +1079,10 @@ def main():
         launches4 = run_config4(card, record, raw4, meta4, phases)
     # launches per image: config 2's for the first five kernels, config
     # 3's for the IIR and diffuse kernels, config 4's for Markesteijn and
-    # the warp
+    # the warp, config 7's for the grid slice
     launches.update(iir=launches3["iir"], diffuse=launches3["diffuse"],
                     markesteijn=launches4["markesteijn"],
-                    warp=launches4["warp"])
+                    warp=launches4["warp"], bgrid=launches7["bgrid"])
     print(f"[done] total {time.perf_counter() - t0:.1f} s | "
           + ", ".join(f"{k} {v:.1f} s" for k, v in phases.items()),
           flush=True)
@@ -910,6 +1104,8 @@ def main():
                         "ansel_tpu/kernels/markesteijn_pallas.py:372"),
         "warp": ("lens_warp", "warp.cu",
                  "ansel_tpu/kernels/warp_pallas.py:121"),
+        "bgrid": ("slice_grid", "bgrid.cu",
+                  "ansel_tpu/kernels/bgrid_pallas.py:92"),
     }
     kernels = []
     for key, (name, src, replaces) in sources.items():

@@ -1,16 +1,18 @@
 #!/usr/bin/env python3
 """Where the time goes in the PyTorch/CUDA port's pipe, on one GPU.
 
-    python3 scripts/torch_profile.py [--config 1|2|3|4] [--images 3]
+    python3 scripts/torch_profile.py [--config 1|2|3|4|7] [--images 3]
 
-Plans bench config 1, 2 (4000 x 6016), 3 (5504 x 8256) or 4 (an X-Trans
-4000 x 6000 mosaic) through
+Plans bench config 1, 2 (4000 x 6016), 3 (5504 x 8256), 4 (an X-Trans
+4000 x 6000 mosaic) or the port's config 7 (the bilateral-grid stack,
+4000 x 6016) through
 `compile_pipeline`, warms up, then runs `run_padded` on a device-resident raw `--images`
 times without the profiler and `--images` times under torch.profiler.
 Prints one line per group of device kernels (ms per image and launches
-per image), the device busy share of the profiled loop (kernel time over
-wall time), the host's enqueue time per image and img/s of both loops,
-and the host's time in each step of one image.
+per image) and the `TOP` device kernels by name, the device busy share
+of the profiled loop (kernel time over wall time), the host's enqueue
+time per image and img/s of both loops, and for each step of one image
+the host's time and the device span between CUDA events around it.
 Needs a CUDA device.
 """
 
@@ -44,15 +46,20 @@ GROUPS = {
     "iir_lines": "IIR kernel", "blur_v": "diffuse kernels",
     "blur_h": "diffuse kernels", "pde": "diffuse kernels",
     r"mk_\w+(<\d>)?": "Markesteijn kernels", "lens_warp_kernel": "warp kernel",
+    "bgrid_slice_kernel": "bgrid kernel",
 }
+# device kernels listed by name, the slowest first
+TOP = 12
 
 
 def group_of(name):
     for key, group in GROUPS.items():
         if re.search(rf"(^|::|\s){key}\(", name):
             return group
-    if "gemm" in name.lower():
-        return "torch matmul (resize)"
+    if "gemm" in name.lower() or "gemv" in name.lower():
+        return "torch matmul (resize, grid splat)"
+    if "scatter" in name.lower():
+        return "torch scatter (grid splat)"
     if "reduce" in name.lower():
         return "torch reductions"
     return "torch elementwise, copies, pads"
@@ -92,14 +99,21 @@ def main():
     bare = time.perf_counter() - t
 
     # the host's time in each step of one image, nothing synchronised
-    # between steps: where the enqueue waits
-    p, cur, steps = pipe.pipe, raw_dev, []
+    # between steps (where the enqueue waits), and the device span of each
+    # step between CUDA events recorded around it
+    p, cur, marks = pipe.pipe, raw_dev, []
     for step in pipe.steps:
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
         t = time.perf_counter()
+        a.record()
         cur = p.run_steps(cur, [step])
+        b.record()
         names = "+".join(s.name for s in p.stages[step[1]:step[2]])
-        steps.append(f"{names} {(time.perf_counter() - t) * 1e3:.1f}")
+        marks.append((names, time.perf_counter() - t, a, b))
     torch.cuda.synchronize()
+    steps = [f"{names} {host * 1e3:.1f}/{a.elapsed_time(b):.2f}"
+             for names, host, a, b in marks]
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
             as prof:
@@ -110,7 +124,7 @@ def main():
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
 
-    ms, count = defaultdict(float), defaultdict(int)
+    ms, count, by_name = defaultdict(float), defaultdict(int), {}
     for ev in prof.key_averages():
         dev_us = getattr(ev, "device_time_total", None)
         if dev_us is None:
@@ -120,12 +134,18 @@ def main():
         g = group_of(ev.key)
         ms[g] += dev_us / 1e3 / n
         count[g] += ev.count / n
+        by_name[ev.key] = (dev_us / 1e3 / n, ev.count / n)
     busy = sum(ms.values()) * n / 1e3 / wall
     print(f"[card] {card} | config {args.config} {H}x{W}, {n} images, "
           f"plan {plan_s:.2f} s", flush=True)
     for g in sorted(ms, key=ms.get, reverse=True):
         print(f"[device] {g}: {ms[g]:.3f} ms/img, {count[g]:.0f} "
               f"launches/img", flush=True)
+    for name in sorted(by_name, key=lambda k: by_name[k][0],
+                       reverse=True)[:TOP]:
+        print(f"[kernel] {by_name[name][0]:.3f} ms/img, "
+              f"{by_name[name][1]:.0f} launches/img: {name[:140]}",
+              flush=True)
     print(f"[loop] under the profiler: {n / wall:.3f} img/s, "
           f"{wall / n * 1e3:.1f} ms/img wall, host enqueue "
           f"{enqueue / n * 1e3:.1f} ms/img, device busy {100 * busy:.1f}%",
@@ -133,8 +153,8 @@ def main():
     print(f"[bare] the same loop before it, without the profiler: "
           f"{n / bare:.3f} img/s, {bare / n * 1e3:.1f} ms/img wall, host "
           f"enqueue {bare_enqueue / n * 1e3:.1f} ms/img", flush=True)
-    print(f"[steps] host ms per step of one image: {'; '.join(steps)}",
-          flush=True)
+    print(f"[steps] host ms / device span ms per step of one image: "
+          f"{'; '.join(steps)}", flush=True)
 
 
 if __name__ == "__main__":

@@ -97,8 +97,22 @@ def test_bilat_matches_reference(params):
 
 
 def test_bilateral_grid_is_refused_at_plan_time():
-    with pytest.raises(NotImplementedError):
-        _pair(dict(mode=port_bilat.MODE_BILATERAL))
+    """Mode 0, the bilateral grid, is no longer refused: it plans as the
+    reference does and matches it (the grid on L with the detail slicing,
+    a and b untouched)."""
+    (rop, rctx, rplan), (pop, pctx, pplan) = _pair(dict(
+        mode=port_bilat.MODE_BILATERAL, sigma_r=20.0, sigma_s=50.0,
+        detail=0.25))
+    assert pplan.static == rplan.static
+    rng = np.random.default_rng(10)
+    lab = np.stack([100.0 * _luminance(48, 72, 3),
+                    rng.uniform(-30, 30, (48, 72)),
+                    rng.uniform(-30, 30, (48, 72))]).astype(np.float32)
+    want = np.asarray(rop.apply(jnp.asarray(lab), None, rplan, rctx))
+    got = pop.apply(torch.from_numpy(lab), None, pplan, pctx).numpy()
+    assert np.abs(got - lab).max() > 0.1   # it changed L
+    assert np.array_equal(got[1:], lab[1:])
+    assert np.abs(got - want).max() <= BILAT_TOL
 
 
 @pytest.mark.parametrize("version,raw", [

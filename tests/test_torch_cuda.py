@@ -13,11 +13,13 @@ import pytest
 import torch
 
 import ansel_tpu_torch as port
-from ansel_tpu_torch.core.types import CFAPattern, Colorspace
+from ansel_tpu_torch.core.params import params_class
+from ansel_tpu_torch.core.types import (CFAPattern, Colorspace, ImageSpec,
+                                        RawMeta)
 from ansel_tpu_torch.io import configs
 from ansel_tpu_torch.io.synthetic import synth_raw
-from ansel_tpu_torch.kernels import (diffuse, eaw, iir, markesteijn, nlm,
-                                     sepblur, warp)
+from ansel_tpu_torch.kernels import (bgrid, diffuse, eaw, iir, markesteijn,
+                                     nlm, sepblur, warp)
 from ansel_tpu_torch.kernels import pointwise as pw
 from ansel_tpu_torch.kernels import rcd
 from ansel_tpu_torch.pixel.blur import _deriche_coeffs
@@ -459,3 +461,111 @@ def test_config4_pipe_on_cuda_matches_cpu(cuda):
     assert [m.LAUNCHES for m in mods] == [0, 1, 1, 1, 0, 0, 0, 0, 0]
     want = port.compile_pipeline(meta, hist, device="cpu").output_array(raw)
     assert np.abs(got - want).max() <= 1.0 / 255.0
+
+
+def _grid_case(D, C, ss, seed):
+    """A random (D, C, gh, gw) grid and its z over a ragged frame near
+    137 x 401 (no multiple of the kernel's 8 x 32 block), with z exactly
+    at 0, at D - 1 and at integers in places."""
+    gh, gw = 137 // ss + 1, 401 // ss + 1
+    rng = np.random.default_rng(seed)
+    G = (rng.random((D, C, gh, gw)) * 2.0 - 0.5).astype(np.float32)
+    z = (rng.random((gh * ss, gw * ss)) * (D - 1)).astype(np.float32)
+    z[0, :5], z[1, :5] = 0.0, D - 1
+    z[2, :9] = np.arange(9) % D
+    return G, z
+
+
+@pytest.mark.parametrize("D", [4, 6, 32])
+@pytest.mark.parametrize("C", [1, 3])
+@pytest.mark.parametrize("ss", [1, 10, 15, 50, 100])
+def test_bgrid_kernel_matches_plain(cuda, ss, C, D):
+    G, z = _grid_case(D, C, ss, seed=ss * 100 + D * 3 + C)
+    g, zz = torch.from_numpy(G).to(cuda), torch.from_numpy(z).to(cuda)
+    before = bgrid.LAUNCHES
+    got = bgrid.slice_grid(g, zz, ss)
+    assert bgrid.LAUNCHES == before + 1
+    want = bgrid.slice_grid_reference(g, zz, ss)
+    torch.cuda.synchronize()
+    assert got.shape == (C, G.shape[2] * ss, G.shape[3] * ss)
+    # the same float32 operations in the same order: bit for bit
+    assert torch.equal(got, want)
+
+
+def test_bgrid_kernel_refuses_bad_input(cuda):
+    g = torch.zeros((4, 1, 3, 5), device=cuda)
+    z = torch.zeros((30, 50), device=cuda)
+    bgrid.slice_grid(g, z, 10)
+    with pytest.raises(ValueError):
+        bgrid.slice_grid(g.double(), z, 10)
+    with pytest.raises(ValueError):
+        bgrid.slice_grid(g, z.double(), 10)
+    with pytest.raises(ValueError):
+        bgrid.slice_grid(g.transpose(2, 3).contiguous().transpose(2, 3), z,
+                         10)
+    with pytest.raises(ValueError):
+        bgrid.slice_grid(g, torch.zeros((50, 30), device=cuda).t(), 10)
+    with pytest.raises(ValueError):
+        bgrid.slice_grid(g, z[:, :40], 10)
+    with pytest.raises(ValueError):
+        bgrid.slice_grid(g, z.cpu(), 10)
+
+
+def test_config7_pipe_on_cuda_matches_cpu(cuda):
+    raw, meta, _ = synth_raw(h=160, w=240, kind="gradients")
+    hist = configs.history(7)
+    on_card = port.compile_pipeline(meta, hist)
+    mods = (rcd, pw, sepblur, bgrid, eaw, nlm, iir, diffuse, markesteijn,
+            warp)
+    for mod in mods:
+        mod.LAUNCHES = 0
+    got = on_card.output_array(raw)
+    assert [m.LAUNCHES for m in mods] == [1, 3, 1, 5, 0, 0, 0, 0, 0, 0]
+    want = port.compile_pipeline(meta, hist, device="cpu").output_array(raw)
+    assert np.abs(got - want).max() <= 1.0 / 255.0
+
+
+# the grid and blur-family ops off config 7's path: (op, params,
+# input colorspace)
+GRID_OPS = [
+    ("lowpass", {}, "LAB"),
+    ("lowpass", {"lowpass_algo": 1, "radius": 30.0}, "LAB"),
+    ("shadhi", {}, "LAB"),
+    ("sharpen", {"radius": 12.0}, "LAB"),
+    ("highpass", {}, "LAB"),
+    ("monochrome", {"a": 10.0, "size": 0.5}, "LAB"),
+    ("colorreconstruct", {"threshold": 60.0, "precedence": 2}, "LAB"),
+    ("soften", {}, "WORK_RGB"),
+    ("bilat", {"mode": 0, "sigma_s": 8.0, "sigma_r": 10.0}, "LAB"),
+]
+
+
+@pytest.mark.parametrize("name,params,cs", GRID_OPS,
+                         ids=[f"{n}-{i}" for i, (n, _, _) in
+                              enumerate(GRID_OPS)])
+def test_grid_and_blur_ops_on_cuda_match_cpu(cuda, name, params, cs):
+    """Each op on the card (through the sepblur, IIR and grid kernels)
+    against the same op on the CPU (their twins)."""
+    from ansel_tpu_torch.ops.base import PlanContext, get_op
+
+    h, w = 400, 600
+    rng = np.random.default_rng(3)
+    if cs == "LAB":
+        x = np.stack([rng.uniform(0, 100, (h, w)),
+                      rng.uniform(-40, 40, (h, w)),
+                      rng.uniform(-40, 40, (h, w))]).astype(np.float32)
+    else:
+        x = rng.uniform(0, 1, (3, h, w)).astype(np.float32)
+    op = get_op(name)
+    p = params_class(name)(**params)
+    ctx = PlanContext(meta=RawMeta(width=w, height=h))
+    plan = op.plan(ctx, ImageSpec(width=w, height=h,
+                                  colorspace=getattr(Colorspace, cs)), p)
+    co = op.coeffs(ctx, plan, p)
+    outs = []
+    for dev in (cuda, torch.device("cpu")):
+        c = engine.coeffs_to_device([co], dev)[0]
+        outs.append(op.apply(torch.from_numpy(x).to(dev), c, plan, ctx).cpu())
+    torch.cuda.synchronize()
+    scale = max(1.0, outs[1].abs().max().item())
+    assert (outs[0] - outs[1]).abs().max().item() <= 1e-4 * scale

@@ -184,7 +184,9 @@ def _xtrans(meta):
     ([("colorbalancergb", {})], None, {}),                   # not ported
     ([("denoiseprofile", {})], None, {}),          # automatic noise profile
     ([("diffuse", {"radius": 12})], None, {}),     # 6 wavelet scales
-    ([("bilat", {"mode": 0})], None, {}),          # bilateral grid
+    # bilat's grid (mode 0) is ported: this case holds bloom, a
+    # blur-family op that is not
+    ([("bloom", {})], None, {}),
     ([("demosaic", {"demosaicing_method": 0x3001})], _xtrans, {}),  # dual
     ([("demosaic", {"color_smoothing": 2})], _xtrans, {}),
     ([("highlights", {"mode": 3})], _xtrans, {}),  # Laplacian on X-Trans
