@@ -31,6 +31,15 @@ MAX_SCALES = 5
 ISO = 0          # isotropy modes: ISO_ISOTROPE, ISO_ISOPHOTE, ISO_GRADIENT
 FLT_MIN = 1e-8
 
+# launch geometry of csrc/diffuse.cu, which checks every planned size
+# against its own: the output tile of a block, the shared memory a block
+# may have on sm_90, and the fine scales that share one launch of each
+# kind (reach 2 (1 + 2 + 4) = 14 px in the decompose, 7 px in the PDE)
+TILE_H, TILE_W = 32, 64
+MAX_SMEM = 232448
+FUSED_SCALES = 3
+DECOMPOSE, PDE = 0, 1
+
 # launches of the CUDA kernel since the count was last set to 0
 LAUNCHES = 0
 
@@ -161,6 +170,50 @@ def diffuse_iteration_reference(x: torch.Tensor, c, scales: int,
     return buf[:, m:m + h, m:m + w].contiguous()
 
 
+def decompose_smem(first: int, count: int) -> int:
+    """Shared bytes of a decompose launch over scales first .. first +
+    count - 1: the staged input with the group's reach, its vertical pass
+    and, if more than one scale, the next scale's input."""
+    halo = 2 * ((1 << (first + count)) - (1 << first))
+    after = halo - (2 << first)
+    width = TILE_W + 2 * halo
+    n = (TILE_H + 2 * halo) * width + (TILE_H + 2 * after) * width
+    if count > 1:
+        n += (TILE_H + 2 * after) * (TILE_W + 2 * after)
+    return 4 * n
+
+
+def pde_smem(first: int, last: int) -> int:
+    """Shared bytes of a PDE launch over scales first down to last: the
+    LF input and each HF_s with the halo 2^(s+1) - 2^last, the second LF
+    buffer, and the energy operand q over the input."""
+    lo = 1 << last
+
+    def area(e):
+        return (TILE_H + 2 * e) * (TILE_W + 2 * e)
+
+    n = 2 * area((2 << first) - lo)
+    n += sum(area((2 << s) - lo) for s in range(last, first + 1))
+    if first > last:
+        n += area((1 << first) - lo)
+    return 4 * n
+
+
+def launch_plan(scales: int):
+    """The iteration's launches as rows (kind, first scale, scale count,
+    shared bytes): the decompose groups from scale 0 up, then the PDE
+    groups from the coarsest scale down to 0 (scales first .. first -
+    count + 1).  The scales below FUSED_SCALES share one launch of each
+    kind; each coarser scale runs alone."""
+    fine = min(scales, FUSED_SCALES)
+    rows = [(DECOMPOSE, 0, fine)]
+    rows += [(DECOMPOSE, s, 1) for s in range(fine, scales)]
+    rows += [(PDE, s, 1) for s in range(scales - 1, fine - 1, -1)]
+    rows.append((PDE, fine - 1, fine))
+    return [(kind, s, n, decompose_smem(s, n) if kind == DECOMPOSE
+             else pde_smem(s, s - n + 1)) for kind, s, n in rows]
+
+
 def _lib():
     from . import _build
 
@@ -168,8 +221,15 @@ def _lib():
     if not getattr(lib, "_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.diffuse_iteration.argtypes = [p, p, p, p, p, p, p, i, i, i, i,
-                                          p]
+                                          i, p]
         lib.diffuse_iteration.restype = ctypes.c_int
+        lib.diffuse_limits.argtypes = [p, p, p]
+        lib.diffuse_limits.restype = None
+        got = [ctypes.c_int() for _ in range(3)]
+        lib.diffuse_limits(*[ctypes.byref(v) for v in got])
+        if [v.value for v in got] != [TILE_H, TILE_W, MAX_SMEM]:
+            raise RuntimeError("csrc/diffuse.cu and kernels/diffuse.py "
+                               "disagree on the tile or shared memory")
         lib._typed = True
     return lib
 
@@ -213,17 +273,19 @@ def diffuse_iteration(x: torch.Tensor, c, scales: int, modes) -> torch.Tensor:
     _, h, w = x.shape
     m = halo(scales)
     hp, wp = h + 2 * m, w + 2 * m
-    tmp = torch.empty((3, hp, wp), dtype=x.dtype, device=x.device)
     lf = torch.empty((2, 3, hp, wp), dtype=x.dtype, device=x.device)
     hf = torch.empty((scales, 3, hp, wp), dtype=x.dtype, device=x.device)
     out = torch.empty_like(x)
     host_modes = (ctypes.c_int * 4)(*modes)
+    plan = launch_plan(scales)
+    host_plan = (ctypes.c_int * (4 * len(plan)))(*[v for row in plan
+                                                   for v in row])
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.diffuse_iteration(
-            x.data_ptr(), out.data_ptr(), tmp.data_ptr(), lf.data_ptr(),
-            hf.data_ptr(), consts.data_ptr(), host_modes, h, w, scales, m,
-            stream)
+            x.data_ptr(), out.data_ptr(), lf.data_ptr(), hf.data_ptr(),
+            consts.data_ptr(), host_modes, host_plan, len(plan), h, w,
+            scales, m, stream)
     if rc != 0:
         raise RuntimeError(f"diffuse: CUDA launch failed ({rc})")
     LAUNCHES += 1

@@ -31,8 +31,15 @@ import torch
 from ..pixel.fastmath import dt_fast_mexp2f
 from ..pixel.shifts import pad2d
 
-MAX_P = 8           # keep in step with csrc/nlm.cu
+MAX_P = 8           # keep in step with csrc/nlm.cu, which checks them
 MAX_OFFSETS = 900
+# the kernel's tile: 32 rows, and WARPS_X warps across, each 32 - 2P
+# columns wide; a float4 per staged pixel; the shared memory a block may
+# have on sm_90, and the most the resident path takes (two blocks per SM)
+TILE_H, WARPS_X = 32, 2
+PIXEL_BYTES = 16
+MAX_SMEM = 232448
+RESIDENT_MAX = MAX_SMEM // 2
 
 # launches of the CUDA kernel since the count was last set to 0
 LAUNCHES = 0
@@ -80,6 +87,22 @@ def nlm_reference(img: torch.Tensor, offsets, P: int, norm, sharpness,
     return acc * (1.0 / torch.clamp(wsum, min=1e-12))
 
 
+def tile_w(P: int) -> int:
+    return WARPS_X * (32 - 2 * P)
+
+
+def plan(P: int, reach: int):
+    """(resident, shared bytes) of the kernel's launch: the whole search
+    window (the tile plus a ring of reach + P) stays in shared memory when
+    it takes at most RESIDENT_MAX bytes; otherwise the block streams the
+    shifted tile and ring per offset through two buffers."""
+    q = P + reach
+    window = (TILE_H + 2 * q) * (tile_w(P) + 2 * q) * PIXEL_BYTES
+    if window <= RESIDENT_MAX:
+        return True, window
+    return False, 2 * (TILE_H + 2 * P) * (tile_w(P) + 2 * P) * PIXEL_BYTES
+
+
 def _pack(dy: int, dx: int) -> int:
     """(dy, dx) as two int16 in one signed int32, dy in the high half."""
     v = ((dy & 0xFFFF) << 16) | (dx & 0xFFFF)
@@ -92,15 +115,17 @@ def _lib():
     lib = _build.load("nlm")
     if not getattr(lib, "_typed", False):
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.nlm.argtypes = [p, p, i, i, p, i, i, f, f, f, p, f, f, i, p]
+        lib.nlm.argtypes = [p, p, i, i, p, i, i, f, f, f, p, f, f, i, i, i,
+                            p]
         lib.nlm.restype = ctypes.c_int
-        lib.nlm_limits.argtypes = [p, p]
+        lib.nlm_limits.argtypes = [p] * 5
         lib.nlm_limits.restype = None
-        max_p, max_off = ctypes.c_int(), ctypes.c_int()
-        lib.nlm_limits(ctypes.byref(max_p), ctypes.byref(max_off))
-        if (max_p.value, max_off.value) != (MAX_P, MAX_OFFSETS):
+        got = [ctypes.c_int() for _ in range(5)]
+        lib.nlm_limits(*[ctypes.byref(v) for v in got])
+        if [v.value for v in got] != [MAX_P, MAX_OFFSETS, TILE_H, WARPS_X,
+                                      MAX_SMEM]:
             raise RuntimeError("csrc/nlm.cu and kernels/nlm.py disagree on "
-                               "MAX_P / MAX_OFFSETS")
+                               "MAX_P, MAX_OFFSETS or the tile")
         lib._typed = True
     return lib
 
@@ -141,11 +166,13 @@ def nlm(img: torch.Tensor, offsets, P: int, norm, sharpness, cp_norm: float,
     out = torch.empty_like(img)
     packed = (ctypes.c_int * len(offsets))(*[_pack(a, b) for a, b in offsets])
     n0, n1, n2 = (float(v) for v in norm)
+    resident, smem = plan(P, _reach(offsets))
     with torch.cuda.device(img.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.nlm(img.data_ptr(), out.data_ptr(), h, w, packed,
                      len(offsets), P, n0, n1, n2, sharp.data_ptr(),
-                     float(cp_norm), float(inv1cw), variant, stream)
+                     float(cp_norm), float(inv1cw), variant, int(resident),
+                     smem, stream)
     if rc != 0:
         raise RuntimeError(f"nlm: CUDA launch failed ({rc})")
     LAUNCHES += 1

@@ -20,8 +20,11 @@ import torch
 
 from ..pixel.shifts import PaddedView
 
-MAX_TAPS = 513    # keep in step with csrc/sepblur.cu
-MAX_REACH = 256   # r * d
+MAX_TAPS = 513    # keep in step with csrc/sepblur.cu, which checks them
+# a block's TILE_H rows x TILE_W columns; the shared memory a block may
+# have on sm_90
+TILE_W, TILE_H = 128, 8
+MAX_SMEM = 232448
 
 # launches of the CUDA kernel since the count was last set to 0
 LAUNCHES = 0
@@ -46,19 +49,31 @@ def sep_blur_reference(x: torch.Tensor, taps,
     return out
 
 
+def plan(n: int, dilation: int):
+    """(gather, shared bytes) of the kernel's launch for n taps: below
+    a dilation of TILE_W the strip of V is contiguous, TILE_W + (n - 1) d
+    columns; from TILE_W on it holds only the n groups of TILE_W columns
+    that the taps read."""
+    gather = dilation >= TILE_W
+    cols = n * TILE_W if gather else TILE_W + (n - 1) * dilation
+    return gather, 4 * TILE_H * cols
+
+
 def _lib():
     from . import _build
 
     lib = _build.load("sepblur")
     if not getattr(lib, "_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.sep_blur.argtypes = [p, p, i, i, i, p, i, i, p]
+        lib.sep_blur.argtypes = [p, p, i, i, i, p, i, i, i, i, p]
         lib.sep_blur.restype = ctypes.c_int
-        lib.sep_blur_max_taps.argtypes = []
-        lib.sep_blur_max_taps.restype = ctypes.c_int
-        if lib.sep_blur_max_taps() != MAX_TAPS:
+        lib.sep_blur_limits.argtypes = [p] * 4
+        lib.sep_blur_limits.restype = None
+        got = [ctypes.c_int() for _ in range(4)]
+        lib.sep_blur_limits(*[ctypes.byref(v) for v in got])
+        if [v.value for v in got] != [MAX_TAPS, TILE_W, TILE_H, MAX_SMEM]:
             raise RuntimeError("csrc/sepblur.cu and kernels/sepblur.py "
-                               "disagree on MAX_TAPS")
+                               "disagree on MAX_TAPS or the tile")
         lib._typed = True
     return lib
 
@@ -76,13 +91,15 @@ def sep_blur(x: torch.Tensor, taps, dilation: int = 1) -> torch.Tensor:
         raise ValueError("sep_blur: needs a contiguous non-empty 2-D or 3-D "
                          f"float32 tensor, got {x.dtype} {tuple(x.shape)}")
     taps = [float(t) for t in taps]
-    r = (len(taps) - 1) // 2
-    if len(taps) % 2 != 1 or len(taps) > MAX_TAPS:
-        raise ValueError(f"sep_blur: needs an odd tap count <= {MAX_TAPS}, "
-                         f"got {len(taps)}")
-    if dilation < 1 or r * dilation > MAX_REACH:
-        raise ValueError(f"sep_blur: reach r*d = {r}*{dilation} outside "
-                         f"[0, {MAX_REACH}]")
+    if len(taps) % 2 != 1 or len(taps) > MAX_TAPS or dilation < 1:
+        raise ValueError(f"sep_blur: needs an odd tap count <= {MAX_TAPS} "
+                         f"and a dilation >= 1, got {len(taps)} taps at "
+                         f"{dilation}")
+    gather, smem = plan(len(taps), dilation)
+    if smem > MAX_SMEM:
+        raise ValueError(f"sep_blur: {len(taps)} taps at dilation "
+                         f"{dilation} need {smem} B of shared memory per "
+                         f"block, over {MAX_SMEM}")
     global LAUNCHES
     lib = _lib()
     c = 1 if x.dim() == 2 else x.shape[0]
@@ -92,7 +109,8 @@ def sep_blur(x: torch.Tensor, taps, dilation: int = 1) -> torch.Tensor:
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.sep_blur(x.data_ptr(), out.data_ptr(), c, h, w,
-                          host_taps, len(taps), dilation, stream)
+                          host_taps, len(taps), dilation, int(gather), smem,
+                          stream)
     if rc != 0:
         raise RuntimeError(f"sep_blur: CUDA launch failed ({rc})")
     LAUNCHES += 1

@@ -91,13 +91,17 @@ class Op:
 
     def roi_in(self, plan: OpPlan, ctx: PlanContext, win):
         """Input window (y0, x0, h, w) of spec_in needed for output window
-        `win`; None demands the whole frame."""
+        `win`; None demands the whole frame.  Declared stencils
+        (window_halo) and pointwise stages that take no pixel position
+        window; anything else is a full-frame boundary."""
         si, so = plan.spec_in, plan.spec_out
         if tuple(win) == (0, 0, so.height, so.width):
             return (0, 0, si.height, si.width)
         halo = self.window_halo
-        if halo is None and self.pointwise_spec(plan, ctx) is not None:
-            halo = 0
+        if halo is None:
+            pw = self.pointwise_spec(plan, ctx)
+            if pw is not None and not pw.needs_pos:
+                halo = 0
         if halo is None:
             return None
         if (si.height, si.width) != (so.height, so.width):
@@ -120,13 +124,17 @@ class PointwiseSpec:
     consts: names of coefficient entries the kernel reads, in order, each
       flattened row-major to float32.
     extra: host constants the kernel reads after them (matrices baked in
-      at plan time, float64 folds the reference computes in Python)."""
+      at plan time, float64 folds the reference computes in Python).
+    needs_pos: the stage reads each pixel's absolute position, so it is
+      a full-frame boundary of the ROI walk and the chain kernel, which
+      has no positions yet, does not take it."""
 
     fn: Any
     opcode: int
     consts: tuple = ()
     ints: tuple = ()
     extra: tuple = ()
+    needs_pos: bool = False
 
 
 _OPS: Dict[str, Op] = {}

@@ -372,6 +372,17 @@ class Pipeline:
         return (s.plan.spec_in.array_shape == s.plan.spec_out.array_shape
                 and len(s.plan.spec_in.array_shape) == 3)
 
+    def _chain_spec(self, s: PlannedOp):
+        """The stage's PointwiseSpec if the chain kernel can run it, else
+        None; a pointwise stage that reads pixel positions is refused."""
+        if not self._fusable(s):
+            return None
+        spec = s.op.pointwise_spec(s.plan, self.ctx)
+        if spec is not None and spec.needs_pos:
+            raise not_ported(s.name, "a pointwise stage that reads pixel "
+                             "positions (the chain kernel's with_pos)")
+        return spec
+
     def schedule(self, coeffs, start: int = 0, end: Optional[int] = None):
         """Stages [start, end) as run steps, given their device coefficients:
         ("stage", i, i + 1, c) runs one op; ("chain", i, j, Chain) runs
@@ -380,19 +391,15 @@ class Pipeline:
         steps = []
         i = start
         while i < end:
-            s = self.stages[i]
-            spec = (s.op.pointwise_spec(s.plan, self.ctx)
-                    if self._fusable(s) else None)
+            spec = self._chain_spec(self.stages[i])
             if spec is None:
                 steps.append(("stage", i, i + 1, coeffs[i - start]))
                 i += 1
                 continue
             specs = [spec]
             j = i + 1
-            while (j < end and len(specs) < pw.MAX_STAGES
-                   and self._fusable(self.stages[j])):
-                sp = self.stages[j].op.pointwise_spec(self.stages[j].plan,
-                                                      self.ctx)
+            while j < end and len(specs) < pw.MAX_STAGES:
+                sp = self._chain_spec(self.stages[j])
                 if sp is None:
                     break
                 specs.append(sp)

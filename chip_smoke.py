@@ -52,6 +52,7 @@ from ansel_tpu_torch.kernels import (_build, bgrid, diffuse, eaw, iir,
                                      markesteijn, nlm, rcd, sepblur, warp)
 from ansel_tpu_torch.kernels import pointwise as pw
 from ansel_tpu_torch.ops.base import pad_to
+from ansel_tpu_torch.pixel.nlmeans import search_offsets
 
 H, W = configs.BENCH_H, configs.BENCH_W
 H3, W3 = configs.BENCH3_H, configs.BENCH3_W
@@ -99,7 +100,8 @@ FLOPS_RCD = 330
 FLOPS_CHAIN = 400
 FLOPS_SEPBLUR_PER_TAP = 4        # two passes, a multiply and an add each
 FLOPS_EAW = 25 * 24 + 10         # 25 taps; the divide and the detail
-FLOPS_NLM_PER_OFFSET = 35        # d2 11, box sum 8, weight 9, sums 7
+FLOPS_NLM_PER_OFFSET = 31        # d2 11, box sum 4 (the column sums
+                                 # shared), weight 9, sums 7
 FLOPS_IIR = 30                   # per value: 15 per axis, both recursions
 # diffuse, per channel-pixel and scale: the B3 decompose (two 5-tap
 # passes and HF) and the isotropic PDE step (q 6, box 4, energy 6,
@@ -441,6 +443,13 @@ def check_sepblur(inputs, record):
     finally:
         torch.backends.cudnn.allow_tf32 = prev
     x, taps, _ = inputs[0][1][1]
+    # reach 1024, the highlights Laplacian's widest (scales 12: 5 taps at
+    # d = 512), on the gathered strip
+    far = sepblur.sep_blur(x, taps, 512)
+    far_err, _ = compare(far, sepblur.sep_blur_reference(x, taps, 512))
+    expect(far_err <= STENCIL_TOL, f"sepblur d=512: max {far_err}")
+    err = max(err, far_err)
+    far_ms = median_ms(lambda: sepblur.sep_blur(x, taps, 512))
     b_ms, b_by = bound(2 * nbytes(x),
                        FLOPS_SEPBLUR_PER_TAP * len(taps) * x.numel())
     record["sepblur"] = dict(max_abs_err=err, ms=float(np.mean(ms)),
@@ -448,9 +457,11 @@ def check_sepblur(inputs, record):
                              library_ms=float(np.mean(lib_ms)),
                              bound_ms=b_ms, bound_by=b_by)
     print(f"[sepblur] {tuple(x.shape)} B3 kernel vs plain on clean and "
-          f"noisy stacks: max {err:.3g} (tol {STENCIL_TOL:g}); conv2d vs plain "
-          f"max {lib_err:.3g} | ms kernel/plain/conv2d: {', '.join(rows)} | "
-          f"bound {b_ms:.4f} ms ({b_by})", flush=True)
+          f"noisy stacks, and at d=512 (reach 1024, gathered strip, max "
+          f"{far_err:.3g}, {far_ms:.4f} ms): max {err:.3g} (tol "
+          f"{STENCIL_TOL:g}); conv2d vs plain max {lib_err:.3g} | ms "
+          f"kernel/plain/conv2d: {', '.join(rows)} | bound {b_ms:.4f} ms "
+          f"({b_by})", flush=True)
 
 
 def check_eaw(inputs, record):
@@ -492,7 +503,10 @@ def check_eaw(inputs, record):
 
 
 def check_nlm(inputs, record):
-    """Config 2's NLM pass (variant 1) on its own input, and variant 0."""
+    """Config 2's NLM pass (variant 1) on its own input, and variant 0, on
+    the resident path; then the clean input through a scattered lattice
+    (K 7, scattering 1.0, variant 1), whose reach takes the streamed
+    path."""
     err = 0.0
     for label, calls in inputs:
         v, *args1 = calls[0]
@@ -506,14 +520,24 @@ def check_nlm(inputs, record):
             ms = median_ms(lambda: nlm.nlm(v, *args1))
             plain_ms = median_ms(lambda: nlm.nlm_reference(v, *args1),
                                  PLAIN_REPEATS)
+            far = (search_offsets(7, 1.0),) + tuple(args1[1:])
+            far_reach = nlm._reach(far[0])
+            expect(not nlm.plan(P, far_reach)[0], "scattered lattice resident")
+            far_err, _ = compare(nlm.nlm(v, *far), nlm.nlm_reference(v, *far))
+            expect(far_err <= STENCIL_TOL, f"nlm scattered: max {far_err}")
+            far_ms = median_ms(lambda: nlm.nlm(v, *far))
+    expect(nlm.plan(P, nlm._reach(offs))[0], "config 2's lattice streamed")
     b_ms, b_by = bound(2 * nbytes(v),
                        FLOPS_NLM_PER_OFFSET * len(offs) * v[0].numel())
     record["nlm"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                          library_ms=None, bound_ms=b_ms, bound_by=b_by)
     print(f"[nlm] {tuple(v.shape)} {len(offs)} offsets P={P}, variants 1 and "
-          f"0, kernel vs plain on clean and noisy: max {err:.3g} (tol "
-          f"{STENCIL_TOL:g}) | kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, "
-          f"bound {b_ms:.3f} ms ({b_by})", flush=True)
+          f"0, kernel (resident window) vs plain on clean and noisy: max "
+          f"{err:.3g} (tol {STENCIL_TOL:g}) | kernel {ms:.3f} ms, plain "
+          f"{plain_ms:.1f} ms, bound {b_ms:.3f} ms ({b_by}) | scattered "
+          f"lattice (K 7, scattering 1.0, {len(far[0])} offsets, reach "
+          f"{far_reach}, streamed): max {far_err:.3g}, kernel {far_ms:.3f} ms",
+          flush=True)
 
 
 def run_config2(card, record, raw, raw_dev, meta, pool, phases, pngs):

@@ -38,13 +38,13 @@ from ansel_tpu_torch.ops.base import pad_to  # noqa: E402
 
 # device kernel name -> group; anything else is a torch operation
 GROUPS = {
-    "sep_blur_kernel": "sepblur kernel", "eaw_kernel": "EAW kernel",
-    "nlm_kernel": "NLM kernel", "chain": "chain kernel",
+    r"sep_blur_kernel<\w+>": "sepblur kernel", "eaw_kernel": "EAW kernel",
+    r"nlm_kernel<\d+, \w+>": "NLM kernel", "chain": "chain kernel",
     "pad_normalize": "RCD kernels", "filters": "RCD kernels",
     "stats": "RCD kernels", "green": "RCD kernels",
     "chroma_rb": "RCD kernels", "finish": "RCD kernels",
-    "iir_lines": "IIR kernel", "blur_v": "diffuse kernels",
-    "blur_h": "diffuse kernels", "pde": "diffuse kernels",
+    "iir_lines": "IIR kernel", r"decompose<\d, \d>": "diffuse kernels",
+    r"pde_group<\d, \d, \w+>": "diffuse kernels",
     r"mk_\w+(<\d>)?": "Markesteijn kernels", "lens_warp_kernel": "warp kernel",
     "bgrid_slice_kernel": "bgrid kernel",
 }

@@ -20,6 +20,7 @@ from ansel_tpu_torch.io import configs
 from ansel_tpu_torch.io.synthetic import synth_raw
 from ansel_tpu_torch.kernels import (bgrid, diffuse, eaw, iir, markesteijn,
                                      nlm, sepblur, warp)
+from ansel_tpu_torch.kernels import highlights_laplacian as hl
 from ansel_tpu_torch.kernels import pointwise as pw
 from ansel_tpu_torch.kernels import rcd
 from ansel_tpu_torch.pixel.blur import _deriche_coeffs
@@ -36,7 +37,10 @@ CHAIN_MAX_TOL, CHAIN_MEAN_TOL = 1e-4, 1e-6
 # sepblur, EAW and NLM repeat their twins' float32 operations in the same
 # order, and the fast exponentials are bit tricks; values are below ~2.5.
 # The IIR and diffuse kernels too: their rsqrtf and expf are the calls
-# torch.rsqrt and torch.exp make on the card.
+# torch.rsqrt and torch.exp make on the card.  sepblur, NLM and the
+# isotropic diffuse iteration have no transcendental and equal their
+# twins bit for bit (max error 0); the anisotropic diffuse modes and the
+# rest are held to STENCIL_TOL.
 STENCIL_TOL = 1e-5
 # Markesteijn and the warp repeat their twins' float32 operations in the
 # same order with true divisions and no transcendental; a differing ulp
@@ -47,17 +51,17 @@ FRAMES = [(5, 7), (136, 400), (64, 1000)]
 B3 = (1 / 16, 4 / 16, 6 / 16, 4 / 16, 1 / 16)
 
 
-def _spacings(n, limit=1 << 30):
+def _spacings(n):
     """1, 2, 4, ... up to the first spacing whose B3 reach (2 x spacing)
-    passes n px, or the largest within `limit`."""
+    passes n px."""
     out = [1]
-    while 2 * out[-1] <= n and 4 * out[-1] <= limit:
+    while 2 * out[-1] <= n:
         out.append(2 * out[-1])
     return out
 
 
 SEP_CASES = [(hw, c, d) for hw in FRAMES for c in (None, 4)
-             for d in _spacings(max(hw), sepblur.MAX_REACH)]
+             for d in _spacings(max(hw))]
 EAW_CASES = [(hw, d.bit_length() - 1, v) for hw in FRAMES
              for v in ("dn", "atrous") for d in _spacings(max(hw))]
 
@@ -209,18 +213,35 @@ def test_sepblur_kernel_matches_plain(cuda, hw, c, d):
     assert sepblur.LAUNCHES == before + 1
     want = sepblur.sep_blur_reference(x, B3, d)
     torch.cuda.synchronize()
-    assert (got - want).abs().max().item() <= STENCIL_TOL
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("c", [None, 4])
+@pytest.mark.parametrize("d", [64, 127, 128, 256, 512])
+def test_sepblur_kernel_takes_every_reach(cuda, c, d):
+    """Reach 2d up to 1024, the highlights Laplacian's widest (5 taps at
+    d = 512), on both strip forms: contiguous below d = 128, gathered
+    from there on."""
+    x = _noisy((120, 1504) if c is None else (c, 120, 1504), d + 1, cuda)
+    before = sepblur.LAUNCHES
+    got = sepblur.sep_blur(x, B3, d)
+    assert sepblur.LAUNCHES == before + 1
+    want = sepblur.sep_blur_reference(x, B3, d)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
 
 
 def test_sepblur_kernel_long_taps_and_refusals(cuda):
     x = _noisy((3, 64, 1000), 7, cuda)
     taps = [0.05, -0.1, 0.2, 0.3, 0.2, -0.1, 0.05, 0.1, 0.3]
-    got = sepblur.sep_blur(x, taps, 9)
-    want = sepblur.sep_blur_reference(x, taps, 9)
-    torch.cuda.synchronize()
-    assert (got - want).abs().max().item() <= STENCIL_TOL
+    for d in (9, 200):
+        got = sepblur.sep_blur(x, taps, d)
+        want = sepblur.sep_blur_reference(x, taps, d)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
     with pytest.raises(ValueError):
-        sepblur.sep_blur(x, B3, 129)            # reach 258 > 256
+        # a 234 KB strip; no caller of the port asks for one
+        sepblur.sep_blur(x, [0.005] * 201, 36)
     with pytest.raises(ValueError):
         sepblur.sep_blur(x.double(), B3, 1)
     with pytest.raises(ValueError):
@@ -243,12 +264,17 @@ def test_eaw_kernel_matches_plain(cuda, hw, scale, variant):
         assert (g - w_).abs().max().item() <= STENCIL_TOL
 
 
-@pytest.mark.parametrize("hw", FRAMES)
+@pytest.mark.parametrize("hw", FRAMES + [(1, 300), (300, 1)])
 @pytest.mark.parametrize("variant,P,K,scattering", [
-    (1, 1, 7, 0.0), (0, 2, 3, 0.0), (1, 1, 4, 0.3)])
+    (1, 1, 7, 0.0), (0, 2, 3, 0.0), (1, 1, 4, 0.3), (1, 8, 2, 0.0),
+    (0, 8, 3, 0.0), (1, 1, 15, 0.0), (1, 1, 7, 1.0), (0, 3, 7, 1.0)])
 def test_nlm_kernel_matches_plain(cuda, hw, variant, P, K, scattering):
+    """Both paths: the resident search window, and the streamed one of a
+    scattered lattice (reach 86 at K 7); P up to 8; 900 offsets (the first
+    of K 15's 961)."""
     x = _noisy((3,) + hw, K, cuda)
-    offs = search_offsets(K, scattering)
+    offs = search_offsets(K, scattering)[:nlm.MAX_OFFSETS]
+    assert nlm.plan(P, nlm._reach(offs))[0] == (scattering < 1.0)
     if variant == 1:
         n = 2 * P + 1
         args = (torch.tensor(0.005, device=cuda), 0.1 * n * n, 1.0 / 1.1)
@@ -260,7 +286,26 @@ def test_nlm_kernel_matches_plain(cuda, hw, variant, P, K, scattering):
     want = nlm.nlm_reference(x, offs, P, (1.0, 0.5, 0.7), *args, variant)
     torch.cuda.synchronize()
     assert torch.isfinite(got).all()
-    assert (got - want).abs().max().item() <= STENCIL_TOL
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("scales", [11, 12])
+def test_laplacian_reconstruct_past_reach_256_on_cuda(cuda, scales):
+    """`scales` 11 and 12 blur at dilations up to 256 and 512 (reach 512
+    and 1024) through the sepblur kernel; the card matches the CPU within
+    the reconstruction's own tie tolerance (tests/test_torch_laplacian.py:
+    a guided fit whose channel variances tie picks its channel by
+    rounding, which moves a patch by up to 7.5e-4)."""
+    rng = np.random.default_rng(scales)
+    x = rng.uniform(0.05, 0.6, (72, 104)).astype(np.float32)
+    x[20:44, 30:70] = rng.uniform(0.9, 1.2, (24, 40)).astype(np.float32)
+    args = ([0.8, 0.85, 0.9], CFAPattern.RGGB, scales, 2, 0.0, 0.5)
+    sepblur.LAUNCHES = 0
+    got = hl.laplacian_reconstruct(torch.from_numpy(x).to(cuda), *args)
+    n = scales - 2          # the scales of a x4 downsampled pyramid
+    assert sepblur.LAUNCHES == 2 * 2 * n
+    want = hl.laplacian_reconstruct(torch.from_numpy(x), *args)
+    assert np.abs(got.cpu().numpy() - want.numpy()).max() <= 1e-3
 
 
 def test_config2_pipe_on_cuda_matches_cpu(cuda):
@@ -324,6 +369,11 @@ DIFFUSE_CASES = [((5, 7), 1, (0, 0, 0, 0)), ((5, 7), 3, (1, 2, 0, 1)),
                  ((37, 50), 2, (2, 0, 1, 0)), ((37, 50), 5, (0, 2, 2, 1)),
                  ((136, 400), 4, (1, 1, 2, 2)), ((136, 400), 5, (0, 0, 0, 0)),
                  ((64, 1000), 3, (2, 1, 0, 2)), ((1376, 2064), 5, (1, 0, 2, 0))]
+# for each S: a frame under the fused tiles' halo (14 px in the decompose,
+# 7 in the PDE) and one that no tile (32 x 64) divides, isotropic and not
+DIFFUSE_CASES += [(hw, s, modes) for s in range(1, 6)
+                  for hw in ((3, 4), (1, 9), (97, 131))
+                  for modes in ((0, 0, 0, 0), (1, 2, 2, 1))]
 
 
 @pytest.mark.parametrize("hw,scales,modes", DIFFUSE_CASES)
@@ -336,7 +386,10 @@ def test_diffuse_kernel_matches_plain(cuda, hw, scales, modes):
     want = diffuse.diffuse_iteration_reference(x, c, scales, modes)
     torch.cuda.synchronize()
     assert torch.isfinite(got).all()
-    assert (got - want).abs().max().item() <= STENCIL_TOL
+    if tuple(modes) == (0, 0, 0, 0):
+        assert torch.equal(got, want)       # no transcendental: bit for bit
+    else:
+        assert (got - want).abs().max().item() <= STENCIL_TOL
 
 
 def test_diffuse_kernel_refuses_bad_input(cuda):

@@ -54,6 +54,21 @@ def test_sepblur_twin_matches_pallas_full_frame(shape, taps, d):
     assert np.abs(got - ref).max() <= SEP_TOL
 
 
+@pytest.mark.parametrize("shape,d", [((2, 30, 700), 128), ((2, 30, 700), 256),
+                                     ((1100, 20), 256), ((3, 9, 1200), 512)])
+def test_sepblur_twin_matches_shifted_adds_past_reach_256(shape, d):
+    """Past a reach of 256 the JAX package takes the XLA shifted adds of
+    `pixel/shifts.sep_filter`, not its Pallas kernel: the twin (which the
+    kernel follows on the card at any reach) equals them there too."""
+    from ansel_tpu.pixel.shifts import sep_filter as ref_sep_filter
+
+    x = np.random.default_rng(d).random(shape).astype(np.float32)
+    ref = np.asarray(ref_sep_filter(jnp.asarray(x), B3, d))
+    got = sepblur.sep_blur_reference(torch.from_numpy(x), B3, d).numpy()
+    assert got.shape == ref.shape
+    assert np.abs(got - ref).max() <= SEP_TOL
+
+
 def test_sep_filter_routes_and_runs_the_plain_version_on_cpu():
     x = torch.from_numpy(np.random.default_rng(1).random((4, 20, 30))
                          .astype(np.float32))

@@ -95,6 +95,47 @@ def test_windowed_plan_equals_reference_and_crops_the_full_run():
     assert np.array_equal(got, full[:, y0:y0 + h, x0:x0 + w])
 
 
+def _positional_exposure(pkg, monkeypatch):
+    """Register, for this test only, an exposure whose pointwise spec
+    reads pixel positions (as vignette's and graduatednd's do)."""
+    base = pkg.ops.base
+    plain = base.get_op("exposure")
+
+    class Positional(type(plain)):
+        def pointwise_spec(self, plan, ctx):
+            return dataclasses.replace(super().pointwise_spec(plan, ctx),
+                                       needs_pos=True)
+
+    monkeypatch.setitem(base._OPS, "exposure", Positional())
+
+
+def test_positional_stage_is_a_full_frame_boundary(monkeypatch):
+    raw, meta, _ = synth_raw(h=144, w=400)
+    win = (24, 40, 64, 200)
+    _positional_exposure(ansel_tpu, monkeypatch)
+    _positional_exposure(ansel_tpu_torch, monkeypatch)
+    ref = ansel_tpu.Pipeline(meta, _hist(ansel_tpu, CONFIG1), out_window=win)
+    port = ansel_tpu_torch.Pipeline(meta, _hist(ansel_tpu_torch, CONFIG1),
+                                    device="cpu", out_window=win)
+    assert port.windowed and ref.windowed
+    names = [s.name for s in port.stages]
+    at = names.index("exposure")
+    for p, r in zip(port.stages, ref.stages):
+        assert _plain(p.plan.spec_in) == _plain(r.plan.spec_in), p.name
+    full = ansel_tpu_torch.Pipeline(meta, _hist(ansel_tpu_torch, CONFIG1),
+                                    device="cpu").stages
+    # exposure and everything before it plan the whole frame; the stages
+    # after it plan the window
+    for i, (p, f) in enumerate(zip(port.stages, full)):
+        same = _plain(p.plan.spec_in) == _plain(f.plan.spec_in)
+        assert same == (i <= at), p.name
+    assert port.stages[at].op.roi_in(port.stages[at].plan, port.ctx,
+                                     win) is None
+    # the chain kernel has no positions: the engine refuses to chain it
+    with pytest.raises(NotImplementedError):
+        ansel_tpu_torch.pipeline.engine.CompiledPipe(port)
+
+
 def test_resolve_history_matches_reference_for_config1():
     _, meta, _ = synth_raw(h=144, w=400)
     port = ansel_tpu_torch.pipeline.engine.resolve_history(
