@@ -8,15 +8,19 @@
 // per stage an opcode, an offset into a float32 consts buffer and up to
 // eight static ints (kernels/pointwise.py packs it).
 //
-// What bounds it: device memory.  3 planes are read and 3 written, 577 MB
-// at 24 MP; the AgX stage is a few hundred flops per pixel, far below the
-// card's fp32 rate.
+// What bounds it: instruction issue.  3 planes are read and 3 written,
+// 577 MB at 24 MP (0.17 ms at 3.35 TB/s), but config 1's AgX chain needs
+// over a thousand float32 instructions per pixel (scripts/chain_count.py
+// counts them; each multiply and add issues alone under --fmad=false).
 //
-// Design: one thread per pixel in a grid-stride loop; a pixel's r, g, b
-// are three coalesced loads from the planes, stay in registers through
-// the whole program and are stored once.  The program and consts are
-// copied to shared memory at block start; every thread runs the same
-// program, so the `switch` never diverges inside a warp.
+// Design: the programs the configs build each have a kernel of their own
+// (chain_fixed, below: no dispatch, consts as constant-bank operands);
+// any other program runs the interpreter (chain): one
+// thread per pixel in a grid-stride loop, the program and consts copied
+// to shared memory at block start and a `switch` per stage, which never
+// diverges inside a warp since every thread runs the same program.  In
+// both a pixel's r, g, b stay in registers through the whole program and
+// are stored once.
 //
 // Numbers: each body keeps the operand order of the JAX reference
 // (ansel_tpu/ops/*.py), constants the reference writes as Python floats
@@ -27,6 +31,9 @@
 #include <cuda_runtime.h>
 #include <float.h>
 #include <math.h>
+
+#include <tuple>
+#include <utility>
 
 namespace {
 
@@ -42,7 +49,8 @@ enum Opcode {
 };
 enum Trc { TRC_SRGB = 0, TRC_LINEAR = 1, TRC_GAMMA = 2 };
 constexpr int MAX_STAGES = 16;
-constexpr int RECORD = 10;  // opcode, const offset, 8 static ints
+constexpr int STAGE_INTS = 8;
+constexpr int RECORD = 2 + STAGE_INTS;  // opcode, const offset, static ints
 constexpr int MAX_CONSTS = 1024;
 constexpr int THREADS = 256;
 
@@ -53,11 +61,25 @@ constexpr double YRG_RW = 0.21902143;
 constexpr double YRG_GW = 0.54371398;
 constexpr double CIE_Y_2006 = 1.05785528;
 
+// NaN if either is NaN (max.NaN.f32, one instruction), else fmaxf/fminf;
+// the host form is what the gcov build of scripts/chain_count.py runs
 __device__ __forceinline__ float jmax(float a, float b) {
+#ifdef __CUDA_ARCH__
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+#else
   return (a != a || b != b) ? a + b : fmaxf(a, b);
+#endif
 }
 __device__ __forceinline__ float jmin(float a, float b) {
+#ifdef __CUDA_ARCH__
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+#else
   return (a != a || b != b) ? a + b : fminf(a, b);
+#endif
 }
 __device__ __forceinline__ float jclip(float x, float lo, float hi) {
   return jmin(jmax(x, lo), hi);
@@ -74,7 +96,7 @@ __device__ __forceinline__ void mat3(const float* M, const float* in, float* out
 }
 
 // ---------------------------------------------------------------- exposure
-__device__ void exposure(float* v, const float* k) {
+__device__ __forceinline__ void exposure(float* v, const float* k) {
   for (int i = 0; i < 3; ++i) v[i] = (v[i] - k[0]) * k[1];
 }
 
@@ -162,7 +184,7 @@ __device__ void cmx_luma_chroma(float* in, const float* k, int version) {
     for (int i = 0; i < 3; ++i) in[i] = adj[i] * norm_r;
 }
 
-__device__ void channelmixerrgb(float* v, const float* k, const int* a) {
+__device__ __forceinline__ void channelmixerrgb(float* v, const float* k, const int* a) {
   int kind = a[0], version = a[1];
   bool clip = a[2], apply_grey = a[3], lumachroma = a[4], pow1 = a[5], gamut_off = a[6];
   bool cone_kind = kind == ADAPT_LINEAR_BRADFORD || kind == ADAPT_CAT16 ||
@@ -403,7 +425,7 @@ __device__ void gamut_map(float Y, float c, float cos_h, float sin_h, const floa
   for (int i = 0; i < 3; ++i) out[i] = jclip(out[i], 0.0f, dw);
 }
 
-__device__ void filmic_agx(float* v, const float* k, const int* a) {
+__device__ __forceinline__ void filmic_agx(float* v, const float* k, const int* a) {
   const float *inset = k + 25, *outset = k + 34, *input_m = k + 43;
   float comp[3];
   for (int i = 0; i < 3; ++i) comp[i] = jclip(nan_to_num(v[i]), K(-1e6), K(1e6));
@@ -434,7 +456,7 @@ __device__ void filmic_agx(float* v, const float* k, const int* a) {
 
 // --------------------------------------------------------------- colorout
 // consts: M 0, 1/gamma 9 (TRC_GAMMA only); ints: trc
-__device__ void colorout(float* v, const float* k, const int* a) {
+__device__ __forceinline__ void colorout(float* v, const float* k, const int* a) {
   float y[3];
   mat3(k, v, y);
   for (int i = 0; i < 3; ++i) {
@@ -454,7 +476,7 @@ __device__ void colorout(float* v, const float* k, const int* a) {
 constexpr double LAB_EPS = 216.0 / 24389.0;
 constexpr double LAB_KAPPA = 24389.0 / 27.0;
 
-__device__ void convert_work_lab(float* v, const float* k) {
+__device__ __forceinline__ void convert_work_lab(float* v, const float* k) {
   float xyz[3], f[3];
   mat3(k, v, xyz);
   for (int i = 0; i < 3; ++i) {
@@ -467,7 +489,7 @@ __device__ void convert_work_lab(float* v, const float* k) {
   v[2] = 200.0f * (f[1] - f[2]);
 }
 
-__device__ void convert_lab_work(float* v, const float* k) {
+__device__ __forceinline__ void convert_lab_work(float* v, const float* k) {
   float fy = (v[0] + 16.0f) / 116.0f;
   float f[3] = {fy + v[1] / 500.0f, fy, fy - v[2] / 200.0f};
   float xyz[3];
@@ -478,6 +500,29 @@ __device__ void convert_lab_work(float* v, const float* k) {
   mat3(k, xyz, v);
 }
 
+// one stage's body on one pixel: k is the stage's consts, a its ints
+template <int OP>
+__device__ __forceinline__ void apply(float* v, const float* k, const int* a) {
+  if constexpr (OP == OP_EXPOSURE) {
+    exposure(v, k);
+  } else if constexpr (OP == OP_MATRIX) {
+    float t[3] = {v[0], v[1], v[2]};
+    mat3(k, t, v);
+  } else if constexpr (OP == OP_CHANNELMIXERRGB) {
+    channelmixerrgb(v, k, a);
+  } else if constexpr (OP == OP_FILMIC_AGX) {
+    filmic_agx(v, k, a);
+  } else if constexpr (OP == OP_COLOROUT) {
+    colorout(v, k, a);
+  } else if constexpr (OP == OP_CONVERT_WORK_LAB) {
+    convert_work_lab(v, k);
+  } else {
+    static_assert(OP == OP_CONVERT_LAB_WORK, "unknown opcode");
+    convert_lab_work(v, k);
+  }
+}
+
+// The interpreter: any program, one pixel per thread.
 __global__ void __launch_bounds__(THREADS)
 chain(const float* __restrict__ x, float* __restrict__ y, long long n,
       const int* __restrict__ prog, int nstages, const float* __restrict__ consts,
@@ -495,17 +540,13 @@ chain(const float* __restrict__ x, float* __restrict__ y, long long n,
       const float* k = sk + rec[1];
       const int* a = rec + 2;
       switch (rec[0]) {
-        case OP_EXPOSURE: exposure(v, k); break;
-        case OP_MATRIX: {
-          float t[3] = {v[0], v[1], v[2]};
-          mat3(k, t, v);
-          break;
-        }
-        case OP_CHANNELMIXERRGB: channelmixerrgb(v, k, a); break;
-        case OP_FILMIC_AGX: filmic_agx(v, k, a); break;
-        case OP_COLOROUT: colorout(v, k, a); break;
-        case OP_CONVERT_WORK_LAB: convert_work_lab(v, k); break;
-        case OP_CONVERT_LAB_WORK: convert_lab_work(v, k); break;
+        case OP_EXPOSURE: apply<OP_EXPOSURE>(v, k, a); break;
+        case OP_MATRIX: apply<OP_MATRIX>(v, k, a); break;
+        case OP_CHANNELMIXERRGB: apply<OP_CHANNELMIXERRGB>(v, k, a); break;
+        case OP_FILMIC_AGX: apply<OP_FILMIC_AGX>(v, k, a); break;
+        case OP_COLOROUT: apply<OP_COLOROUT>(v, k, a); break;
+        case OP_CONVERT_WORK_LAB: apply<OP_CONVERT_WORK_LAB>(v, k, a); break;
+        case OP_CONVERT_LAB_WORK: apply<OP_CONVERT_LAB_WORK>(v, k, a); break;
         default: break;  // the wrapper admits known opcodes only
       }
     }
@@ -515,6 +556,129 @@ chain(const float* __restrict__ x, float* __restrict__ y, long long n,
   }
 }
 
+// ------------------------------------------------- specialised programs
+// A program the configs build gets a kernel of its own: the opcode
+// sequence and each stage's const offset are template parameters, so the
+// stages are straight-line code with no dispatch, and the consts and ints
+// travel by value in the kernel's parameters (a __grid_constant__ struct):
+// each use is a constant-bank operand, not a shared-memory load.  The
+// ints stay run-time values, uniform across the grid.  One thread per
+// pixel: two or four pixels a thread, tried on the card, were slower
+// (their data-dependent branches run one after the other, and a warp
+// spans more pixels, so it diverges more often).  Every form fits in 32
+// registers, so 8 blocks of 256 fill an SM.
+constexpr int FIXED_CONSTS = 256;
+constexpr int FIXED_MIN_BLOCKS = 8;
+
+struct FixedArgs {
+  const float* x;
+  float* y;
+  long long n;
+  int a[MAX_STAGES * STAGE_INTS];
+  float k[FIXED_CONSTS];
+};
+
+template <int OP, int OFF>
+struct Stage {
+  static constexpr int op = OP, off = OFF;
+};
+
+template <class... S>
+struct Prog {
+  static constexpr int count = sizeof...(S);
+  static constexpr int ops[count] = {S::op...};
+  static constexpr int offs[count] = {S::off...};
+};
+
+// stages I.. of P on one pixel
+template <class P, int I>
+__device__ __forceinline__ void run_from(float* v, const FixedArgs& p) {
+  if constexpr (I < P::count) {
+    apply<P::ops[I]>(v, p.k + P::offs[I], p.a + I * STAGE_INTS);
+    run_from<P, I + 1>(v, p);
+  }
+}
+
+template <class P>
+__global__ void __launch_bounds__(THREADS, FIXED_MIN_BLOCKS)
+chain_fixed(const __grid_constant__ FixedArgs p) {
+  const long long n = p.n;
+  const long long i = (long long)blockIdx.x * THREADS + threadIdx.x;
+  if (i >= n) return;
+  float v[3] = {p.x[i], p.x[n + i], p.x[2 * n + i]};
+  run_from<P, 0>(v, p);
+  p.y[i] = v[0];
+  p.y[n + i] = v[1];
+  p.y[2 * n + i] = v[2];
+}
+
+// The specialised programs, in the order of kernels/pointwise.py's FIXED
+// (the library reports them and the wrapper checks the two agree).
+using Fixed = std::tuple<
+    // config 1: exposure, colorin, channelmixerrgb, filmicrgb, colorout
+    Prog<Stage<OP_EXPOSURE, 0>, Stage<OP_MATRIX, 2>, Stage<OP_CHANNELMIXERRGB, 11>,
+         Stage<OP_FILMIC_AGX, 78>, Stage<OP_COLOROUT, 148>>,
+    // configs 2 and 4: exposure, colorin, filmicrgb, colorout
+    Prog<Stage<OP_EXPOSURE, 0>, Stage<OP_MATRIX, 2>, Stage<OP_FILMIC_AGX, 11>,
+         Stage<OP_COLOROUT, 81>>,
+    // config 3: exposure; colorin; filmicrgb + to Lab; from Lab + colorout
+    // (also config 7's last)
+    Prog<Stage<OP_EXPOSURE, 0>>,
+    Prog<Stage<OP_MATRIX, 0>>,
+    Prog<Stage<OP_FILMIC_AGX, 0>, Stage<OP_CONVERT_WORK_LAB, 70>>,
+    Prog<Stage<OP_CONVERT_LAB_WORK, 0>, Stage<OP_COLOROUT, 12>>,
+    // config 7: exposure, colorin, to Lab; from Lab, filmicrgb, to Lab
+    Prog<Stage<OP_EXPOSURE, 0>, Stage<OP_MATRIX, 2>, Stage<OP_CONVERT_WORK_LAB, 11>>,
+    Prog<Stage<OP_CONVERT_LAB_WORK, 0>, Stage<OP_FILMIC_AGX, 12>,
+         Stage<OP_CONVERT_WORK_LAB, 82>>,
+    // the default pipe without an exposure edit, with and without
+    // channelmixerrgb: colorin, [channelmixerrgb,] filmicrgb, colorout
+    Prog<Stage<OP_MATRIX, 0>, Stage<OP_CHANNELMIXERRGB, 9>, Stage<OP_FILMIC_AGX, 76>,
+         Stage<OP_COLOROUT, 146>>,
+    Prog<Stage<OP_MATRIX, 0>, Stage<OP_FILMIC_AGX, 9>, Stage<OP_COLOROUT, 79>>>;
+constexpr int NFIXED = (int)std::tuple_size<Fixed>::value;
+
+template <class P>
+int launch_fixed(const float* x, float* y, long long n, const int* ints, const float* consts,
+                 int nconsts, cudaStream_t stream) {
+  FixedArgs p;
+  p.x = x;
+  p.y = y;
+  p.n = n;
+  for (int i = 0; i < MAX_STAGES * STAGE_INTS; ++i)
+    p.a[i] = i < P::count * STAGE_INTS ? ints[i] : 0;
+  for (int i = 0; i < FIXED_CONSTS; ++i) p.k[i] = i < nconsts ? consts[i] : 0.0f;
+  long long blocks = (n + THREADS - 1) / THREADS;
+  chain_fixed<P><<<(unsigned)blocks, THREADS, 0, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+template <size_t... I>
+int launch_fixed_id(int id, std::index_sequence<I...>, const float* x, float* y, long long n,
+                    const int* ints, const float* consts, int nconsts, cudaStream_t stream) {
+  int rc = (int)cudaErrorInvalidValue;
+  ((id == (int)I ? (rc = launch_fixed<std::tuple_element_t<I, Fixed>>(x, y, n, ints, consts,
+                                                                      nconsts, stream))
+                 : 0),
+   ...);
+  return rc;
+}
+
+template <size_t... I>
+int describe_fixed(int id, std::index_sequence<I...>, int* ops, int* offs) {
+  int count = -1;
+  auto one = [&](auto prog) {
+    using P = decltype(prog);
+    for (int s = 0; s < P::count; ++s) {
+      ops[s] = P::ops[s];
+      offs[s] = P::offs[s];
+    }
+    count = P::count;
+  };
+  ((id == (int)I ? (one(std::tuple_element_t<I, Fixed>{}), 0) : 0), ...);
+  return count;
+}
+
 }  // namespace
 
 extern "C" {
@@ -522,10 +686,18 @@ extern "C" {
 int pointwise_chain_record() { return RECORD; }
 int pointwise_chain_max_stages() { return MAX_STAGES; }
 int pointwise_chain_max_consts() { return MAX_CONSTS; }
+int pointwise_chain_fixed_consts() { return FIXED_CONSTS; }
+int pointwise_chain_fixed_count() { return NFIXED; }
+
+// specialised program `id`'s opcodes and const offsets into ops and offs
+// (MAX_STAGES each); -> its stage count, -1 for an unknown id
+int pointwise_chain_fixed_program(int id, int* ops, int* offs) {
+  return describe_fixed(id, std::make_index_sequence<NFIXED>{}, ops, offs);
+}
 
 // x, y: (3, n) float32 planes; prog: nstages * RECORD int32; consts:
-// nconsts float32; all on the device.  Launches on `stream`, returns
-// cudaGetLastError().
+// nconsts float32; all on the device.  Launches the interpreter on
+// `stream`, returns cudaGetLastError().
 int pointwise_chain(const float* x, float* y, long long n, const int* prog, int nstages,
                     const float* consts, int nconsts, int num_sms, void* stream) {
   long long blocks = (n + THREADS - 1) / THREADS;
@@ -535,6 +707,17 @@ int pointwise_chain(const float* x, float* y, long long n, const int* prog, int 
   chain<<<(unsigned)blocks, THREADS, 0, (cudaStream_t)stream>>>(x, y, n, prog, nstages, consts,
                                                                nconsts);
   return (int)cudaGetLastError();
+}
+
+// Specialised program `id` on x, y ((3, n) float32 planes on the device);
+// ints (its stages' STAGE_INTS each) and consts (nconsts <= FIXED_CONSTS)
+// are host arrays, passed by value.  Returns cudaGetLastError().
+int pointwise_chain_fixed(int id, const float* x, float* y, long long n, const int* ints,
+                          const float* consts, int nconsts, void* stream) {
+  if (id < 0 || id >= NFIXED || nconsts > FIXED_CONSTS || n < 1)
+    return (int)cudaErrorInvalidValue;
+  return launch_fixed_id(id, std::make_index_sequence<NFIXED>{}, x, y, n, ints, consts, nconsts,
+                         (cudaStream_t)stream);
 }
 
 }  // extern "C"

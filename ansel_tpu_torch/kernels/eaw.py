@@ -32,6 +32,11 @@ from ..pixel.shifts import PaddedView
 
 B3 = (1.0 / 16.0, 4.0 / 16.0, 6.0 / 16.0, 4.0 / 16.0, 1.0 / 16.0)
 DN, ATROUS = 0, 1
+# keep in step with csrc/eaw.cu, which checks them: threads of a block, its
+# output columns and rows (of one residue class mod d), and the shared
+# memory a block may have on sm_90
+THREADS, TILE_W, TILE_H = 256, 64, 8
+MAX_SMEM = 232448
 
 # launches of the CUDA kernel since the count was last set to 0
 LAUNCHES = 0
@@ -69,14 +74,32 @@ def eaw_coarse_reference(x: torch.Tensor, scale: int, const: float,
     return coarse, x - coarse
 
 
+def plan(scale: int):
+    """(gather, shared bytes) of the launch at d = 2^scale: TILE_H + 4
+    staged rows of (r, g, b, 0) float4s over TILE_W + 4d contiguous
+    columns below d = TILE_W, over the five groups of TILE_W columns the
+    taps read from there on."""
+    d = 1 << scale
+    gather = d >= TILE_W
+    cols = 5 * TILE_W if gather else TILE_W + 4 * d
+    return gather, 16 * (TILE_H + 4) * cols
+
+
 def _lib():
     from . import _build
 
     lib = _build.load("eaw")
     if not getattr(lib, "_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.eaw_coarse.argtypes = [p, p, p, i, i, i, ctypes.c_float, i, p]
+        lib.eaw_coarse.argtypes = [p, p, p, i, i, i, ctypes.c_float, i, i, p]
         lib.eaw_coarse.restype = ctypes.c_int
+        lib.eaw_limits.argtypes = [p] * 4
+        lib.eaw_limits.restype = None
+        got = [ctypes.c_int() for _ in range(4)]
+        lib.eaw_limits(*[ctypes.byref(v) for v in got])
+        if [v.value for v in got] != [THREADS, TILE_W, TILE_H, MAX_SMEM]:
+            raise RuntimeError("csrc/eaw.cu and kernels/eaw.py disagree on "
+                               "the tile")
         lib._typed = True
     return lib
 
@@ -92,6 +115,7 @@ def _coarse(x: torch.Tensor, scale: int, const, variant: int):
                          f"float32 tensor, got {x.dtype} {tuple(x.shape)}")
     if not 0 <= scale <= 24:
         raise ValueError(f"eaw: scale {scale} outside [0, 24]")
+    _, smem = plan(scale)
     global LAUNCHES
     lib = _lib()
     _, h, w = x.shape
@@ -101,7 +125,7 @@ def _coarse(x: torch.Tensor, scale: int, const, variant: int):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.eaw_coarse(x.data_ptr(), coarse.data_ptr(),
                             detail.data_ptr(), h, w, 1 << scale,
-                            float(const), variant, stream)
+                            float(const), variant, smem, stream)
     if rc != 0:
         raise RuntimeError(f"eaw: CUDA launch failed ({rc})")
     LAUNCHES += 1

@@ -10,7 +10,13 @@ per stage an opcode, an offset into a float32 consts buffer and up to
 eight static ints.  The plain twin runs the stages' torch functions in
 order.
 
-`pointwise_chain` launches the kernel for a CUDA tensor and runs
+The programs the configs build (`FIXED`) each have a kernel of their own
+in the same source, with the opcodes and const offsets as template
+parameters and the consts and ints passed by value; `pack_chain` marks a
+chain that matches one, and every other chain runs the kernel's
+interpreter.
+
+`pointwise_chain` launches a kernel for a CUDA tensor and runs
 `pointwise_chain_reference` for a CPU tensor.
 """
 
@@ -37,8 +43,35 @@ MAX_STAGES = 16
 STAGE_INTS = 8
 RECORD = 2 + STAGE_INTS
 MAX_CONSTS = 1024
+FIXED_CONSTS = 256
 
-# launches of the CUDA kernel since the count was last set to 0
+# the specialised programs, as ((opcode, const offset), ...) per stage, in
+# the order of csrc/pointwise_chain.cu's `Fixed` (the library reports
+# its list and `_lib` checks the two agree)
+FIXED = (
+    # config 1: exposure, colorin, channelmixerrgb, filmicrgb, colorout
+    ((OP_EXPOSURE, 0), (OP_MATRIX, 2), (OP_CHANNELMIXERRGB, 11),
+     (OP_FILMIC_AGX, 78), (OP_COLOROUT, 148)),
+    # configs 2 and 4: exposure, colorin, filmicrgb, colorout
+    ((OP_EXPOSURE, 0), (OP_MATRIX, 2), (OP_FILMIC_AGX, 11), (OP_COLOROUT, 81)),
+    # config 3: exposure; colorin; filmicrgb + to Lab; from Lab + colorout
+    # (also config 7's last)
+    ((OP_EXPOSURE, 0),),
+    ((OP_MATRIX, 0),),
+    ((OP_FILMIC_AGX, 0), (OP_CONVERT_WORK_LAB, 70)),
+    ((OP_CONVERT_LAB_WORK, 0), (OP_COLOROUT, 12)),
+    # config 7: exposure, colorin, to Lab; from Lab, filmicrgb, to Lab
+    ((OP_EXPOSURE, 0), (OP_MATRIX, 2), (OP_CONVERT_WORK_LAB, 11)),
+    ((OP_CONVERT_LAB_WORK, 0), (OP_FILMIC_AGX, 12), (OP_CONVERT_WORK_LAB, 82)),
+    # the default pipe without an exposure edit, with and without
+    # channelmixerrgb: colorin, [channelmixerrgb,] filmicrgb, colorout
+    ((OP_MATRIX, 0), (OP_CHANNELMIXERRGB, 9), (OP_FILMIC_AGX, 76),
+     (OP_COLOROUT, 146)),
+    ((OP_MATRIX, 0), (OP_FILMIC_AGX, 9), (OP_COLOROUT, 79)),
+)
+
+# launches of the CUDA kernels since the count was last set to 0: one per
+# call, whether it runs a specialised program or the interpreter
 LAUNCHES = 0
 
 
@@ -46,11 +79,16 @@ LAUNCHES = 0
 class Chain:
     """One fused group in both forms: `stages` = ((fn, coeffs), ...) for
     the plain twin; `prog` (int32) and `consts` (float32) on the group's
-    device for the kernel."""
+    device for the interpreter; `fixed`, the index in FIXED of the
+    specialised program it matches (-1: none), with its stages' ints and
+    its consts as host arrays for that kernel's parameters."""
 
     stages: Tuple[Tuple[Any, Any], ...]
     prog: torch.Tensor
     consts: torch.Tensor
+    fixed: int = -1
+    host_ints: Any = None
+    host_consts: Any = None
 
 
 def _flat(v):
@@ -77,11 +115,19 @@ def pack_chain(specs, coeffs, device) -> Chain:
         consts += [float(v) for v in spec.extra]
     if len(consts) > MAX_CONSTS:
         raise ValueError(f"chain needs {len(consts)} consts > {MAX_CONSTS}")
+    key = tuple((prog[s], prog[s + 1]) for s in range(0, len(prog), RECORD))
+    fixed = FIXED.index(key) if key in FIXED \
+        and len(consts) <= FIXED_CONSTS else -1
+    ints = [v for s in range(0, len(prog), RECORD)
+            for v in prog[s + 2:s + RECORD]]
     return Chain(
         stages=tuple((spec.fn, c) for spec, c in zip(specs, coeffs)),
         prog=torch.tensor(prog, dtype=torch.int32, device=device),
         consts=torch.tensor(consts or [0.0], dtype=torch.float32,
-                            device=device))
+                            device=device),
+        fixed=fixed,
+        host_ints=(ctypes.c_int * len(ints))(*ints),
+        host_consts=(ctypes.c_float * max(1, len(consts)))(*consts))
 
 
 def pointwise_chain_reference(x: torch.Tensor, chain: Chain) -> torch.Tensor:
@@ -101,23 +147,44 @@ def _lib():
                                         ctypes.c_int, p, ctypes.c_int,
                                         ctypes.c_int, p]
         lib.pointwise_chain.restype = ctypes.c_int
+        lib.pointwise_chain_fixed.argtypes = [ctypes.c_int, p, p,
+                                              ctypes.c_longlong, p, p,
+                                              ctypes.c_int, p]
+        lib.pointwise_chain_fixed.restype = ctypes.c_int
+        lib.pointwise_chain_fixed_program.argtypes = [ctypes.c_int, p, p]
+        lib.pointwise_chain_fixed_program.restype = ctypes.c_int
         for fn in ("pointwise_chain_record", "pointwise_chain_max_stages",
-                   "pointwise_chain_max_consts"):
+                   "pointwise_chain_max_consts",
+                   "pointwise_chain_fixed_consts",
+                   "pointwise_chain_fixed_count"):
             getattr(lib, fn).argtypes = []
             getattr(lib, fn).restype = ctypes.c_int
         if (lib.pointwise_chain_record(), lib.pointwise_chain_max_stages(),
-                lib.pointwise_chain_max_consts()) != (RECORD, MAX_STAGES,
-                                                      MAX_CONSTS):
+                lib.pointwise_chain_max_consts(),
+                lib.pointwise_chain_fixed_consts()) != (
+                    RECORD, MAX_STAGES, MAX_CONSTS, FIXED_CONSTS) \
+                or _fixed_programs(lib) != FIXED:
             raise RuntimeError("csrc/pointwise_chain.cu and "
                                "kernels/pointwise.py disagree on the layout")
         lib._typed = True
     return lib
 
 
+def _fixed_programs(lib):
+    """The library's specialised programs, in FIXED's form."""
+    out = []
+    for i in range(lib.pointwise_chain_fixed_count()):
+        ops, offs = (ctypes.c_int * MAX_STAGES)(), (ctypes.c_int * MAX_STAGES)()
+        n = lib.pointwise_chain_fixed_program(i, ops, offs)
+        out.append(tuple(zip(ops[:n], offs[:n])))
+    return tuple(out)
+
+
 def pointwise_chain(x: torch.Tensor, chain: Chain) -> torch.Tensor:
     """(3, H, W) float32 -> (3, H, W) through every stage of `chain`.  A
-    CPU tensor runs the plain twin; a CUDA tensor launches
-    csrc/pointwise_chain.cu once."""
+    CPU tensor runs the plain twin; a CUDA tensor launches one kernel of
+    csrc/pointwise_chain.cu: the chain's specialised program, or the
+    interpreter when it has none (`fixed` -1)."""
     if x.device.type == "cpu":
         return pointwise_chain_reference(x, chain)
     if x.device.type != "cuda":
@@ -138,9 +205,15 @@ def pointwise_chain(x: torch.Tensor, chain: Chain) -> torch.Tensor:
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.pointwise_chain(x.data_ptr(), y.data_ptr(), n,
-                                 prog.data_ptr(), nstages, consts.data_ptr(),
-                                 consts.numel(), sms, stream)
+        if chain.fixed >= 0:
+            rc = lib.pointwise_chain_fixed(
+                chain.fixed, x.data_ptr(), y.data_ptr(), n, chain.host_ints,
+                chain.host_consts, len(chain.host_consts), stream)
+        else:
+            rc = lib.pointwise_chain(x.data_ptr(), y.data_ptr(), n,
+                                     prog.data_ptr(), nstages,
+                                     consts.data_ptr(), consts.numel(), sms,
+                                     stream)
     if rc != 0:
         raise RuntimeError(f"pointwise_chain: CUDA launch failed ({rc})")
     LAUNCHES += 1

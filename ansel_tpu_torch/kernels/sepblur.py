@@ -15,18 +15,21 @@ tensor and runs `sep_blur_reference` for a CPU tensor.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 from ..pixel.shifts import PaddedView
 
 MAX_TAPS = 513    # keep in step with csrc/sepblur.cu, which checks them
-# a block's TILE_H rows x TILE_W columns; the shared memory a block may
-# have on sm_90
-TILE_W, TILE_H = 128, 8
+# threads of a block, its output rows (at most), the dilation from which
+# two passes run, the largest tap count with a template, and the shared
+# memory a block may have on sm_90
+THREADS, TILE_H, TWO_PASS, MAX_FIXED = 256, 16, 256, 33
 MAX_SMEM = 232448
 
-# launches of the CUDA kernel since the count was last set to 0
+# launches of the CUDA kernel since the count was last set to 0: one per
+# call, whether the call runs one kernel (the strip) or two (two passes)
 LAUNCHES = 0
 
 
@@ -49,14 +52,50 @@ def sep_blur_reference(x: torch.Tensor, taps,
     return out
 
 
-def plan(n: int, dilation: int):
-    """(gather, shared bytes) of the kernel's launch for n taps: below
-    a dilation of TILE_W the strip of V is contiguous, TILE_W + (n - 1) d
-    columns; from TILE_W on it holds only the n groups of TILE_W columns
-    that the taps read."""
-    gather = dilation >= TILE_W
-    cols = n * TILE_W if gather else TILE_W + (n - 1) * dilation
-    return gather, 4 * TILE_H * cols
+class Plan(NamedTuple):
+    """One launch: two passes through a scratch plane, or one kernel over
+    a shared strip of V; the output rows and columns of a block, the
+    strip's columns, its shared bytes, and whether the tap count has a
+    template (on the strip: its vertical window in registers)."""
+
+    two_pass: bool
+    rows: int
+    cols: int
+    strip: int
+    smem: int
+    fixed: bool
+
+
+def plan(n: int, dilation: int) -> Plan:
+    """The launch for n taps at `dilation`.  From a dilation of TWO_PASS
+    on, two passes of one thread per value (a block a row of THREADS
+    values).  Below it, a strip of V of the least multiple of THREADS
+    columns that holds 2m + TWO_PASS (m = r d), of which a block writes
+    the strip less 2m, over rows of one residue class: rows_of(n) for a
+    template, else TILE_H, fewer if the strip would pass MAX_SMEM, and 0
+    (refused) if one row does."""
+    if dilation >= TWO_PASS:
+        return Plan(True, 1, THREADS, 0, 0, n == 5)
+    reach2 = (n - 1) * dilation
+    strip = -(-(reach2 + TWO_PASS) // THREADS) * THREADS
+    cols = strip - reach2
+    fixed = 3 <= n <= MAX_FIXED
+    rows = (rows_of(n) if fixed
+            else min(TILE_H, MAX_SMEM // (4 * strip)))
+    return Plan(False, rows, cols, strip, 4 * rows * strip, fixed)
+
+
+def rows_of(n: int) -> int:
+    """Rows of a block for a template of n taps (csrc/sepblur.cu
+    rows_of): the longer the window, the fewer rows, so that it stays in
+    registers and every strip below TWO_PASS fits."""
+    return TILE_H if n <= 9 else TILE_H // 2 if n <= 25 else TILE_H // 4
+
+
+def smem_bytes(launch: Plan, h: int, dilation: int) -> int:
+    """The shared bytes of a launch over h rows: the strip for the rows
+    of a block, and no more rows than a residue class has."""
+    return 4 * launch.strip * min(launch.rows, -(-h // dilation))
 
 
 def _lib():
@@ -65,13 +104,14 @@ def _lib():
     lib = _build.load("sepblur")
     if not getattr(lib, "_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.sep_blur.argtypes = [p, p, i, i, i, p, i, i, i, i, p]
+        lib.sep_blur.argtypes = [p, p, p, i, i, i, p, i, i, i, i, p]
         lib.sep_blur.restype = ctypes.c_int
-        lib.sep_blur_limits.argtypes = [p] * 4
+        lib.sep_blur_limits.argtypes = [p] * 6
         lib.sep_blur_limits.restype = None
-        got = [ctypes.c_int() for _ in range(4)]
+        got = [ctypes.c_int() for _ in range(6)]
         lib.sep_blur_limits(*[ctypes.byref(v) for v in got])
-        if [v.value for v in got] != [MAX_TAPS, TILE_W, TILE_H, MAX_SMEM]:
+        if [v.value for v in got] != [MAX_TAPS, THREADS, TILE_H, TWO_PASS,
+                                      MAX_FIXED, MAX_SMEM]:
             raise RuntimeError("csrc/sepblur.cu and kernels/sepblur.py "
                                "disagree on MAX_TAPS or the tile")
         lib._typed = True
@@ -95,21 +135,24 @@ def sep_blur(x: torch.Tensor, taps, dilation: int = 1) -> torch.Tensor:
         raise ValueError(f"sep_blur: needs an odd tap count <= {MAX_TAPS} "
                          f"and a dilation >= 1, got {len(taps)} taps at "
                          f"{dilation}")
-    gather, smem = plan(len(taps), dilation)
-    if smem > MAX_SMEM:
+    launch = plan(len(taps), dilation)
+    if launch.rows == 0:
         raise ValueError(f"sep_blur: {len(taps)} taps at dilation "
-                         f"{dilation} need {smem} B of shared memory per "
-                         f"block, over {MAX_SMEM}")
+                         f"{dilation} need {4 * launch.strip} B of shared "
+                         f"memory for one row, over {MAX_SMEM}")
     global LAUNCHES
     lib = _lib()
     c = 1 if x.dim() == 2 else x.shape[0]
     h, w = x.shape[-2:]
     out = torch.empty_like(x)
+    scratch = torch.empty_like(x) if launch.two_pass else None
     host_taps = (ctypes.c_float * len(taps))(*taps)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.sep_blur(x.data_ptr(), out.data_ptr(), c, h, w,
-                          host_taps, len(taps), dilation, int(gather), smem,
+        rc = lib.sep_blur(x.data_ptr(), out.data_ptr(),
+                          None if scratch is None else scratch.data_ptr(),
+                          c, h, w, host_taps, len(taps), dilation,
+                          launch.rows, smem_bytes(launch, h, dilation),
                           stream)
     if rc != 0:
         raise RuntimeError(f"sep_blur: CUDA launch failed ({rc})")

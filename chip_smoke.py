@@ -25,13 +25,16 @@ entry points a user calls, at their full frames:
     grid, sharpen): RCD, the chain, sepblur and the grid-slice kernel.
 
 Each path runs with the launch counts set to 0 just before it and read
-just after.  One line per phase; the line before the last is the
-kernels' JSON record, the last line the device record.  Any failure
+just after.  Every chain each config builds is also timed on its own
+arguments, through its specialised kernel and the interpreter (which
+must agree bit for bit), against its bound.  One line per phase; the line before the
+last is the kernels' JSON record, the last line the device record.  Any failure
 raises, so the script then exits non-zero without the last line.  It
 needs a CUDA device and imports neither JAX nor `ansel_tpu`.
 """
 
 import contextlib
+import dataclasses
 import json
 import os
 import subprocess
@@ -93,11 +96,32 @@ PIPE7_REPEATS = 5
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
 SPIN_CLOCK_HZ = 1.98e9  # boost clock: sizes the spin kernel of median_ms
+# instructions a warp scheduler issues: 4 per SM per clock, 32 lanes
+# each, at the boost clock (a kernel built with --fmad=false issues each
+# float32 multiply and add alone)
+INSTR_PER_S = 132 * 4 * 32 * 1.98e9
 # float32 operations per output pixel (per tap or offset where named),
-# counted from each kernel's source; the fast exponentials count 4 and a
-# transcendental of the chain 20
+# counted from each kernel's source; the fast exponentials count 4
 FLOPS_RCD = 330
-FLOPS_CHAIN = 400
+# MUFU instructions (reciprocal, square root, log2, exp2) the special
+# function units issue: 16 a SM a clock (H100 architecture), at the boost
+# clock
+SFU_PER_S = 132 * 16 * 1.98e9
+# what each chain needs per pixel, per (config, chain of its pipe in
+# order): (float32 instructions, MUFU instructions), counted by
+# scripts/chain_count.py from the SASS of the chain's opcode bodies: the
+# float32 arithmetic (FADD, FMUL, FFMA, FMNMX; a NaN-keeping max or min is
+# one max.NaN) and the MUFU instructions inside division, sqrtf, log2f
+# and powf, each basic block weighted by how often that config's chain
+# input takes its source lines (a gcov build of the same source over
+# every 64th pixel); compares, selects, branches, integer work and the
+# dispatch are the implementation's and left out, as are the division
+# and square-root slow paths (scripts/chain_count.py on an H100; recount
+# when csrc/pointwise_chain.cu or a config's chain changes)
+OPS_CHAIN = {(1, 0): (1095, 57), (2, 0): (847, 42), (3, 0): (6, 0),
+             (3, 1): (15, 0), (3, 2): (839, 45), (3, 3): (219, 3),
+             (4, 0): (846, 42), (7, 0): (183, 6), (7, 1): (899, 45),
+             (7, 2): (219, 3)}
 FLOPS_SEPBLUR_PER_TAP = 4        # two passes, a multiply and an add each
 FLOPS_EAW = 25 * 24 + 10         # 25 taps; the divide and the detail
 FLOPS_NLM_PER_OFFSET = 31        # d2 11, box sum 4 (the column sums
@@ -205,16 +229,65 @@ def compare(a, b):
     return d.max().item(), d.mean().item()
 
 
-def bound(bytes_moved, flops):
-    """Least time on the card (ms) and what sets it."""
+def bound(bytes_moved, flops=0, instructions=0, sfu=0):
+    """Least time on the card (ms) and what sets it: the bytes at the
+    memory's rate, or the float32 operations at the float32 rate, the
+    instructions at the issue rate or the MUFU instructions (among them)
+    at the special function units' rate, whichever is longest."""
     t_bytes = bytes_moved / HBM_BYTES_PER_S
-    t_ops = flops / FP32_FLOPS_PER_S
+    t_ops = max(flops / FP32_FLOPS_PER_S, instructions / INSTR_PER_S,
+                sfu / SFU_PER_S)
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
 
 def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def check_chains(config, calls, groups):
+    """Each chain call (x, chain) of config `config`'s pipe on its own
+    arguments: the kernel the wrapper picks (the chain's specialised
+    program) vs the interpreter (bit for bit) and vs plain (both bounds
+    scaled by the output's largest magnitude, which a chain that ends in
+    Lab makes ~100), device times, and the bound: the three planes read
+    and written once, against the chain's OPS_CHAIN instructions per
+    pixel.  Returns the rows."""
+    rows = []
+    for i, ((x, chain), names) in enumerate(zip(calls, groups)):
+        interpreted = dataclasses.replace(chain, fixed=-1)
+        got = pw.pointwise_chain(x, chain)
+        expect(chain.fixed >= 0 and torch.equal(
+            got, pw.pointwise_chain(x, interpreted)),
+            f"chain {config}.{i}: specialised program {chain.fixed} "
+            "differs from the interpreter")
+        want = pw.pointwise_chain_reference(x, chain)
+        mx, mean = compare(got, want)
+        scale = max(1.0, want.abs().max().item())
+        del want, got
+        expect(mx <= CHAIN_MAX_TOL * scale and mean <= CHAIN_MEAN_TOL * scale,
+               f"chain {config}.{i}: max {mx}, mean {mean} (x {scale:.3g})")
+        ms = median_ms(lambda: pw.pointwise_chain(x, chain))
+        interp_ms = median_ms(lambda: pw.pointwise_chain(x, interpreted))
+        plain_ms = median_ms(lambda: pw.pointwise_chain_reference(x, chain),
+                             PLAIN_REPEATS)
+        fp32, mufu = OPS_CHAIN[(config, i)]
+        px = x[0].numel()
+        b_ms, b_by = bound(2 * nbytes(x), instructions=(fp32 + mufu) * px,
+                           sfu=mufu * px)
+        rows.append(dict(max_abs_err=mx, ms=ms, plain_ms=plain_ms,
+                         library_ms=None, bound_ms=b_ms, bound_by=b_by))
+        print(f"[chain] config {config} chain {i} {'+'.join(names)} on "
+              f"{tuple(x.shape)}: program {chain.fixed}, equal to the "
+              f"interpreter; vs plain max {mx:.3g} mean {mean:.3g} (tol "
+              f"{CHAIN_MAX_TOL:g} / {CHAIN_MEAN_TOL:g} x {scale:.3g}) | "
+              f"kernel {ms:.4f} ms, interpreter {interp_ms:.4f} ms, plain "
+              f"{plain_ms:.1f} ms, bound {b_ms:.4f} ms ({b_by}; {fp32} "
+              f"float32 + {mufu} MUFU a pixel: issue "
+              f"{(fp32 + mufu) * px / INSTR_PER_S * 1e3:.4f} ms, SFU "
+              f"{mufu * px / SFU_PER_S * 1e3:.4f} ms; bytes "
+              f"{2 * nbytes(x) / HBM_BYTES_PER_S * 1e3:.4f} ms)", flush=True)
+    return rows
 
 
 KERNEL_MODULES = {"rcd": rcd, "chain": pw, "eaw": eaw, "nlm": nlm,
@@ -285,9 +358,10 @@ def noisy_like(raw_dev, sigma, seed=8):
 def captured_inputs(pipe, raw_dev):
     """Run the pipe once on a device-resident raw and keep the arguments
     its new kernels were called with: the first sepblur call at each
-    dilation, every EAW scale and the NLM pass."""
-    calls = {"sepblur": {}, "eaw": [], "nlm": []}
+    dilation, every EAW scale, the NLM pass and the chain."""
+    calls = {"sepblur": {}, "eaw": [], "nlm": [], "chain": []}
     real_sb, real_eaw, real_nlm = sepblur.sep_blur, eaw.eaw_dn_coarse, nlm.nlm
+    real_chain = pw.pointwise_chain
 
     def sb(x, taps, d=1):
         calls["sepblur"].setdefault(d, (x, taps, d))
@@ -301,11 +375,16 @@ def captured_inputs(pipe, raw_dev):
         calls["nlm"].append(args)
         return real_nlm(*args)
 
+    def ch(*args):
+        calls["chain"].append(args)
+        return real_chain(*args)
+
     with swapped([(sepblur, "sep_blur", sb), (eaw, "eaw_dn_coarse", ew),
-                  (nlm, "nlm", nl)]):
+                  (nlm, "nlm", nl), (pw, "pointwise_chain", ch)]):
         pipe.run_padded(raw_dev)
     expect(sorted(calls["sepblur"]) == [1, 2, 4, 8, 16, 32]
-           and len(calls["eaw"]) == 7 and len(calls["nlm"]) == 1,
+           and len(calls["eaw"]) == 7 and len(calls["nlm"]) == 1
+           and len(calls["chain"]) == 1,
            f"unexpected kernel calls {[(k, len(v)) for k, v in calls.items()]}")
     return calls
 
@@ -349,22 +428,7 @@ def run_config1(card, record, raw, raw_dev, meta, pool):
 
     # -- chain kernel vs plain on the demosaic output
     chain = next(a for kind, _, _, a in pipe.steps if kind == "chain")
-    ch_max, ch_mean = compare(pw.pointwise_chain(rgb, chain),
-                              pw.pointwise_chain_reference(rgb, chain))
-    expect(ch_max <= CHAIN_MAX_TOL and ch_mean <= CHAIN_MEAN_TOL,
-           f"chain: max {ch_max}, mean {ch_mean}")
-    ch_ms = median_ms(lambda: pw.pointwise_chain(rgb, chain))
-    ch_plain_ms = median_ms(lambda: pw.pointwise_chain_reference(rgb, chain),
-                            PLAIN_REPEATS)
-    record["chain"] = dict(max_abs_err=ch_max, ms=ch_ms, plain_ms=ch_plain_ms,
-                           library_ms=None)
-    record["chain"]["bound_ms"], record["chain"]["bound_by"] = bound(
-        2 * nbytes(rgb), FLOPS_CHAIN * mosaic.numel())
-    print(f"[chain] 3x{H}x{W} {'+'.join(stages[4:])} kernel vs plain: max "
-          f"{ch_max:.3g} mean {ch_mean:.3g} (tol {CHAIN_MAX_TOL:g} / "
-          f"{CHAIN_MEAN_TOL:g}) | kernel {ch_ms:.3f} ms, plain "
-          f"{ch_plain_ms:.3f} ms, bound {record['chain']['bound_ms']:.3f} ms",
-          flush=True)
+    (record["chain"],) = check_chains(1, [(rgb, chain)], pipe.fused_groups())
 
     # -- the full pipe through the user's entry point, launches counted
     reset_launches()
@@ -444,7 +508,7 @@ def check_sepblur(inputs, record):
         torch.backends.cudnn.allow_tf32 = prev
     x, taps, _ = inputs[0][1][1]
     # reach 1024, the highlights Laplacian's widest (scales 12: 5 taps at
-    # d = 512), on the gathered strip
+    # d = 512), through the two passes
     far = sepblur.sep_blur(x, taps, 512)
     far_err, _ = compare(far, sepblur.sep_blur_reference(x, taps, 512))
     expect(far_err <= STENCIL_TOL, f"sepblur d=512: max {far_err}")
@@ -457,7 +521,7 @@ def check_sepblur(inputs, record):
                              library_ms=float(np.mean(lib_ms)),
                              bound_ms=b_ms, bound_by=b_by)
     print(f"[sepblur] {tuple(x.shape)} B3 kernel vs plain on clean and "
-          f"noisy stacks, and at d=512 (reach 1024, gathered strip, max "
+          f"noisy stacks, and at d=512 (reach 1024, two passes, max "
           f"{far_err:.3g}, {far_ms:.4f} ms): max {err:.3g} (tol "
           f"{STENCIL_TOL:g}); conv2d vs plain max {lib_err:.3g} | ms "
           f"kernel/plain/conv2d: {', '.join(rows)} | bound {b_ms:.4f} ms "
@@ -581,6 +645,8 @@ def run_config2(card, record, raw, raw_dev, meta, pool, phases, pngs):
         check_eaw([(label, c["eaw"]) for label, c in calls], record)
     with timed(phases, "nlm"):
         check_nlm([(label, c["nlm"]) for label, c in calls], record)
+    with timed(phases, "chain2"):
+        check_chains(2, calls[0][1]["chain"], pipe.fused_groups())
     del calls
 
     with timed(phases, "png wait"):
@@ -627,32 +693,29 @@ def captured3(pipe, raw_dev):
 
 def check_reused3(calls):
     """The kernels of configs 1 and 2 on config 3's shapes: RCD on the
-    45 MP mosaic, the four chains (work/Lab conversions among them) and
-    the local Laplacian's 126 blurs (45 MP planes down to 11 x 17)."""
+    45 MP mosaic and the local Laplacian's 126 blurs (45 MP planes down to
+    11 x 17), each blur timed: their sum is sepblur's device time per
+    image on config 3."""
     m, cfa, scaler = calls["rcd"][0]
     s = float(scaler)
     rcd_err, _ = compare(rcd.rcd_demosaic(m, cfa, scaler),
                          rcd.rcd_demosaic_reference(m, cfa, scaler))
     expect(rcd_err <= RCD_TOL * s, f"rcd: max {rcd_err} > {RCD_TOL} x {s}")
-    chains = []
-    for x, chain in calls["chain"]:
-        want = pw.pointwise_chain_reference(x, chain)
-        mx, mean = compare(pw.pointwise_chain(x, chain), want)
-        scale = max(1.0, want.abs().max().item())
-        expect(mx <= CHAIN_MAX_TOL * scale and mean <= CHAIN_MEAN_TOL * scale,
-               f"chain: max {mx}, mean {mean} (output scale {scale:.3g})")
-        chains.append(f"max {mx:.3g} mean {mean:.3g} (scale {scale:.3g})")
-    sb_err = 0.0
+    sb_err, sb_ms, b_ms = 0.0, [], 0.0
     for x, taps, *d in calls["sepblur"]:
         mx, _ = compare(sepblur.sep_blur(x, taps, *d),
                         sepblur.sep_blur_reference(x, taps, *d))
         expect(mx <= STENCIL_TOL, f"sepblur {tuple(x.shape)}: max {mx}")
         sb_err = max(sb_err, mx)
+        sb_ms.append(median_ms(lambda: sepblur.sep_blur(x, taps, *d)))
+        b_ms += bound(2 * nbytes(x),
+                      FLOPS_SEPBLUR_PER_TAP * len(taps) * x.numel())[0]
+    first = tuple(calls["sepblur"][0][0].shape)
     print(f"[reuse3] kernel vs plain on config 3's arguments: rcd "
-          f"{tuple(m.shape)} max {rcd_err:.3g}; chains {', '.join(chains)}; "
-          f"{len(calls['sepblur'])} blurs "
-          f"{tuple(calls['sepblur'][0][0].shape)} and down, max "
-          f"{sb_err:.3g}", flush=True)
+          f"{tuple(m.shape)} max {rcd_err:.3g}; {len(calls['sepblur'])} "
+          f"blurs {first} and down, max {sb_err:.3g} | sepblur "
+          f"{sum(sb_ms):.3f} ms per image (bound {b_ms:.3f} ms; the "
+          f"largest, {first}, {max(sb_ms):.4f} ms)", flush=True)
 
 
 def check_iir(calls, record):
@@ -741,6 +804,8 @@ def run_config3(card, record, raw, meta, phases):
         check_diffuse(calls["diffuse"], record)
     with timed(phases, "reuse3"):
         check_reused3(calls)
+    with timed(phases, "chain3"):
+        check_chains(3, calls["chain"], pipe.fused_groups())
     del calls
     with timed(phases, "pipe3 timing"):
         per_img = time_pipe(pipe, raw_dev, PIPE3_REPEATS, warmups=1)
@@ -761,10 +826,10 @@ def xtrans_raw(h, w):
 
 def captured4(pipe, raw_dev):
     """Run config 4 once on a device-resident raw and keep the arguments of
-    its Markesteijn and warp calls."""
-    calls = {"markesteijn": [], "warp": []}
+    its Markesteijn, warp and chain calls."""
+    calls = {"markesteijn": [], "warp": [], "chain": []}
     real = {"markesteijn": markesteijn.xtrans_markesteijn,
-            "warp": warp.lens_warp}
+            "warp": warp.lens_warp, "chain": pw.pointwise_chain}
 
     def keep(key):
         def call(*args):
@@ -773,10 +838,11 @@ def captured4(pipe, raw_dev):
         return call
 
     with swapped([(markesteijn, "xtrans_markesteijn", keep("markesteijn")),
-                  (warp, "lens_warp", keep("warp"))]):
+                  (warp, "lens_warp", keep("warp")),
+                  (pw, "pointwise_chain", keep("chain"))]):
         pipe.run_padded(raw_dev)
     counts = {k: len(v) for k, v in calls.items()}
-    expect(counts == {"markesteijn": 1, "warp": 1},
+    expect(counts == {"markesteijn": 1, "warp": 1, "chain": 1},
            f"unexpected kernel calls {counts}")
     return calls
 
@@ -884,6 +950,8 @@ def run_config4(card, record, raw, meta, phases):
         check_markesteijn(calls["markesteijn"], record)
     with timed(phases, "warp"):
         check_warp(calls["warp"], record)
+    with timed(phases, "chain4"):
+        check_chains(4, calls["chain"], pipe.fused_groups())
     del calls
     with timed(phases, "pipe4 timing"):
         per_img = time_pipe(pipe, raw_dev, PIPE4_REPEATS)
@@ -900,18 +968,24 @@ def run_config4(card, record, raw, meta, phases):
 
 def captured7(pipe, raw_dev):
     """Run config 7 once on a device-resident raw and keep the arguments of
-    its five grid slices."""
-    calls, real = [], bgrid.slice_grid
+    its five grid slices and its three chains."""
+    calls = {"bgrid": [], "chain": []}
+    real = {"bgrid": bgrid.slice_grid, "chain": pw.pointwise_chain}
 
-    def keep(*args):
-        calls.append(args)
-        return real(*args)
+    def keep(key):
+        def call(*args):
+            calls[key].append(args)
+            return real[key](*args)
+        return call
 
-    with swapped([(bgrid, "slice_grid", keep)]):
+    with swapped([(bgrid, "slice_grid", keep("bgrid")),
+                  (pw, "pointwise_chain", keep("chain"))]):
         pipe.run_padded(raw_dev)
-    shapes = [(tuple(g.shape[:2]), ss) for g, _, ss in calls]
+    shapes = [(tuple(g.shape[:2]), ss) for g, _, ss in calls["bgrid"]]
     expect(shapes == [((32, 1), 15)] * 3 + [((4, 3), 100), ((6, 1), 50)],
            f"unexpected grid slices {shapes}")
+    expect(len(calls["chain"]) == LAUNCHES7["chain"],
+           f"{len(calls['chain'])} chains")
     return calls
 
 
@@ -1037,7 +1111,8 @@ def run_config7(card, record, raw, raw_dev, meta, phases):
         pipe_err = float(np.abs(out - plain).max())
         expect(pipe_err <= PIPE_TOL, f"config 7 vs plain: max {pipe_err}")
         # the chain kernel kept: its Lab conversions round an ulp away
-        # from its twin's ([reuse3]), the rest of the path should not
+        # from its twin's ([chain] config 7), the rest of the path should
+        # not
         reset_launches()
         with plain_twins(keep=(pw,)):
             plain = pipe.output_array(raw)
@@ -1050,7 +1125,9 @@ def run_config7(card, record, raw, raw_dev, meta, phases):
     with timed(phases, "capture7"):
         calls = captured7(pipe, raw_dev)
     with timed(phases, "bgrid"):
-        check_bgrid(calls, record)
+        check_bgrid(calls["bgrid"], record)
+    with timed(phases, "chain7"):
+        check_chains(7, calls["chain"], pipe.fused_groups())
     del calls
     with timed(phases, "pipe7 timing"):
         per_img = time_pipe(pipe, raw_dev, PIPE7_REPEATS)

@@ -1,24 +1,31 @@
 #!/usr/bin/env python3
-"""Times the diffuse-iteration, NLM and sepblur kernels of this checkout
-against those of another checkout, on one GPU, in turns.
+"""Times the diffuse-iteration, NLM, sepblur, EAW and chain kernels of this
+checkout against those of another checkout, on one GPU, in turns.
 
     python3 scripts/kernel_ab.py --other DIR
 
 DIR holds another tree of the repo's `ansel_tpu_torch/`, such as `git
 archive` of an earlier commit unpacked into a git-ignored directory; that
 package is imported as `other_port` and builds its kernels under
-DIR/build.  The arguments are those that config 3's pipe hands its first
-diffuse iteration ((3, 5504, 8320), S = 5, isotropic) and config 2's
-pipe hands NLM ((3, 4000, 6016), 225 offsets, P = 1, variant 1) and its
-first sepblur ((4, 1000, 1504), 5 taps, d = 1; also timed at d = 32),
-captured from this checkout's pipes on synth_raw mosaics.  It first
-prints what `nvcc -Xptxas -v` reports (registers, shared memory, spills)
-for both trees' diffuse.cu and nlm.cu.  Then each kernel's output is held
-bit for bit against the other tree's and timed in the order other, this,
-this, other (each the median of REPEATS calls, device time between CUDA
-events behind a spin kernel, as chip_smoke.py times its kernels), and
-each device kernel that one call of either tree launches is listed in
-launch order with its time (torch.profiler).  Needs a CUDA device.
+DIR/build.  The arguments are captured from this checkout's pipes on
+synth_raw mosaics: those that config 3's pipe hands its first diffuse
+iteration ((3, 5504, 8320), S = 5, isotropic), its first blur ((5504,
+8320), 5 taps, d = 1) and its four chains; that config 2's pipe hands NLM
+((3, 4000, 6016), 225 offsets, P = 1, variant 1), its first sepblur ((4,
+1000, 1504), 5 taps, d = 1; also timed at d = 32 and 512) and its EAW
+scales 0, 3 and 6 ((3, 4000, 6016)); and the chains of configs 1, 2, 4
+and 7 ((3, 4000, 6016); this tree runs each through its specialised
+program).  It first prints what `nvcc -Xptxas -v` reports
+(registers, shared memory, spills) for both trees' diffuse.cu, nlm.cu,
+sepblur.cu, eaw.cu and pointwise_chain.cu.  Then each kernel's output is
+held bit for bit against the other tree's and timed in the order other,
+this, this, other (each the median of REPEATS calls, device time between
+CUDA events behind a spin kernel, as chip_smoke.py times its kernels),
+and each device kernel that one call of either tree launches is listed
+in launch order with its time (torch.profiler).  Before the kernels, the
+pipes of configs 1, 2, 3, 4 and 7 of both trees run through `run_padded`
+on the same raw in the same order (img/s; this tree's launch counts
+checked against chip_smoke.py's).  Needs a CUDA device.
 """
 
 import argparse
@@ -39,16 +46,28 @@ sys.path.insert(0, ROOT)
 import ansel_tpu_torch as port  # noqa: E402
 from ansel_tpu_torch.io import configs  # noqa: E402
 from ansel_tpu_torch.io.synthetic import synth_raw  # noqa: E402
-from ansel_tpu_torch.kernels import _build, diffuse, nlm, sepblur  # noqa: E402
+from ansel_tpu_torch.kernels import (  # noqa: E402
+    _build, diffuse, eaw, nlm, sepblur)
+from ansel_tpu_torch.kernels import pointwise as pw  # noqa: E402
 from ansel_tpu_torch.ops.base import pad_to  # noqa: E402
-from chip_smoke import card_line, median_ms, swapped  # noqa: E402
+from chip_smoke import (  # noqa: E402
+    LAUNCHES1, LAUNCHES2, LAUNCHES3, LAUNCHES4, LAUNCHES7, PIPE2_REPEATS,
+    PIPE3_REPEATS, PIPE4_REPEATS, PIPE7_REPEATS, REPEATS, card_line,
+    median_ms, read_launches, reset_launches, swapped, time_pipe)
 
-REPEATS = 10
+# each config's launch counts per image and run_padded repeats per turn,
+# as chip_smoke.py runs them
+PIPES = {1: (LAUNCHES1, REPEATS), 2: (LAUNCHES2, PIPE2_REPEATS),
+         3: (LAUNCHES3, PIPE3_REPEATS), 4: (LAUNCHES4, PIPE4_REPEATS),
+         7: (LAUNCHES7, PIPE7_REPEATS)}
+
+
+SOURCES = ("diffuse", "nlm", "sepblur", "eaw", "pointwise_chain")
 
 
 def other_kernels(root):
-    """The diffuse, NLM and sepblur wrapper modules of the tree at
-    `root`."""
+    """The diffuse, NLM, sepblur, EAW and chain wrapper modules of the
+    tree at `root`."""
     init = os.path.join(root, "ansel_tpu_torch", "__init__.py")
     spec = importlib.util.spec_from_file_location(
         "other_port", init, submodule_search_locations=[os.path.dirname(init)])
@@ -56,12 +75,12 @@ def other_kernels(root):
     sys.modules["other_port"] = mod
     spec.loader.exec_module(mod)
     return [importlib.import_module(f"other_port.kernels.{name}")
-            for name in ("diffuse", "nlm", "sepblur")]
+            for name in ("diffuse", "nlm", "sepblur", "eaw", "pointwise")]
 
 
 def ptxas(trees):
-    """`nvcc -Xptxas -v` lines of diffuse.cu and nlm.cu for each (label,
-    root) tree, one nvcc per source, all started together."""
+    """`nvcc -Xptxas -v` lines of each of SOURCES for each (label, root)
+    tree, one nvcc per source, all started together."""
     def run(label, root, name, tmp):
         src = os.path.join(root, "ansel_tpu_torch", "csrc", f"{name}.cu")
         proc = subprocess.run(
@@ -74,7 +93,7 @@ def ptxas(trees):
 
     with tempfile.TemporaryDirectory() as tmp, ThreadPoolExecutor() as pool:
         jobs = [pool.submit(run, label, root, name, tmp)
-                for label, root in trees for name in ("diffuse", "nlm")]
+                for label, root in trees for name in SOURCES]
         return [line for job in jobs for line in job.result()]
 
 
@@ -83,7 +102,7 @@ def launch_times(fn):
     in launch order (the name up to its template arguments)."""
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA], acc_events=True) as prof:
         fn()
         torch.cuda.synchronize()
     kernels = [e for e in prof.events()
@@ -98,10 +117,12 @@ def launch_times(fn):
 
 
 def captured(n, entries):
-    """The first call's arguments of each (module, name) in config n's
-    pipe, in the order given."""
+    """Every call's arguments of each (module, name) in config n's pipe,
+    a list per entry in the order given."""
     h, w = configs.FRAMES[n]
-    raw, meta, _ = synth_raw(h=h, w=w, kind="gradients")
+    raw, meta, scene = synth_raw(h=h, w=w, kind="gradients")
+    if n in configs.XTRANS_CONFIGS:
+        raw, meta = configs.remosaic_xtrans(meta, scene)
     pipe = port.compile_pipeline(meta, configs.history(n))
     raw_dev = torch.from_numpy(pad_to(raw, pipe.pipe.spec_in)).cuda()
     calls = [[] for _ in entries]
@@ -113,7 +134,34 @@ def captured(n, entries):
                   for i, (mod, name) in enumerate(entries)]):
         pipe.run_padded(raw_dev)
     torch.cuda.synchronize()
-    return [c[0] for c in calls]
+    return calls
+
+
+def pipe_ab(card, other):
+    """Each config's pipe of both trees through run_padded on the same
+    device-resident raw, img/s in the order other, this, this, other;
+    this tree's launch counts checked against chip_smoke.py's."""
+    for n, (launches, repeats) in PIPES.items():
+        h, w = configs.FRAMES[n]
+        raw, meta, scene = synth_raw(h=h, w=w, kind="gradients")
+        if n in configs.XTRANS_CONFIGS:
+            raw, meta = configs.remosaic_xtrans(meta, scene)
+        this = port.compile_pipeline(meta, configs.history(n))
+        that = other.compile_pipeline(
+            meta, configs.history(n, item_cls=other.HistoryItem))
+        raw_dev = torch.from_numpy(pad_to(raw, this.pipe.spec_in)).cuda()
+        reset_launches()
+        this.run_padded(raw_dev)
+        got = read_launches()
+        if got != launches:
+            raise AssertionError(f"config {n} launches {got}")
+        rates = [1.0 / time_pipe(p, raw_dev, repeats, warmups=1)
+                 for p in (that, this, this, that)]
+        print(f"[pipe] config {n} {h}x{w} run_padded img/s: other "
+              f"{rates[0]:.3f}, this {rates[1]:.3f}, this {rates[2]:.3f}, "
+              f"other {rates[3]:.3f} ({repeats} images each); this tree's "
+              f"launches as chip_smoke.py's | {card}", flush=True)
+        del this, that, raw_dev
 
 
 def main():
@@ -127,29 +175,49 @@ def main():
           f"{card}", flush=True)
     for line in ptxas((("this", ROOT), ("other", args.other))):
         print(line, flush=True)
-    other_diffuse, other_nlm, other_sepblur = other_kernels(args.other)
-    (diffuse_call,) = captured(3, [(diffuse, "diffuse_iteration")])
-    nlm_call, blur_call = captured(2, [(nlm, "nlm"), (sepblur, "sep_blur")])
+    o_diffuse, o_nlm, o_sepblur, o_eaw, o_pw = other_kernels(args.other)
+    pipe_ab(card, sys.modules["other_port"])
+    diffuse3, blur3, chain3 = captured(3, [
+        (diffuse, "diffuse_iteration"), (sepblur, "sep_blur"),
+        (pw, "pointwise_chain")])
+    nlm2, blur2, eaw2, chain2 = captured(2, [
+        (nlm, "nlm"), (sepblur, "sep_blur"), (eaw, "eaw_dn_coarse"),
+        (pw, "pointwise_chain")])
+    chains = {n: captured(n, [(pw, "pointwise_chain")])[0] for n in (1, 4, 7)}
+    chains[2], chains[3] = chain2, chain3
+    blur = blur2[0]
     cases = [
-        ("diffuse", diffuse_call, diffuse.diffuse_iteration,
-         other_diffuse.diffuse_iteration),
-        ("nlm", nlm_call, nlm.nlm, other_nlm.nlm),
-        ("sepblur d=1", blur_call, sepblur.sep_blur, other_sepblur.sep_blur),
-        ("sepblur d=32", blur_call[:2] + (32,), sepblur.sep_blur,
-         other_sepblur.sep_blur),
+        ("diffuse", diffuse3[0], diffuse.diffuse_iteration,
+         o_diffuse.diffuse_iteration),
+        ("nlm", nlm2[0], nlm.nlm, o_nlm.nlm),
+        ("sepblur config 3 d=1", blur3[0], sepblur.sep_blur,
+         o_sepblur.sep_blur),
+    ] + [
+        (f"sepblur d={d}", blur[:2] + (d,), sepblur.sep_blur,
+         o_sepblur.sep_blur) for d in (1, 32, 512)
+    ] + [
+        (f"eaw scale {eaw2[s][1]}", eaw2[s], eaw.eaw_dn_coarse,
+         o_eaw.eaw_dn_coarse) for s in (0, 3, 6)
+    ] + [
+        (f"chain config {n}.{i}", call, pw.pointwise_chain,
+         o_pw.pointwise_chain)
+        for n in sorted(chains) for i, call in enumerate(chains[n])
     ]
+    del diffuse3, blur3, chain3, nlm2, blur2, eaw2, chain2, chains
     for name, call, this_fn, other_fn in cases:
         x = call[0]
         got, want = this_fn(*call), other_fn(*call)
         torch.cuda.synchronize()
-        if not torch.equal(got, want):
-            raise AssertionError(f"{name}: this and other differ by "
-                                 f"{(got - want).abs().max().item()}")
+        for g, w_ in zip(*((got, want) if isinstance(got, tuple)
+                           else ((got,), (want,)))):
+            if not torch.equal(g, w_):
+                raise AssertionError(f"{name}: this and other differ by "
+                                     f"{(g - w_).abs().max().item()}")
         del got, want
         times = [median_ms(lambda: fn(*call), REPEATS)
                  for fn in (other_fn, this_fn, this_fn, other_fn)]
-        print(f"[ab] {name} {tuple(x.shape)}: ms other {times[0]:.3f}, this "
-              f"{times[1]:.3f}, this {times[2]:.3f}, other {times[3]:.3f} "
+        print(f"[ab] {name} {tuple(x.shape)}: ms other {times[0]:.4f}, this "
+              f"{times[1]:.4f}, this {times[2]:.4f}, other {times[3]:.4f} "
               f"(medians of {REPEATS}); outputs equal bit for bit | {card}",
               flush=True)
         for label, fn in (("this", this_fn), ("other", other_fn)):

@@ -38,8 +38,10 @@ from ansel_tpu_torch.ops.base import pad_to  # noqa: E402
 
 # device kernel name -> group; anything else is a torch operation
 GROUPS = {
-    r"sep_blur_kernel<\w+>": "sepblur kernel", "eaw_kernel": "EAW kernel",
+    r"sep_(fixed|any|pass)<[\w, ]+>": "sepblur kernel",
+    r"eaw_tile<\d, \w+>": "EAW kernel",
     r"nlm_kernel<\d+, \w+>": "NLM kernel", "chain": "chain kernel",
+    r"chain_fixed<.+>": "chain kernel",
     "pad_normalize": "RCD kernels", "filters": "RCD kernels",
     "stats": "RCD kernels", "green": "RCD kernels",
     "chroma_rb": "RCD kernels", "finish": "RCD kernels",

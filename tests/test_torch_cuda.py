@@ -145,20 +145,28 @@ CHAINS = {
 
 @pytest.mark.parametrize("name", sorted(CHAINS) + ["lab-round-trip"])
 def test_chain_kernel_matches_plain(cuda, name):
+    """Every case through its specialised kernel (all but the Lab round
+    trip have one) and through the interpreter, on a frame of whole
+    pixel pairs and on an odd one: the two kernels equal each other bit
+    for bit, and the plain twin within the chain's tolerance."""
     items = CHAINS.get(name, CHAINS["config1"])
     chain = _chain(items, cuda, lab_round_trip=name == "lab-round-trip")
+    assert (chain.fixed >= 0) == (name != "lab-round-trip")
     rng = np.random.default_rng(5)
-    x = torch.from_numpy(rng.uniform(-0.2, 3.0, (3, 64, 256))
-                         .astype(np.float32)).to(cuda)
-    before = pw.LAUNCHES
-    got = pw.pointwise_chain(x, chain)
-    assert pw.LAUNCHES == before + 1
-    want = pw.pointwise_chain_reference(x, chain)
-    torch.cuda.synchronize()
-    assert torch.isfinite(want).all()
-    d = (got - want).abs()
-    assert d.max().item() <= CHAIN_MAX_TOL
-    assert d.mean().item() <= CHAIN_MEAN_TOL
+    for hw in [(64, 256), (5, 7)]:
+        x = torch.from_numpy(rng.uniform(-0.2, 3.0, (3,) + hw)
+                             .astype(np.float32)).to(cuda)
+        before = pw.LAUNCHES
+        got = pw.pointwise_chain(x, chain)
+        interpreted = pw.pointwise_chain(x, dataclasses.replace(chain, fixed=-1))
+        assert pw.LAUNCHES == before + 2
+        want = pw.pointwise_chain_reference(x, chain)
+        torch.cuda.synchronize()
+        assert torch.isfinite(want).all()
+        assert torch.equal(got, interpreted)
+        d = (got - want).abs()
+        assert d.max().item() <= CHAIN_MAX_TOL
+        assert d.mean().item() <= CHAIN_MEAN_TOL
 
 
 def test_chain_kernel_propagates_nan_like_plain(cuda):
@@ -168,9 +176,11 @@ def test_chain_kernel_propagates_nan_like_plain(cuda):
     x[1, 1, :4] = float("inf")
     x[2, 2, :4] = -float("inf")
     got = pw.pointwise_chain(x, chain)
+    interpreted = pw.pointwise_chain(x, dataclasses.replace(chain, fixed=-1))
     want = pw.pointwise_chain_reference(x, chain)
     torch.cuda.synchronize()
     assert torch.equal(torch.isnan(got), torch.isnan(want))
+    assert torch.equal(got.nan_to_num(7.0), interpreted.nan_to_num(7.0))
     d = (got - want).abs().nan_to_num(0.0)
     assert d.max().item() <= CHAIN_MAX_TOL
 
@@ -220,8 +230,8 @@ def test_sepblur_kernel_matches_plain(cuda, hw, c, d):
 @pytest.mark.parametrize("d", [64, 127, 128, 256, 512])
 def test_sepblur_kernel_takes_every_reach(cuda, c, d):
     """Reach 2d up to 1024, the highlights Laplacian's widest (5 taps at
-    d = 512), on both strip forms: contiguous below d = 128, gathered
-    from there on."""
+    d = 512), on both forms: a shared strip below d = 256, two passes
+    through a scratch plane from there on."""
     x = _noisy((120, 1504) if c is None else (c, 120, 1504), d + 1, cuda)
     before = sepblur.LAUNCHES
     got = sepblur.sep_blur(x, B3, d)
@@ -234,18 +244,57 @@ def test_sepblur_kernel_takes_every_reach(cuda, c, d):
 def test_sepblur_kernel_long_taps_and_refusals(cuda):
     x = _noisy((3, 64, 1000), 7, cuda)
     taps = [0.05, -0.1, 0.2, 0.3, 0.2, -0.1, 0.05, 0.1, 0.3]
-    for d in (9, 200):
+    # 201 taps at d = 36 run 7 rows a block, on the kernel for any count
+    for taps, d in ((taps, 9), (taps, 200), ([0.005] * 201, 36)):
         got = sepblur.sep_blur(x, taps, d)
         want = sepblur.sep_blur_reference(x, taps, d)
         torch.cuda.synchronize()
         assert torch.equal(got, want)
     with pytest.raises(ValueError):
-        # a 234 KB strip; no caller of the port asks for one
-        sepblur.sep_blur(x, [0.005] * 201, 36)
+        # one row of strip over 227 KB; no caller of the port asks for one
+        sepblur.sep_blur(x, [0.001] * 513, 114)
     with pytest.raises(ValueError):
         sepblur.sep_blur(x.double(), B3, 1)
     with pytest.raises(ValueError):
         sepblur.sep_blur(x.transpose(1, 2), B3, 1)
+
+
+@pytest.mark.parametrize("shape", [(37, 530), (2, 37, 530), (5, 300),
+                                   (3, 5, 300)])
+@pytest.mark.parametrize("n", [3, 5, 33])
+@pytest.mark.parametrize("d", [1, 2, 7, 32, 127, 128, 512])
+def test_sepblur_kernel_every_form(cuda, shape, n, d):
+    """Both forms (a shared strip, two passes from d = 256), the
+    templates of 16 and 8 rows, the residue-class tiling, frames shorter
+    than d and than one block: equal to the twin bit for bit."""
+    x = _noisy(shape, n * d, cuda)
+    taps = np.random.default_rng(n).uniform(-0.2, 0.6, n).astype(np.float32)
+    taps = [float(t) for t in taps]
+    before = sepblur.LAUNCHES
+    got = sepblur.sep_blur(x, taps, d)
+    assert sepblur.LAUNCHES == before + 1
+    want = sepblur.sep_blur_reference(x, taps, d)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("hw", [(5, 7), (37, 530), (300, 20)])
+@pytest.mark.parametrize("scale", range(8))
+@pytest.mark.parametrize("variant", [eaw.DN, eaw.ATROUS])
+def test_eaw_kernel_every_form(cuda, hw, scale, variant):
+    """Both tile forms (contiguous below d = 64, gathered from there) and
+    the residue-class tiling, frames shorter and narrower than d: equal
+    to the twin bit for bit."""
+    x = _noisy((3,) + hw, scale + 1, cuda)
+    const = float(np.float32(0.8 ** scale)) if variant == eaw.DN else 3.0
+    fn = eaw.eaw_dn_coarse if variant == eaw.DN else eaw.eaw_atrous_coarse
+    before = eaw.LAUNCHES
+    got = fn(x, scale, const)
+    assert eaw.LAUNCHES == before + 1
+    want = eaw.eaw_coarse_reference(x, scale, const, variant)
+    torch.cuda.synchronize()
+    for g, w_ in zip(got, want):
+        assert torch.equal(g, w_)
 
 
 @pytest.mark.parametrize("hw,scale,variant", EAW_CASES)

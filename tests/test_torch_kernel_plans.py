@@ -1,10 +1,13 @@
 """The host-side launch plans of the port's redesigned CUDA kernels, on the
 CPU: the diffuse iteration's fusion groups and shared memory per number
 of scales, the NLM kernel's path (resident search window or streamed
-offsets) per patch radius and reach, and the sepblur strip's form per tap
-count and dilation, with every tap count and dilation that the port's
-callers of `sep_blur` can ask for.  The libraries check each planned size
-against their own on the card (tests/test_torch_cuda.py)."""
+offsets) per patch radius and reach, the sepblur strip's form, rows and
+template per tap count and dilation, with every tap count and dilation
+that the port's callers of `sep_blur` can ask for, the EAW tile per
+scale, and the colour chain's choice between a specialised program and
+the interpreter.  The libraries check each planned size, and the list
+of specialised programs, against their own on the card
+(tests/test_torch_cuda.py)."""
 
 import math
 
@@ -15,8 +18,9 @@ import torch
 import ansel_tpu_torch as port
 from ansel_tpu_torch.io import configs
 from ansel_tpu_torch.io.synthetic import synth_raw
-from ansel_tpu_torch.kernels import diffuse, nlm, sepblur
+from ansel_tpu_torch.kernels import diffuse, eaw, nlm, sepblur
 from ansel_tpu_torch.kernels import highlights_laplacian as hl
+from ansel_tpu_torch.kernels import pointwise as pw
 from ansel_tpu_torch.pixel import blur
 from ansel_tpu_torch.pixel.nlmeans import search_offsets
 
@@ -138,28 +142,71 @@ def test_sepblur_callers_are_known(caller_pairs):
 
 @pytest.mark.parametrize("kind", ["laplacian", "d1"])
 def test_sepblur_admits_every_caller_pair(caller_pairs, kind):
-    pairs = [(n, d) for n, d in caller_pairs if (d > 1) == (kind == "laplacian")]
+    pairs = [(n, d) for n, d in caller_pairs
+             if (d > 1) == (kind == "laplacian")]
     assert pairs
     for n, d in pairs:
-        gather, smem = sepblur.plan(n, d)
-        assert gather == (d >= sepblur.TILE_W)
-        assert 0 < smem <= SMEM_227K == sepblur.MAX_SMEM, (n, d)
+        p = sepblur.plan(n, d)
+        assert p.two_pass == (d >= sepblur.TWO_PASS)
+        # every caller's blur runs a template: on the strip, its vertical
+        # window in registers over a full block of rows
+        assert p.fixed and p.rows == (1 if p.two_pass else
+                                      sepblur.rows_of(n)), (n, d)
+        assert 0 <= p.smem <= SMEM_227K == sepblur.MAX_SMEM, (n, d)
 
 
 @pytest.mark.parametrize("d", [1, 64, 127, 128, 512, 4096])
 def test_sepblur_strip_forms(d):
-    gather, smem = sepblur.plan(5, d)
-    cols = 5 * 128 if d >= 128 else 128 + 4 * d
-    assert (gather, smem) == (d >= 128, 8 * cols * 4)
-    # from d = TILE_W on, 20 KB whatever the reach
-    assert smem <= 20480
+    p = sepblur.plan(5, d)
+    if d >= 256:
+        # two passes through a scratch plane, no shared memory
+        assert p == (True, 1, 256, 0, 0, True)
+    else:
+        # the least multiple of 256 columns that holds 4d + 256
+        strip = -(-(4 * d + 256) // 256) * 256
+        assert p == (False, 16, strip - 4 * d, strip, 16 * strip * 4, True)
+        assert p.cols >= 256 and p.strip % sepblur.THREADS == 0
+    # 80 KB at most, whatever the reach
+    assert p.smem <= 81920
 
 
 def test_sepblur_refuses_only_strips_over_227k():
-    # the widest strips the kernel takes, and the first it does not
-    assert sepblur.plan(sepblur.MAX_TAPS, 1)[1] <= SMEM_227K
-    assert sepblur.plan(201, 35)[1] <= SMEM_227K < sepblur.plan(201, 36)[1]
-    assert sepblur.plan(55, 1000)[1] <= SMEM_227K < sepblur.plan(57, 1000)[1]
+    # the widest strips the kernel takes, and the first it does not: the
+    # rows of a block shrink to fit, down to one
+    assert sepblur.plan(sepblur.MAX_TAPS, 1).rows == 16
+    last, first = sepblur.plan(513, 113), sepblur.plan(513, 114)
+    assert last.rows == 1 and last.smem == SMEM_227K and first.rows == 0
+    assert sepblur.plan(201, 36) == (False, 7, 480, 7680, 7 * 7680 * 4, False)
+    # every template's strip fits below d = 256, at 16, 8 or 4 rows
+    for n in range(3, sepblur.MAX_FIXED + 1, 2):
+        p = sepblur.plan(n, sepblur.TWO_PASS - 1)
+        assert p.fixed and p.rows == sepblur.rows_of(n) and p.smem <= SMEM_227K
+    assert [sepblur.rows_of(n) for n in (3, 9, 11, 25, 27, 33)] == [
+        16, 16, 8, 8, 4, 4]
+    # from d = 256 on, two passes: no reach and no tap count is refused
+    assert sepblur.plan(513, 1000) == (True, 1, 256, 0, 0, False)
+    assert sepblur.plan(7, 256).two_pass and not sepblur.plan(7, 255).two_pass
+
+
+@pytest.mark.parametrize("h", [1, 7, 100])
+@pytest.mark.parametrize("d", [1, 3, 50, 300])
+def test_sepblur_smem_by_rows_of_a_class(h, d):
+    """A launch reserves the strip for no more rows than a residue class
+    has."""
+    for n in (5, 33, 201):
+        p = sepblur.plan(n, d)
+        got = sepblur.smem_bytes(p, h, d)
+        assert got == 4 * p.strip * min(p.rows, -(-h // d)) <= p.smem
+
+
+@pytest.mark.parametrize("scale", range(0, 25))
+def test_eaw_plan_fits_every_scale(scale):
+    d = 1 << scale
+    gather, smem = eaw.plan(scale)
+    assert gather == (d >= eaw.TILE_W)
+    cols = 5 * eaw.TILE_W if gather else eaw.TILE_W + 4 * d
+    assert smem == 16 * (eaw.TILE_H + 4) * cols
+    assert 0 < smem <= 61440 < SMEM_227K == eaw.MAX_SMEM
 
 
 def test_box_and_gaussian_blurs_stay_within_the_listed_taps(monkeypatch):
@@ -175,3 +222,43 @@ def test_box_and_gaussian_blurs_stay_within_the_listed_taps(monkeypatch):
     for sigma in (0.5, 1.0, 2.5, 4.0, 4.5, 9.0):
         blur.gaussian_blur(x, sigma)
     assert max(n for n, _ in seen) == 33 and {d for _, d in seen} == {1}
+
+
+def _config_chains(config):
+    """Config `config`'s compiled pipe on a small CPU frame and its chain
+    steps (i, j, Chain)."""
+    raw, meta, scene = synth_raw(h=48, w=72, kind="gradients")
+    if config in configs.XTRANS_CONFIGS:
+        raw, meta = configs.remosaic_xtrans(meta, scene)
+    pipe = port.compile_pipeline(meta, configs.history(config), device="cpu")
+    return pipe, [(i, j, c) for kind, i, j, c in pipe.steps
+                  if kind == "chain"]
+
+
+@pytest.mark.parametrize("config", [1, 2, 3, 4, 7])
+def test_pack_chain_picks_a_specialised_program(config):
+    """Every chain the config builds has a kernel of its own: its
+    (opcode, const offset) sequence is the chosen entry of FIXED, and the
+    ints and consts that kernel takes by value are the interpreter's."""
+    _, chains = _config_chains(config)
+    assert chains
+    for _, _, c in chains:
+        recs = c.prog.view(-1, pw.RECORD).tolist()
+        assert c.fixed >= 0
+        assert pw.FIXED[c.fixed] == tuple((r[0], r[1]) for r in recs)
+        assert list(c.host_ints) == [v for r in recs for v in r[2:]]
+        assert list(c.host_consts) == c.consts.tolist()
+
+
+def test_pack_chain_interprets_an_unlisted_program():
+    """A sequence outside FIXED runs the interpreter."""
+    pipe, ((i, j, c),) = _config_chains(1)
+    specs = [pipe.pipe._chain_spec(s) for s in pipe.pipe.stages[i:j]]
+    coeffs = [k for _, k in c.stages]
+    assert pw.pack_chain(specs, coeffs, "cpu").fixed == c.fixed >= 0
+    assert pw.pack_chain(specs[:-1], coeffs[:-1], "cpu").fixed == -1
+    assert pw.pack_chain(specs[::-1], coeffs[::-1], "cpu").fixed == -1
+    agx = next(k for k, sp in enumerate(specs)
+               if sp.opcode == pw.OP_FILMIC_AGX)
+    assert pw.pack_chain(specs[agx:agx + 1], coeffs[agx:agx + 1],
+                         "cpu").fixed == -1
