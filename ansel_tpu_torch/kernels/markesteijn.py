@@ -19,25 +19,49 @@ the pad, so it is exactly a function of the edge-extended frame.  PAD is
 a multiple of 6, so a padded coordinate has the image coordinate's phase.
 
 `xtrans_markesteijn` launches the kernel for a CUDA tensor and runs
-`xtrans_markesteijn_reference` for a CPU tensor.
+`xtrans_markesteijn_reference` for a CPU tensor.  The kernel is one
+launch: a block owns a TILE_H x TILE_W output tile, and its two thread
+groups run two of the four direction chains each in shared memory, each
+step over the tile widened by the margin `kernel_plan` derives from the
+stencils (`_needed_margins`), then the vote.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from ..ops._bayer import tile6, xtrans_period
 
 PAD = 24
-# scratch planes of the padded frame: gmin/gmax, one G set, one R/B set
-# and 8 planes of temporaries for 1 pass; a second G/R/B set, a G set
-# between the two recalculation steps, 8 derivative and 8 count planes
-# for 3 passes
-PLANES = {1: 22, 3: 54}
+
+# launch geometry of csrc/markesteijn.cu, which checks every planned size:
+# the output tile of a block, its threads per pass count, the shared
+# memory a block may have on sm_90
+TILE_H = TILE_W = 32
+THREADS = {1: 512, 3: 1024}
+MAX_SMEM = 232448
+# the steps of one direction chain, in the order the kernel runs them:
+# G the greens (G1; for 3 passes G2, G3 from the recalculation's second
+# step), A its first step, S the R/B planes with the solitary-green
+# estimates, O the R@B / B@R fill, F the 2x2-green fill (the set's final
+# R/B)
+STEPS = {1: ("G1", "S1", "O1", "F1"),
+         3: ("G1", "S1", "O1", "F1", "A2", "G2", "S2", "O2", "F2",
+             "A3", "G3", "S3", "O3", "F3")}
+# the recalculation of buffer i: first (hex direction, on solitary-green
+# rows) = RECALC[0][i], then RECALC[1][i] (direction 0: a copy)
+RECALC = (((3, 1), (3, 0), (4, 0), (4, 1)), ((0, 0), (0, 0), (5, 1), (5, 0)))
+# the derivative's direction of buffer d
+DIRS = ((0, 1), (1, 0), (1, 1), (1, -1))
+# the vote reads the counts 2 px away, the counts the derivatives 1 px
+# further
+CNT_MARGIN, DRV_MARGIN = 2, 3
 
 # launches of the CUDA kernel since the count was last set to 0
 LAUNCHES = 0
@@ -291,20 +315,22 @@ def _green_recalc(geo, x, G, R, B, gmin, gmax):
     return newG
 
 
+def _derivative(G, R, B, d):
+    """The YPbPr second derivative of buffer d along DIRS[d % 4]."""
+    y = 0.2627 * R[d] + 0.6780 * G[d] + 0.0593 * B[d]
+    u = (B[d] - y) * 0.56433
+    v = (R[d] - y) * 0.67815
+    dy, dx = DIRS[d % 4]
+    dd = 0.0
+    for ch in (y, u, v):
+        t = 2 * ch - _sh(ch, dy, dx) - _sh(ch, -dy, -dx)
+        dd = dd + t * t
+    return dd
+
+
 def _vote(x, G, R, B):
-    dirs = [(0, 1), (1, 0), (1, 1), (1, -1)]
     ndir = len(G)
-    drv = []
-    for d in range(ndir):
-        y = 0.2627 * R[d] + 0.6780 * G[d] + 0.0593 * B[d]
-        u = (B[d] - y) * 0.56433
-        v = (R[d] - y) * 0.67815
-        dy, dx = dirs[d % 4]
-        dd = 0.0
-        for ch in (y, u, v):
-            t = 2 * ch - _sh(ch, dy, dx) - _sh(ch, -dy, -dx)
-            dd = dd + t * t
-        drv.append(dd)
+    drv = [_derivative(G, R, B, d) for d in range(ndir)]
     tr = functools.reduce(torch.minimum, drv) * 8.0
     homos = []
     for d in range(ndir):
@@ -363,16 +389,270 @@ def geometry_table(pattern6):
     return table + [int(c) for c in pattern6]
 
 
+def _shift_or(dst, mask, dy, dx):
+    """dst[y + dy, x + dx] |= mask[y, x], inside the array."""
+    n, m = mask.shape
+    dst[max(0, dy):n + min(0, dy), max(0, dx):m + min(0, dx)] |= \
+        mask[max(0, -dy):n - max(0, dy), max(0, -dx):m - max(0, dx)]
+
+
+def _needed_margins(pattern6, passes):
+    """For each plane of a direction chain and each buffer d, how far
+    outside an output tile the kernel must compute it: a backward walk of
+    the chain's reads from the tile's outputs, class by class, over the
+    36 phases a tile origin can have.  A step reads only the offsets its
+    sites read (the union over data-dependent choices).  -> {(plane, d):
+    margin}, with plane "X" the mosaic the block loads."""
+    allhex, sgrow, sgcol = build_hex_tables(pattern6)
+    pat = np.asarray(pattern6).reshape(6, 6)
+    hexes = [allhex[(c // 3, c % 3)] for c in range(9)]
+    t, pad = 6, 32
+    n = t + 2 * pad
+    sets = (1,) if passes == 1 else (1, 2, 3)
+    final = (1,) if passes == 1 else (1, 3)
+    box = [(a, b) for a in range(-1, 2) for b in range(-1, 2)]
+    vote = [(a, b) for a in range(-2, 3) for b in range(-2, 3)]
+    # the green candidates' reads (hex k, multiple) by candidate
+    cand = {0: [(0, 1), (1, 1), (0, 2), (1, 2)], 1: [(3, 1), (2, 1), (2, -1)],
+            2: [(4, 1), (4, -2), (4, 3), (4, -3)],
+            3: [(5, 1), (5, -2), (5, 3), (5, -3)]}
+    out = {}
+    for oy in range(6):
+        for ox in range(6):
+            yy = (np.arange(n) - pad + oy)[:, None] % 6
+            xx = (np.arange(n) - pad + ox)[None, :] % 6
+            cls = np.broadcast_to((yy % 3) * 3 + xx % 3, (n, n))
+            green = pat[yy, xx] == 1
+            rsg = np.broadcast_to(yy % 3 == sgrow, (n, n))
+            csg = np.broadcast_to(xx % 3 == sgcol, (n, n))
+            sg, g22 = green & rsg & csg, green & ~rsg & ~csg
+            for d in range(4):
+                need = {}
+
+                def get(plane):
+                    return need.setdefault(plane, np.zeros((n, n), bool))
+
+                def add(plane, mask, offs):
+                    dst = get(plane)
+                    for dy, dx in offs:
+                        _shift_or(dst, mask, dy, dx)
+
+                def add_hex(plane, mask, specs):
+                    for c in range(9):
+                        cm = mask & (cls == c)
+                        if cm.any():
+                            add(plane, cm, [(s * hexes[c][k][0],
+                                             s * hexes[c][k][1])
+                                            for k, s in specs])
+
+                tile = np.zeros((n, n), bool)
+                tile[pad:pad + t, pad:pad + t] = True
+                cnt = get("C")
+                for dy, dx in vote:
+                    _shift_or(cnt, tile, dy, dx)
+                dy, dx = DIRS[d]
+                for k in final:
+                    drv = get(f"D{k}")
+                    for a, b in box:
+                        _shift_or(drv, cnt, a, b)
+                    add(f"F{k}", tile | drv, [(0, 0), (dy, dx), (-dy, -dx)])
+                    add(f"G{k}", tile | drv, [(0, 0), (dy, dx), (-dy, -dx)])
+                for k in reversed(sets):
+                    fin = get(f"F{k}")
+                    add(f"O{k}", fin, [(0, 0)])
+                    add(f"G{k}", fin & g22, [(0, 0)])
+                    for plane in (f"O{k}", f"G{k}"):
+                        add_hex(plane, fin & g22, [(2 * d, 1), (2 * d + 1, 1)])
+                    opp = get(f"O{k}")
+                    add(f"S{k}", opp, [(0, 0)])
+                    add(f"G{k}", opp & ~green, [(0, 0)])
+                    for row_sg in (True, False):
+                        m = opp & ~green & (rsg if row_sg else ~rsg)
+                        offs = [(0, 1), (0, -1)] if row_sg else [(1, 0), (-1, 0)]
+                        if d <= 1:
+                            offs += [(3, 0), (-3, 0)] if row_sg \
+                                else [(0, 3), (0, -3)]
+                        add(f"G{k}", m, offs)
+                        add(f"S{k}", m, offs)
+                    srb = get(f"S{k}")
+                    add("X", srb, [(0, 0)])
+                    offs = []
+                    if d != 1:
+                        offs += [(0, 1), (0, -1), (0, 2), (0, -2)]
+                    if d != 0:
+                        offs += [(1, 0), (-1, 0), (2, 0), (-2, 0)]
+                    add("X", srb & sg, offs)
+                    add(f"G{k}", srb & sg, offs)
+                    gk = get(f"G{k}")
+                    if k == 1:
+                        add("X", gk, [(0, 0)])
+                        for row_sg in (True, False):
+                            m = gk & ~green & (rsg if row_sg else ~rsg)
+                            add_hex("X", m, [(j, 1) for j in range(6)]
+                                    + cand[d ^ 1 if row_sg else d])
+                        continue
+                    for dst, src, (hd, sense) in (
+                            (f"G{k}", f"A{k}", RECALC[1][d]),
+                            (f"A{k}", f"G{k - 1}", RECALC[0][d])):
+                        m = get(dst)
+                        add(src, m, [(0, 0)])
+                        if hd == 0:
+                            continue
+                        m = m & ~green & (rsg if sense else ~rsg)
+                        add("X", m, [(0, 0)])
+                        add_hex("X", m, [(j, 1) for j in range(6)])
+                        for plane in (src, f"F{k - 1}"):
+                            add_hex(plane, m, [(hd, 1), (hd, -2)])
+                for plane, m in need.items():
+                    ys, xs = np.nonzero(m)
+                    far = max(pad - ys.min(), ys.max() - (pad + t - 1),
+                              pad - xs.min(), xs.max() - (pad + t - 1), 0)
+                    key = (plane, d)
+                    out[key] = max(out.get(key, 0), int(far))
+    return out
+
+
+class Plan(NamedTuple):
+    """One launch's geometry: threads of a block, the mosaic's halo, the
+    margins of the shared planes (the mosaic, G, R/B), each step's margin
+    per buffer (STEPS order), the guard floats before and after the
+    planes, and the shared bytes of a block."""
+    passes: int
+    threads: int
+    halo: int
+    planes: tuple
+    steps: tuple
+    guard: int
+    smem: int
+
+
+def _area(m):
+    return (TILE_H + 2 * m) * (TILE_W + 2 * m)
+
+
+def in_place_ok(pattern6) -> bool:
+    """Whether the kernel's in-place steps are exact for this pattern: the
+    greens are a function of the class (row and column mod 3); a site
+    without green never reads the plane it lacks (R at blue, B at red)
+    at a site of its own colour (the R@B / B@R fill); a 2x2 green's hex
+    neighbours are no 2x2 greens (their fill); and a non-green site's
+    recalculation reads greens only.  True for every phase of the X-Trans
+    layout."""
+    pat = np.asarray(pattern6).reshape(6, 6)
+    allhex, sgrow, sgcol = build_hex_tables(tuple(pattern6))
+
+    def color(y, x):
+        return pat[y % 6, x % 6]
+
+    for y in range(6):
+        for x in range(6):
+            if (color(y, x) == 1) != (color(y % 3, x % 3) == 1):
+                return False
+            rsg, csg = y % 3 == sgrow, x % 3 == sgcol
+            hx = allhex[(y % 3, x % 3)]
+            if color(y, x) != 1:
+                offs = [(0, 1), (3, 0)] if rsg else [(1, 0), (0, 3)]
+                if any(color(y + s * dy, x + s * dx) == color(y, x)
+                       for dy, dx in offs for s in (1, -1)):
+                    return False
+                if any(color(y + s * hx[k][0], x + s * hx[k][1]) != 1
+                       for k in (3, 4, 5) for s in (1, -2)):
+                    return False
+            elif not rsg and not csg:
+                for dy, dx in hx:
+                    yy, xx = y + dy, x + dx
+                    if color(yy, xx) == 1 and yy % 3 != sgrow \
+                            and xx % 3 != sgcol:
+                        return False
+    return True
+
+
+@functools.lru_cache(maxsize=None)
+def kernel_plan(pattern6, passes: int) -> Plan:
+    """The launch plan of csrc/markesteijn.cu for a pattern and pass count:
+    the margins `_needed_margins` derives, the planes sized to the widest
+    step that writes them (G: the greens and the recalculation; R/B: the
+    green step's base, the solitary-green estimates and both fills, which
+    update it in place),
+    and the shared bytes: the guard, the float planes (the mosaic, then
+    G, R and B for each of the block's two thread groups, which run their
+    direction chains side by side, each of its margin's rows at the
+    mosaic's row stride, so one offset addresses a hex neighbour in any
+    of them; then NDIR derivative planes over the tile and 3 px; the
+    counts and one group's kept values reuse the groups' planes), a byte
+    per mosaic site (class, colour, solitary-green row flag) rounded up to
+    whole floats, the guard, then the geometry (each class's hex offsets
+    as ints, the pair flags).  A step may read outside a plane at sites no
+    output needs; the guards keep such reads inside the block's memory."""
+    pattern6 = tuple(int(c) for c in pattern6)
+    need = _needed_margins(pattern6, passes)
+    # the green step also writes the first set's R/B base, over at least
+    # the solitary-green step's rectangle
+    for d in range(4):
+        need[("G1", d)] = max(need[("G1", d)], need[("S1", d)])
+    steps = tuple(tuple(need[(s, d)] for d in range(4)) for s in STEPS[passes])
+    by = dict(zip(STEPS[passes], steps))
+
+    def widest(kind):
+        return max(max(v) for s, v in by.items() if s[0] in kind)
+
+    halo = max(need[("X", d)] for d in range(4))
+    # R/B: the steps that update it, and the green step's base
+    planes = (halo, widest("GA"), max(widest("SOF"), max(by["G1"])))
+    ndir = 4 if passes == 1 else 8
+    hex_max = max(abs(v) for hx in build_hex_tables(pattern6)[0].values()
+                  for off in hx for v in off)
+    reach = max(3, 3 * hex_max)  # the farthest offset a step reads
+    stride = TILE_W + 2 * halo
+    guard = reach * (stride + 1)
+
+    def rows(m):
+        return (TILE_H + 2 * m) * stride
+
+    floats = (rows(planes[0]) + 2 * (rows(planes[1]) + 2 * rows(planes[2]))
+              + ndir * _area(DRV_MARGIN))
+    sites = -(-rows(halo) // 4)
+    geo = 9 * 8 * 4 + 9 * 4
+    smem = 4 * (2 * guard + floats + sites) + geo
+    return Plan(passes, THREADS[passes], halo, planes, steps, guard,
+                (smem + 15) // 16 * 16)
+
+
+def launch_plan(h: int, w: int, pattern6, passes: int):
+    """-> (blocks down, blocks across, Plan) for an (h, w) mosaic; block
+    (i, j) writes output rows i TILE_H .. + TILE_H and columns j TILE_W ..
+    + TILE_W that lie in the frame."""
+    return -(-h // TILE_H), -(-w // TILE_W), kernel_plan(
+        tuple(int(c) for c in pattern6), passes)
+
+
 def _lib():
     from . import _build
 
     lib = _build.load("markesteijn")
     if not getattr(lib, "_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.markesteijn.argtypes = [p, p, p, i, i, i, i, p, p]
+        lib.markesteijn.argtypes = [p, p, i, i, i, p, p, p]
         lib.markesteijn.restype = ctypes.c_int
+        lib.markesteijn_limits.argtypes = [p] * 5
+        lib.markesteijn_limits.restype = None
+        got = [ctypes.c_int() for _ in range(5)]
+        lib.markesteijn_limits(*[ctypes.byref(v) for v in got])
+        if [v.value for v in got] != [TILE_H, TILE_W, THREADS[1],
+                                      THREADS[3], MAX_SMEM]:
+            raise RuntimeError("csrc/markesteijn.cu and kernels/markesteijn.py"
+                               " disagree on the launch geometry")
         lib._typed = True
     return lib
+
+
+def _plan_table(plan: Plan):
+    """The plan as the kernel's int table: passes, threads, halo, the
+    three plane margins, guard, shared bytes, then each step's margins
+    for buffers 0-3."""
+    vals = [plan.passes, plan.threads, plan.halo, *plan.planes, plan.guard,
+            plan.smem] + [m for row in plan.steps for m in row]
+    return (ctypes.c_int * len(vals))(*vals)
 
 
 def xtrans_markesteijn(x: torch.Tensor, pattern6,
@@ -388,23 +668,23 @@ def xtrans_markesteijn(x: torch.Tensor, pattern6,
             or x.numel() == 0):
         raise ValueError("markesteijn: needs a contiguous non-empty (H, W) "
                          f"float32 tensor, got {x.dtype} {tuple(x.shape)}")
-    if passes not in PLANES:
+    if passes not in STEPS:
         raise ValueError(f"markesteijn: passes {passes} is not 1 or 3")
     pattern6 = tuple(int(c) for c in pattern6)
-    if len(pattern6) != 36 or any(c not in (0, 1, 2) for c in pattern6):
+    if len(pattern6) != 36 or any(c not in (0, 1, 2) for c in pattern6) \
+            or not in_place_ok(pattern6):
         raise ValueError(f"markesteijn: bad X-Trans pattern {pattern6}")
     global LAUNCHES
     lib = _lib()
     h, w = x.shape
-    scratch = torch.empty((PLANES[passes], h + 2 * PAD, w + 2 * PAD),
-                          dtype=x.dtype, device=x.device)
+    _, _, plan = launch_plan(h, w, pattern6, passes)
     out = torch.empty((3, h, w), dtype=x.dtype, device=x.device)
     table = geometry_table(pattern6)
     host_table = (ctypes.c_int * len(table))(*table)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.markesteijn(x.data_ptr(), out.data_ptr(), scratch.data_ptr(),
-                             h, w, passes, PAD, host_table, stream)
+        rc = lib.markesteijn(x.data_ptr(), out.data_ptr(), h, w, passes,
+                             host_table, _plan_table(plan), stream)
     if rc != 0:
         raise RuntimeError(f"markesteijn: CUDA launch failed ({rc})")
     LAUNCHES += 1

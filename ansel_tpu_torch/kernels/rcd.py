@@ -8,7 +8,10 @@ even edge pad of 12 on every side gives the Pallas kernel's result
 (its halo is 12 rows and 64 columns) at every pixel, borders included.
 
 `rcd_demosaic` launches the kernel for a CUDA tensor and runs
-`rcd_demosaic_reference` for a CPU tensor.
+`rcd_demosaic_reference` for a CPU tensor.  The kernel is one launch: a
+block computes a TILE_H x TILE_W output tile from the mosaic over the
+tile and a HALO-px ring, with every intermediate in shared memory over
+the tile widened by MARGINS (`launch_plan`).
 """
 
 from __future__ import annotations
@@ -23,6 +26,17 @@ from ..core.types import CFAPattern
 EPS = 1e-5
 EPSSQ = 1e-10
 PAD = 12  # even (keeps the CFA phase) and >= 10 (RCD's reach)
+
+# launch geometry of csrc/rcd.cu, which reports its own (rcd_limits): the
+# output tile of a block, its threads, the halo the block loads (RCD's
+# reach) and the margin around the tile of each of its six shared planes,
+# each the widest of what it holds in turn: the mosaic 10; hv, then
+# vh_disc 7; hh, lpf, hp, then pq_disc 7; vh_dir, then g 6; hq, then r_nb
+# 5; pq_dir, then b_nb 4
+TILE_H, TILE_W = 32, 48
+THREADS = 512
+HALO = 10
+MARGINS = (10, 7, 7, 6, 5, 4)
 
 # launches of the CUDA kernel since the count was last set to 0
 LAUNCHES = 0
@@ -185,21 +199,35 @@ def rcd_demosaic_reference(x: torch.Tensor, cfa: CFAPattern,
     return torch.clamp(out, min=0.0) * s
 
 
+def smem_bytes() -> int:
+    """Shared bytes of a block: the six planes, each over the tile
+    widened by its margin."""
+    return 4 * sum((TILE_H + 2 * m) * (TILE_W + 2 * m) for m in MARGINS)
+
+
+def launch_plan(h: int, w: int):
+    """-> (blocks down, blocks across, shared bytes) for an (h, w) mosaic;
+    block (i, j) writes output rows i TILE_H .. + TILE_H and columns
+    j TILE_W .. + TILE_W that lie in the frame."""
+    return -(-h // TILE_H), -(-w // TILE_W), smem_bytes()
+
+
 def _lib():
     from . import _build
 
     lib = _build.load("rcd")
     if not getattr(lib, "_typed", False):
-        p = ctypes.c_void_p
-        lib.rcd_demosaic.argtypes = [p, p, p, ctypes.c_int, ctypes.c_int,
-                                     ctypes.c_int, p, p]
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.rcd_demosaic.argtypes = [p, p, i, i, i, p, i, p]
         lib.rcd_demosaic.restype = ctypes.c_int
-        lib.rcd_scratch_planes.argtypes = []
-        lib.rcd_scratch_planes.restype = ctypes.c_int
-        lib.rcd_pad.argtypes = []
-        lib.rcd_pad.restype = ctypes.c_int
-        if lib.rcd_pad() != PAD:
-            raise RuntimeError("csrc/rcd.cu and kernels/rcd.py disagree on PAD")
+        lib.rcd_limits.argtypes = [p] * 5
+        lib.rcd_limits.restype = None
+        got = [ctypes.c_int() for _ in range(5)]
+        lib.rcd_limits(*[ctypes.byref(v) for v in got])
+        if [v.value for v in got] != [TILE_H, TILE_W, THREADS, HALO,
+                                      smem_bytes()]:
+            raise RuntimeError("csrc/rcd.cu and kernels/rcd.py disagree on "
+                               "the launch geometry")
         lib._typed = True
     return lib
 
@@ -222,13 +250,11 @@ def rcd_demosaic(x: torch.Tensor, cfa: CFAPattern, scaler=1.0) -> torch.Tensor:
     lib = _lib()
     s = _scaler_tensor(scaler, x.device)
     out = torch.empty((3, h, w), dtype=torch.float32, device=x.device)
-    scratch = torch.empty((lib.rcd_scratch_planes(), h + 2 * PAD, w + 2 * PAD),
-                          dtype=torch.float32, device=x.device)
+    _, _, smem = launch_plan(h, w)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.rcd_demosaic(x.data_ptr(), out.data_ptr(),
-                              scratch.data_ptr(), h, w, code, s.data_ptr(),
-                              stream)
+        rc = lib.rcd_demosaic(x.data_ptr(), out.data_ptr(), h, w, code,
+                              s.data_ptr(), smem, stream)
     if rc != 0:
         raise RuntimeError(f"rcd_demosaic: CUDA launch failed ({rc})")
     LAUNCHES += 1

@@ -103,6 +103,10 @@ INSTR_PER_S = 132 * 4 * 32 * 1.98e9
 # float32 operations per output pixel (per tap or offset where named),
 # counted from each kernel's source; the fast exponentials count 4
 FLOPS_RCD = 330
+# RCD's IEEE divisions per pixel, each one MUFU reciprocal: the load's
+# normalisation 1, the two statistics 2, at R/B sites the green's 6 and
+# the chroma's 2, at G sites the two chroma planes' 4 (9 on average)
+MUFU_RCD = 9
 # MUFU instructions (reciprocal, square root, log2, exp2) the special
 # function units issue: 16 a SM a clock (H100 architecture), at the boost
 # clock
@@ -142,6 +146,29 @@ FLOPS_DIFFUSE_PDE_ISO = 44
 # passes add the recalculation (60 at non-green sites, 27), two more R/B
 # sets (122) and 8 directions in place of 4 (698)
 FLOPS_MARKESTEIJN = {1: 317, 3: 698}
+
+
+def mufu_markesteijn(pattern6, passes):
+    """Markesteijn's IEEE divisions per pixel (one MUFU reciprocal each;
+    the halvings and eighths are exact products), averaged over the 6 x 6
+    period: the vote's 3, per set and buffer the 2x2-green fill's two
+    thirds where its hex pair is used, and per recalculation sweep and
+    buffer a third at each non-green site it updates."""
+    allhex, sgrow, sgcol = markesteijn.build_hex_tables(tuple(pattern6))
+    pat = np.asarray(pattern6).reshape(6, 6)
+    sets, total = (1 if passes == 1 else 3), 3 * 36
+    for y in range(6):
+        for x in range(6):
+            rsg, csg = y % 3 == sgrow, x % 3 == sgcol
+            hexes = allhex[(y % 3, x % 3)]
+            if pat[y, x] == 1 and not rsg and not csg:
+                total += sets * 2 * sum(
+                    markesteijn._pair_nonzero(hexes, 2 * d) for d in range(4))
+            elif pat[y, x] != 1 and passes == 3:
+                for first, second in zip(*markesteijn.RECALC):
+                    total += 2 * sum(hd != 0 and rsg == bool(sense)
+                                     for hd, sense in (first, second))
+    return total / 36
 # the lens warp per pixel, three channels: the map 25 once, per channel
 # the TCA factor 5, the coordinates 4 and the bilinear sample 25
 FLOPS_WARP = 125
@@ -155,7 +182,9 @@ FLOPS_BGRID_BIN0, FLOPS_BGRID_BIN1, FLOPS_BGRID_SUM = 11, 10, 1
 # RCD: the kernel does the plain version's float32 operations in the same
 # order (built with --fmad=false; division and sqrt are IEEE), so the two
 # agree to rounding of the final `* scaler`; 1e-6 * scaler leaves room
-# for that and is ten times tighter than the first bound set for it.
+# for that and is ten times tighter than the first bound set for it.  The
+# kernel is also held to equality with its twin, which it meets (as does
+# Markesteijn's).
 RCD_TOL = 1e-6
 # chain: powf/log2f/expf in the kernel and torch's pow/log2 on the card
 # may differ by an ulp, and the filmic spline and gamut map amplify that
@@ -407,11 +436,14 @@ def run_config1(card, record, raw, raw_dev, meta, pool):
     flat = torch.full_like(mosaic, 0.3 * s)
     errs, rcd_err = [], 0.0
     for name, m in (("config-1", mosaic), ("flat", flat)):
-        mx, mean = compare(rcd.rcd_demosaic(m, cfa, scaler),
-                           rcd.rcd_demosaic_reference(m, cfa, scaler))
+        got = rcd.rcd_demosaic(m, cfa, scaler)
+        want = rcd.rcd_demosaic_reference(m, cfa, scaler)
+        mx, mean = compare(got, want)
         expect(mx <= RCD_TOL * s, f"rcd {name}: max {mx} > {RCD_TOL} x {s}")
+        expect(torch.equal(got, want), f"rcd {name}: not bit-equal")
         rcd_err = max(rcd_err, mx)
         errs.append(f"{name} max {mx:.3g} mean {mean:.3g}")
+        del got, want
     rcd_ms = median_ms(lambda: rcd.rcd_demosaic(mosaic, cfa, scaler))
     rcd_plain_ms = median_ms(
         lambda: rcd.rcd_demosaic_reference(mosaic, cfa, scaler),
@@ -420,11 +452,13 @@ def run_config1(card, record, raw, raw_dev, meta, pool):
     record["rcd"] = dict(max_abs_err=rcd_err, ms=rcd_ms,
                          plain_ms=rcd_plain_ms, library_ms=None)
     record["rcd"]["bound_ms"], record["rcd"]["bound_by"] = bound(
-        nbytes(mosaic, rgb), FLOPS_RCD * mosaic.numel())
+        nbytes(mosaic, rgb), instructions=FLOPS_RCD * mosaic.numel(),
+        sfu=MUFU_RCD * mosaic.numel())
     print(f"[rcd] {H}x{W} kernel vs plain: {'; '.join(errs)} "
-          f"(tol {RCD_TOL:g} x scaler {s:.4g}) | kernel {rcd_ms:.3f} ms, "
-          f"plain {rcd_plain_ms:.3f} ms, bound "
-          f"{record['rcd']['bound_ms']:.3f} ms", flush=True)
+          f"(tol {RCD_TOL:g} x scaler {s:.4g}; bit-equal) | kernel "
+          f"{rcd_ms:.3f} ms, plain {rcd_plain_ms:.3f} ms, bound "
+          f"{record['rcd']['bound_ms']:.3f} ms "
+          f"({record['rcd']['bound_by']})", flush=True)
 
     # -- chain kernel vs plain on the demosaic output
     chain = next(a for kind, _, _, a in pipe.steps if kind == "chain")
@@ -444,13 +478,15 @@ def run_config1(card, record, raw, raw_dev, meta, pool):
     pipe_err = float(np.abs(out - plain[:, :so.height, :so.width]
                             .cpu().numpy()).max())
     expect(pipe_err <= PIPE_TOL, f"pipe vs plain: max {pipe_err}")
+    peak, held = pipe_peak(pipe, raw_dev)
     per_img = time_pipe(pipe, raw_dev, REPEATS)
     print(f"[pipe] config 1 {H}x{W}: {len(stages)} stages, chains "
           f"{pipe.fused_groups()}, launches {launches}, vs plain max "
           f"{pipe_err:.3g} (tol 1/255), range [{out.min():.3g}, "
           f"{out.max():.3g}] | {1.0 / per_img:.2f} img/s, "
           f"{H * W / per_img / 1e6:.1f} MP/s ({per_img * 1e3:.1f} ms/img, "
-          f"device-resident input) on {card}", flush=True)
+          f"device-resident input), peak device memory {peak:.3f} GB "
+          f"({held:.3f} GB held before) on {card}", flush=True)
     return pool.submit(png_size, out, "config1.png")
 
 
@@ -464,6 +500,18 @@ def time_pipe(pipe, raw_dev, repeats, warmups=2):
         pipe.run_padded(raw_dev)
     torch.cuda.synchronize()
     return (time.perf_counter() - t) / repeats
+
+
+def pipe_peak(pipe, raw_dev):
+    """(peak, held before) device GB of one run_padded call:
+    max_memory_allocated after reset_peak_memory_stats, and what was
+    allocated when the call began."""
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    pipe.run_padded(raw_dev)
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() / 1e9, held / 1e9
 
 
 def png_size(out, name):
@@ -698,9 +746,15 @@ def check_reused3(calls):
     image on config 3."""
     m, cfa, scaler = calls["rcd"][0]
     s = float(scaler)
-    rcd_err, _ = compare(rcd.rcd_demosaic(m, cfa, scaler),
-                         rcd.rcd_demosaic_reference(m, cfa, scaler))
+    got = rcd.rcd_demosaic(m, cfa, scaler)
+    want = rcd.rcd_demosaic_reference(m, cfa, scaler)
+    rcd_err, _ = compare(got, want)
     expect(rcd_err <= RCD_TOL * s, f"rcd: max {rcd_err} > {RCD_TOL} x {s}")
+    expect(torch.equal(got, want), "rcd on config 3: not bit-equal")
+    rcd_ms = median_ms(lambda: rcd.rcd_demosaic(m, cfa, scaler))
+    rcd_bound, rcd_by = bound(nbytes(m, got), instructions=FLOPS_RCD * m.numel(),
+                              sfu=MUFU_RCD * m.numel())
+    del got, want
     sb_err, sb_ms, b_ms = 0.0, [], 0.0
     for x, taps, *d in calls["sepblur"]:
         mx, _ = compare(sepblur.sep_blur(x, taps, *d),
@@ -712,7 +766,8 @@ def check_reused3(calls):
                       FLOPS_SEPBLUR_PER_TAP * len(taps) * x.numel())[0]
     first = tuple(calls["sepblur"][0][0].shape)
     print(f"[reuse3] kernel vs plain on config 3's arguments: rcd "
-          f"{tuple(m.shape)} max {rcd_err:.3g}; {len(calls['sepblur'])} "
+          f"{tuple(m.shape)} max {rcd_err:.3g} (bit-equal), {rcd_ms:.3f} ms "
+          f"(bound {rcd_bound:.3f} ms, {rcd_by}); {len(calls['sepblur'])} "
           f"blurs {first} and down, max {sb_err:.3g} | sepblur "
           f"{sum(sb_ms):.3f} ms per image (bound {b_ms:.3f} ms; the "
           f"largest, {first}, {max(sb_ms):.4f} ms)", flush=True)
@@ -809,12 +864,14 @@ def run_config3(card, record, raw, meta, phases):
     del calls
     with timed(phases, "pipe3 timing"):
         per_img = time_pipe(pipe, raw_dev, PIPE3_REPEATS, warmups=1)
+        peak, held = pipe_peak(pipe, raw_dev)
     print(f"[pipe3] config 3 {H3}x{W3}: {len(stages)} stages, chains "
           f"{pipe.fused_groups()}, launches {launches}, vs plain max "
           f"{pipe_err:.3g} (tol 1/255), range [{out.min():.3g}, "
           f"{out.max():.3g}] | {1.0 / per_img:.3f} img/s, "
           f"{per_img * 1e3:.1f} ms/img (device-resident input, "
-          f"{PIPE3_REPEATS} repeats) on {card}", flush=True)
+          f"{PIPE3_REPEATS} repeats), peak device memory {peak:.3f} GB "
+          f"({held:.3f} GB held before) on {card}", flush=True)
     return launches
 
 
@@ -854,16 +911,20 @@ def check_markesteijn(calls, record):
     expect(passes == 1, f"config 4 ran {passes} passes")
     rows, err, ms = [], 0.0, {}
     for p in (1, 3):
-        mx, mean = compare(markesteijn.xtrans_markesteijn(x, pattern6, p),
-                           markesteijn.xtrans_markesteijn_reference(
-                               x, pattern6, p))
+        got = markesteijn.xtrans_markesteijn(x, pattern6, p)
+        want = markesteijn.xtrans_markesteijn_reference(x, pattern6, p)
+        mx, mean = compare(got, want)
         expect(mx <= MARK_TOL, f"markesteijn {p} passes: max {mx}")
+        expect(torch.equal(got, want), f"markesteijn {p}: not bit-equal")
+        del got, want
         err = max(err, mx)
         ms[p] = median_ms(lambda: markesteijn.xtrans_markesteijn(
             x, pattern6, p))
         plain_ms = median_ms(lambda: markesteijn.xtrans_markesteijn_reference(
             x, pattern6, p), 1)
-        b_ms, b_by = bound(4 * nbytes(x), FLOPS_MARKESTEIJN[p] * x.numel())
+        b_ms, b_by = bound(
+            4 * nbytes(x), instructions=FLOPS_MARKESTEIJN[p] * x.numel(),
+            sfu=mufu_markesteijn(pattern6, p) * x.numel())
         rows.append(f"{p} pass{'es' if p > 1 else ''}: max {mx:.3g} mean "
                     f"{mean:.3g}, kernel {ms[p]:.3f} ms, plain {plain_ms:.1f} "
                     f"ms, bound {b_ms:.3f} ms ({b_by})")
@@ -873,7 +934,8 @@ def check_markesteijn(calls, record):
                                          bound_by=b_by)
     record["markesteijn"]["max_abs_err"] = err
     print(f"[markesteijn] {tuple(x.shape)} X-Trans, kernel vs plain on the "
-          f"config-4 mosaic (tol {MARK_TOL:g}): {'; '.join(rows)}",
+          f"config-4 mosaic (tol {MARK_TOL:g}; bit-equal): "
+          f"{'; '.join(rows)}",
           flush=True)
 
 
@@ -955,6 +1017,7 @@ def run_config4(card, record, raw, meta, phases):
     del calls
     with timed(phases, "pipe4 timing"):
         per_img = time_pipe(pipe, raw_dev, PIPE4_REPEATS)
+        peak, held = pipe_peak(pipe, raw_dev)
     lens_static = pipe.pipe.stages[4].plan.static
     print(f"[pipe4] config 4 {H4}x{W4} X-Trans: {len(stages)} stages, "
           f"demosaic 0x{pipe.pipe.stages[3].plan.static[0]:x} (1 pass), lens "
@@ -962,7 +1025,8 @@ def run_config4(card, record, raw, meta, phases):
           f"vs plain max {pipe_err:.3g} (tol 1/255), range [{out.min():.3g}, "
           f"{out.max():.3g}] | {1.0 / per_img:.2f} img/s, "
           f"{per_img * 1e3:.2f} ms/img (device-resident input, "
-          f"{PIPE4_REPEATS} repeats) on {card}", flush=True)
+          f"{PIPE4_REPEATS} repeats), peak device memory {peak:.3f} GB "
+          f"({held:.3f} GB held before) on {card}", flush=True)
     return launches
 
 
@@ -1131,12 +1195,14 @@ def run_config7(card, record, raw, raw_dev, meta, phases):
     del calls
     with timed(phases, "pipe7 timing"):
         per_img = time_pipe(pipe, raw_dev, PIPE7_REPEATS)
+        peak, held = pipe_peak(pipe, raw_dev)
     print(f"[pipe7] config 7 {H}x{W}: {len(stages)} stages, chains "
           f"{pipe.fused_groups()}, launches {launches}, vs plain max "
           f"{pipe_err:.3g} (tol 1/255; with the chain kernel kept, max "
           f"{rest_err:.3g}, tol {PIPE7_REST_TOL:g}), range [{out.min():.3g}, {out.max():.3g}] | "
           f"{1.0 / per_img:.2f} img/s, {per_img * 1e3:.2f} ms/img "
-          f"(device-resident input, {PIPE7_REPEATS} repeats) on {card}",
+          f"(device-resident input, {PIPE7_REPEATS} repeats), peak device "
+          f"memory {peak:.3f} GB ({held:.3f} GB held before) on {card}",
           flush=True)
     return launches
 

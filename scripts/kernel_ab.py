@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Times the diffuse-iteration, NLM, sepblur, EAW and chain kernels of this
-checkout against those of another checkout, on one GPU, in turns.
+"""Times the RCD, Markesteijn, diffuse-iteration, NLM, sepblur, EAW and
+chain kernels of this checkout against those of another checkout, on one
+GPU, in turns.
 
     python3 scripts/kernel_ab.py --other DIR
 
@@ -8,7 +9,10 @@ DIR holds another tree of the repo's `ansel_tpu_torch/`, such as `git
 archive` of an earlier commit unpacked into a git-ignored directory; that
 package is imported as `other_port` and builds its kernels under
 DIR/build.  The arguments are captured from this checkout's pipes on
-synth_raw mosaics: those that config 3's pipe hands its first diffuse
+synth_raw mosaics: the mosaics that configs 1 and 3 hand RCD ((4000,
+6016) and (5504, 8320)) and that config 4 hands Markesteijn ((4000,
+6016) X-Trans, timed at 1 and 3 passes); those that config 3's pipe
+hands its first diffuse
 iteration ((3, 5504, 8320), S = 5, isotropic), its first blur ((5504,
 8320), 5 taps, d = 1) and its four chains; that config 2's pipe hands NLM
 ((3, 4000, 6016), 225 offsets, P = 1, variant 1), its first sepblur ((4,
@@ -16,16 +20,18 @@ iteration ((3, 5504, 8320), S = 5, isotropic), its first blur ((5504,
 scales 0, 3 and 6 ((3, 4000, 6016)); and the chains of configs 1, 2, 4
 and 7 ((3, 4000, 6016); this tree runs each through its specialised
 program).  It first prints what `nvcc -Xptxas -v` reports
-(registers, shared memory, spills) for both trees' diffuse.cu, nlm.cu,
-sepblur.cu, eaw.cu and pointwise_chain.cu.  Then each kernel's output is
+(registers, shared memory, spills) for both trees' rcd.cu,
+markesteijn.cu, diffuse.cu, nlm.cu, sepblur.cu, eaw.cu and
+pointwise_chain.cu.  Then each kernel's output is
 held bit for bit against the other tree's and timed in the order other,
 this, this, other (each the median of REPEATS calls, device time between
 CUDA events behind a spin kernel, as chip_smoke.py times its kernels),
 and each device kernel that one call of either tree launches is listed
 in launch order with its time (torch.profiler).  Before the kernels, the
 pipes of configs 1, 2, 3, 4 and 7 of both trees run through `run_padded`
-on the same raw in the same order (img/s; this tree's launch counts
-checked against chip_smoke.py's).  Needs a CUDA device.
+on the same raw in the same order (img/s, and the peak device memory
+of one image of each; this tree's launch counts checked against
+chip_smoke.py's).  Needs a CUDA device.
 """
 
 import argparse
@@ -47,13 +53,13 @@ import ansel_tpu_torch as port  # noqa: E402
 from ansel_tpu_torch.io import configs  # noqa: E402
 from ansel_tpu_torch.io.synthetic import synth_raw  # noqa: E402
 from ansel_tpu_torch.kernels import (  # noqa: E402
-    _build, diffuse, eaw, nlm, sepblur)
+    _build, diffuse, eaw, markesteijn, nlm, rcd, sepblur)
 from ansel_tpu_torch.kernels import pointwise as pw  # noqa: E402
 from ansel_tpu_torch.ops.base import pad_to  # noqa: E402
 from chip_smoke import (  # noqa: E402
     LAUNCHES1, LAUNCHES2, LAUNCHES3, LAUNCHES4, LAUNCHES7, PIPE2_REPEATS,
     PIPE3_REPEATS, PIPE4_REPEATS, PIPE7_REPEATS, REPEATS, card_line,
-    median_ms, read_launches, reset_launches, swapped, time_pipe)
+    median_ms, pipe_peak, read_launches, reset_launches, swapped, time_pipe)
 
 # each config's launch counts per image and run_padded repeats per turn,
 # as chip_smoke.py runs them
@@ -62,12 +68,13 @@ PIPES = {1: (LAUNCHES1, REPEATS), 2: (LAUNCHES2, PIPE2_REPEATS),
          7: (LAUNCHES7, PIPE7_REPEATS)}
 
 
-SOURCES = ("diffuse", "nlm", "sepblur", "eaw", "pointwise_chain")
+SOURCES = ("rcd", "markesteijn", "diffuse", "nlm", "sepblur", "eaw",
+           "pointwise_chain")
 
 
 def other_kernels(root):
-    """The diffuse, NLM, sepblur, EAW and chain wrapper modules of the
-    tree at `root`."""
+    """The RCD, Markesteijn, diffuse, NLM, sepblur, EAW and chain wrapper
+    modules of the tree at `root`."""
     init = os.path.join(root, "ansel_tpu_torch", "__init__.py")
     spec = importlib.util.spec_from_file_location(
         "other_port", init, submodule_search_locations=[os.path.dirname(init)])
@@ -75,7 +82,8 @@ def other_kernels(root):
     sys.modules["other_port"] = mod
     spec.loader.exec_module(mod)
     return [importlib.import_module(f"other_port.kernels.{name}")
-            for name in ("diffuse", "nlm", "sepblur", "eaw", "pointwise")]
+            for name in ("rcd", "markesteijn", "diffuse", "nlm", "sepblur",
+                         "eaw", "pointwise")]
 
 
 def ptxas(trees):
@@ -157,10 +165,13 @@ def pipe_ab(card, other):
             raise AssertionError(f"config {n} launches {got}")
         rates = [1.0 / time_pipe(p, raw_dev, repeats, warmups=1)
                  for p in (that, this, this, that)]
+        peaks = [pipe_peak(p, raw_dev) for p in (that, this)]
         print(f"[pipe] config {n} {h}x{w} run_padded img/s: other "
               f"{rates[0]:.3f}, this {rates[1]:.3f}, this {rates[2]:.3f}, "
-              f"other {rates[3]:.3f} ({repeats} images each); this tree's "
-              f"launches as chip_smoke.py's | {card}", flush=True)
+              f"other {rates[3]:.3f} ({repeats} images each); peak device "
+              f"memory of one image other {peaks[0][0]:.3f} GB, this "
+              f"{peaks[1][0]:.3f} GB ({peaks[1][1]:.3f} GB held before); "
+              f"this tree's launches as chip_smoke.py's | {card}", flush=True)
         del this, that, raw_dev
 
 
@@ -175,18 +186,31 @@ def main():
           f"{card}", flush=True)
     for line in ptxas((("this", ROOT), ("other", args.other))):
         print(line, flush=True)
-    o_diffuse, o_nlm, o_sepblur, o_eaw, o_pw = other_kernels(args.other)
+    (o_rcd, o_mark, o_diffuse, o_nlm, o_sepblur, o_eaw,
+     o_pw) = other_kernels(args.other)
     pipe_ab(card, sys.modules["other_port"])
-    diffuse3, blur3, chain3 = captured(3, [
+    diffuse3, blur3, chain3, rcd3 = captured(3, [
         (diffuse, "diffuse_iteration"), (sepblur, "sep_blur"),
-        (pw, "pointwise_chain")])
+        (pw, "pointwise_chain"), (rcd, "rcd_demosaic")])
     nlm2, blur2, eaw2, chain2 = captured(2, [
         (nlm, "nlm"), (sepblur, "sep_blur"), (eaw, "eaw_dn_coarse"),
         (pw, "pointwise_chain")])
-    chains = {n: captured(n, [(pw, "pointwise_chain")])[0] for n in (1, 4, 7)}
-    chains[2], chains[3] = chain2, chain3
+    chain1, rcd1 = captured(1, [(pw, "pointwise_chain"),
+                                (rcd, "rcd_demosaic")])
+    chain4, mark4 = captured(4, [(pw, "pointwise_chain"),
+                                 (markesteijn, "xtrans_markesteijn")])
+    chains = {1: chain1, 2: chain2, 3: chain3, 4: chain4,
+              7: captured(7, [(pw, "pointwise_chain")])[0]}
     blur = blur2[0]
+    mosaic4, pattern6, _ = mark4[0]
     cases = [
+        ("rcd config 1", rcd1[0], rcd.rcd_demosaic, o_rcd.rcd_demosaic),
+        ("rcd config 3", rcd3[0], rcd.rcd_demosaic, o_rcd.rcd_demosaic),
+    ] + [
+        (f"markesteijn {p} pass{'es' if p > 1 else ''}",
+         (mosaic4, pattern6, p), markesteijn.xtrans_markesteijn,
+         o_mark.xtrans_markesteijn) for p in (1, 3)
+    ] + [
         ("diffuse", diffuse3[0], diffuse.diffuse_iteration,
          o_diffuse.diffuse_iteration),
         ("nlm", nlm2[0], nlm.nlm, o_nlm.nlm),
@@ -203,7 +227,8 @@ def main():
          o_pw.pointwise_chain)
         for n in sorted(chains) for i, call in enumerate(chains[n])
     ]
-    del diffuse3, blur3, chain3, nlm2, blur2, eaw2, chain2, chains
+    del diffuse3, blur3, chain3, rcd3, nlm2, blur2, eaw2, chain2, chains
+    del chain1, rcd1, chain4, mark4
     for name, call, this_fn, other_fn in cases:
         x = call[0]
         got, want = this_fn(*call), other_fn(*call)

@@ -42,12 +42,11 @@ GROUPS = {
     r"eaw_tile<\d, \w+>": "EAW kernel",
     r"nlm_kernel<\d+, \w+>": "NLM kernel", "chain": "chain kernel",
     r"chain_fixed<.+>": "chain kernel",
-    "pad_normalize": "RCD kernels", "filters": "RCD kernels",
-    "stats": "RCD kernels", "green": "RCD kernels",
-    "chroma_rb": "RCD kernels", "finish": "RCD kernels",
+    "rcd_tile": "RCD kernel",
     "iir_lines": "IIR kernel", r"decompose<\d, \d>": "diffuse kernels",
     r"pde_group<\d, \d, \w+>": "diffuse kernels",
-    r"mk_\w+(<\d>)?": "Markesteijn kernels", "lens_warp_kernel": "warp kernel",
+    r"mark_tile<\d+, \d+>": "Markesteijn kernel",
+    "lens_warp_kernel": "warp kernel",
     "bgrid_slice_kernel": "bgrid kernel",
 }
 # device kernels listed by name, the slowest first

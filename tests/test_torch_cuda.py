@@ -30,9 +30,9 @@ from ansel_tpu_torch.pipeline import engine
 torch.set_num_threads(2)
 
 # The kernels repeat the plain versions' float32 operations in the same
-# order (nvcc --fmad=false); RCD has no transcendental, the chain's
-# powf/log2f/expf may differ from torch's by an ulp.
-RCD_TOL = 1e-6
+# order (nvcc --fmad=false); the chain's powf/log2f/expf may differ from
+# torch's by an ulp.  RCD and Markesteijn have no transcendental, use
+# IEEE divisions and equal their twins bit for bit.
 CHAIN_MAX_TOL, CHAIN_MEAN_TOL = 1e-4, 1e-6
 # sepblur, EAW and NLM repeat their twins' float32 operations in the same
 # order, and the fast exponentials are bit tricks; values are below ~2.5.
@@ -42,9 +42,6 @@ CHAIN_MAX_TOL, CHAIN_MEAN_TOL = 1e-4, 1e-6
 # twins bit for bit (max error 0); the anisotropic diffuse modes and the
 # rest are held to STENCIL_TOL.
 STENCIL_TOL = 1e-5
-# Markesteijn and the warp repeat their twins' float32 operations in the
-# same order with true divisions and no transcendental; a differing ulp
-# would move a Markesteijn direction, so the bound is the stencils' one.
 
 # ragged frames: a block's tile divides none of them
 FRAMES = [(5, 7), (136, 400), (64, 1000)]
@@ -73,9 +70,13 @@ def cuda():
     return torch.device("cuda")
 
 
+# smaller than a block's tile, ragged in both axes, exactly one tile and
+# one pixel more, a frame ending mid-tile in both axes
 @pytest.mark.parametrize("cfa", ["RGGB", "BGGR", "GRBG", "GBRG"])
-@pytest.mark.parametrize("h,w,scaler", [(136, 400, 2.7), (5, 7, 1.0),
-                                        (64, 1000, 0.5)])
+@pytest.mark.parametrize("h,w,scaler", [
+    (136, 400, 2.7), (5, 7, 1.0), (64, 1000, 0.5),
+    (rcd.TILE_H, rcd.TILE_W, 1.0), (rcd.TILE_H + 1, rcd.TILE_W + 1, 1.3),
+    (2 * rcd.TILE_H + 6, 3 * rcd.TILE_W + 6, 2.0)])
 def test_rcd_kernel_matches_plain(cuda, cfa, h, w, scaler):
     rng = np.random.default_rng(h * w)
     x = torch.from_numpy((rng.uniform(0, 1, (h, w)) * scaler)
@@ -85,7 +86,23 @@ def test_rcd_kernel_matches_plain(cuda, cfa, h, w, scaler):
     assert rcd.LAUNCHES == before + 1
     want = rcd.rcd_demosaic_reference(x, CFAPattern[cfa], scaler)
     torch.cuda.synchronize()
-    assert (got - want).abs().max().item() <= RCD_TOL * scaler
+    assert got.shape == (3, h, w)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("cfa", ["RGGB", "GBRG"])
+def test_rcd_kernel_propagates_nan_like_plain(cuda, cfa):
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.uniform(0, 1, (70, 150)).astype(np.float32))
+    x[3, 5] = x[40, 64] = float("nan")
+    x[60, 140] = float("inf")
+    x = x.to(cuda)
+    got = rcd.rcd_demosaic(x, CFAPattern[cfa], 1.5)
+    want = rcd.rcd_demosaic_reference(x, CFAPattern[cfa], 1.5)
+    torch.cuda.synchronize()
+    assert torch.isnan(want).any()
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    assert torch.equal(got.nan_to_num(7.0), want.nan_to_num(7.0))
 
 
 def test_rcd_kernel_refuses_bad_input(cuda):
@@ -469,18 +486,29 @@ def test_config3_pipe_on_cuda_matches_cpu(cuda):
     assert np.abs(got - want).max() <= 1.0 / 255.0
 
 
-# tiny, odd and a 1000 x 1500-class frame
-MARK_FRAMES = [(5, 7), (37, 101), (1002, 1499)]
+# tiny, odd, a 1000 x 1500-class frame; exactly one of the kernel's
+# tiles, one pixel more, and a frame ending mid-tile in both axes
+MARK_FRAMES = [(5, 7), (37, 101), (1002, 1499),
+               (markesteijn.TILE_H, markesteijn.TILE_W),
+               (markesteijn.TILE_H + 1, markesteijn.TILE_W + 1), (70, 45)]
 
 
-def _mosaic(h, w, seed, smooth):
+def _shifted(dy, dx):
+    """XTRANS6 with its period shifted by (dy, dx): a frame whose tile
+    origins fall on other X-Trans phases."""
+    return tuple(int(c) for c in np.roll(
+        np.asarray(configs.XTRANS6).reshape(6, 6), (dy, dx), (0, 1))
+        .reshape(-1))
+
+
+def _mosaic(h, w, seed, smooth, pattern6=configs.XTRANS6):
     rng = np.random.default_rng(seed)
     yy, xx = np.mgrid[0:h, 0:w]
     scene = np.stack([0.2 + 0.6 * xx / w, 0.3 + 0.5 * yy / h,
                       0.25 + 0.2 * np.sin(xx / 7.0)])
     if not smooth:
         scene = scene + 0.3 * rng.random(scene.shape)
-    sel = np.asarray(configs.XTRANS6).reshape(6, 6)[yy % 6, xx % 6]
+    sel = np.asarray(pattern6).reshape(6, 6)[yy % 6, xx % 6]
     return np.take_along_axis(scene, sel[None], 0)[0].astype(np.float32)
 
 
@@ -496,7 +524,34 @@ def test_markesteijn_kernel_matches_plain(cuda, hw, smooth, passes):
                                                     passes)
     torch.cuda.synchronize()
     assert got.shape == (3, *hw)
-    assert (got - want).abs().max().item() <= STENCIL_TOL
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("passes", [1, 3])
+@pytest.mark.parametrize("shift", [(1, 1), (2, 3), (3, 5), (4, 2), (5, 4),
+                                   (0, 1), (1, 0)])
+def test_markesteijn_kernel_every_phase(cuda, shift, passes):
+    pattern6 = _shifted(*shift)
+    x = torch.from_numpy(_mosaic(70, 101, sum(shift), False, pattern6)
+                         ).to(cuda)
+    got = markesteijn.xtrans_markesteijn(x, pattern6, passes)
+    want = markesteijn.xtrans_markesteijn_reference(x, pattern6, passes)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("passes", [1, 3])
+def test_markesteijn_kernel_propagates_nan_like_plain(cuda, passes):
+    x = torch.from_numpy(_mosaic(70, 45, 3, False))
+    x[10, 20] = x[40, 33] = float("nan")
+    x = x.to(cuda)
+    got = markesteijn.xtrans_markesteijn(x, configs.XTRANS6, passes)
+    want = markesteijn.xtrans_markesteijn_reference(x, configs.XTRANS6,
+                                                    passes)
+    torch.cuda.synchronize()
+    assert torch.isnan(want).any()
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    assert torch.equal(got.nan_to_num(7.0), want.nan_to_num(7.0))
 
 
 def test_markesteijn_kernel_refuses_bad_input(cuda):

@@ -4,9 +4,10 @@ of scales, the NLM kernel's path (resident search window or streamed
 offsets) per patch radius and reach, the sepblur strip's form, rows and
 template per tap count and dilation, with every tap count and dilation
 that the port's callers of `sep_blur` can ask for, the EAW tile per
-scale, and the colour chain's choice between a specialised program and
-the interpreter.  The libraries check each planned size, and the list
-of specialised programs, against their own on the card
+scale, the colour chain's choice between a specialised program and
+the interpreter, and the tiles, margins and shared bytes of the RCD and
+Markesteijn kernels.  The libraries check each planned size, and the
+list of specialised programs, against their own on the card
 (tests/test_torch_cuda.py)."""
 
 import math
@@ -18,7 +19,7 @@ import torch
 import ansel_tpu_torch as port
 from ansel_tpu_torch.io import configs
 from ansel_tpu_torch.io.synthetic import synth_raw
-from ansel_tpu_torch.kernels import diffuse, eaw, nlm, sepblur
+from ansel_tpu_torch.kernels import diffuse, eaw, markesteijn, nlm, rcd, sepblur
 from ansel_tpu_torch.kernels import highlights_laplacian as hl
 from ansel_tpu_torch.kernels import pointwise as pw
 from ansel_tpu_torch.pixel import blur
@@ -27,6 +28,11 @@ from ansel_tpu_torch.pixel.nlmeans import search_offsets
 torch.set_num_threads(2)
 
 SMEM_227K = 232448   # shared memory a block may have on an H100 (sm_90)
+SMEM_SM = 233472     # shared memory of an SM; CUDA reserves 1 KB of it a block
+# frames the main paths demosaic: configs 1, 2 and 7; config 3; config 4
+# (6000 columns padded to 6016 by its pipe, and unpadded); a tiny one
+DEMOSAIC_FRAMES = [(4000, 6016), (5504, 8320), (4000, 6000), (5, 7),
+                   (33, 65)]
 
 
 def _groups(plan, kind):
@@ -262,3 +268,130 @@ def test_pack_chain_interprets_an_unlisted_program():
                if sp.opcode == pw.OP_FILMIC_AGX)
     assert pw.pack_chain(specs[agx:agx + 1], coeffs[agx:agx + 1],
                          "cpu").fixed == -1
+
+
+def _covers_once(h, w, blocks_y, blocks_x, th, tw):
+    """Each pixel of an (h, w) frame lies in exactly one block's tile."""
+    count = np.zeros((h, w), np.int32)
+    for i in range(blocks_y):
+        for j in range(blocks_x):
+            count[i * th:(i + 1) * th, j * tw:(j + 1) * tw] += 1
+    assert blocks_y * th >= h > (blocks_y - 1) * th
+    assert blocks_x * tw >= w > (blocks_x - 1) * tw
+    return bool((count == 1).all())
+
+
+# RCD's steps: each intermediate and the offsets it reads of another
+# (csrc/rcd.cu): the output reads r_nb/b_nb 3 px away, g 2, vh_disc at
+# the pixel; and the planes that hold them in turn
+RCD_READS = {
+    "out": {"r_nb": 3, "b_nb": 3, "g": 2, "vh_disc": 0},
+    "r_nb": {"c": 3, "g": 2, "pq_disc": 0},
+    "b_nb": {"c": 3, "g": 2, "pq_disc": 0},
+    "pq_disc": {"pq_dir": 1}, "pq_dir": {"hp": 1, "hq": 1},
+    "hp": {"c": 3}, "hq": {"c": 3},
+    "g": {"c": 4, "lpf": 2, "vh_disc": 0}, "vh_disc": {"vh_dir": 1},
+    "vh_dir": {"hv": 1, "hh": 1}, "hv": {"c": 3}, "hh": {"c": 3},
+    "lpf": {"c": 1},
+}
+RCD_PLANES = [["c"], ["hv", "vh_disc"], ["hh", "lpf", "hp", "pq_disc"],
+              ["vh_dir", "g"], ["hq", "r_nb"], ["pq_dir", "b_nb"]]
+
+
+def test_rcd_margins_follow_from_its_reads():
+    """The margin of each intermediate is the farthest any later step
+    reads it; the mosaic's is RCD's reach, the halo a block loads; each
+    shared plane is as wide as the widest intermediate it holds."""
+    need = {"out": 0}
+    for step in RCD_READS:   # listed consumers first
+        for src, off in RCD_READS[step].items():
+            need[src] = max(need.get(src, 0), need[step] + off)
+    assert need["c"] == rcd.HALO == rcd.MARGINS[0] == 10
+    assert [max(need[v] for v in plane) for plane in RCD_PLANES] == \
+        list(rcd.MARGINS)
+
+
+@pytest.mark.parametrize("hw", DEMOSAIC_FRAMES)
+def test_rcd_plan_tiles_every_pixel_once(hw):
+    by, bx, smem = rcd.launch_plan(*hw)
+    assert _covers_once(*hw, by, bx, rcd.TILE_H, rcd.TILE_W)
+    # six planes, three blocks an SM
+    assert smem == 4 * sum((rcd.TILE_H + 2 * m) * (rcd.TILE_W + 2 * m)
+                           for m in rcd.MARGINS) == 66224
+    assert 3 * (smem + 1024) <= SMEM_SM and smem <= SMEM_227K
+    assert rcd.THREADS % 32 == 0
+
+
+@pytest.mark.parametrize("passes", [1, 3])
+@pytest.mark.parametrize("hw", DEMOSAIC_FRAMES)
+def test_markesteijn_plan_tiles_every_pixel_once(hw, passes):
+    by, bx, plan = markesteijn.launch_plan(*hw, configs.XTRANS6, passes)
+    assert _covers_once(*hw, by, bx, markesteijn.TILE_H, markesteijn.TILE_W)
+    assert plan.threads == markesteijn.THREADS[passes]
+    assert 0 < plan.smem <= SMEM_227K == markesteijn.MAX_SMEM
+    if passes == 1:   # two blocks an SM
+        assert 2 * (plan.smem + 1024) <= SMEM_SM
+
+
+@pytest.mark.parametrize("passes", [1, 3])
+def test_markesteijn_plan_sizes_every_plane(passes):
+    """The margins the plan derives for XTRANS6: each step's, the planes
+    as wide as the widest step that writes them (R/B also the green step,
+    which writes the first set's base), the mosaic's halo the widest
+    read, the guard the farthest read past a plane, the counts and the
+    kept values fitting where the two groups' G, R and B were, and the
+    shared bytes written out."""
+    plan = markesteijn.kernel_plan(configs.XTRANS6, passes)
+    steps = dict(zip(markesteijn.STEPS[passes], plan.steps))
+    mx, mg, mrb = plan.planes
+    assert mx == plan.halo == (11 if passes == 1 else 23)
+    assert mg == max(max(v) for k, v in steps.items() if k[0] in "GA")
+    assert mrb == max(max(v) for k, v in steps.items() if k[0] in "SOF"
+                      or k == "G1")
+    assert all(m <= mx for m in plan.planes)
+    # the green step covers the first set's solitary-green step
+    assert all(g >= s_ for g, s_ in zip(steps["G1"], steps["S1"]))
+    # the last set's final R/B reach the derivatives' 3 px and one more
+    assert steps[markesteijn.STEPS[passes][-1]] == (4, 4, 4, 4)
+    # the farthest read: three hex steps of 2 px
+    assert plan.guard == 6 * (markesteijn.TILE_W + 2 * mx + 1)
+    ndir = 4 if passes == 1 else 8
+
+    def area(m):
+        return (markesteijn.TILE_H + 2 * m) * (markesteijn.TILE_W + 2 * m)
+
+    def rows(m):   # at the mosaic's row stride
+        return (markesteijn.TILE_H + 2 * m) * (markesteijn.TILE_W + 2 * mx)
+
+    # a G, R and B for each of the two thread groups; after the chains
+    # the counts and one group's kept values (3 per pixel and direction)
+    reused = 2 * (rows(mg) + 2 * rows(mrb))
+    assert ndir * area(markesteijn.CNT_MARGIN) \
+        + ndir // 2 * 3 * markesteijn.TILE_H * markesteijn.TILE_W <= reused
+    floats = rows(mx) + reused + ndir * area(markesteijn.DRV_MARGIN)
+    raw = 4 * (2 * plan.guard + floats + -(-rows(mx) // 4)) + 72 * 4 + 36
+    assert plan.smem == -(-raw // 16) * 16
+
+
+def test_markesteijn_in_place_steps_hold_for_every_xtrans_phase():
+    """The kernel updates R/B and G in place; the pattern check that makes
+    that exact passes every phase of the X-Trans layout and refuses a
+    layout where it would not hold."""
+    grid = np.asarray(configs.XTRANS6).reshape(6, 6)
+    for dy in range(6):
+        for dx in range(6):
+            assert markesteijn.in_place_ok(tuple(
+                int(c) for c in np.roll(grid, (dy, dx), (0, 1)).reshape(-1)))
+    assert not markesteijn.in_place_ok((1,) * 36)
+    assert not markesteijn.in_place_ok(tuple([0, 1, 2] * 12))
+
+
+def test_markesteijn_plan_is_the_same_for_every_phase():
+    """A shifted pattern is the same geometry at other coordinates: its
+    plan needs no other margins."""
+    base = markesteijn.kernel_plan(configs.XTRANS6, 3)
+    grid = np.asarray(configs.XTRANS6).reshape(6, 6)
+    for dy, dx in [(1, 0), (0, 1), (2, 5), (3, 3)]:
+        shifted = tuple(int(c) for c in np.roll(grid, (dy, dx), (0, 1))
+                        .reshape(-1))
+        assert markesteijn.kernel_plan(shifted, 3).halo == base.halo

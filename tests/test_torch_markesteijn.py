@@ -5,15 +5,18 @@ interpret mode (a statistical gate: its jit lets XLA fuse), the scalar
 mirror of the reference, and the demosaic op's X-Trans planning.  Inputs
 come from numpy seeds and go to both packages as the same float32 arrays."""
 
+import functools
 import types
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 from mirrors import markesteijn_ref as mirror
 from test_markesteijn_mirror import XTRANS6 as MIRROR_XTRANS6
 from test_markesteijn_mirror import _mosaic as mirror_mosaic
+from test_torch_rcd import _reach
 
 import ansel_tpu
 import ansel_tpu_torch
@@ -215,3 +218,65 @@ def test_xtrans_passthrough_stacks_the_mosaic():
     want = ref.trace_fn(i, i + 1)(jnp.asarray(x), ref.coeffs()[i:i + 1])
     assert got.shape == (3, 60, 96)
     assert np.array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("passes", [1, 3])
+def test_reach_is_within_the_kernel_halo(passes):
+    """A mosaic pixel at each of the 36 phases of the X-Trans period moves
+    no output farther than the halo the kernel's plan loads (the plan
+    derives it from the stencils' reads; perturbing shows less)."""
+    rng = np.random.default_rng(passes)
+    x = torch.from_numpy(rng.random((72, 72)).astype(np.float32))
+    halo = mk.kernel_plan(P6, passes).halo
+    far = [_reach(lambda m: mk.xtrans_markesteijn_reference(m, P6, passes),
+                  x, 30 + py, 30 + px) for py in range(6) for px in range(6)]
+    assert 0 < max(far) <= halo
+
+
+def _garbage_but(planes, d, rng):
+    """The buffers of a list with every one but d replaced by noise."""
+    return [p if i == d else torch.from_numpy(
+        rng.uniform(-5, 5, p.shape).astype(np.float32))
+        for i, p in enumerate(planes)]
+
+
+def _chains(x, passes, d=None, seed=0):
+    """The twin's direction buffers (G, R, B, drv) before the vote; with d
+    given, every other buffer is replaced by noise after each step."""
+    rng = np.random.default_rng(seed)
+
+    def keep(planes):
+        return planes if d is None else _garbage_but(planes, d, rng)
+
+    h, w = x.shape
+    xp = F.pad(x[None, None], (mk.PAD,) * 4, mode="replicate")[0, 0]
+    geo = mk._Geo(P6, h + 2 * mk.PAD, w + 2 * mk.PAD, x.device)
+    gvals = [geo.hex_read(xp, k) for k in range(6)]
+    gmin = functools.reduce(torch.minimum, gvals)
+    gmax = functools.reduce(torch.maximum, gvals)
+    G = keep(mk._green_dirs(geo, xp, gmin, gmax))
+    R, B = (keep(p) for p in mk._one_set(geo, xp, G))
+    if passes == 3:
+        G2, R2, B2 = G, R, B
+        for _ in range(2):
+            G2 = keep(mk._green_recalc(geo, xp, G2, R2, B2, gmin, gmax))
+            R2, B2 = (keep(p) for p in mk._one_set(geo, xp, G2))
+        G, R, B = G + G2, R + R2, B + B2
+    drv = [mk._derivative(G, R, B, i) for i in range(len(G))]
+    return G, R, B, drv
+
+
+@pytest.mark.parametrize("passes", [1, 3])
+@pytest.mark.parametrize("d", range(4))
+def test_direction_buffers_are_independent_before_the_vote(passes, d):
+    """Buffer d's G, R, B and derivative (and, for 3 passes, those of the
+    last set's buffer d) are unchanged when every other buffer is noise
+    after every step: the kernel can run the four chains one at a time."""
+    x = torch.from_numpy(_mosaic(42, 54, seed=11, noisy=True))
+    want = _chains(x, passes)
+    got = _chains(x, passes, d=d, seed=d)
+    for i in ((d,) if passes == 1 else (d, 4 + d)):
+        for g, w in zip(got, want):
+            assert torch.equal(g[i], w[i])
+    # the noise reached the other buffers
+    assert not torch.equal(got[0][(d + 1) % 4], want[0][(d + 1) % 4])

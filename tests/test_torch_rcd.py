@@ -66,3 +66,32 @@ def test_rcd_scaler_tensor_equals_float():
     a = rcd.rcd_demosaic_reference(x, CFAPattern.BGGR, 2.0)
     b = rcd.rcd_demosaic_reference(x, CFAPattern.BGGR, torch.tensor(2.0))
     assert torch.equal(a, b)
+
+
+def _reach(fn, x, y0, x0):
+    """How far from (y0, x0) the outputs of fn move when that mosaic pixel
+    is made NaN or raised by 0.7 (Chebyshev px)."""
+    base = fn(x)
+    far = 0
+    for value in (float("nan"), float(x[y0, x0]) + 0.7):
+        y = x.clone()
+        y[y0, x0] = value
+        out = fn(y)
+        same = (out == base) | (torch.isnan(out) & torch.isnan(base))
+        ys, xs = torch.nonzero(~same.all(0), as_tuple=True)
+        if len(ys):
+            far = max(far, int((ys - y0).abs().max()),
+                      int((xs - x0).abs().max()))
+    return far
+
+
+@pytest.mark.parametrize("cfa", ["RGGB", "GBRG"])
+@pytest.mark.parametrize("py,px", [(0, 0), (0, 1), (1, 0), (1, 1)])
+def test_rcd_reach_is_within_the_kernel_halo(cfa, py, px):
+    """A mosaic pixel moves no output farther than the halo a block of the
+    kernel loads: the edge-extended frame within HALO px decides a
+    pixel, so the tile's result equals the twin's."""
+    x = torch.from_numpy(_mosaic("noise", 48, 48, 1.0, seed=9))
+    far = _reach(lambda m: rcd.rcd_demosaic_reference(m, CFAPattern[cfa]),
+                 x, 24 + py, 24 + px)
+    assert 0 < far <= rcd.HALO
