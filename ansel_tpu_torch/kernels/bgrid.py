@@ -26,11 +26,101 @@ unchanged.
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
+import numpy as np
 import torch
 
 # launches of the CUDA kernel since the count was last set to 0
 LAUNCHES = 0
+
+# The kernel's launch shape (csrc/bgrid.cu, which the wrapper checks
+# against these): a block of THREADS threads owns a tile of TILE_W
+# columns by one of TILE_ROWS rows and may stage a slab of the grid of at
+# most SLAB_BYTES in shared memory.
+TILE_W = 128
+THREADS = 256
+TILE_ROWS = (64, 32, 16, 8)
+SLAB_BYTES = 48 * 1024
+
+
+class SlicePlan(NamedTuple):
+    """One launch: the tile's rows; the slab's rows and columns and its
+    floats per (bin, channel) plane (0 for the direct path, which reads
+    the grid without a slab); its shared bytes."""
+    rows: int
+    slab_rows: int
+    slab_cols: int
+    plane_stride: int
+    smem: int
+
+
+@functools.lru_cache(maxsize=64)
+def row_table(gh: int, ss: int) -> np.ndarray:
+    """(ia, ib, wa, wb) of every frame row, int32 (Hp, 4) with the weights'
+    float32 bits: the twin's row weights, rounded as it rounds them (a
+    true division, then float32 operations in its order)."""
+    f32 = np.float32
+    y = np.arange(gh * ss, dtype=f32)
+    gy = np.clip((y + f32(0.5)) / f32(ss) - f32(0.5), f32(0.0), f32(gh - 1))
+    qa = np.floor(gy)
+    wa = np.maximum(f32(1.0) - np.abs(gy - qa), f32(0.0))
+    wb = np.maximum(f32(1.0) - np.abs(gy - (qa + f32(1.0))), f32(0.0))
+    ia = qa.astype(np.int32)
+    ib = np.minimum(ia + 1, gh - 1).astype(np.int32)
+    return np.stack([ia, ib, wa.view(np.int32), wb.view(np.int32)], 1)
+
+
+@functools.lru_cache(maxsize=64)
+def col_ranges(gw: int, ss: int) -> np.ndarray:
+    """(least i0, largest i1) over each tile of TILE_W columns, int32
+    (tiles, 2), from the tap table itself (`upsample_taps`)."""
+    from ..pixel.bilateralgrid import upsample_taps
+
+    i0, i1, _, _ = upsample_taps(gw, ss)
+    starts = np.arange(0, gw * ss, TILE_W)
+    return np.stack([np.minimum.reduceat(i0, starts),
+                     np.maximum.reduceat(i1, starts)], 1).astype(np.int32)
+
+
+def _plane_stride(n: int, C: int, q: int) -> int:
+    """Floats per (bin, channel) plane, at least n: the least whose bin
+    step C * stride lies (q mod 32) | 1 banks on, so the planes of
+    neighbouring bins start on other banks than a warp's q columns."""
+    want = (q % 32) | 1
+    for s in range(n, n + 32):
+        if C * s % 32 == want:
+            return s
+    return n  # C even: no stride reaches an odd bank step
+
+
+@functools.lru_cache(maxsize=256)
+def slice_plan(D: int, C: int, gh: int, gw: int, ss: int) -> SlicePlan:
+    """The tallest of TILE_ROWS whose slab of D * C planes (the grid rows
+    from ia of a tile's first row to ib of its last, the columns from its
+    least i0 to its largest i1, each the most over the frame's tiles)
+    fits SLAB_BYTES; else the direct path at the shortest tile, which
+    spreads the gathers over the most blocks."""
+    rt = row_table(gh, ss)
+    cr = col_ranges(gw, ss)
+    q = int((cr[:, 1] - cr[:, 0]).max()) + 1
+    hp = gh * ss
+    for th in TILE_ROWS:
+        first = np.arange(0, hp, th)
+        last = np.minimum(first + th, hp) - 1
+        r = int((rt[last, 1] - rt[first, 0]).max()) + 1
+        stride = _plane_stride(r * q, C, q)
+        smem = 4 * D * C * stride
+        if smem <= SLAB_BYTES:
+            return SlicePlan(th, r, q, stride, smem)
+    return SlicePlan(TILE_ROWS[-1], 0, 0, 0, 0)
+
+
+@functools.lru_cache(maxsize=64)
+def _device_tables(gh: int, gw: int, ss: int, device: torch.device):
+    return (torch.from_numpy(row_table(gh, ss)).to(device),
+            torch.from_numpy(col_ranges(gw, ss)).to(device))
 
 
 def slice_grid_reference(base_grid: torch.Tensor, z: torch.Tensor,
@@ -57,8 +147,10 @@ def slice_grid_reference(base_grid: torch.Tensor, z: torch.Tensor,
     b1 = b0 + 1.0
     v0 = (b0 >= 0.0) & (b0 <= D - 1)
     v1 = (b1 >= 0.0) & (b1 <= D - 1)
-    k0 = b0.clamp(0, D - 1).long()
-    k1 = b1.clamp(0, D - 1).long()
+    # a dropped bin reads bin 0 (its term is masked): NaN z, which no
+    # clamp makes an index, gives 0 as in the kernel
+    k0 = torch.where(v0, b0, 0.0).long()
+    k1 = torch.where(v1, b1, 0.0).long()
     col = torch.arange(Wp, device=dev)[None, :]
     out = []
     for c in range(C):
@@ -81,8 +173,13 @@ def _lib():
     lib = _build.load("bgrid")
     if not getattr(lib, "_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.bgrid_slice.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, p]
+        lib.bgrid_slice.argtypes = [p] * 7 + [i] * 11 + [p]
         lib.bgrid_slice.restype = ctypes.c_int
+        got = (lib.bgrid_tile_cols(), lib.bgrid_threads(),
+               lib.bgrid_slab_bytes())
+        if got != (TILE_W, THREADS, SLAB_BYTES):
+            raise RuntimeError(f"bgrid.cu launches {got}, the plan says "
+                               f"{(TILE_W, THREADS, SLAB_BYTES)}")
         lib._typed = True
     return lib
 
@@ -117,12 +214,16 @@ def slice_grid(base_grid: torch.Tensor, z: torch.Tensor,
     D, C, gh, gw = base_grid.shape
     Hp, Wp = z.shape
     idx, wts = column_taps(gw, ss, z.device)
+    rows, cols = _device_tables(gh, gw, ss, z.device)
+    plan = slice_plan(D, C, gh, gw, ss)
     out = torch.empty((C, Hp, Wp), dtype=torch.float32, device=z.device)
     with torch.cuda.device(z.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.bgrid_slice(base_grid.data_ptr(), z.data_ptr(),
-                             idx.data_ptr(), wts.data_ptr(), out.data_ptr(),
-                             D, C, gh, gw, Hp, Wp, ss, stream)
+                             idx.data_ptr(), wts.data_ptr(), rows.data_ptr(),
+                             cols.data_ptr(), out.data_ptr(), D, C, gh, gw,
+                             Hp, Wp, ss, plan.rows, plan.slab_rows,
+                             plan.slab_cols, plan.plane_stride, stream)
     if rc != 0:
         raise RuntimeError(f"slice_grid: CUDA launch failed ({rc})")
     LAUNCHES += 1

@@ -203,6 +203,9 @@ MARK_TOL = WARP_TOL = 1e-5
 # the grid slice: its twin's float32 operations in the same order, no
 # transcendental, a true division: bit for bit
 BGRID_TOL = 0.0
+# the IIR: its twin's float32 recursions in the same operand order, the
+# forward and backward ones added once: bit for bit
+IIR_TOL = 0.0
 # the whole pipe against the plain functions composed: one display code
 PIPE_TOL = 1.0 / 255.0
 # config 7 with only the chain kernel kept against the rest's twins: every
@@ -778,17 +781,20 @@ def check_iir(calls, record):
     x, coef, lo, hi = calls[0]
     mx, mean = compare(iir.gaussian_iir(x, coef, lo, hi),
                        iir.gaussian_iir_reference(x, coef, lo, hi))
-    expect(mx <= STENCIL_TOL, f"iir: max {mx}")
+    expect(mx <= IIR_TOL, f"iir: max {mx}")
     ms = median_ms(lambda: iir.gaussian_iir(x, coef, lo, hi))
     plain_ms = median_ms(lambda: iir.gaussian_iir_reference(x, coef, lo, hi),
                          PLAIN_REPEATS)
     b_ms, b_by = bound(2 * nbytes(x), FLOPS_IIR * x.numel())
+    # the recursion's chain of dependent steps, one line's a pass
+    floor_ms = iir.latency_floor_ms(*x.shape[-2:])
     record["iir"] = dict(max_abs_err=mx, ms=ms, plain_ms=plain_ms,
                          library_ms=None, bound_ms=b_ms, bound_by=b_by)
     print(f"[iir] {tuple(x.shape)} order 0, kernel vs plain on the config-3 "
-          f"pair: max {mx:.3g} mean {mean:.3g} (tol {STENCIL_TOL:g}) | "
+          f"pair: max {mx:.3g} mean {mean:.3g} (tol {IIR_TOL:g}) | "
           f"kernel {ms:.4f} ms, plain {plain_ms:.1f} ms, bound {b_ms:.4f} ms "
-          f"({b_by})", flush=True)
+          f"({b_by}), latency floor {floor_ms:.4f} ms ({iir.STEP_CYCLES} "
+          f"cycles a step at {iir.CLOCK_HZ / 1e9:g} GHz)", flush=True)
 
 
 def check_diffuse(calls, record):
@@ -1092,7 +1098,7 @@ def check_bgrid(calls, record):
     32 bins (bilat mode 0 at its default sigma_s 0.5) over 2000 x 2000,
     and ss 10 with three channels and 4 bins (lowpass's bilateral
     algorithm at its default radius) over 4000 x 6020."""
-    err, mean_err, lib_err, rows, synth = 0.0, 0.0, 0.0, [], []
+    err, mean_err, lib_err, bounds, synth = 0.0, 0.0, 0.0, [], []
     ms, plain_ms, lib_ms, work = [], [], [], []
     for g, z, ss in calls:
         want = bgrid.slice_grid_reference(g, z, ss)
@@ -1112,9 +1118,11 @@ def check_bgrid(calls, record):
         del library
         work.append(bgrid_work(g, z))
         b_ms, b_by = bound(*work[-1])
-        rows.append(f"{tuple(g.shape)} ss {ss} on {tuple(z.shape)}: "
-                    f"{ms[-1]:.4f}/{plain_ms[-1]:.2f}/{lib_ms[-1]:.3f}/"
-                    f"{b_ms:.4f} ({b_by})")
+        bounds.append(b_ms)
+        print(f"[bgrid] slice {len(ms)} of config 7, {tuple(g.shape)} ss "
+              f"{ss} on {tuple(z.shape)}: max {mx:.3g} mean {mean:.3g} | ms "
+              f"kernel {ms[-1]:.4f}, plain {plain_ms[-1]:.2f}, grid_sample "
+              f"{lib_ms[-1]:.3f}, bound {b_ms:.4f} ({b_by})", flush=True)
     gen = torch.Generator(device="cuda").manual_seed(7)
     for D, C, gh, gw, ss in ((32, 1, 2000, 2000, 1), (4, 3, 400, 602, 10)):
         g = torch.rand((D, C, gh, gw), generator=gen, device="cuda")
@@ -1141,9 +1149,9 @@ def check_bgrid(calls, record):
     print(f"[bgrid] kernel vs plain on config 7's five slices and two "
           f"synthetic classes: max {err:.3g} mean {mean_err:.3g} (tol "
           f"{BGRID_TOL:g}); grid_sample "
-          f"vs plain max {lib_err:.3g} of the largest value | ms "
-          f"kernel/plain/grid_sample/bound: {'; '.join(rows)} | "
-          f"{'; '.join(synth)}", flush=True)
+          f"vs plain max {lib_err:.3g} of the largest value | ms per image "
+          f"kernel {sum(ms):.4f}, bound {sum(bounds):.4f} "
+          f"| {'; '.join(synth)}", flush=True)
 
 
 def run_config7(card, record, raw, raw_dev, meta, phases):

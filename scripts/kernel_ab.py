@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Times the RCD, Markesteijn, diffuse-iteration, NLM, sepblur, EAW and
-chain kernels of this checkout against those of another checkout, on one
-GPU, in turns.
+"""Times the RCD, Markesteijn, diffuse-iteration, NLM, sepblur, EAW,
+chain, IIR and grid-slice kernels of this checkout against those of
+another checkout, on one GPU, in turns.
 
     python3 scripts/kernel_ab.py --other DIR
 
@@ -14,15 +14,19 @@ synth_raw mosaics: the mosaics that configs 1 and 3 hand RCD ((4000,
 6016) X-Trans, timed at 1 and 3 passes); those that config 3's pipe
 hands its first diffuse
 iteration ((3, 5504, 8320), S = 5, isotropic), its first blur ((5504,
-8320), 5 taps, d = 1) and its four chains; that config 2's pipe hands NLM
+8320), 5 taps, d = 1), its IIR pair ((2, 1376, 2080), toneequal's
+guided mask) and its four chains; that config 2's pipe hands NLM
 ((3, 4000, 6016), 225 offsets, P = 1, variant 1), its first sepblur ((4,
 1000, 1504), 5 taps, d = 1; also timed at d = 32 and 512) and its EAW
-scales 0, 3 and 6 ((3, 4000, 6016)); and the chains of configs 1, 2, 4
+scales 0, 3 and 6 ((3, 4000, 6016)); the five grid slices of config 7
+(bilateral's three at 32 bins, ss 15, on (4005, 6030); shadhi's three
+channels at 4 bins, ss 100, on (4000, 6100); bilat's 6 bins, ss 50, on
+(4000, 6050)); and the chains of configs 1, 2, 4
 and 7 ((3, 4000, 6016); this tree runs each through its specialised
 program).  It first prints what `nvcc -Xptxas -v` reports
 (registers, shared memory, spills) for both trees' rcd.cu,
-markesteijn.cu, diffuse.cu, nlm.cu, sepblur.cu, eaw.cu and
-pointwise_chain.cu.  Then each kernel's output is
+markesteijn.cu, diffuse.cu, nlm.cu, sepblur.cu, eaw.cu,
+pointwise_chain.cu, iir.cu and bgrid.cu.  Then each kernel's output is
 held bit for bit against the other tree's and timed in the order other,
 this, this, other (each the median of REPEATS calls, device time between
 CUDA events behind a spin kernel, as chip_smoke.py times its kernels),
@@ -53,7 +57,7 @@ import ansel_tpu_torch as port  # noqa: E402
 from ansel_tpu_torch.io import configs  # noqa: E402
 from ansel_tpu_torch.io.synthetic import synth_raw  # noqa: E402
 from ansel_tpu_torch.kernels import (  # noqa: E402
-    _build, diffuse, eaw, markesteijn, nlm, rcd, sepblur)
+    _build, bgrid, diffuse, eaw, iir, markesteijn, nlm, rcd, sepblur)
 from ansel_tpu_torch.kernels import pointwise as pw  # noqa: E402
 from ansel_tpu_torch.ops.base import pad_to  # noqa: E402
 from chip_smoke import (  # noqa: E402
@@ -69,12 +73,12 @@ PIPES = {1: (LAUNCHES1, REPEATS), 2: (LAUNCHES2, PIPE2_REPEATS),
 
 
 SOURCES = ("rcd", "markesteijn", "diffuse", "nlm", "sepblur", "eaw",
-           "pointwise_chain")
+           "pointwise_chain", "iir", "bgrid")
 
 
 def other_kernels(root):
-    """The RCD, Markesteijn, diffuse, NLM, sepblur, EAW and chain wrapper
-    modules of the tree at `root`."""
+    """The RCD, Markesteijn, diffuse, NLM, sepblur, EAW, chain, IIR and
+    grid-slice wrapper modules of the tree at `root`."""
     init = os.path.join(root, "ansel_tpu_torch", "__init__.py")
     spec = importlib.util.spec_from_file_location(
         "other_port", init, submodule_search_locations=[os.path.dirname(init)])
@@ -83,7 +87,7 @@ def other_kernels(root):
     spec.loader.exec_module(mod)
     return [importlib.import_module(f"other_port.kernels.{name}")
             for name in ("rcd", "markesteijn", "diffuse", "nlm", "sepblur",
-                         "eaw", "pointwise")]
+                         "eaw", "pointwise", "iir", "bgrid")]
 
 
 def ptxas(trees):
@@ -186,12 +190,13 @@ def main():
           f"{card}", flush=True)
     for line in ptxas((("this", ROOT), ("other", args.other))):
         print(line, flush=True)
-    (o_rcd, o_mark, o_diffuse, o_nlm, o_sepblur, o_eaw,
-     o_pw) = other_kernels(args.other)
+    (o_rcd, o_mark, o_diffuse, o_nlm, o_sepblur, o_eaw, o_pw, o_iir,
+     o_bgrid) = other_kernels(args.other)
     pipe_ab(card, sys.modules["other_port"])
-    diffuse3, blur3, chain3, rcd3 = captured(3, [
+    diffuse3, blur3, chain3, rcd3, iir3 = captured(3, [
         (diffuse, "diffuse_iteration"), (sepblur, "sep_blur"),
-        (pw, "pointwise_chain"), (rcd, "rcd_demosaic")])
+        (pw, "pointwise_chain"), (rcd, "rcd_demosaic"),
+        (iir, "gaussian_iir")])
     nlm2, blur2, eaw2, chain2 = captured(2, [
         (nlm, "nlm"), (sepblur, "sep_blur"), (eaw, "eaw_dn_coarse"),
         (pw, "pointwise_chain")])
@@ -199,8 +204,9 @@ def main():
                                 (rcd, "rcd_demosaic")])
     chain4, mark4 = captured(4, [(pw, "pointwise_chain"),
                                  (markesteijn, "xtrans_markesteijn")])
-    chains = {1: chain1, 2: chain2, 3: chain3, 4: chain4,
-              7: captured(7, [(pw, "pointwise_chain")])[0]}
+    chain7, slices7 = captured(7, [(pw, "pointwise_chain"),
+                                   (bgrid, "slice_grid")])
+    chains = {1: chain1, 2: chain2, 3: chain3, 4: chain4, 7: chain7}
     blur = blur2[0]
     mosaic4, pattern6, _ = mark4[0]
     cases = [
@@ -216,6 +222,12 @@ def main():
         ("nlm", nlm2[0], nlm.nlm, o_nlm.nlm),
         ("sepblur config 3 d=1", blur3[0], sepblur.sep_blur,
          o_sepblur.sep_blur),
+        ("iir config 3", iir3[0], iir.gaussian_iir, o_iir.gaussian_iir),
+    ] + [
+        (f"bgrid config 7 slice {i} {tuple(call[0].shape[:2])} ss {call[2]} "
+         f"on {tuple(call[1].shape)}",
+         call, bgrid.slice_grid, o_bgrid.slice_grid)
+        for i, call in enumerate(slices7)
     ] + [
         (f"sepblur d={d}", blur[:2] + (d,), sepblur.sep_blur,
          o_sepblur.sep_blur) for d in (1, 32, 512)
@@ -227,8 +239,8 @@ def main():
          o_pw.pointwise_chain)
         for n in sorted(chains) for i, call in enumerate(chains[n])
     ]
-    del diffuse3, blur3, chain3, rcd3, nlm2, blur2, eaw2, chain2, chains
-    del chain1, rcd1, chain4, mark4
+    del diffuse3, blur3, chain3, rcd3, iir3, nlm2, blur2, eaw2, chain2
+    del chains, chain1, rcd1, chain4, mark4, chain7, slices7
     for name, call, this_fn, other_fn in cases:
         x = call[0]
         got, want = this_fn(*call), other_fn(*call)

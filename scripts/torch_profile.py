@@ -43,11 +43,12 @@ GROUPS = {
     r"nlm_kernel<\d+, \w+>": "NLM kernel", "chain": "chain kernel",
     r"chain_fixed<.+>": "chain kernel",
     "rcd_tile": "RCD kernel",
-    "iir_lines": "IIR kernel", r"decompose<\d, \d>": "diffuse kernels",
+    r"iir_pass<\w+, \w+, \w+>": "IIR kernel",
+    r"decompose<\d, \d>": "diffuse kernels",
     r"pde_group<\d, \d, \w+>": "diffuse kernels",
     r"mark_tile<\d+, \d+>": "Markesteijn kernel",
     "lens_warp_kernel": "warp kernel",
-    "bgrid_slice_kernel": "bgrid kernel",
+    r"bgrid_slice_kernel<\d, \w+>": "bgrid kernel",
 }
 # device kernels listed by name, the slowest first
 TOP = 12

@@ -36,8 +36,8 @@ torch.set_num_threads(2)
 CHAIN_MAX_TOL, CHAIN_MEAN_TOL = 1e-4, 1e-6
 # sepblur, EAW and NLM repeat their twins' float32 operations in the same
 # order, and the fast exponentials are bit tricks; values are below ~2.5.
-# The IIR and diffuse kernels too: their rsqrtf and expf are the calls
-# torch.rsqrt and torch.exp make on the card.  sepblur, NLM and the
+# The diffuse kernel too: its rsqrtf and expf are the calls torch.rsqrt
+# and torch.exp make on the card.  sepblur, NLM, the IIR and the
 # isotropic diffuse iteration have no transcendental and equal their
 # twins bit for bit (max error 0); the anisotropic diffuse modes and the
 # rest are held to STENCIL_TOL.
@@ -406,7 +406,57 @@ def test_iir_kernel_matches_plain(cuda, shape, order, clip):
     want = iir.gaussian_iir_reference(x, coef, lo, hi)
     torch.cuda.synchronize()
     assert torch.isfinite(got).all()
-    assert (got - want).abs().max().item() <= STENCIL_TOL
+    # the twin's float32 operations in the same order: bit for bit
+    assert torch.equal(got, want)
+
+
+def _same(a, b):
+    """Equal bit for bit where finite or infinite, NaN at the same places."""
+    return (torch.equal(torch.isnan(a), torch.isnan(b))
+            and torch.equal(torch.nan_to_num(a), torch.nan_to_num(b)))
+
+
+# the kernel's chunks are 32 steps and each direction stops at half the
+# 8-padded length: lengths 63, 64, 65 put that half at a chunk's end, 7,
+# 8, 9 at the padding's; line counts of 1, 5, 17 and 47 fill no warp's 16
+# lines (each pass's lines are the other side's length times the planes)
+IIR_EDGE_SHAPES = [(1, 63, 64), (1, 64, 65), (1, 65, 63), (1, 7, 9),
+                   (5, 8, 7), (1, 9, 1), (1, 1, 17), (1, 47, 127),
+                   (3, 129, 33)]
+
+
+@pytest.mark.parametrize("shape", IIR_EDGE_SHAPES)
+@pytest.mark.parametrize("special", [None, "nan", "inf"])
+@pytest.mark.parametrize("clip", [None, (0.0, 1.0)])
+def test_iir_kernel_at_chunk_and_padding_edges(cuda, shape, special, clip):
+    x = _noisy(shape, sum(shape), cuda)
+    if special is not None:
+        # one non-finite value and one of each sign later in the frame
+        v = float("nan") if special == "nan" else float("inf")
+        x[0, shape[1] // 2, shape[2] // 3] = v
+        x[-1, -1, -1] = -float("inf")
+    coef = _deriche_coeffs(max(shape[-1] / 5.0, 1.0), 0)
+    lo, hi = clip or (None, None)
+    got = iir.gaussian_iir(x, coef, lo, hi)
+    want = iir.gaussian_iir_reference(x, coef, lo, hi)
+    torch.cuda.synchronize()
+    assert _same(got, want)
+
+
+@pytest.mark.parametrize("shape", [(2, 64, 64), (1, 37, 100)])
+def test_iir_kernel_on_an_unaligned_view(cuda, shape):
+    """A width that is a multiple of 4 takes 16-byte copies when the planes
+    are 16-byte aligned; a view one float into its storage takes the
+    4-byte copies, with the same result."""
+    n = int(np.prod(shape))
+    flat = np.random.default_rng(n).random(n + 1).astype(np.float32)
+    x = torch.from_numpy(flat).to(cuda)[1:].reshape(shape)
+    coef = _deriche_coeffs(9.0, 1)
+    got = iir.gaussian_iir(x, coef)
+    want = iir.gaussian_iir_reference(x, coef)
+    aligned = iir.gaussian_iir(x.clone(), coef)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(aligned, want)
 
 
 def test_iir_kernel_refuses_bad_input(cuda):
@@ -647,6 +697,41 @@ def test_bgrid_kernel_matches_plain(cuda, ss, C, D):
     assert got.shape == (C, G.shape[2] * ss, G.shape[3] * ss)
     # the same float32 operations in the same order: bit for bit
     assert torch.equal(got, want)
+
+
+# (D, C, ss, frame near): a tile of 64 rows straddling grid rows at ss 15
+# and 17 (17: the matrix taps), ss 1 at (32, 3) and (32, 1) (the direct
+# path), ss 3 at (32, 1) (a 16-row tile), ss 4 at (32, 3) (direct) and
+# (32, 1) (a 32-row tile), ss 100 with three channels; no frame is a
+# multiple of the 128-column tile
+BGRID_EDGE_CASES = [(32, 1, 15, (200, 300)), (32, 1, 17, (150, 270)),
+                    (32, 3, 1, (70, 150)), (32, 1, 1, (90, 260)),
+                    (32, 1, 3, (100, 390)), (32, 3, 4, (80, 200)),
+                    (32, 1, 4, (100, 130)), (4, 3, 100, (200, 300)),
+                    (6, 1, 50, (150, 450)), (4, 3, 10, (70, 135))]
+
+
+@pytest.mark.parametrize("D,C,ss,hw", BGRID_EDGE_CASES)
+def test_bgrid_kernel_edge_values_match_plain(cuda, D, C, ss, hw):
+    """z below 0, above D - 1, exactly D - 1 and at the integers, NaN and
+    +-inf; inf and NaN in the grid; every tile plan."""
+    gh, gw = -(-hw[0] // ss), -(-hw[1] // ss)
+    rng = np.random.default_rng(D * ss + C)
+    G = (rng.random((D, C, gh, gw)) * 2.0 - 0.5).astype(np.float32)
+    z = (rng.random((gh * ss, gw * ss)) * (D + 1) - 1.0).astype(np.float32)
+    z[0, :5], z[1, :5] = 0.0, D - 1
+    z[2, :9] = np.arange(9) % D
+    z[3, :4] = [np.nan, np.inf, -np.inf, D - 1 + 1e-3]
+    z[-1, -4:] = [-1e-3, D - 1, np.nan, D]
+    G[0, 0, 0, 0], G[-1, -1, -1, -1] = np.inf, -np.inf
+    G[D // 2, 0, gh // 2, gw // 2] = np.nan
+    g, zz = torch.from_numpy(G).to(cuda), torch.from_numpy(z).to(cuda)
+    plan = bgrid.slice_plan(D, C, gh, gw, ss)
+    assert plan.smem <= bgrid.SLAB_BYTES
+    got = bgrid.slice_grid(g, zz, ss)
+    want = bgrid.slice_grid_reference(g, zz, ss)
+    torch.cuda.synchronize()
+    assert _same(got, want)
 
 
 def test_bgrid_kernel_refuses_bad_input(cuda):

@@ -5,9 +5,12 @@ offsets) per patch radius and reach, the sepblur strip's form, rows and
 template per tap count and dilation, with every tap count and dilation
 that the port's callers of `sep_blur` can ask for, the EAW tile per
 scale, the colour chain's choice between a specialised program and
-the interpreter, and the tiles, margins and shared bytes of the RCD and
-Markesteijn kernels.  The libraries check each planned size, and the
-list of specialised programs, against their own on the card
+the interpreter, the tiles, margins and shared bytes of the RCD and
+Markesteijn kernels, the IIR kernel's split of each line into a forward
+and a backward thread (against the twin's one-thread recursion) and its
+blocks, and the grid slice's row and column tables, tiles and staged
+slabs.  The libraries check each planned size, and the list of
+specialised programs, against their own on the card
 (tests/test_torch_cuda.py)."""
 
 import math
@@ -19,7 +22,8 @@ import torch
 import ansel_tpu_torch as port
 from ansel_tpu_torch.io import configs
 from ansel_tpu_torch.io.synthetic import synth_raw
-from ansel_tpu_torch.kernels import diffuse, eaw, markesteijn, nlm, rcd, sepblur
+from ansel_tpu_torch.kernels import (bgrid, diffuse, eaw, iir, markesteijn,
+                                     nlm, rcd, sepblur)
 from ansel_tpu_torch.kernels import highlights_laplacian as hl
 from ansel_tpu_torch.kernels import pointwise as pw
 from ansel_tpu_torch.pixel import blur
@@ -395,3 +399,188 @@ def test_markesteijn_plan_is_the_same_for_every_phase():
         shifted = tuple(int(c) for c in np.roll(grid, (dy, dx), (0, 1))
                         .reshape(-1))
         assert markesteijn.kernel_plan(shifted, 3).halo == base.halo
+
+
+def _one_thread_vertical(v, coef):
+    """The IIR twin's recursion as one thread runs it (the kernel's first
+    design): forward, then backward adding to the forward values."""
+    a0, a1, a2, a3, b1, b2, coefp, coefn = coef
+    h = v.shape[-2]
+    x0 = v[:, 0]
+    xprev, y1 = x0, coefp * x0
+    y2 = y1
+    ys = []
+    for i in range(h):
+        xr = v[:, i]
+        y = a0 * xr + a1 * xprev - b1 * y1 - b2 * y2
+        ys.append(y)
+        xprev, y2, y1 = xr, y1, y
+    xn1 = xn2 = v[:, h - 1]
+    z1 = coefn * xn1
+    z2 = z1
+    out = [None] * h
+    for r in range(-(-h // iir.RB) * iir.RB - 1, -1, -1):
+        z = a2 * xn1 + a3 * xn2 - b1 * z1 - b2 * z2
+        if r < h:
+            out[r] = ys[r] + z
+        xn2, xn1 = xn1, v[:, min(r, h - 1)]
+        z2, z1 = z1, z
+    return torch.stack(out, dim=1)
+
+
+@pytest.mark.parametrize("length", [1, 7, 8, 9, 1376, 2080])
+@pytest.mark.parametrize("order", [0, 1, 2])
+@pytest.mark.parametrize("clamp", [False, True])
+def test_iir_split_recursions_add_up_to_the_one_thread_recursion(
+        length, order, clamp):
+    """The forward and backward recursions run apart (as the kernel's
+    forward and backward lanes run them), then added, equal the twin's
+    vertical pass and the recursion one thread runs, bit for bit."""
+    rng = np.random.default_rng(length * 10 + order)
+    v = torch.from_numpy(rng.uniform(-0.2, 1.3, (2, length, 3))
+                         .astype(np.float32))
+    if clamp:
+        v = torch.clamp(v, 0.0, 1.0)
+    coef = iir._f32(blur._deriche_coeffs(max(length / 6.0, 0.7), order))
+    ys = iir._forward_reference(v, coef)
+    zs = iir._backward_reference(v, coef)
+    split = torch.stack([y + z for y, z in zip(ys, zs)], dim=1)
+    assert torch.equal(split, iir._vertical_reference(v, coef))
+    assert torch.equal(split, _one_thread_vertical(v, coef))
+
+
+@pytest.mark.parametrize("length", [1, 7, 8, 9, 63, 64, 65, 1376, 2080])
+def test_iir_in_place_combine_touches_each_position_twice(length):
+    """The kernel's schedule: at step s the forward lane is at position s
+    and the backward lane at P - 1 - s (P the 8-padded length); before
+    P / 2 each stores its value, from P / 2 on each adds its partner's.
+    Every position of the line is stored once before the halves' barrier
+    and completed once after it, by the other direction."""
+    P = -(-length // iir.RB) * iir.RB
+    first, second = {}, {}
+    for s in range(P):
+        for bwd, pos in ((False, s), (True, P - 1 - s)):
+            if pos < length:
+                (first if s < P // 2 else second).setdefault(pos, []).append(bwd)
+    assert sorted(first) == sorted(second) == list(range(length))
+    assert all(len(first[p]) == len(second[p]) == 1
+               and first[p][0] != second[p][0] for p in range(length))
+
+
+@pytest.mark.parametrize("nhw", [(2, 1376, 2080), (1, 7, 9), (3, 33, 40),
+                                 (1, 1, 1), (2, 1000, 17)])
+def test_iir_plan_covers_every_line_once_per_direction(nhw):
+    plan = iir.launch_plan(*nhw)
+    assert [p[0] for p in plan] == ["columns", "rows"]
+    n, h, w = nhw
+    assert [(p[1], p[2]) for p in plan] == [(n * w, h), (n * h, w)]
+    for _, lines, _, blocks, threads, smem in plan:
+        assert threads == 32 and 0 < smem <= 48 * 1024
+        seen = {False: [], True: []}
+        for b in range(blocks):
+            for lane in iir.block_lines(b, lines):
+                if lane is not None:
+                    seen[lane[1]].append(lane[0])
+        assert sorted(seen[False]) == sorted(seen[True]) == list(range(lines))
+    if nhw == (2, 1376, 2080):
+        # config 3's pair puts work on all 132 SMs in both passes
+        assert [p[3] for p in plan] == [260, 172]
+        assert iir.latency_floor_ms(1376, 2080) == pytest.approx(0.02095,
+                                                                 rel=1e-3)
+
+
+def _twin_rows(gh, ss):
+    """The twin's row weights, computed as slice_grid_reference does."""
+    rows = torch.arange(gh * ss, dtype=torch.float32)
+    gy = torch.clamp((rows + 0.5) / torch.full((), float(ss)) - 0.5, 0.0,
+                     float(gh - 1))
+    qa = torch.floor(gy)
+    wa = torch.clamp(1.0 - torch.abs(gy - qa), min=0.0)
+    wb = torch.clamp(1.0 - torch.abs(gy - (qa + 1.0)), min=0.0)
+    ia = qa.long()
+    return ia, (ia + 1).clamp(max=gh - 1), wa, wb
+
+
+# (D, C) the callers of the slice can request: grid_filter clips D to
+# [4, 32]; bilateral, bilat and bilateral_self slice one channel, shadhi
+# and lowpass three with sigma_r 100 over [0, 100], which gives D = 4;
+# (32, 3) is the largest slab any (D, C) of the kernel's could need
+CALLER_DC = [(d, 1) for d in range(4, 33)] + [(4, 3), (32, 3)]
+SLICE_SS = [1, 2, 10, 15, 16, 17, 50, 100]
+
+
+@pytest.mark.parametrize("ss", SLICE_SS)
+def test_bgrid_row_table_is_the_twins_row_weights(ss):
+    gh = max(2, 300 // ss)
+    table = bgrid.row_table(gh, ss)
+    ia, ib, wa, wb = _twin_rows(gh, ss)
+    assert np.array_equal(table[:, 0], ia.numpy())
+    assert np.array_equal(table[:, 1], ib.numpy())
+    assert np.array_equal(table[:, 2].view(np.float32), wa.numpy())
+    assert np.array_equal(table[:, 3].view(np.float32), wb.numpy())
+
+
+@pytest.mark.parametrize("ss", SLICE_SS)
+def test_bgrid_slab_holds_every_tap_and_row_of_its_tile(ss):
+    """Each tile's staged rows and columns hold every grid row (ia, ib) and
+    column (i0, i1) its pixels read, and the slab fits the shared memory
+    the kernel reserves, for every (D, C) the callers can request."""
+    from ansel_tpu_torch.pixel.bilateralgrid import upsample_taps
+
+    # a ragged frame: no multiple of 128 columns or of any tile's rows
+    gh, gw = max(2, 1003 // ss), max(2, 1301 // ss)
+    hp, wp = gh * ss, gw * ss
+    i0, i1, _, _ = upsample_taps(gw, ss)
+    rows = bgrid.row_table(gh, ss)
+    cols = bgrid.col_ranges(gw, ss)
+    assert len(cols) == -(-wp // bgrid.TILE_W)
+    for t, (lo, hi) in enumerate(cols):
+        x = slice(t * bgrid.TILE_W, (t + 1) * bgrid.TILE_W)
+        assert lo == min(i0[x].min(), i1[x].min())
+        assert hi == max(i0[x].max(), i1[x].max())
+    staged = 0
+    for D, C in CALLER_DC:
+        plan = bgrid.slice_plan(D, C, gh, gw, ss)
+        assert plan.rows in bgrid.TILE_ROWS
+        if plan.plane_stride == 0:
+            # the direct path: no slab, and none of the tiles would fit
+            assert plan.smem == 0
+            for th in bgrid.TILE_ROWS:
+                first = np.arange(0, hp, th)
+                last = np.minimum(first + th, hp) - 1
+                r = int((rows[last, 1] - rows[first, 0]).max()) + 1
+                q = int((cols[:, 1] - cols[:, 0]).max()) + 1
+                stride = bgrid._plane_stride(r * q, C, q)
+                assert r * q <= stride < r * q + 32
+                assert 4 * D * C * stride > bgrid.SLAB_BYTES
+            continue
+        staged += 1
+        assert plan.smem == 4 * D * C * plan.plane_stride
+        assert plan.smem <= bgrid.SLAB_BYTES
+        assert plan.slab_rows * plan.slab_cols <= plan.plane_stride
+        if C % 2:
+            # neighbouring bins' planes start (Q mod 32) | 1 banks apart
+            assert C * plan.plane_stride % 32 == (plan.slab_cols % 32) | 1
+        for lo, hi in cols:
+            assert hi - lo + 1 <= plan.slab_cols
+        for y0 in range(0, hp, plan.rows):
+            tile = rows[y0:y0 + plan.rows]
+            rlo, rhi = tile[0, 0], tile[-1, 1]
+            assert rhi - rlo + 1 <= plan.slab_rows
+            assert tile[:, :2].min() >= rlo and tile[:, :2].max() <= rhi
+    # the grid's own classes stage: config 7's slices, lowpass's default
+    if ss >= 10:
+        assert staged == len(CALLER_DC)
+
+
+def test_bgrid_plans_for_config7():
+    """Config 7's five slices (bilateral's three at (32, 1), ss 15 on
+    4005 x 6030; shadhi's at (4, 3), ss 100 on 4000 x 6100; bilat's at
+    (6, 1), ss 50 on 4000 x 6050) stage a slab in 64-row tiles."""
+    for D, C, gh, gw, ss in ((32, 1, 267, 402, 15), (4, 3, 40, 61, 100),
+                             (6, 1, 80, 121, 50)):
+        plan = bgrid.slice_plan(D, C, gh, gw, ss)
+        assert plan.rows == 64 and 0 < plan.smem <= 16 * 1024
+    # bilat mode 0 at its default sigma_s 0.5: ss 1 with 32 bins
+    assert bgrid.slice_plan(32, 1, 2000, 2000, 1).smem == 0
+    assert bgrid.slice_plan(32, 3, 2000, 2000, 1).smem == 0
