@@ -6,14 +6,21 @@ Pallas kernels become hand-written CUDA kernels under `csrc/`, built by
 nvcc at first use (`kernels/_build.py`).  It imports neither JAX nor
 `ansel_tpu`.
 
-Ported so far: the bench config-1 path (rawprepare, temperature,
-highlights CLIP, RCD demosaic, exposure, colorin, channelmixerrgb,
-filmicrgb AgX, colorout), the config-2 denoise stack (highlights
-guided LAPLACIAN, denoiseprofile wavelets and NLM), the config-3
-iterative stack (diffuse, toneequal, bilat local Laplacian) and the
-config-4 X-Trans path (Markesteijn demosaic, lens).  Anything else
-raises NotImplementedError while the pipe is planned.  The entry points
-run on the CUDA card unless the caller passes device="cpu".
+Ported so far: 29 of the reference's 88 ops, on the paths of bench
+configs 1-4 (a default develop; the high-ISO denoise stack; diffuse,
+toneequal and the local Laplacian at 45 MP; X-Trans Markesteijn and
+lens) and the port's configs 7 (the bilateral-grid modules) and 8 (hot
+pixels, raw denoise, CA correction, NLM, defringe, bloom); the XMP
+sidecar reader and writer (`io/xmp.py`), the headless export
+(`pipeline/export.py`) and its CLI:
+
+    python -m ansel_tpu_torch.cli raw.npz shot.xmp out.png --bpp 16 --no-icc
+    python -m ansel_tpu_torch.cli synth:6016x4000 shot.xmp out.png \
+        --bpp 16 --no-icc --device cpu
+
+Anything else raises NotImplementedError while the pipe is planned (an
+active blend among them).  The entry points run on the CUDA card unless
+the caller passes device="cpu" (`--device cpu` on the CLI).
 """
 
 __version__ = "0.1.0"

@@ -1,0 +1,159 @@
+"""ansel_tpu_torch CLI — headless export on the CUDA card (the `ansel-cli`
+analog, reference src/apps/ansel-cli/main.c; a port of
+`ansel_tpu/cli.py`).
+
+Raw input: .npz bundles written by `ansel_tpu_torch.io.rawfile.save_raw`
+or `synth:WxH` synthetic raws.  The pipe runs on the CUDA card unless
+`--device cpu` is given; a missing card raises.
+
+Usage:
+  python -m ansel_tpu_torch.cli <raw.npz|synth:6016x4000> [sidecar.xmp]
+      <out.png|out.jpg|...> [--bpp 8|16] [--no-icc] [--quality Q]
+      [--device cuda|cpu] [-d perf|nan|supervisor] [-v]
+  python -m ansel_tpu_torch.cli --devtest
+
+Not ported: `--width`/`--height` below the native size (export scaling;
+they raise NotImplementedError), DNG/TIFF input (`io/dng.py`),
+`--generate-cache` (the library) and `--ingest-lensfun`.  An 8-bit
+output needs PIL, and so does an embedded ICC profile (`--no-icc` writes
+a 16-bit PNG or TIFF without it).
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+
+
+def _devtest():
+    """`ansel-cltest` analog (src/apps/ansel-cltest): the card's
+    diagnostic.  The torch and CUDA versions, each device's name, then one
+    launch of the chain kernel (`kernels/pointwise`) on config 1's chain,
+    held against its plain twin; 1 on a mismatch or without a card."""
+    import torch
+
+    from .io import configs
+    from .io.synthetic import synth_raw
+    from .kernels import pointwise as pw
+    from .pipeline.engine import compile_pipeline
+
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
+    if not torch.cuda.is_available():
+        print("no CUDA device")
+        return 1
+    for i in range(torch.cuda.device_count()):
+        print(f"  device {i}: {torch.cuda.get_device_name(i)}")
+    t0 = time.perf_counter()
+    _, meta, _ = synth_raw(h=64, w=128)
+    pipe = compile_pipeline(meta, configs.history(1), device="cuda")
+    chain = next(a for kind, _, _, a in pipe.steps if kind == "chain")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.rand((3, 64, 128), generator=gen, device="cuda")
+    before = pw.LAUNCHES
+    got = pw.pointwise_chain(x, chain)
+    launched = pw.LAUNCHES - before
+    err = (got - pw.pointwise_chain_reference(x, chain)).abs().max().item()
+    ok = launched == 1 and err <= 1e-4
+    form = (f"program {chain.fixed}" if chain.fixed >= 0
+            else "interpreter")
+    print(f"chain kernel ({form}): {launched} launch, max error "
+          f"{err:.3g} vs its twin (tol 1e-4), "
+          f"{time.perf_counter() - t0:.2f} s: {'OK' if ok else 'FAILED'}")
+    return 0 if ok else 1
+
+
+def main(argv=None):
+    argv = sys.argv[1:] if argv is None else list(argv)
+    from .ops.base import not_ported
+
+    if argv and argv[0] == "--generate-cache":
+        raise not_ported("cli", "--generate-cache (the library)")
+    if argv and argv[0] == "--devtest":
+        return _devtest()
+    if argv and argv[0] == "--ingest-lensfun":
+        raise not_ported("cli", "--ingest-lensfun")
+
+    ap = argparse.ArgumentParser(prog="ansel-tpu-torch-cli")
+    ap.add_argument("input")
+    ap.add_argument("xmp", nargs="?", default=None)
+    ap.add_argument("output")
+    ap.add_argument("--width", type=int, default=0)
+    ap.add_argument("--height", type=int, default=0)
+    ap.add_argument("--quality", type=int, default=92)
+    ap.add_argument("--bpp", type=int, default=8, choices=(8, 16))
+    ap.add_argument("--no-icc", action="store_true")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device of the pipe (default: the CUDA card)")
+    ap.add_argument("-d", "--debug", action="append", default=[],
+                    choices=("perf", "nan", "supervisor"),
+                    help="per-stage timing / NaN scan / lifecycle "
+                         "registry (reference -d flags)")
+    ap.add_argument("--verbose", "-v", action="store_true")
+    args = ap.parse_args(argv)
+
+    from .core import crash
+    from .io.rawfile import load_raw
+    from .io.synthetic import synth_raw
+    from .pipeline.export import ExportSettings, export_image
+
+    crash.install()
+    crash.breadcrumb("image", args.input)
+    t0 = time.perf_counter()
+    if args.input.startswith("synth:"):
+        w, h = (int(v) for v in args.input[6:].split("x"))
+        raw, meta, _ = synth_raw(h=h, w=w)
+    elif args.input.lower().endswith((".dng", ".tif", ".tiff")):
+        raise not_ported("cli", "DNG/TIFF input (io/dng.py)")
+    else:
+        raw, meta = load_raw(args.input)
+    if args.verbose:
+        print(f"[load] {meta.width}x{meta.height} {meta.cfa} "
+              f"{time.perf_counter() - t0:.2f}s", file=sys.stderr)
+
+    xmp = args.xmp if args.xmp and args.xmp.lower().endswith(".xmp") else None
+    settings = ExportSettings(max_width=args.width, max_height=args.height,
+                              quality=args.quality, bpp=args.bpp,
+                              embed_icc=not args.no_icc)
+    if "perf" in args.debug or "nan" in args.debug:
+        from .io.xmp import parse_xmp
+        from .pipeline.engine import Pipeline
+        from .pipeline.export import compute_export_scale
+        from .pipeline.profiling import nan_report, run_stages
+
+        doc = parse_xmp(xmp) if xmp else None
+        pipe = Pipeline(meta, doc.history if doc else [],
+                        device=args.device,
+                        scale=compute_export_scale(meta, settings),
+                        order_version=doc.iop_order_version if doc else None)
+        reps = run_stages(pipe, raw, nan_scan="nan" in args.debug)
+        bad = nan_report(reps)
+        if bad:
+            print(f"[nan] {bad}", file=sys.stderr)
+    if "supervisor" in args.debug:
+        from .core import conf as conf_mod
+        from .core import supervisor as sup_mod
+
+        conf_mod.set("debug.supervisor", True)
+        sup_mod._ENABLED = True
+    t0 = time.perf_counter()
+    crash.breadcrumb("pipe", "export")
+    out = export_image(raw, meta, xmp_path=xmp, output_path=args.output,
+                       settings=settings, device=args.device)
+    crash.breadcrumb("pipe", None)
+    if "supervisor" in args.debug:
+        from .core import supervisor as sup_mod
+
+        bad = sup_mod.anomalies()
+        print(f"[supervisor] {len(sup_mod.ring())} events, "
+              f"{len(bad)} anomalies", file=sys.stderr)
+        for r in bad[:20]:
+            print(f"[supervisor] {r}", file=sys.stderr)
+    if args.verbose:
+        print(f"[export] {out.shape[2]}x{out.shape[1]} -> {args.output} "
+              f"{time.perf_counter() - t0:.2f}s", file=sys.stderr)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

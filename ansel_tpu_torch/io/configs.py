@@ -1,6 +1,6 @@
 """The bench configurations the port runs (`bench.py:CONFIGS`), and the
-port's own config 7, defined once for the chip smoke, the profile script
-and the tests.
+port's own configs 7 and 8, defined once for the chip smoke, the profile
+script and the tests.
 
 Each history is a tuple of (op, params) pairs, so that a test can build
 the JAX package's `HistoryItem`s from the same pairs as the port's.
@@ -56,12 +56,26 @@ HISTORIES = {
         ("bilat", {"mode": 0, "sigma_r": 20.0, "sigma_s": 50.0,
                    "detail": 0.25}),
         ("sharpen", {})),
+    # the raw-cleanup develop of a high-ISO night frame, the port's own
+    # history and the one the smoke exports through a sidecar and the CLI:
+    # hot pixels, raw denoise (a hat wavelet on the four CFA planes), CA
+    # correction on the mosaic and in RGB, NLM denoise, defringe, a bloom
+    # glow, then exposure and filmicrgb
+    8: (("hotpixels", {}),
+        ("rawdenoise", {}),
+        ("cacorrect", {}),
+        ("cacorrectrgb", {}),
+        ("nlmeans", {}),
+        ("defringe", {}),
+        ("bloom", {}),
+        ("exposure", {"exposure": 0.5}),
+        ("filmicrgb", {})),
 }
 
 # each config's frame (height, width)
 FRAMES = {1: (BENCH_H, BENCH_W), 2: (BENCH_H, BENCH_W),
           3: (BENCH3_H, BENCH3_W), 4: (BENCH4_H, BENCH4_W),
-          7: (BENCH_H, BENCH_W)}
+          7: (BENCH_H, BENCH_W), 8: (BENCH_H, BENCH_W)}
 # configs whose raw is an X-Trans mosaic (`remosaic_xtrans`)
 XTRANS_CONFIGS = (4,)
 

@@ -84,6 +84,33 @@ def _write_png16(path: str, arr: np.ndarray, icc: Optional[bytes]) -> None:
         f.write(b"".join(out))
 
 
+def read_png16(path: str) -> np.ndarray:
+    """The (H, W, 3) uint16 pixels of a PNG as `_write_png16` writes it
+    (16-bit RGB, not interlaced, filter 0 on every row); any other PNG
+    raises ValueError."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise ValueError(f"{path}: not a PNG")
+    pos, ihdr, idat = 8, None, []
+    while pos + 8 <= len(data):
+        (n,) = struct.unpack(">I", data[pos:pos + 4])
+        tag, payload = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + n]
+        pos += 12 + n
+        if tag == b"IHDR":
+            ihdr = struct.unpack(">IIBBBBB", payload)
+        elif tag == b"IDAT":
+            idat.append(payload)
+    if ihdr is None or (ihdr[2], ihdr[3], ihdr[6]) != (16, 2, 0):
+        raise ValueError(f"{path}: not a 16-bit RGB PNG without interlace")
+    w, h = ihdr[0], ihdr[1]
+    scan = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8) \
+        .reshape(h, 1 + 6 * w)
+    if scan[:, 0].any():
+        raise ValueError(f"{path}: filtered rows")
+    return scan[:, 1:].copy().view(">u2").reshape(h, w, 3).astype(np.uint16)
+
+
 def _write_tiff16(path: str, arr: np.ndarray, icc: Optional[bytes]) -> None:
     """(H, W, 3) uint16 -> minimal uncompressed little-endian TIFF."""
     h, w, _ = arr.shape

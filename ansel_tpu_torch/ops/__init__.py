@@ -4,10 +4,14 @@ for the protocol).  Only ported ops are registered."""
 from . import (  # noqa: F401
     bilat,
     bilateral,
+    bloom,
+    cacorrect,
+    cacorrectrgb,
     channelmixerrgb,
     colorin,
     colorout,
     colorreconstruct,
+    defringe,
     demosaic,
     denoiseprofile,
     diffuse,
@@ -15,9 +19,12 @@ from . import (  # noqa: F401
     filmicrgb,
     highlights,
     highpass,
+    hotpixels,
     lens,
     lowpass,
     monochrome,
+    nlmeans,
+    rawdenoise,
     rawprepare,
     shadhi,
     sharpen,

@@ -10,15 +10,24 @@ into chains (`kernels/pointwise.py`) and then runs the stages eagerly.
 On CUDA a chain is one launch of the chain kernel; on the CPU it runs
 the stages' plain functions in order.
 
-Not ported: blending, drawn and raster masks, PREVIEW/THUMBNAIL pipes
-(their PPG override), export scaling, and every op not registered in
-`ansel_tpu_torch.ops`.  Each raises NotImplementedError while planning.
+A history item's blend parameters are decoded as the JAX package does:
+an undecodable blob, `mask_mode == MASK_DISABLED` or a stage that changes
+the array's shape plans as no blend.  `CompiledPipe` keeps what a pipe
+built (its device coefficients and packed steps) in `_PIPE_CACHE`, keyed
+by `Pipeline.signature()`, and reports each build or reuse to the
+supervisor (`core/supervisor.py`) as the JAX package reports its
+compile cache.
+
+Not ported: active blends, drawn and raster masks, PREVIEW/THUMBNAIL
+pipes (their PPG override), export scaling, and every op not registered
+in `ansel_tpu_torch.ops`.  Each raises NotImplementedError while
+planning.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -26,12 +35,15 @@ import torch.nn.functional as F
 
 from ..color import matrices as cm
 from ..color import transforms as tr
+from ..core import conf as conf_mod
 from ..core import params as params_mod
+from ..core import supervisor as sup
 from ..core.order import sort_key
 from ..core.types import CFAPattern, Colorspace, ImageSpec, RawMeta
 from ..kernels import pointwise as pw
 from ..ops import base as ops_base
 from ..ops.base import PlanContext, PointwiseSpec, not_ported
+from . import blend as blend_mod
 
 
 @dataclasses.dataclass
@@ -232,8 +244,8 @@ class Pipeline:
     RuntimeError rather than falling back to the CPU."""
 
     def __init__(self, meta: RawMeta, history: List[HistoryItem], *,
-                 device="cuda", scale: float = 1.0, order_version=None,
-                 pipe_type: str = PipeType.EXPORT,
+                 device="cuda", scale: float = 1.0,
+                 order_version=None, pipe_type: str = PipeType.EXPORT,
                  out_window: Optional[Tuple[int, int, int, int]] = None,
                  roi: bool = True):
         self.device = _check_device(device)
@@ -261,8 +273,6 @@ class Pipeline:
             op = ops_base.get_op(item.op)
             if op is None:
                 raise not_ported(item.op, "this module")
-            if item.blend_params is not None:
-                raise not_ported(item.op, "blending and masks")
             p = _resolve_params(item, meta)
             need = op.input_colorspace
             if need is not None and need is not spec.colorspace:
@@ -277,6 +287,16 @@ class Pipeline:
                     self.unsupported.append(f"{item.op} (colorspace skip)")
                     continue
             plan = op.plan(self.ctx, spec, p)
+            # blending (reference dt_develop_blend_process) only for an
+            # active blend on a geometry-preserving stage, as the JAX
+            # package plans it; an undecodable blob is no blend
+            if item.blend_params is not None:
+                bp = (item.blend_params
+                      if isinstance(item.blend_params, blend_mod.BlendParams)
+                      else blend_mod.decode_blend_params(item.blend_params))
+                if (blend_mod.blend_is_active(bp) and plan.spec_in.array_shape
+                        == plan.spec_out.array_shape):
+                    raise not_ported(item.op, "blending and masks")
             self.stages.append(PlannedOp(item.op, op, plan, p,
                                          multi_priority=item.multi_priority))
             spec = plan.spec_out
@@ -354,6 +374,17 @@ class Pipeline:
         ctx.notes.pop("_win_out", None)
         self.stages = new_stages
         self.ctx = ctx
+
+    # --- static signature: the key of the pipe cache -------------------------
+    def signature(self) -> Tuple:
+        sig = [self.spec_in.array_shape]
+        for s in self.stages:
+            si, so = s.plan.spec_in, s.plan.spec_out
+            sig.append((s.name, s.multi_priority,
+                        si.array_shape, so.array_shape,
+                        (si.org_y, si.org_x, so.org_y, so.org_x),
+                        s.plan.static))
+        return tuple(sig)
 
     def coeffs(self) -> List[Any]:
         """Host coefficients per stage (numpy / Python floats)."""
@@ -437,15 +468,53 @@ class Pipeline:
         return run
 
 
+def _fingerprint(coeffs) -> Tuple:
+    """The host coefficients as `coeffs_to_device` will move them: per
+    stage None or its (name, shape, float32 bytes) entries."""
+    out = []
+    for c in coeffs:
+        if c is None:
+            out.append(None)
+            continue
+        entries = []
+        for k in sorted(c):
+            v = np.asarray(c[k], dtype=np.float32)
+            entries.append((k, v.shape, v.tobytes()))
+        out.append(tuple(entries))
+    return tuple(out)
+
+
+# (signature, device) -> (coefficient fingerprint, device coeffs, steps)
+_PIPE_CACHE: Dict[Tuple, Tuple] = {}
+
+
 class CompiledPipe:
     """A pipe ready to run: coefficients on the device and chains packed,
-    once."""
+    once.  A pipe whose signature, device and coefficients equal an
+    earlier one's reuses what that one built (conf `pipe.compile_cache`);
+    the supervisor sees "create" for a new signature, "read" for a reuse
+    and "update" where the coefficients changed."""
 
     def __init__(self, pipe: Pipeline):
         self.pipe = pipe
         self.device = pipe.device
-        self.coeffs = coeffs_to_device(pipe.coeffs(), self.device)
+        sig = pipe.signature()
+        sig_key = hash(sig) & 0xFFFFFFFFFFFF
+        key = (sig, str(self.device))
+        use_cache = conf_mod.get_bool("pipe.compile_cache", True)
+        host = pipe.coeffs()
+        fp = _fingerprint(host)
+        hit = _PIPE_CACHE.get(key) if use_cache else None
+        if hit is not None and hit[0] == fp:
+            sup.event("pipe", "read", sig_key, stages=len(pipe.stages))
+            _, self.coeffs, self.steps = hit
+            return
+        sup.event("pipe", "create" if hit is None else "update", sig_key,
+                  stages=len(pipe.stages))
+        self.coeffs = coeffs_to_device(host, self.device)
         self.steps = pipe.schedule(self.coeffs)
+        if use_cache:
+            _PIPE_CACHE[key] = (fp, self.coeffs, self.steps)
 
     def fused_groups(self) -> List[List[str]]:
         """Stage names of each chain, in run order."""
@@ -476,7 +545,8 @@ class CompiledPipe:
 
 
 def compile_pipeline(meta: RawMeta, history: List[HistoryItem], *,
-                     device="cuda", scale: float = 1.0, order_version=None,
+                     device="cuda", scale: float = 1.0,
+                     order_version=None,
                      pipe_type: str = PipeType.EXPORT) -> CompiledPipe:
     return CompiledPipe(Pipeline(meta, history, device=device, scale=scale,
                                  order_version=order_version,

@@ -22,7 +22,14 @@ entry points a user calls, at their full frames:
     kernels and the chain;
   * the port's config 7 at 24 MP (4000 x 6016), the bilateral-grid stack
     (bilateral, exposure, filmicrgb, shadhi and bilat mode 0 through the
-    grid, sharpen): RCD, the chain, sepblur and the grid-slice kernel.
+    grid, sharpen): RCD, the chain, sepblur and the grid-slice kernel;
+  * the port's config 8 at 24 MP (4000 x 6016), the headless export: the
+    history (hot pixels, raw denoise, CA correction on the mosaic and in
+    RGB, NLM, defringe, bloom, exposure, filmicrgb) written as an XMP
+    sidecar with an inactive blend blob on every item, as darktable
+    writes them, and exported through the CLI (`ansel_tpu_torch.cli.main`)
+    to a 16-bit PNG: RCD, the chain, sepblur, the IIR and NLM; then the
+    CLI's `--devtest` and `entry()`.
 
 Each path runs with the launch counts set to 0 just before it and read
 just after.  Every chain each config builds is also timed on its own
@@ -48,13 +55,19 @@ import torch
 import torch.nn.functional as F
 
 import ansel_tpu_torch as port
+from ansel_tpu_torch import cli
+from ansel_tpu_torch.entry import entry
 from ansel_tpu_torch.io import configs
-from ansel_tpu_torch.io.encode import write_image
+from ansel_tpu_torch.io.encode import read_png16, to_uint16, write_image
+from ansel_tpu_torch.io.rawfile import save_raw
 from ansel_tpu_torch.io.synthetic import synth_raw
+from ansel_tpu_torch.io.xmp import XMPDocument, parse_xmp, write_xmp
 from ansel_tpu_torch.kernels import (_build, bgrid, diffuse, eaw, iir,
                                      markesteijn, nlm, rcd, sepblur, warp)
 from ansel_tpu_torch.kernels import pointwise as pw
 from ansel_tpu_torch.ops.base import pad_to
+from ansel_tpu_torch.pipeline.blend import BlendParams
+from ansel_tpu_torch.pipeline.export import export_image
 from ansel_tpu_torch.pixel.nlmeans import search_offsets
 
 H, W = configs.BENCH_H, configs.BENCH_W
@@ -83,13 +96,24 @@ STAGES7 = ["rawprepare", "temperature", "highlights", "demosaic",
            "bilateral", "exposure", "colorin", "_convert", "sharpen",
            "_convert", "filmicrgb", "_convert", "shadhi", "bilat",
            "_convert", "colorout"]
+# config 8: three chains (config 7's sequences); rawdenoise's hat wavelet
+# at d = 1, 2, 4, 8, 16 and defringe's sigma-4 blur; cacorrectrgb's seven
+# Gaussians of sigma 5 (the guide, two four-plane manifolds, four safety
+# planes); the nlmeans op's NLM pass
+LAUNCHES8 = dict(NO_LAUNCHES, rcd=1, chain=3, sepblur=6, iir=7, nlm=1)
+STAGES8 = ["rawprepare", "temperature", "highlights", "cacorrect",
+           "hotpixels", "rawdenoise", "demosaic", "cacorrectrgb", "exposure",
+           "colorin", "_convert", "nlmeans", "defringe", "_convert",
+           "filmicrgb", "_convert", "bloom", "_convert", "colorout"]
 NOISE_SIGMA = 200.0  # sensor units of 16383: a high-ISO mosaic
+HOT8 = 1024          # hot photosites of config 8's frame, at the white point
 REPEATS = 10         # kernel timings
 PLAIN_REPEATS = 2    # plain twins at 24 MP take up to 0.6 s each
 PIPE2_REPEATS = 3
 PIPE3_REPEATS = 3
 PIPE4_REPEATS = 10
 PIPE7_REPEATS = 5
+PIPE8_REPEATS = 5
 
 # H100 SXM peaks (NVIDIA's data sheet, at the 700 W limit): device
 # memory rate and float32 rate outside the tensor cores.
@@ -131,6 +155,10 @@ FLOPS_EAW = 25 * 24 + 10         # 25 taps; the divide and the detail
 FLOPS_NLM_PER_OFFSET = 31        # d2 11, box sum 4 (the column sums
                                  # shared), weight 9, sums 7
 FLOPS_IIR = 30                   # per value: 15 per axis, both recursions
+# NLM variant 0 (the nlmeans op) at P = 2, per pixel and offset: d2 11,
+# the 5 x 5 box sum 8 (the column sums shared), the weight 5 (a product
+# and the fast exponential), sums 7
+FLOPS_NLM_V0_P2 = 31
 # diffuse, per channel-pixel and scale: the B3 decompose (two 5-tap
 # passes and HF) and the isotropic PDE step (q 6, box 4, energy 6,
 # stencils 2 x 8, four kernels 7, update 5)
@@ -213,6 +241,11 @@ PIPE_TOL = 1.0 / 255.0
 # bit for bit and the splat between them is deterministic (a scatter that
 # does not accumulate, a float32 bmm), so the outputs are equal
 PIPE7_REST_TOL = 0.0
+# config 8 likewise with only the chain kernel kept: RCD, sepblur, the IIR
+# and NLM match their twins bit for bit, and the plain torch between them
+# (cacorrect's sums and 6x6 solve, defringe's mean, the box means' cumulative
+# sums) runs the same calls in both runs
+PIPE8_REST_TOL = 0.0
 
 
 def card_line():
@@ -1215,6 +1248,247 @@ def run_config7(card, record, raw, raw_dev, meta, phases):
     return launches
 
 
+def write_sidecar8(path):
+    """Config 8's history as an XMP sidecar, an inactive blend blob on
+    every item as darktable writes them."""
+    write_xmp(path, XMPDocument(history=[
+        port.HistoryItem(op, dict(p), blend_params=BlendParams())
+        for op, p in configs.HISTORIES[8]]))
+
+
+def night_mosaic8(raw_dev, meta):
+    """Config 8's frame: config 2's noisy mosaic with HOT8 photosites,
+    drawn uniformly over the frame, stuck at the white point."""
+    x = noisy_like(raw_dev, NOISE_SIGMA)
+    gen = torch.Generator(device=x.device).manual_seed(88)
+    ys = torch.randint(0, x.shape[0], (HOT8,), generator=gen, device=x.device)
+    xs = torch.randint(0, x.shape[1], (HOT8,), generator=gen, device=x.device)
+    x[ys, xs] = meta.white_point
+    return x
+
+
+def hot_replaced(pipe, raw_dev):
+    """Photosites the hotpixels stage of `pipe` changes on `raw_dev`."""
+    k = [s.name for s in pipe.pipe.stages].index("hotpixels")
+    n = next(n for n, step in enumerate(pipe.steps) if step[1] == k)
+    before = pipe.pipe.run_steps(raw_dev, pipe.steps[:n])
+    after = pipe.pipe.run_steps(raw_dev, pipe.steps[:n + 1])
+    return int((before != after).sum())
+
+
+def captured8(pipe, raw_dev):
+    """Run config 8 once on a device-resident raw and keep the arguments
+    of its sepblur, IIR and NLM calls."""
+    calls = {"sepblur": [], "iir": [], "nlm": []}
+    real = {"sepblur": sepblur.sep_blur, "iir": iir.gaussian_iir,
+            "nlm": nlm.nlm}
+
+    def keep(key):
+        def call(*args):
+            calls[key].append(args)
+            return real[key](*args)
+        return call
+
+    with swapped([(sepblur, "sep_blur", keep("sepblur")),
+                  (iir, "gaussian_iir", keep("iir")),
+                  (nlm, "nlm", keep("nlm"))]):
+        pipe.run_padded(raw_dev)
+    counts = {k: len(v) for k, v in calls.items()}
+    expect(counts == {k: LAUNCHES8[k] for k in calls},
+           f"unexpected kernel calls {counts}")
+    return calls
+
+
+def check_rawdenoise(calls, launches):
+    """rawdenoise's hat wavelet on the four (2000, 3008) CFA planes at
+    d = 1-16, and defringe's sigma-4 blur (33 taps) of the (2, 4000, 6016)
+    chroma planes, each against the twin bit for bit."""
+    rows, total, bounds = [], 0.0, 0.0
+    for x, taps, *d in calls:
+        got = sepblur.sep_blur(x, taps, *d)
+        want = sepblur.sep_blur_reference(x, taps, *d)
+        mx, _ = compare(got, want)
+        expect(torch.equal(got, want),
+               f"sepblur {tuple(x.shape)} {len(taps)} taps d={d}: max {mx}")
+        del got, want
+        ms = median_ms(lambda: sepblur.sep_blur(x, taps, *d))
+        plain_ms = median_ms(lambda: sepblur.sep_blur_reference(x, taps, *d),
+                             PLAIN_REPEATS)
+        b_ms, b_by = bound(2 * nbytes(x),
+                           FLOPS_SEPBLUR_PER_TAP * len(taps) * x.numel())
+        total, bounds = total + ms, bounds + b_ms
+        rows.append(f"{tuple(x.shape)} {len(taps)} taps d={d[0] if d else 1}"
+                    f" {ms:.4f}/{plain_ms:.3f}/bound {b_ms:.4f} ({b_by})")
+    print(f"[rawdenoise] sepblur on config 8's arguments ({launches} "
+          f"launches an image), kernel vs plain: max 0 (bit-equal) | ms "
+          f"kernel/plain: {'; '.join(rows)} | {total:.4f} ms per image "
+          f"(bound {bounds:.4f})", flush=True)
+
+
+def check_cacorrectrgb_iir(calls, launches):
+    """cacorrectrgb's seven Gaussians of sigma 5: the (4000, 6016) guide
+    and safety planes and the (4, 4000, 6016) manifold stacks, each
+    against the twin bit for bit (IIR_TOL 0), with its launch plan."""
+    rows, total, bounds, plain = [], 0.0, 0.0, {}
+    for x, coef, lo, hi in calls:
+        got = iir.gaussian_iir(x, coef, lo, hi)
+        want = iir.gaussian_iir_reference(x, coef, lo, hi)
+        mx, _ = compare(got, want)
+        expect(mx <= IIR_TOL and torch.equal(got, want),
+               f"iir {tuple(x.shape)}: max {mx}")
+        del got, want
+        ms = median_ms(lambda: iir.gaussian_iir(x, coef, lo, hi))
+        shape = tuple(x.shape)
+        if shape not in plain:
+            plain[shape] = median_ms(
+                lambda: iir.gaussian_iir_reference(x, coef, lo, hi), 1)
+        b_ms, b_by = bound(2 * nbytes(x), FLOPS_IIR * x.numel())
+        total, bounds = total + ms, bounds + b_ms
+        h, w = x.shape[-2:]
+        n = x.numel() // (h * w)
+        blocks = [b for _, _, _, b, _, _ in iir.launch_plan(n, h, w)]
+        rows.append(f"{shape} {ms:.4f} ms (plain {plain[shape]:.1f}, bound "
+                    f"{b_ms:.4f} {b_by}, floor "
+                    f"{iir.latency_floor_ms(h, w):.4f}; blocks {blocks}, "
+                    f"{'16' if w % 4 == 0 else '4'}-byte copies)")
+    print(f"[cacorrectrgb-iir] the IIR on config 8's arguments ({launches} "
+          f"launches an image), kernel vs plain: max 0 (tol {IIR_TOL:g}; "
+          f"bit-equal) | {'; '.join(rows)} | {total:.4f} ms per image "
+          f"(bound {bounds:.4f})", flush=True)
+
+
+def check_nlmeans(calls, launches):
+    """The nlmeans op's NLM pass (variant 0, P 2, 225 offsets) on its Lab
+    (3, 4000, 6016) input, against the twin bit for bit."""
+    (v, offs, P, norm, sharp, cp_norm, inv1cw, variant), = calls
+    expect(variant == 0 and P == 2 and len(offs) == 225,
+           f"nlmeans call: variant {variant}, P {P}, {len(offs)} offsets")
+    got = nlm.nlm(v, offs, P, norm, sharp, cp_norm, inv1cw, variant)
+    want = nlm.nlm_reference(v, offs, P, norm, sharp, cp_norm, inv1cw,
+                             variant)
+    mx, mean = compare(got, want)
+    expect(torch.equal(got, want), f"nlm variant 0: max {mx}")
+    del got, want
+    args = (v, offs, P, norm, sharp, cp_norm, inv1cw, variant)
+    ms = median_ms(lambda: nlm.nlm(*args))
+    plain_ms = median_ms(lambda: nlm.nlm_reference(*args), 1)
+    b_ms, b_by = bound(2 * nbytes(v),
+                       FLOPS_NLM_V0_P2 * len(offs) * v[0].numel())
+    resident, smem = nlm.plan(P, nlm._reach(offs))
+    print(f"[nlmeans] {tuple(v.shape)} variant 0, P {P}, {len(offs)} "
+          f"offsets ({'resident' if resident else 'streamed'}, {smem} B "
+          f"shared; {launches} launch an image), kernel vs plain: max "
+          f"{mx:.3g} mean {mean:.3g} "
+          f"(bit-equal) | kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, bound "
+          f"{b_ms:.3f} ms ({b_by})", flush=True)
+
+
+def run_config8(card, raw_dev, meta, phases, tmp):
+    """Config 8 exported from a sidecar through the CLI on the card (the
+    main path, launches counted) from a raw bundle of the noisy mosaic
+    with hot photosites, its PNG against export_image's array, that array
+    against the composed twins, its kernels on the arguments the pipe
+    hands them, then `run_padded`'s rate and peak memory."""
+    sidecar = os.path.join(tmp, "config8.xmp")
+    png = os.path.join(tmp, "config8.png")
+    bundle = os.path.join(tmp, "config8.npz")
+    write_sidecar8(sidecar)
+    with timed(phases, "mosaic8"):
+        raw_dev = night_mosaic8(raw_dev, meta)
+        raw = raw_dev.cpu().numpy()
+        save_raw(bundle, raw, meta)
+    with timed(phases, "pipe8 cli"):
+        reset_launches()
+        t = time.perf_counter()
+        rc = cli.main([bundle, sidecar, png, "--bpp", "16", "--no-icc",
+                       "-v"])
+        cli_s = time.perf_counter() - t
+        launches = read_launches()
+    expect(rc == 0, f"cli exit {rc}")
+    expect(launches == LAUNCHES8, f"config-8 launches {launches}")
+    with timed(phases, "pipe8 vs plain"):
+        out = export_image(raw, meta, xmp_path=sidecar)
+        expect(out.shape == (3, H, W), f"output shape {out.shape}")
+        expect(bool(np.isfinite(out).all()) and out.min() >= 0.0
+               and out.max() <= 1.0, "output not finite or outside [0, 1]")
+        expect(np.array_equal(read_png16(png), to_uint16(out)),
+               "the CLI's PNG differs from export_image's array")
+        reset_launches()
+        with plain_twins():
+            plain = export_image(raw, meta, xmp_path=sidecar)
+        expect(all(v == 0 for v in read_launches().values()),
+               f"the plain composition launched kernels: {read_launches()}")
+        pipe_err = float(np.abs(out - plain).max())
+        expect(pipe_err <= PIPE_TOL, f"config 8 vs plain: max {pipe_err}")
+        reset_launches()
+        with plain_twins(keep=(pw,)):
+            plain = export_image(raw, meta, xmp_path=sidecar)
+        expect(read_launches() == dict(NO_LAUNCHES, chain=3),
+               f"the plain composition launched {read_launches()}")
+        rest_err = float(np.abs(out - plain).max())
+        expect(rest_err <= PIPE8_REST_TOL,
+               f"config 8 vs plain, chain kernel kept: max {rest_err}")
+        del plain
+    pipe = port.compile_pipeline(meta, parse_xmp(sidecar).history)
+    stages = [s.name for s in pipe.pipe.stages]
+    expect(stages == STAGES8, f"unexpected config-8 plan {stages}")
+    expect(pipe.fused_groups() == [["exposure", "colorin", "_convert"],
+                                   ["_convert", "filmicrgb", "_convert"],
+                                   ["_convert", "colorout"]],
+           f"unexpected chains {pipe.fused_groups()}")
+    hot = hot_replaced(pipe, raw_dev)
+    expect(hot > 0, "the hotpixels stage replaced no photosite")
+    with timed(phases, "capture8"):
+        calls = captured8(pipe, raw_dev)
+    with timed(phases, "rawdenoise"):
+        check_rawdenoise(calls["sepblur"], launches["sepblur"])
+    with timed(phases, "cacorrectrgb-iir"):
+        check_cacorrectrgb_iir(calls["iir"], launches["iir"])
+    with timed(phases, "nlmeans"):
+        check_nlmeans(calls["nlm"], launches["nlm"])
+    del calls
+    with timed(phases, "pipe8 timing"):
+        per_img = time_pipe(pipe, raw_dev, PIPE8_REPEATS)
+        peak, held = pipe_peak(pipe, raw_dev)
+    print(f"[pipe8] config 8 {H}x{W} from an XMP sidecar through the CLI, "
+          f"the mosaic noisy (sigma {NOISE_SIGMA:g}) with {HOT8} hot "
+          f"photosites ({hot} photosites replaced by hotpixels): "
+          f"{len(stages)} stages, chains {pipe.fused_groups()}, launches "
+          f"{launches}, PNG equal to to_uint16(export_image), vs plain max "
+          f"{pipe_err:.3g} (tol 1/255; with the chain kernel kept, max "
+          f"{rest_err:.3g}, tol {PIPE8_REST_TOL:g}), range [{out.min():.3g}, "
+          f"{out.max():.3g}] | CLI export {cli_s:.2f} s wall (raw bundle "
+          f"load, upload, pipe, download, 16-bit PNG) | {1.0 / per_img:.3f} img/s, "
+          f"{per_img * 1e3:.2f} ms/img (device-resident input, "
+          f"{PIPE8_REPEATS} repeats), peak device memory {peak:.3f} GB "
+          f"({held:.3f} GB held before) on {card}", flush=True)
+
+
+def run_devtest_and_entry(phases):
+    """The CLI's card diagnostic, then entry()'s fn on the card against
+    the same fn with every kernel's plain twin."""
+    with timed(phases, "devtest"):
+        rc = cli.main(["--devtest"])
+        expect(rc == 0, f"--devtest exit {rc}")
+        print("[devtest] ansel_tpu_torch.cli --devtest exit 0", flush=True)
+    with timed(phases, "entry"):
+        fn, (raw_p, co) = entry()
+        expect(raw_p.device.type == "cuda", "entry() left the card")
+        reset_launches()
+        got = fn(raw_p, co)
+        launches = read_launches()
+        expect(launches == LAUNCHES1, f"entry launches {launches}")
+        with plain_twins():
+            want = fn(raw_p, co)
+        mx, mean = compare(got, want)
+        expect(mx <= PIPE_TOL, f"entry vs plain: max {mx}")
+        expect(float(got.min()) >= 0.0 and float(got.max()) <= 1.0,
+               "entry output outside [0, 1]")
+        print(f"[entry] entry() fn on {tuple(raw_p.shape)}: "
+              f"{tuple(got.shape)}, launches {launches}, vs plain max "
+              f"{mx:.3g} mean {mean:.3g} (tol 1/255)", flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
@@ -1244,6 +1518,9 @@ def main():
         launches = run_config2(card, record, raw, raw_dev, meta, pool,
                                phases, [png1])
         launches7 = run_config7(card, record, raw, raw_dev, meta, phases)
+        with tempfile.TemporaryDirectory() as tmp:
+            run_config8(card, raw_dev, meta, phases, tmp)
+        run_devtest_and_entry(phases)
         del raw_dev
         with timed(phases, "mosaic3 wait"):
             raw3, meta3, _ = synth3.result()

@@ -1,18 +1,19 @@
 #!/usr/bin/env python3
 """Where the time goes in the PyTorch/CUDA port's pipe, on one GPU.
 
-    python3 scripts/torch_profile.py [--config 1|2|3|4|7] [--images 3]
+    python3 scripts/torch_profile.py [--config 1|2|3|4|7|8] [--images 3]
 
 Plans bench config 1, 2 (4000 x 6016), 3 (5504 x 8256), 4 (an X-Trans
 4000 x 6000 mosaic) or the port's config 7 (the bilateral-grid stack,
-4000 x 6016) through
+4000 x 6016) or 8 (the raw-cleanup export, 4000 x 6016) through
 `compile_pipeline`, warms up, then runs `run_padded` on a device-resident raw `--images`
 times without the profiler and `--images` times under torch.profiler.
 Prints one line per group of device kernels (ms per image and launches
 per image) and the `TOP` device kernels by name, the device busy share
 of the profiled loop (kernel time over wall time), the host's enqueue
-time per image and img/s of both loops, and for each step of one image
-the host's time and the device span between CUDA events around it.
+time per image and img/s of both loops, for each step of one image
+the host's time and the device span between CUDA events around it, and
+each step's device kernel launches (one profiler window a step).
 Needs a CUDA device.
 """
 
@@ -157,6 +158,19 @@ def main():
           f"enqueue {bare_enqueue / n * 1e3:.1f} ms/img", flush=True)
     print(f"[steps] host ms / device span ms per step of one image: "
           f"{'; '.join(steps)}", flush=True)
+
+    # device kernel launches of each step, one profiler window a step
+    cur, launches = raw_dev, []
+    for step in pipe.steps:
+        with profile(activities=[ProfilerActivity.CUDA]) as one:
+            cur = p.run_steps(cur, [step])
+            torch.cuda.synchronize()
+        k = sum(ev.count for ev in one.key_averages()
+                if ev.device_type == torch.autograd.DeviceType.CUDA)
+        names = "+".join(s.name for s in p.stages[step[1]:step[2]])
+        launches.append(f"{names} {k}")
+    print(f"[launches] device kernels per step of one image: "
+          f"{'; '.join(launches)}", flush=True)
 
 
 if __name__ == "__main__":

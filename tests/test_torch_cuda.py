@@ -811,3 +811,148 @@ def test_grid_and_blur_ops_on_cuda_match_cpu(cuda, name, params, cs):
     torch.cuda.synchronize()
     scale = max(1.0, outs[1].abs().max().item())
     assert (outs[0] - outs[1]).abs().max().item() <= 1e-4 * scale
+
+
+# --- config 8: rawdenoise, cacorrectrgb, nlmeans and the export ---------
+
+HAT = (0.25, 0.5, 0.25)
+
+
+@pytest.mark.parametrize("hw", [(37, 530), (500, 752), (2000, 3008)])
+@pytest.mark.parametrize("d", [1, 2, 4, 8, 16])
+def test_sepblur_kernel_on_rawdenoise_planes(cuda, hw, d):
+    """rawdenoise's hat wavelet on the four CFA planes at its dilations
+    (d = 16 reaches 16 rows a tap), config 8's (2000, 3008) among them."""
+    gen = torch.Generator(device="cuda").manual_seed(d)
+    x = torch.rand((4,) + hw, generator=gen, device="cuda")
+    before = sepblur.LAUNCHES
+    got = sepblur.sep_blur(x, HAT, d)
+    assert sepblur.LAUNCHES == before + 1
+    want = sepblur.sep_blur_reference(x, HAT, d)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("shape", [(4000, 6016), (4, 4000, 6016), (37, 53),
+                                   (4, 37, 54)])
+def test_iir_kernel_on_cacorrectrgb_shapes(cuda, shape):
+    """cacorrectrgb's sigma-5 Gaussian on a 2-D plane and on its four-plane
+    stacks at 24 MP (w % 4 = 0: the 16-byte copies), and at widths that
+    take the 4-byte ones."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    x = torch.rand(shape, generator=gen, device="cuda") * 2.0
+    coef = _deriche_coeffs(5.0)
+    before = iir.LAUNCHES
+    got = iir.gaussian_iir(x, coef)
+    assert iir.LAUNCHES == before + 1
+    want = iir.gaussian_iir_reference(x, coef)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("hw", [(5, 7), (136, 400), (1000, 1504)])
+def test_nlm_kernel_on_the_nlmeans_op_call(cuda, hw):
+    """The nlmeans op's call: variant 0, P 2, K 7, its Lab weights, on
+    Lab-scaled values."""
+    from ansel_tpu_torch.ops.nlmeans import _NORM32
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    v = torch.rand((3,) + hw, generator=gen, device="cuda")
+    v = v * torch.tensor([100.0, 80.0, 80.0], device="cuda")[:, None, None] \
+        - torch.tensor([0.0, 40.0, 40.0], device="cuda")[:, None, None]
+    args = (search_offsets(7), 2, _NORM32, 3000.0 / 51.0, 0.0, 1.0, 0)
+    before = nlm.LAUNCHES
+    got = nlm.nlm(v.contiguous(), *args)
+    assert nlm.LAUNCHES == before + 1
+    want = nlm.nlm_reference(v, *args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+# the ops of config 8 on the card (through sepblur, the IIR and NLM where
+# they use them) against the same ops on the CPU: (op, params, input)
+CONFIG8_OPS = [
+    ("hotpixels", {}, "RAW"),
+    ("rawdenoise", {"threshold": 0.02}, "RAW"),
+    ("cacorrect", {}, "RAW"),
+    ("cacorrectrgb", {}, "CAMERA_RGB"),
+    ("nlmeans", {}, "LAB"),
+    ("defringe", {}, "LAB"),
+    ("defringe", {"op_mode": 1}, "LAB"),
+    ("bloom", {"threshold": 60.0}, "LAB"),
+]
+
+
+@pytest.mark.parametrize("name,params,cs", CONFIG8_OPS,
+                         ids=[f"{n}-{i}" for i, (n, _, _) in
+                              enumerate(CONFIG8_OPS)])
+def test_config8_ops_on_cuda_match_cpu(cuda, name, params, cs):
+    from ansel_tpu_torch.ops.base import PlanContext, get_op
+
+    h, w = 400, 600
+    rng = np.random.default_rng(8)
+    if cs == "LAB":
+        x = np.stack([rng.uniform(0, 100, (h, w)),
+                      rng.uniform(-40, 40, (h, w)),
+                      rng.uniform(-40, 40, (h, w))]).astype(np.float32)
+    elif cs == "RAW":
+        x = rng.uniform(0.05, 0.9, (h, w)).astype(np.float32)
+    else:
+        x = rng.uniform(0, 1, (3, h, w)).astype(np.float32)
+    raw = cs == "RAW"
+    op = get_op(name)
+    p = params_class(name)(**params)
+    ctx = PlanContext(meta=RawMeta(width=w, height=h))
+    spec = ImageSpec(width=w, height=h, colorspace=getattr(Colorspace, cs),
+                     channels=1 if raw else 3,
+                     cfa=CFAPattern.RGGB if raw else None)
+    plan = op.plan(ctx, spec, p)
+    co = op.coeffs(ctx, plan, p)
+    outs = []
+    for dev in (cuda, torch.device("cpu")):
+        c = engine.coeffs_to_device([co], dev)[0]
+        outs.append(op.apply(torch.from_numpy(x).to(dev), c, plan, ctx).cpu())
+    torch.cuda.synchronize()
+    scale = max(1.0, outs[1].abs().max().item())
+    assert torch.isfinite(outs[0]).all()
+    assert (outs[0] - outs[1]).abs().max().item() <= 1e-4 * scale
+
+
+def test_config8_export_on_cuda_matches_cpu(cuda, tmp_path):
+    """Config 8 from a sidecar with inactive blend blobs, through
+    export_image on the card (launches pinned) and on the CPU."""
+    from ansel_tpu_torch.io.xmp import XMPDocument, write_xmp
+    from ansel_tpu_torch.pipeline.blend import BlendParams
+    from ansel_tpu_torch.pipeline.export import export_image
+
+    xmp = str(tmp_path / "config8.xmp")
+    write_xmp(xmp, XMPDocument(history=[
+        port.HistoryItem(op, dict(p), blend_params=BlendParams())
+        for op, p in configs.HISTORIES[8]]))
+    raw, meta, _ = synth_raw(h=256, w=384, kind="gradients")
+    mods = (rcd, pw, sepblur, iir, nlm, eaw, diffuse, markesteijn, warp,
+            bgrid)
+    for mod in mods:
+        mod.LAUNCHES = 0
+    got = export_image(raw, meta, xmp_path=xmp)
+    assert [m.LAUNCHES for m in mods] == [1, 3, 6, 7, 1, 0, 0, 0, 0, 0]
+    want = export_image(raw, meta, xmp_path=xmp, device="cpu")
+    assert got.shape == (3, 256, 384) and np.isfinite(got).all()
+    assert np.abs(got - want).max() <= 1.0 / 255.0
+
+
+def test_debug_perf_launches_the_chain_kernel_for_each_pixel_stage(cuda):
+    """`-d perf` (`profiling.run_stages`) on config 1 schedules each
+    stage as the export does: one chain-kernel launch for each per-pixel
+    stage in each of its two calls (the warm-up and the timed one), and
+    RCD once a call."""
+    from ansel_tpu_torch.pipeline import profiling
+
+    raw, meta, _ = synth_raw(h=256, w=384)
+    pipe = engine.Pipeline(meta, configs.history(1))
+    n = sum(pipe._chain_spec(s) is not None for s in pipe.stages)
+    pw.LAUNCHES = rcd.LAUNCHES = 0
+    reps = profiling.run_stages(pipe, raw, nan_scan=True, verbose=False)
+    assert n >= 3
+    assert pw.LAUNCHES == 2 * n and rcd.LAUNCHES == 2
+    assert all(r.ms > 0 and r.nan == 0 and r.inf == 0 for r in reps)

@@ -133,21 +133,27 @@ def _recorded_blurs(history, h, w):
 @pytest.fixture(scope="module")
 def caller_pairs():
     """Every (taps, dilation) the port's callers of sep_blur can produce:
-    the highlights Laplacian at each of its MAX_NUM_SCALES dilations, the
+    the highlights Laplacian at each of its MAX_NUM_SCALES dilations,
+    rawdenoise's 3-tap hat wavelet at each of its BANDS dilations, the
     box blur's windows up to the radius it sends there, the FIR Gaussian
-    up to the sigma it takes, and what configs 2, 3 and 7 ask for."""
+    up to the sigma it takes, and what configs 2, 3, 7 and 8 ask for."""
+    from ansel_tpu_torch.ops import rawdenoise
+
     pairs = {(5, 1 << s) for s in range(hl.MAX_NUM_SCALES)}
+    pairs |= {(3, 1 << lev) for lev in range(rawdenoise.BANDS)}
     pairs |= {(2 * r + 1, 1) for r in range(1, 8)}               # box_blur
     pairs.add((2 * math.ceil(4.0 * 4.0) + 1, 1))       # gaussian_blur, sigma 4
-    for n in (2, 3, 7):
+    for n in (2, 3, 7, 8):
         pairs |= _recorded_blurs(configs.history(n), 96, 128)
     return sorted(pairs)
 
 
 def test_sepblur_callers_are_known(caller_pairs):
     assert (5, 512) in caller_pairs and (33, 1) in caller_pairs
+    assert (3, 16) in caller_pairs
     # every recorded pair is one of the kinds listed above
-    assert all(n == 5 or d == 1 for n, d in caller_pairs)
+    assert all(n in (3, 5) or d == 1 for n, d in caller_pairs)
+    assert all(d <= 16 for n, d in caller_pairs if n == 3)
 
 
 @pytest.mark.parametrize("kind", ["laplacian", "d1"])

@@ -225,9 +225,9 @@ def _xtrans(meta):
     ([("colorbalancergb", {})], None, {}),                   # not ported
     ([("denoiseprofile", {})], None, {}),          # automatic noise profile
     ([("diffuse", {"radius": 12})], None, {}),     # 6 wavelet scales
-    # bilat's grid (mode 0) is ported: this case holds bloom, a
-    # blur-family op that is not
-    ([("bloom", {})], None, {}),
+    # bilat's grid (mode 0) and bloom are ported: this case holds
+    # censorize, a blur-family op that is not (it waits for the PRNG)
+    ([("censorize", {})], None, {}),
     ([("demosaic", {"demosaicing_method": 0x3001})], _xtrans, {}),  # dual
     ([("demosaic", {"color_smoothing": 2})], _xtrans, {}),
     ([("highlights", {"mode": 3})], _xtrans, {}),  # Laplacian on X-Trans
@@ -259,9 +259,15 @@ def test_xtrans_raises_at_plan_time():
 
 
 def test_blend_raises_at_plan_time():
+    # an active blend (mask_mode != 0) on a geometry-preserving stage; an
+    # inactive or undecodable blob plans as no blend, as in ansel_tpu
+    # (tests/test_torch_export.py)
+    from ansel_tpu_torch.pipeline.blend import MASK_ENABLED, BlendParams
+
     _, meta, _ = synth_raw(h=64, w=128)
+    blob = BlendParams.codec.encode(BlendParams(mask_mode=MASK_ENABLED))
     item = ansel_tpu_torch.HistoryItem("exposure", {"exposure": 1.0},
-                                       blend_params=b"\0" * 8)
+                                       blend_params=blob)
     with pytest.raises(NotImplementedError):
         ansel_tpu_torch.Pipeline(meta, [item], device="cpu")
 
