@@ -2,21 +2,23 @@
 analog, reference src/apps/ansel-cli/main.c; a port of
 `ansel_tpu/cli.py`).
 
-Raw input: .npz bundles written by `ansel_tpu_torch.io.rawfile.save_raw`
-or `synth:WxH` synthetic raws.  The pipe runs on the CUDA card unless
-`--device cpu` is given; a missing card raises.
+Raw input: camera raws (DNG/TIFF, CR2, CR3, NEF, ARW, RAF, RW2, ORF,
+PEF, through the native decoder `io/dng.py`), .npz bundles written by
+`ansel_tpu_torch.io.rawfile.save_raw`, or `synth:WxH` synthetic raws.
+`--width`/`--height` bound the export size (a smaller export injects
+initialscale).  The pipe runs on the CUDA card unless `--device cpu` is
+given; a missing card raises.
 
 Usage:
-  python -m ansel_tpu_torch.cli <raw.npz|synth:6016x4000> [sidecar.xmp]
-      <out.png|out.jpg|...> [--bpp 8|16] [--no-icc] [--quality Q]
-      [--device cuda|cpu] [-d perf|nan|supervisor] [-v]
+  python -m ansel_tpu_torch.cli <raw.dng|raw.npz|synth:6016x4000>
+      [sidecar.xmp] <out.png|out.jpg|out.pdf|...> [--width W] [--height H]
+      [--bpp 8|16] [--no-icc] [--quality Q] [--device cuda|cpu]
+      [-d perf|nan|supervisor] [-v]
   python -m ansel_tpu_torch.cli --devtest
 
-Not ported: `--width`/`--height` below the native size (export scaling;
-they raise NotImplementedError), DNG/TIFF input (`io/dng.py`),
-`--generate-cache` (the library) and `--ingest-lensfun`.  An 8-bit
-output needs PIL, and so does an embedded ICC profile (`--no-icc` writes
-a 16-bit PNG or TIFF without it).
+Not ported: `--generate-cache` (the library) and `--ingest-lensfun`.  An
+8-bit JPEG/PNG needs PIL, and so does an embedded ICC profile (`--no-icc`
+writes a 16-bit PNG or TIFF, or a PDF, without it).
 """
 
 from __future__ import annotations
@@ -104,7 +106,9 @@ def main(argv=None):
         w, h = (int(v) for v in args.input[6:].split("x"))
         raw, meta, _ = synth_raw(h=h, w=w)
     elif args.input.lower().endswith((".dng", ".tif", ".tiff")):
-        raise not_ported("cli", "DNG/TIFF input (io/dng.py)")
+        from .io.dng import load_dng
+
+        raw, meta = load_dng(args.input)
     else:
         raw, meta = load_raw(args.input)
     if args.verbose:

@@ -1,6 +1,6 @@
 """The bench configurations the port runs (`bench.py:CONFIGS`), and the
-port's own configs 7 and 8, defined once for the chip smoke, the profile
-script and the tests.
+port's own configs 7, 8 and 9, defined once for the chip smoke, the
+profile script and the tests.
 
 Each history is a tuple of (op, params) pairs, so that a test can build
 the JAX package's `HistoryItem`s from the same pairs as the port's.
@@ -70,12 +70,28 @@ HISTORIES = {
         ("bloom", {}),
         ("exposure", {"exposure": 0.5}),
         ("filmicrgb", {})),
+    # a camera DNG exported from its sidecar as a batch user straightens
+    # and crops a portrait frame: the DNG's GainMap flat field, the
+    # orientation (the native decoder reads no EXIF orientation, so the
+    # sidecar carries it), clipping's 2-degree rotation with a crop of
+    # about 5% on each side, then exposure and filmicrgb
+    9: (("rawprepare", {"flat_field": 1}),
+        ("flip", {"orientation": 6}),
+        ("clipping", {"angle": 2.0, "cx": 0.05, "cy": 0.05, "cw": 0.95,
+                      "ch": 0.95}),
+        ("exposure", {"exposure": 0.5}),
+        ("filmicrgb", {})),
 }
 
 # each config's frame (height, width)
 FRAMES = {1: (BENCH_H, BENCH_W), 2: (BENCH_H, BENCH_W),
           3: (BENCH3_H, BENCH3_W), 4: (BENCH4_H, BENCH4_W),
-          7: (BENCH_H, BENCH_W), 8: (BENCH_H, BENCH_W)}
+          7: (BENCH_H, BENCH_W), 8: (BENCH_H, BENCH_W),
+          9: (BENCH_H, BENCH_W)}
+# config 9's DNG: a 14-bit mosaic and a GainMap of 17 x 25 points per
+# RGGB filter
+DNG9_BITS = 14
+DNG9_MAP_POINTS = (17, 25)
 # configs whose raw is an X-Trans mosaic (`remosaic_xtrans`)
 XTRANS_CONFIGS = (4,)
 
@@ -114,3 +130,46 @@ def remosaic_xtrans(meta, scene):
            * (meta.white_point - meta.black_levels[0])
            + meta.black_levels[0]).astype(np.float32)
     return raw, meta
+
+
+def mosaic9(raw):
+    """`synth_raw`'s (H, W) mosaic quantised to DNG9_BITS: uint16."""
+    import numpy as np
+
+    top = (1 << DNG9_BITS) - 1
+    return np.clip(np.rint(raw), 0, top).astype(np.uint16)
+
+
+def gain_maps9(mv: int = DNG9_MAP_POINTS[0], mh: int = DNG9_MAP_POINTS[1]):
+    """Config 9's four GainMaps, one per RGGB filter: a radial falloff
+    from 0.8 at the centre to 1.25 at the corners, the two green
+    filters' 2% apart, each (mv * mh,) float32 in row-major order."""
+    import numpy as np
+
+    y = np.linspace(-1.0, 1.0, mv)[:, None]
+    x = np.linspace(-1.0, 1.0, mh)[None, :]
+    r2 = (y * y + x * x) / 2.0
+    base = 0.8 + 0.45 * r2
+    return [(base * s).clip(0.8, 1.25).astype(np.float32).reshape(-1)
+            for s in (1.0, 0.98, 1.02, 1.0)]
+
+
+def gain_map_meta9(meta):
+    """`meta` with config 9's GainMaps as its DNG's OpcodeList2 carries
+    them (whole frame, one map per RGGB filter, pitch 2, spacing
+    1 / (points - 1) from origin 0), for a run that starts from the
+    mosaic rather than the DNG."""
+    import dataclasses
+
+    from ..core.types import DngGainMap
+
+    mv, mh = DNG9_MAP_POINTS
+    maps = tuple(DngGainMap(
+        top=dy, left=dx, bottom=meta.height, right=meta.width, plane=0,
+        planes=1, row_pitch=2, col_pitch=2, map_points_v=mv,
+        map_points_h=mh, map_spacing_v=1.0 / (mv - 1),
+        map_spacing_h=1.0 / (mh - 1), map_origin_v=0.0, map_origin_h=0.0,
+        map_planes=1, map_gain=tuple(float(g) for g in gains))
+        for (dy, dx), gains in zip(((0, 0), (0, 1), (1, 0), (1, 1)),
+                                   gain_maps9(mv, mh)))
+    return dataclasses.replace(meta, gain_maps=maps)

@@ -238,7 +238,11 @@ def write_image(path: str, img_chw: np.ndarray, quality: int = 92,
         write_exr(path, img_chw)
         return
     if low.endswith(".pdf"):
-        raise NotImplementedError("write_image: PDF output is not ported yet")
+        from .pdfwriter import write_pdf
+
+        write_pdf(path, img_chw, bpp=bpp if bpp in (8, 16) else 8,
+                  icc=icc or None)
+        return
     if bpp == 16:
         arr16 = to_uint16(img_chw)
         if low.endswith(".png"):

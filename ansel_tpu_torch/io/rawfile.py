@@ -1,9 +1,9 @@
 """Raw file container IO.
 
-`.npz` bundles (mosaic + RawMeta fields) are the portable interchange
-format.  Camera-native containers (DNG/TIFF, CR2, NEF, ...) go through
-`ansel_tpu/io/dng.py` and its native decoder, which this package has not
-ported yet: loading one raises NotImplementedError.
+Camera-native containers (DNG/TIFF, CR2, CR3, NEF, ARW, RAF, RW2, ORF,
+PEF) decode through the native C++ library (`native/rawdec` via
+`io/dng.py`), as in `ansel_tpu/io/rawfile.py`.  `.npz` bundles (mosaic +
+RawMeta fields) remain the portable interchange format.
 """
 
 from __future__ import annotations
@@ -35,12 +35,14 @@ def save_raw(path: str, raw: np.ndarray, meta: RawMeta) -> None:
 
 
 def load_raw(path: str):
-    """Load an .npz bundle written by `save_raw`."""
+    """Dispatch on container: camera raws through the native decoder
+    (`io/dng.py`), else an .npz bundle written by `save_raw`."""
     low = path.lower()
     if low.endswith((".dng", ".tif", ".tiff", ".cr2", ".cr3", ".nef",
                      ".arw", ".raf", ".rw2", ".orf", ".pef")):
-        raise NotImplementedError(
-            f"load_raw: native raw containers are not ported yet ({path})")
+        from .dng import load_raw as load_native
+
+        return load_native(path)
     z = np.load(path, allow_pickle=False)
     raw = np.asarray(z["raw"], np.float32)
     h, w = raw.shape

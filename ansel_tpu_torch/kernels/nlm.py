@@ -19,7 +19,13 @@ P px wide.  The offsets are summed in the order given; the Pallas kernel
 groups them by dx, which changes the last bits of the sums only.
 
 `nlm` launches the kernel for a CUDA tensor and runs `nlm_reference` for
-a CPU tensor.
+a CPU tensor.  On the card it takes every lattice the planners emit: a
+patch radius up to MAX_P with at most MAX_OFFSETS offsets is one launch;
+more offsets run as chunks of at most MAX_OFFSETS, launched in order,
+which carry their float32 sums in a (4, H, W) scratch and normalise once
+(the same additions in the same order, so still bit-exact); a patch
+radius above MAX_P (up to WIDE_MAX_P) runs the kernel's wide form, P at
+run time, every offset in one launch.
 """
 
 from __future__ import annotations
@@ -33,6 +39,8 @@ from ..pixel.shifts import pad2d
 
 MAX_P = 8           # keep in step with csrc/nlm.cu, which checks them
 MAX_OFFSETS = 900
+WIDE_MAX_P = 96     # the wide form's patch radii (shared memory)
+MODE_LOAD, MODE_FINAL = 1, 2
 # the kernel's tile: 32 rows, and WARPS_X warps across, each 32 - 2P
 # columns wide; a float4 per staged pixel; the shared memory a block may
 # have on sm_90, and the most the resident path takes (two blocks per SM)
@@ -116,16 +124,18 @@ def _lib():
     if not getattr(lib, "_typed", False):
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.nlm.argtypes = [p, p, i, i, p, i, i, f, f, f, p, f, f, i, i, i,
-                            p]
+                            p, i, p]
         lib.nlm.restype = ctypes.c_int
-        lib.nlm_limits.argtypes = [p] * 5
+        lib.nlm_wide.argtypes = [p, p, i, i, p, i, i, f, f, f, p, f, f, i, p]
+        lib.nlm_wide.restype = ctypes.c_int
+        lib.nlm_limits.argtypes = [p] * 6
         lib.nlm_limits.restype = None
-        got = [ctypes.c_int() for _ in range(5)]
+        got = [ctypes.c_int() for _ in range(6)]
         lib.nlm_limits(*[ctypes.byref(v) for v in got])
         if [v.value for v in got] != [MAX_P, MAX_OFFSETS, TILE_H, WARPS_X,
-                                      MAX_SMEM]:
+                                      MAX_SMEM, WIDE_MAX_P]:
             raise RuntimeError("csrc/nlm.cu and kernels/nlm.py disagree on "
-                               "MAX_P, MAX_OFFSETS or the tile")
+                               "MAX_P, MAX_OFFSETS, WIDE_MAX_P or the tile")
         lib._typed = True
     return lib
 
@@ -147,13 +157,13 @@ def nlm(img: torch.Tensor, offsets, P: int, norm, sharpness, cp_norm: float,
         raise ValueError("nlm: needs a contiguous non-empty (3, H, W) "
                          f"float32 tensor, got {img.dtype} "
                          f"{tuple(img.shape)}")
-    if not 0 <= P <= MAX_P or variant not in (0, 1):
-        raise ValueError(f"nlm: P = {P} outside [0, {MAX_P}] or variant "
+    if not 0 <= P <= WIDE_MAX_P or variant not in (0, 1):
+        raise ValueError(f"nlm: P = {P} outside [0, {WIDE_MAX_P}] or variant "
                          f"{variant} not 0/1")
-    if not 1 <= len(offsets) <= MAX_OFFSETS or _reach(offsets) > 32767:
+    if not offsets or _reach(offsets) > 32767:
         raise ValueError(f"nlm: {len(offsets)} offsets of reach "
-                         f"{_reach(offsets)}; the kernel takes 1 to "
-                         f"{MAX_OFFSETS} of reach <= 32767")
+                         f"{_reach(offsets)}; the kernel takes at least one "
+                         "of reach <= 32767")
     if isinstance(sharpness, torch.Tensor):
         sharp = sharpness.to(device=img.device, dtype=torch.float32)
         sharp = sharp.reshape(()).contiguous()
@@ -164,16 +174,38 @@ def nlm(img: torch.Tensor, offsets, P: int, norm, sharpness, cp_norm: float,
     lib = _lib()
     _, h, w = img.shape
     out = torch.empty_like(img)
-    packed = (ctypes.c_int * len(offsets))(*[_pack(a, b) for a, b in offsets])
     n0, n1, n2 = (float(v) for v in norm)
-    resident, smem = plan(P, _reach(offsets))
+    packed = [_pack(a, b) for a, b in offsets]
     with torch.cuda.device(img.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.nlm(img.data_ptr(), out.data_ptr(), h, w, packed,
-                     len(offsets), P, n0, n1, n2, sharp.data_ptr(),
-                     float(cp_norm), float(inv1cw), variant, int(resident),
-                     smem, stream)
+        if P > MAX_P:
+            dev_offs = torch.tensor(packed, dtype=torch.int32).to(img.device)
+            rc = lib.nlm_wide(img.data_ptr(), out.data_ptr(), h, w,
+                              dev_offs.data_ptr(), len(offsets), P, n0, n1,
+                              n2, sharp.data_ptr(), float(cp_norm),
+                              float(inv1cw), variant, stream)
+            launches = 1
+        else:
+            starts = range(0, len(offsets), MAX_OFFSETS)
+            sums = (torch.empty((4, h, w), dtype=torch.float32,
+                                device=img.device)
+                    if len(starts) > 1 else None)
+            rc, launches = 0, 0
+            for n, i in enumerate(starts):
+                chunk = packed[i:i + MAX_OFFSETS]
+                mode = ((MODE_LOAD if n else 0)
+                        | (MODE_FINAL if n == len(starts) - 1 else 0))
+                resident, smem = plan(P, _reach(offsets[i:i + MAX_OFFSETS]))
+                rc = lib.nlm(img.data_ptr(), out.data_ptr(), h, w,
+                             (ctypes.c_int * len(chunk))(*chunk), len(chunk),
+                             P, n0, n1, n2, sharp.data_ptr(), float(cp_norm),
+                             float(inv1cw), variant, int(resident), smem,
+                             None if sums is None else sums.data_ptr(), mode,
+                             stream)
+                if rc != 0:
+                    break
+                launches += 1
     if rc != 0:
         raise RuntimeError(f"nlm: CUDA launch failed ({rc})")
-    LAUNCHES += 1
+    LAUNCHES += launches
     return out

@@ -8,24 +8,32 @@ from . import (  # noqa: F401
     cacorrect,
     cacorrectrgb,
     channelmixerrgb,
+    clipping,
     colorin,
     colorout,
     colorreconstruct,
+    crop,
     defringe,
     demosaic,
     denoiseprofile,
     diffuse,
     exposure,
     filmicrgb,
+    finalscale,
+    flip,
     highlights,
     highpass,
     hotpixels,
+    initialscale,
     lens,
     lowpass,
     monochrome,
     nlmeans,
     rawdenoise,
     rawprepare,
+    restorescans,
+    rotatepixels,
+    scalepixels,
     shadhi,
     sharpen,
     soften,

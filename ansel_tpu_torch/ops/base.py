@@ -25,6 +25,32 @@ import numpy as np
 from ..core.types import Colorspace, ImageSpec, RawMeta
 
 
+# The 88 ops `ansel_tpu` registers (`ansel_tpu.ops.base.all_ops()`,
+# pinned by tests/test_torch_coverage.py).  The planner refuses an item of
+# one of these that the port has not registered yet, and skips any other
+# name into `Pipeline.unsupported`, as the JAX package skips every name it
+# does not register (a module of a newer darktable).
+REFERENCE_OPS = frozenset({
+    "ashift", "atrous", "basecurve", "basicadj", "bilat", "bilateral",
+    "bloom", "blurs", "borders", "cacorrect", "cacorrectrgb", "censorize",
+    "channelmixer", "channelmixerrgb", "clipping", "colisa", "colorbalance",
+    "colorbalancergb", "colorchecker", "colorcontrast", "colorcorrection",
+    "colorequal", "colorin", "colorize", "colormapping", "colorout",
+    "colorprimaries", "colorreconstruct", "colorzones", "crop", "crystgrain",
+    "defringe", "demosaic", "denoiseprofile", "diffuse", "dither",
+    "drawlayer", "exposure", "filmic", "filmicrgb", "finalscale", "flip",
+    "gamma", "globaltonemap", "graduatednd", "grain", "hazeremoval",
+    "highlights", "highpass", "hotpixels", "initialscale", "invert", "lens",
+    "levels", "liquify", "lowlight", "lowpass", "lut3d", "mask_manager",
+    "monochrome", "negadoctor", "nlmeans", "profile_gamma", "rawdenoise",
+    "rawdenoiseai", "rawprepare", "relight", "restorescans", "retouch",
+    "rgbcurve", "rgblevels", "rotatepixels", "scalepixels", "shadhi",
+    "sharpen", "soften", "splittoning", "splittoningrgb", "spots",
+    "temperature", "tonecurve", "toneequal", "tonemap", "velvia", "vibrance",
+    "vignette", "watermark", "zonesystem",
+})
+
+
 def not_ported(op: str, branch: str):
     """The error every unported branch raises at plan time."""
     return NotImplementedError(

@@ -1,11 +1,16 @@
-"""rawprepare — sensor black/white normalization and sensor crop.
+"""rawprepare — sensor black/white normalization, sensor crop, and the
+embedded DNG GainMap flat-field correction.
 
 Reference: `ansel/src/iop/rawprepare.c` — process() subtracts the
 per-CFA-position black level and divides by (white - black)
 (rawprepare.c:439-530; position index BL(), rawprepare.c:385-390), crops the
-masked borders, and resets processed_maximum to 1.0.  Planning is copied
-from `ansel_tpu/ops/rawprepare.py`; the embedded DNG GainMap flat field
-is not ported and raises at plan time.
+masked borders, and resets processed_maximum to 1.0.  GainMap flat field:
+check_gain_maps() validation rawprepare.c:765-810, bilinear map sampling
+per Bayer filter rawprepare.c:564-603.  Planning and coefficients are
+copied from `ansel_tpu/ops/rawprepare.py`: the bilinear upsample of the
+small gain grid is two products per 2x2 parity class (interp-matrix @
+map @ interp-matrix^T), interleaved back by stack and reshape, in plain
+torch as the JAX package computes it outside any Pallas kernel.
 """
 
 from __future__ import annotations
@@ -13,12 +18,14 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional, Tuple
 
+import numpy as np
+import torch
 import torch.nn.functional as F
 
 from ..core.params import cfield, params
 from ..core.types import Colorspace, DngGainMap, ImageSpec, RawMeta
 from . import _bayer
-from .base import Op, OpPlan, PlanContext, not_ported, register
+from .base import Op, OpPlan, PlanContext, register
 
 FLAT_FIELD_OFF = 0       # rawprepare.c:69
 FLAT_FIELD_EMBEDDED = 1  # rawprepare.c:70
@@ -52,6 +59,23 @@ def check_gain_maps(meta: RawMeta) -> Optional[Tuple[DngGainMap, ...]]:
                 or g.map_origin_v != g0.map_origin_v):
             return None
     return tuple(by_filter)
+
+
+def _interp_matrix(coords: np.ndarray, npts: int, spacing: float,
+                   origin: float, extent: int) -> np.ndarray:
+    """(len(coords), npts) bilinear-sampling matrix for map coordinates
+    y_map = clamp((coord/extent - origin)/spacing, 0, npts)
+    (rawprepare.c:577-596 index/frac arithmetic)."""
+    ym = np.clip((coords.astype(np.float64) / extent - origin) / spacing,
+                 0.0, float(npts))
+    i0 = np.minimum(ym.astype(np.int64), npts - 1)
+    i1 = np.minimum(i0 + 1, npts - 1)
+    frac = (ym - i0).astype(np.float32)
+    m = np.zeros((len(coords), npts), np.float32)
+    rows = np.arange(len(coords))
+    np.add.at(m, (rows, i0), 1.0 - frac)
+    np.add.at(m, (rows, i1), frac)
+    return m
 
 
 @params(op="rawprepare", version=2)
@@ -123,7 +147,7 @@ class RawPrepare(Op):
                 and ctx.meta.xtrans is None):
             gm = check_gain_maps(ctx.meta)
             if gm is not None:
-                raise not_ported(self.name, "the DNG GainMap flat field")
+                gm_key = (gm[0].map_points_v, gm[0].map_points_h)
         return OpPlan(spec_in=spec_in, spec_out=spec_out,
                       static=(p.x, p.y, gm_key))
 
@@ -131,10 +155,33 @@ class RawPrepare(Op):
         white = float(p.raw_white_point)
         sub = [float(b) for b in p.raw_black_level_separate]
         div = [white - s for s in sub]
-        return {"sub": sub, "inv_div": [1.0 / d if d else 1.0 for d in div]}
+        out = {"sub": sub, "inv_div": [1.0 / d if d else 1.0 for d in div]}
+        cx, cy, gm_key = plan.static
+        if gm_key is not None:
+            gm = check_gain_maps(ctx.meta)
+            mv, mh = gm_key
+            out["gm_maps"] = np.stack([
+                np.asarray(g.map_gain[: mv * mh], np.float32)
+                .reshape(mv, mh) for g in gm])
+            g0 = gm[0]
+            so = plan.spec_out
+            # sensor coords of each output row/col parity class
+            # (rawprepare.c:578,592: coord = roi + crop-shift + j);
+            # windowed pipes add the window origin
+            for pj in range(2):
+                out[f"gm_ay{pj}"] = _interp_matrix(
+                    np.arange(pj, so.pad_h, 2) + cy + so.org_y, mv,
+                    g0.map_spacing_v, g0.map_origin_v,
+                    plan.spec_in.full_h)
+            for pi in range(2):
+                out[f"gm_ax{pi}"] = _interp_matrix(
+                    np.arange(pi, so.pad_w, 2) + cx + so.org_x, mh,
+                    g0.map_spacing_h, g0.map_origin_h,
+                    plan.spec_in.full_w)
+        return out
 
     def apply(self, x, c, plan: OpPlan, ctx: PlanContext):
-        cx, cy, _ = plan.static
+        cx, cy, gm_key = plan.static
         so = plan.spec_out
         si = plan.spec_in
         # crop then edge-pad back to the new aligned shape (zero offset on
@@ -151,4 +198,22 @@ class RawPrepare(Op):
         sub = _bayer.position_select(c["sub"], so.pad_h, so.pad_w, py, px)
         inv = _bayer.position_select(c["inv_div"], so.pad_h, so.pad_w,
                                      py, px)
-        return (y - sub) * inv
+        y = (y - sub) * inv
+        if gm_key is not None:
+            # GainMap flat field (rawprepare.c:564-603): the per-filter gain
+            # grid sampled bilinearly at every pixel, each 2x2 parity class
+            # a (rows x mv) @ (mv x mh) @ (mh x cols) product, the classes
+            # interleaved back by stack and reshape
+            maps = c["gm_maps"]
+            half_rows = []
+            for pj in range(2):
+                ay = c[f"gm_ay{pj}"]
+                cols = []
+                for pi in range(2):
+                    f = (((pj + py) & 1) << 1) | ((pi + px) & 1)
+                    cols.append(ay @ maps[f] @ c[f"gm_ax{pi}"].T)
+                half_rows.append(torch.stack(cols, dim=-1)
+                                 .reshape(cols[0].shape[0], -1))
+            gain = torch.stack(half_rows, dim=1).reshape(so.pad_h, so.pad_w)
+            y = y * gain
+        return y

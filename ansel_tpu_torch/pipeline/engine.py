@@ -18,10 +18,16 @@ by `Pipeline.signature()`, and reports each build or reuse to the
 supervisor (`core/supervisor.py`) as the JAX package reports its
 compile cache.
 
+An export scale below 1 injects `initialscale` (everything after the
+camera-RGB stage runs at the export size), any other scale but 1
+`finalscale`, as the JAX package plans them.  A history item whose op
+the JAX package does not register either (a module of a newer darktable)
+is skipped into `Pipeline.unsupported`, as there.
+
 Not ported: active blends, drawn and raster masks, PREVIEW/THUMBNAIL
-pipes (their PPG override), export scaling, and every op not registered
-in `ansel_tpu_torch.ops`.  Each raises NotImplementedError while
-planning.
+pipes (their PPG override), and every op of the JAX package's registry
+(`ops.base.REFERENCE_OPS`) not registered in `ansel_tpu_torch.ops`.  Each
+raises NotImplementedError while planning.
 """
 
 from __future__ import annotations
@@ -252,8 +258,6 @@ class Pipeline:
         if pipe_type in (PipeType.PREVIEW, PipeType.THUMBNAIL):
             raise not_ported("pipeline", f"the {pipe_type} pipe "
                              "(its fast-demosaic override)")
-        if abs(scale - 1.0) > 1e-9:
-            raise not_ported("pipeline", f"export scaling (scale={scale})")
         self.pipe_type = pipe_type
         self.meta = meta
         self.ctx = PlanContext(meta=meta, scale=scale)
@@ -267,12 +271,23 @@ class Pipeline:
             cfa=CFAPattern.XTRANS if meta.xtrans else meta.cfa,
         )
         self.spec_in = spec
-        for item in resolve_history(meta, list(history), order_version):
+        history = list(history)
+        ops_present = {h.op for h in history}
+        if scale < 1.0 - 1e-9 and "initialscale" not in ops_present:
+            # downscale early: everything after the camera-RGB stage runs
+            # at the export size (doc/resizing-scaling.md)
+            history.append(HistoryItem("initialscale"))
+        elif abs(scale - 1.0) > 1e-9 and "finalscale" not in ops_present:
+            history.append(HistoryItem("finalscale"))
+        for item in resolve_history(meta, history, order_version):
             if not item.enabled:
                 continue
             op = ops_base.get_op(item.op)
             if op is None:
-                raise not_ported(item.op, "this module")
+                if item.op in ops_base.REFERENCE_OPS:
+                    raise not_ported(item.op, "this module")
+                self.unsupported.append(item.op)
+                continue
             p = _resolve_params(item, meta)
             need = op.input_colorspace
             if need is not None and need is not spec.colorspace:

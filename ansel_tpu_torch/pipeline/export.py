@@ -6,10 +6,8 @@ Reference: `ansel/src/apps/ansel-cli/main.c:198-863` +
 raw + sidecar history -> planned pipe -> render -> encode.  The pipe
 runs on the CUDA card unless the caller passes `device="cpu"`.
 
-Export scaling is not ported: a bounding box that would shrink the image
-gives a scale below 1, which `Pipeline` refuses while planning
-(NotImplementedError), so nothing is rendered at full size in its
-place.
+A bounding box that shrinks the image gives a scale below 1, for which
+`Pipeline` injects initialscale, as the JAX package does.
 """
 
 from __future__ import annotations

@@ -29,7 +29,16 @@ entry points a user calls, at their full frames:
     sidecar with an inactive blend blob on every item, as darktable
     writes them, and exported through the CLI (`ansel_tpu_torch.cli.main`)
     to a 16-bit PNG: RCD, the chain, sepblur, the IIR and NLM; then the
-    CLI's `--devtest` and `entry()`.
+    CLI's `--devtest` and `entry()`;
+  * the port's config 9 at 24 MP (4000 x 6016), a camera DNG (the 14-bit
+    mosaic with a GainMap flat field in its OpcodeList2, written by this
+    script) exported from its sidecar through the CLI: the flat field,
+    flip (orientation 6), clipping (a 2-degree rotation and a 5% crop),
+    exposure and filmicrgb to a 16-bit PNG, then with `--width 2048
+    --height 2048` (initialscale) to a JPEG and a PDF: RCD, the warp
+    kernel on clipping's map and the chain.  Config 2's NLM input also
+    runs the lattices past the kernel's chunk (K 15) and a patch radius
+    past its template limit (P 9).
 
 Each path runs with the launch counts set to 0 just before it and read
 just after.  Every chain each config builds is also timed on its own
@@ -44,10 +53,12 @@ import contextlib
 import dataclasses
 import json
 import os
+import struct
 import subprocess
 import sys
 import tempfile
 import time
+import zlib
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -59,7 +70,7 @@ from ansel_tpu_torch import cli
 from ansel_tpu_torch.entry import entry
 from ansel_tpu_torch.io import configs
 from ansel_tpu_torch.io.encode import read_png16, to_uint16, write_image
-from ansel_tpu_torch.io.rawfile import save_raw
+from ansel_tpu_torch.io.rawfile import load_raw, save_raw
 from ansel_tpu_torch.io.synthetic import synth_raw
 from ansel_tpu_torch.io.xmp import XMPDocument, parse_xmp, write_xmp
 from ansel_tpu_torch.kernels import (_build, bgrid, diffuse, eaw, iir,
@@ -105,6 +116,13 @@ STAGES8 = ["rawprepare", "temperature", "highlights", "cacorrect",
            "hotpixels", "rawdenoise", "demosaic", "cacorrectrgb", "exposure",
            "colorin", "_convert", "nlmeans", "defringe", "_convert",
            "filmicrgb", "_convert", "bloom", "_convert", "colorout"]
+# config 9: the chain of configs 2 and 4's sequence, RCD, the warp once
+# on clipping's map
+LAUNCHES9 = dict(NO_LAUNCHES, rcd=1, chain=1, warp=1)
+STAGES9 = ["rawprepare", "temperature", "highlights", "demosaic", "flip",
+           "clipping", "exposure", "colorin", "filmicrgb", "colorout"]
+# run B's bounding box
+BOX9 = 2048
 NOISE_SIGMA = 200.0  # sensor units of 16383: a high-ISO mosaic
 HOT8 = 1024          # hot photosites of config 8's frame, at the white point
 REPEATS = 10         # kernel timings
@@ -114,6 +132,7 @@ PIPE3_REPEATS = 3
 PIPE4_REPEATS = 10
 PIPE7_REPEATS = 5
 PIPE8_REPEATS = 5
+PIPE9_REPEATS = 10
 
 # H100 SXM peaks (NVIDIA's data sheet, at the 700 W limit): device
 # memory rate and float32 rate outside the tensor cores.
@@ -149,7 +168,10 @@ SFU_PER_S = 132 * 16 * 1.98e9
 OPS_CHAIN = {(1, 0): (1095, 57), (2, 0): (847, 42), (3, 0): (6, 0),
              (3, 1): (15, 0), (3, 2): (839, 45), (3, 3): (219, 3),
              (4, 0): (846, 42), (7, 0): (183, 6), (7, 1): (899, 45),
-             (7, 2): (219, 3)}
+             (7, 2): (219, 3),
+             # config 9 runs config 4's program (1) on its clipped frame;
+             # config 4's count, not recounted on config 9's pixels
+             (9, 0): (846, 42)}
 FLOPS_SEPBLUR_PER_TAP = 4        # two passes, a multiply and an add each
 FLOPS_EAW = 25 * 24 + 10         # 25 taps; the divide and the detail
 FLOPS_NLM_PER_OFFSET = 31        # d2 11, box sum 4 (the column sums
@@ -200,6 +222,10 @@ def mufu_markesteijn(pattern6, passes):
 # the lens warp per pixel, three channels: the map 25 once, per channel
 # the TCA factor 5, the coordinates 4 and the bilinear sample 25
 FLOPS_WARP = 125
+# clipping's map per pixel: the translation 4, the shears 4, the rotation
+# 6, the outside test 4 (no keystone in config 9), then per channel the
+# bilinear sample 25
+FLOPS_CLIP_MAP, FLOPS_CLIP_CHANNEL = 18, 25
 # the grid slice per pixel: the row weights 15, the bins 3 and their four
 # tests; per channel and valid bin (b0, and b0 + 1 unless b0 = D - 1) the
 # two column blends 6, the row blend 3 and the bin weight 2 (b0: 1 - f
@@ -398,6 +424,7 @@ def plain_twins(keep=()):
         (markesteijn, "xtrans_markesteijn",
          markesteijn.xtrans_markesteijn_reference),
         (warp, "lens_warp", warp.lens_warp_reference),
+        (warp, "clip_warp", warp.clip_warp_reference),
         (bgrid, "slice_grid", bgrid.slice_grid_reference),
     ] if swap[0] not in keep])
 
@@ -688,6 +715,44 @@ def check_nlm(inputs, record):
           flush=True)
 
 
+def check_nlm_wide(call, record):
+    """Config 2's noisy NLM input (variant 1) through what its planner
+    emits for a wider denoiseprofile: nbhood 15 (961 offsets, two chunks
+    carried in float32 scratch) at its P 1, and a patch radius of 9 (the
+    wide form, P at run time) over K 3.  Each is held bit for bit against
+    the twin on a 1000 x 1504 crop (the twin walks 961 offsets over whole
+    planes) and timed at 24 MP."""
+    v, offs, P, norm, sharp, cp_norm, inv1cw, variant = call
+    center = 1.0 / inv1cw - 1.0
+    rows = []
+    wide = {}
+    for label, K, p in (("K 15", 15, P), ("P 9", 3, 9)):
+        lattice = search_offsets(K)
+        n = 2 * p + 1
+        args = (lattice, p, norm, sharp, center * n * n, inv1cw, variant)
+        crop = v[:, :1000, :1504].contiguous()
+        before = nlm.LAUNCHES
+        got = nlm.nlm(crop, *args)
+        chunks = nlm.LAUNCHES - before
+        want = nlm.nlm_reference(crop, *args)
+        mx, _ = compare(got, want)
+        expect(torch.equal(got, want), f"nlm {label}: max {mx}")
+        del got, want
+        ms = median_ms(lambda: nlm.nlm(v, *args))
+        plain_ms = median_ms(lambda: nlm.nlm_reference(crop, *args), 1)
+        b_ms, b_by = bound(2 * nbytes(v),
+                           FLOPS_NLM_PER_OFFSET * len(lattice) * v[0].numel())
+        wide[label] = dict(max_abs_err=mx, ms=ms, bound_ms=b_ms,
+                           launches_per_call=chunks)
+        rows.append(f"{label} ({len(lattice)} offsets, P {p}, {chunks} "
+                    f"launch{'es' if chunks > 1 else ''} a call): bit-equal "
+                    f"on (3, 1000, 1504), plain there {plain_ms:.1f} ms | "
+                    f"kernel {ms:.3f} ms on {tuple(v.shape)}, bound "
+                    f"{b_ms:.3f} ms ({b_by})")
+    record["nlm"]["wide"] = wide
+    print(f"[nlm-wide] variant {variant}: {'; '.join(rows)}", flush=True)
+
+
 def run_config2(card, record, raw, raw_dev, meta, pool, phases, pngs):
     """Config 2's pipe, then its kernel checks on the arguments the pipe
     hands them (clean and noisy mosaic) while the PNGs encode, then the
@@ -729,6 +794,8 @@ def run_config2(card, record, raw, raw_dev, meta, pool, phases, pngs):
         check_eaw([(label, c["eaw"]) for label, c in calls], record)
     with timed(phases, "nlm"):
         check_nlm([(label, c["nlm"]) for label, c in calls], record)
+    with timed(phases, "nlm-wide"):
+        check_nlm_wide(calls[1][1]["nlm"][0], record)
     with timed(phases, "chain2"):
         check_chains(2, calls[0][1]["chain"], pipe.fused_groups())
     del calls
@@ -1464,6 +1531,253 @@ def run_config8(card, raw_dev, meta, phases, tmp):
           f"({held:.3f} GB held before) on {card}", flush=True)
 
 
+def opcode_list2_blob(h, w, mv, mh, gains4):
+    """A DNG OpcodeList2 payload of four GainMaps, one per RGGB filter,
+    each mv x mh points over the whole (h, w) frame (big-endian, DNG 1.3
+    opcode 9): the same bytes as tests/test_dng.py's helper."""
+    blob = struct.pack(">I", 4)
+    for (dy, dx), gains in zip([(0, 0), (0, 1), (1, 0), (1, 1)], gains4):
+        p = struct.pack(">10I", dy, dx, h, w, 0, 1, 2, 2, mv, mh)
+        p += struct.pack(">4d", 1.0 / (mv - 1), 1.0 / (mh - 1), 0.0, 0.0)
+        p += struct.pack(">I", 1) + np.asarray(gains, ">f4").tobytes()
+        blob += struct.pack(">IIII", 9, 0x01030000, 1, len(p)) + p
+    return blob
+
+
+def write_dng(path, mosaic, black, white, opcodes):
+    """An uncompressed 16-bit RGGB DNG of one strip: the tags of
+    tests/test_dng.py's writer (BlackLevel, WhiteLevel, ColorMatrix1,
+    AsShotNeutral) and an OpcodeList2."""
+    h, w = mosaic.shape
+
+    def rational(vals, signed=False):
+        return b"".join(struct.pack("<ii" if signed else "<II",
+                                    int(round(v * 10000)), 10000)
+                        for v in vals)
+
+    tags = [(0x0100, 4, 1, struct.pack("<I", w)),
+            (0x0101, 4, 1, struct.pack("<I", h)),
+            (0x0102, 3, 1, struct.pack("<H", 16)),
+            (0x0103, 3, 1, struct.pack("<H", 1)),
+            (0x0106, 3, 1, struct.pack("<H", 32803)),
+            (0x0115, 3, 1, struct.pack("<H", 1)),
+            (0x0116, 4, 1, struct.pack("<I", h)),
+            (0x828E, 1, 4, bytes([0, 1, 1, 2])),
+            (0xC61A, 5, 1, rational([black])),
+            (0xC61D, 4, 1, struct.pack("<I", int(white))),
+            (0xC622, 10, 9, rational([0.7, 0.2, 0.1, 0.25, 0.9, -0.15,
+                                      0.05, -0.2, 1.1], signed=True)),
+            (0xC628, 5, 3, rational([0.45, 1.0, 0.62])),
+            (51009, 7, len(opcodes), opcodes)]
+    n = len(tags) + 2
+    heap_base = 8 + 2 + 12 * n + 4
+    entries, heap = [], b""
+    for tag, typ, count, data in tags:
+        if len(data) <= 4:
+            entries.append((tag, struct.pack("<HHI", tag, typ, count)
+                            + data.ljust(4, b"\0")))
+        else:
+            entries.append((tag, struct.pack("<HHII", tag, typ, count,
+                                             heap_base + len(heap))))
+            heap += data
+    payload = mosaic.astype("<u2").tobytes()
+    entries.append((0x0111, struct.pack("<HHII", 0x0111, 4, 1,
+                                        heap_base + len(heap))))
+    entries.append((0x0117, struct.pack("<HHII", 0x0117, 4, 1,
+                                        len(payload))))
+    entries.sort(key=lambda e: e[0])
+    with open(path, "wb") as f:
+        f.write(b"II" + struct.pack("<HI", 42, 8))
+        f.write(struct.pack("<H", n) + b"".join(e for _, e in entries)
+                + struct.pack("<I", 0))
+        f.write(heap)
+        f.write(payload)
+
+
+def write_sidecar9(path):
+    write_xmp(path, XMPDocument(history=[
+        port.HistoryItem(op, dict(p), blend_params=BlendParams())
+        for op, p in configs.HISTORIES[9]]))
+
+
+def captured9(pipe, raw_dev):
+    """Run config 9 once on a device-resident raw and keep the arguments
+    of its RCD, chain and warp calls."""
+    calls = {"rcd": [], "chain": [], "warp": []}
+    real = {"rcd": rcd.rcd_demosaic, "chain": pw.pointwise_chain,
+            "warp": warp.clip_warp}
+
+    def keep(key):
+        def call(*args):
+            calls[key].append(args)
+            return real[key](*args)
+        return call
+
+    with swapped([(rcd, "rcd_demosaic", keep("rcd")),
+                  (pw, "pointwise_chain", keep("chain")),
+                  (warp, "clip_warp", keep("warp"))]):
+        pipe.run_padded(raw_dev)
+    counts = {k: len(v) for k, v in calls.items()}
+    expect(counts == {k: LAUNCHES9[k] for k in calls},
+           f"unexpected kernel calls {counts}")
+    return calls
+
+
+def check_warp_clip(calls, record):
+    """clipping's map on the (3, 6016, 4000) flipped RGB config 9's pipe
+    hands the warp (a window of it, as the ROI walk cuts it), against the
+    twin bit for bit, and grid_sample on the same source coordinates as
+    the yardstick."""
+    (x, k, k_apply, oh, ow), = calls
+    got = warp.clip_warp(x, k, k_apply, oh, ow)
+    want = warp.clip_warp_reference(x, k, k_apply, oh, ow)
+    mx, mean = compare(got, want)
+    expect(torch.equal(got, want), f"warp-clip: max {mx}")
+    del got, want
+    ms = median_ms(lambda: warp.clip_warp(x, k, k_apply, oh, ow))
+    plain_ms = median_ms(lambda: warp.clip_warp_reference(
+        x, k, k_apply, oh, ow), PLAIN_REPEATS)
+    _, h, w = x.shape
+    sy, sx, inside = warp.clip_coords(k, k_apply, oh, ow, x.device)
+    grid = torch.stack([sx / (w - 1) * 2 - 1, sy / (h - 1) * 2 - 1],
+                       -1)[None]
+    planes = x[None]
+    mask = inside[None, None]
+
+    def library():
+        return F.grid_sample(planes, grid, mode="bilinear",
+                             padding_mode="border", align_corners=True)
+
+    lx, _ = compare(torch.where(mask, library(), 0.0)[0],
+                    warp.clip_warp_reference(x, k, k_apply, oh, ow))
+    expect(lx <= 1e-3, f"grid_sample yardstick: {lx}")
+    lib_ms = median_ms(library)
+    px = oh * ow
+    b_ms, b_by = bound(nbytes(x) + 3 * 4 * px,
+                       (FLOPS_CLIP_MAP + 3 * FLOPS_CLIP_CHANNEL) * px)
+    record["warp-clip"] = dict(max_abs_err=mx, ms=ms, plain_ms=plain_ms,
+                               library_ms=lib_ms, bound_ms=b_ms,
+                               bound_by=b_by)
+    print(f"[warp-clip] {tuple(x.shape)} -> (3, {oh}, {ow}) clipping's map "
+          f"(keystone {bool(k_apply)}), kernel vs plain: max {mx:.3g} mean "
+          f"{mean:.3g} (bit-equal); grid_sample vs plain max {lx:.3g} | "
+          f"kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, grid_sample "
+          f"{lib_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by})", flush=True)
+
+
+def read_pdf_image(path):
+    """(width, height, bits) of a PDF's image and its decompressed bytes'
+    length, from the writer's one FlateDecode image stream."""
+    with open(path, "rb") as f:
+        pdf = f.read()
+    expect(pdf.startswith(b"%PDF-") and pdf.rstrip().endswith(b"%%EOF"),
+           f"{path}: not a PDF")
+    head = pdf.index(b"/Subtype /Image")
+    dims = [int(pdf[head:].split(key)[1].split()[0])
+            for key in (b"/Width ", b"/Height ", b"/BitsPerComponent ")]
+    start = pdf.index(b"stream\n", head) + len(b"stream\n")
+    return dims, len(zlib.decompressobj().decompress(pdf[start:]))
+
+
+def run_config9(card, record, raw, meta, phases, tmp):
+    """Config 9: the 24 MP mosaic written as a 14-bit DNG with its GainMap,
+    exported from its sidecar through the CLI on the card (run A: launches
+    counted, its PNG against export_image's array, that array against the
+    composed twins), its kernels on the arguments the pipe hands them,
+    `run_padded`'s rate and peak memory, then run B (a 2048 px bounding
+    box, initialscale) to a JPEG and a PDF, each read back."""
+    dng = os.path.join(tmp, "config9.dng")
+    sidecar = os.path.join(tmp, "config9.xmp")
+    png = os.path.join(tmp, "config9.png")
+    with timed(phases, "dng9"):
+        mv, mh = configs.DNG9_MAP_POINTS
+        write_dng(dng, configs.mosaic9(raw), meta.black_levels[0],
+                  meta.white_point, opcode_list2_blob(
+                      H, W, mv, mh, configs.gain_maps9()))
+        write_sidecar9(sidecar)
+    with timed(phases, "pipe9 cli"):
+        reset_launches()
+        t = time.perf_counter()
+        rc = cli.main([dng, sidecar, png, "--bpp", "16", "--no-icc", "-v"])
+        cli_s = time.perf_counter() - t
+        launches = read_launches()
+    expect(rc == 0, f"cli exit {rc}")
+    # config 9 has no lens stage: its warp launches are clipping's map
+    expect(launches == LAUNCHES9, f"config-9 launches {launches}")
+    raw9, meta9 = load_raw(dng)
+    expect(len(meta9.gain_maps) == 4, "the DNG's GainMaps were not read")
+    with timed(phases, "pipe9 vs plain"):
+        out = export_image(raw9, meta9, xmp_path=sidecar)
+        expect(bool(np.isfinite(out).all()) and out.min() >= 0.0
+               and out.max() <= 1.0, "output not finite or outside [0, 1]")
+        expect(np.array_equal(read_png16(png), to_uint16(out)),
+               "the CLI's PNG differs from export_image's array")
+        reset_launches()
+        with plain_twins():
+            plain = export_image(raw9, meta9, xmp_path=sidecar)
+        expect(all(v == 0 for v in read_launches().values()),
+               f"the plain composition launched kernels: {read_launches()}")
+        pipe_err = float(np.abs(out - plain).max())
+        expect(pipe_err <= PIPE_TOL, f"config 9 vs plain: max {pipe_err}")
+        del plain
+    pipe = port.compile_pipeline(meta9, parse_xmp(sidecar).history)
+    stages = [s.name for s in pipe.pipe.stages]
+    expect(stages == STAGES9, f"unexpected config-9 plan {stages}")
+    expect(pipe.pipe.stages[0].plan.static[2] == configs.DNG9_MAP_POINTS,
+           "rawprepare planned no GainMap")
+    raw_dev = torch.from_numpy(pad_to(raw9, pipe.pipe.spec_in)).cuda()
+    with timed(phases, "capture9"):
+        calls = captured9(pipe, raw_dev)
+    with timed(phases, "warp-clip"):
+        check_warp_clip(calls["warp"], record)
+        x, cfa, scaler = calls["rcd"][0]
+        expect(torch.equal(rcd.rcd_demosaic(x, cfa, scaler),
+                           rcd.rcd_demosaic_reference(x, cfa, scaler)),
+               "rcd on config 9's mosaic differs from its twin")
+        check_chains(9, calls["chain"], pipe.fused_groups())
+    del calls
+    with timed(phases, "pipe9 timing"):
+        per_img = time_pipe(pipe, raw_dev, PIPE9_REPEATS)
+        peak, held = pipe_peak(pipe, raw_dev)
+    del raw_dev
+    with timed(phases, "pipe9 run B"):
+        box = ["--width", str(BOX9), "--height", str(BOX9)]
+        jpg, pdf = (os.path.join(tmp, f"config9b.{e}") for e in ("jpg", "pdf"))
+        t = time.perf_counter()
+        expect(cli.main([dng, sidecar, jpg, *box]) == 0, "run B jpg")
+        jpg_s = time.perf_counter() - t
+        expect(cli.main([dng, sidecar, pdf, "--no-icc", *box]) == 0,
+               "run B pdf")
+        from PIL import Image
+
+        with Image.open(jpg) as im:
+            im.load()
+            jpg_size, jpg_mode = im.size, im.mode
+        (pw_, ph_, bits), n = read_pdf_image(pdf)
+        expect(jpg_mode == "RGB" and (pw_, ph_) == jpg_size and bits == 8
+               and n == 3 * pw_ * ph_,
+               f"run B: JPEG {jpg_size} {jpg_mode}, PDF {pw_}x{ph_} "
+               f"{bits}-bit with {n} B")
+        scaled = port.Pipeline(meta9, parse_xmp(sidecar).history,
+                               scale=BOX9 / max(W, H))
+        names_b = [s.name for s in scaled.stages]
+        expect("initialscale" in names_b, "run B planned no initialscale")
+    print(f"[pipe9] config 9 {H}x{W} DNG (14-bit, GainMap {mv}x{mh} a "
+          f"filter) from an XMP sidecar through the CLI: {len(stages)} "
+          f"stages, chains {pipe.fused_groups()}, launches {launches} "
+          f"(the warp on clipping's map), output {out.shape[2]}x"
+          f"{out.shape[1]}, PNG equal to to_uint16(export_image), vs plain "
+          f"max {pipe_err:.3g} (tol 1/255), range [{out.min():.3g}, "
+          f"{out.max():.3g}] | CLI export {cli_s:.2f} s wall (DNG decode, "
+          f"upload, pipe, download, 16-bit PNG) | {1.0 / per_img:.3f} img/s, "
+          f"{per_img * 1e3:.2f} ms/img (device-resident input, "
+          f"{PIPE9_REPEATS} repeats), peak device memory {peak:.3f} GB "
+          f"({held:.3f} GB held before) | run B (box {BOX9}, initialscale "
+          f"planned): JPEG {jpg_size[0]}x{jpg_size[1]} in {jpg_s:.2f} s "
+          f"wall, PDF {pw_}x{ph_} read back on {card}", flush=True)
+    return launches
+
+
 def run_devtest_and_entry(phases):
     """The CLI's card diagnostic, then entry()'s fn on the card against
     the same fn with every kernel's plain twin."""
@@ -1520,6 +1834,7 @@ def main():
         launches7 = run_config7(card, record, raw, raw_dev, meta, phases)
         with tempfile.TemporaryDirectory() as tmp:
             run_config8(card, raw_dev, meta, phases, tmp)
+            launches9 = run_config9(card, record, raw, meta, phases, tmp)
         run_devtest_and_entry(phases)
         del raw_dev
         with timed(phases, "mosaic3 wait"):
@@ -1559,16 +1874,27 @@ def main():
         "bgrid": ("slice_grid", "bgrid.cu",
                   "ansel_tpu/kernels/bgrid_pallas.py:92"),
     }
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
     kernels = []
     for key, (name, src, replaces) in sources.items():
         r = record[key]
-        kernels.append({
-            "name": name, "route": "cuda",
-            "source": f"ansel_tpu_torch/csrc/{src}", "replaces": replaces,
-            "launches": launches[key], "max_abs_err": r["max_abs_err"],
-            "ms": r["ms"], "plain_ms": r["plain_ms"],
-            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r["library_ms"]})
+        entry_ = {"name": name, "route": "cuda",
+                  "source": f"ansel_tpu_torch/csrc/{src}",
+                  "replaces": replaces, "launches": launches[key],
+                  **{k: r[k] for k in keys}}
+        if key == "warp":
+            # the top-level numbers are lens's map (config 4); both maps
+            # with their own launches and numbers
+            entry_["launches"] = launches["warp"] + launches9["warp"]
+            entry_["maps"] = [
+                dict(map="lens", launches=launches["warp"],
+                     **{k: r[k] for k in keys}),
+                dict(map="clipping", launches=launches9["warp"],
+                     **{k: record["warp-clip"][k] for k in keys})]
+        if key == "nlm":
+            entry_["wide"] = r["wide"]
+        kernels.append(entry_)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

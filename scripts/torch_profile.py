@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
 """Where the time goes in the PyTorch/CUDA port's pipe, on one GPU.
 
-    python3 scripts/torch_profile.py [--config 1|2|3|4|7|8] [--images 3]
+    python3 scripts/torch_profile.py [--config 1|2|3|4|7|8|9] [--images 3]
 
 Plans bench config 1, 2 (4000 x 6016), 3 (5504 x 8256), 4 (an X-Trans
 4000 x 6000 mosaic) or the port's config 7 (the bilateral-grid stack,
-4000 x 6016) or 8 (the raw-cleanup export, 4000 x 6016) through
+4000 x 6016), 8 (the raw-cleanup export, 4000 x 6016) or 9 (the DNG
+export's flat field, flip and clipping: its 14-bit mosaic and GainMaps
+without the file, 4000 x 6016) through
 `compile_pipeline`, warms up, then runs `run_padded` on a device-resident raw `--images`
 times without the profiler and `--images` times under torch.profiler.
 Prints one line per group of device kernels (ms per image and launches
@@ -25,6 +27,7 @@ import sys
 import time
 from collections import defaultdict
 
+import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
@@ -32,7 +35,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import ansel_tpu_torch as port  # noqa: E402
 from ansel_tpu_torch.io.configs import (  # noqa: E402
-    FRAMES, HISTORIES, XTRANS_CONFIGS, history, remosaic_xtrans)
+    FRAMES, HISTORIES, XTRANS_CONFIGS, gain_map_meta9, history, mosaic9,
+    remosaic_xtrans)
 from ansel_tpu_torch.io.synthetic import synth_raw  # noqa: E402
 from ansel_tpu_torch.kernels import _build  # noqa: E402
 from ansel_tpu_torch.ops.base import pad_to  # noqa: E402
@@ -41,14 +45,15 @@ from ansel_tpu_torch.ops.base import pad_to  # noqa: E402
 GROUPS = {
     r"sep_(fixed|any|pass)<[\w, ]+>": "sepblur kernel",
     r"eaw_tile<\d, \w+>": "EAW kernel",
-    r"nlm_kernel<\d+, \w+>": "NLM kernel", "chain": "chain kernel",
+    r"nlm_kernel<\d+, \w+>": "NLM kernel", "nlm_wide_kernel": "NLM kernel",
+    "chain": "chain kernel",
     r"chain_fixed<.+>": "chain kernel",
     "rcd_tile": "RCD kernel",
     r"iir_pass<\w+, \w+, \w+>": "IIR kernel",
     r"decompose<\d, \d>": "diffuse kernels",
     r"pde_group<\d, \d, \w+>": "diffuse kernels",
     r"mark_tile<\d+, \d+>": "Markesteijn kernel",
-    "lens_warp_kernel": "warp kernel",
+    "lens_warp_kernel": "warp kernel", "clip_warp_kernel": "warp kernel",
     r"bgrid_slice_kernel<\d, \w+>": "bgrid kernel",
 }
 # device kernels listed by name, the slowest first
@@ -85,6 +90,9 @@ def main():
     raw, meta, scene = synth_raw(h=H, w=W, kind="gradients")
     if args.config in XTRANS_CONFIGS:
         raw, meta = remosaic_xtrans(meta, scene)
+    if args.config == 9:  # the DNG's 14-bit mosaic and its GainMaps
+        raw = mosaic9(raw).astype(np.float32)
+        meta = gain_map_meta9(meta)
     t = time.perf_counter()
     pipe = port.compile_pipeline(meta, history(args.config), device="cuda")
     plan_s = time.perf_counter() - t

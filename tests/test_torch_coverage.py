@@ -3,14 +3,15 @@
 under the same name, with the same op class name, params version and
 default params blob; each op not ported yet is an expected failure
 (strict, so porting one without adding it to PORTED fails here).  The
-count is printed and pinned."""
+count is printed and pinned, and so is the port's copy of the registry's
+names (`ops.base.REFERENCE_OPS`)."""
 
 import pytest
 
 from ansel_tpu.core.params import params_class as ref_params_class
 from ansel_tpu.ops.base import all_ops as ref_all_ops
 from ansel_tpu_torch.core.params import params_class
-from ansel_tpu_torch.ops.base import all_ops
+from ansel_tpu_torch.ops.base import REFERENCE_OPS, all_ops
 
 REF_OPS = ref_all_ops()
 PORTED = frozenset({
@@ -22,6 +23,9 @@ PORTED = frozenset({
     # slice 10
     "bloom", "cacorrect", "cacorrectrgb", "defringe", "hotpixels",
     "nlmeans", "rawdenoise",
+    # slice 11
+    "clipping", "crop", "finalscale", "flip", "initialscale",
+    "restorescans", "rotatepixels", "scalepixels",
 })
 
 
@@ -47,4 +51,11 @@ def test_coverage_count():
     assert set(port) == PORTED
     assert set(port) <= set(REF_OPS)
     print(f"ansel_tpu_torch ports {len(port)}/{len(REF_OPS)} ops")
-    assert (len(port), len(REF_OPS)) == (29, 88)
+    assert (len(port), len(REF_OPS)) == (37, 88)
+
+
+def test_reference_ops_are_pinned():
+    """The port's copy of the registry's names (the planner refuses these
+    and skips any other, as the JAX package skips what it does not
+    register)."""
+    assert REFERENCE_OPS == frozenset(REF_OPS)

@@ -956,3 +956,130 @@ def test_debug_perf_launches_the_chain_kernel_for_each_pixel_stage(cuda):
     assert n >= 3
     assert pw.LAUNCHES == 2 * n and rcd.LAUNCHES == 2
     assert all(r.ms > 0 and r.nan == 0 and r.inf == 0 for r in reps)
+
+
+# --- slice 11: clipping's map on the warp kernel, wide NLM lattices,
+# config 9 -------------------------------------------------------------------
+
+CLIP_CASES = {
+    "rotate-crop": dict(configs.HISTORIES[9])["clipping"],
+    "old-keystone": {"angle": -3.0, "cx": 0.1, "cw": 0.9, "k_type": 4,
+                     "k_h": 0.1, "k_v": -0.05, "crop_auto": 0},
+    "quad-keystone": {"angle": 1.0, "k_type": 0, "k_apply": 1, "kxa": 0.1,
+                      "kya": 0.15, "kxb": 0.85, "kyb": 0.1, "kxc": 0.9,
+                      "kyc": 0.9, "kxd": 0.15, "kyd": 0.85},
+    "mirrored": {"angle": 4.0, "cw": -0.9, "ch": -0.8},
+}
+
+
+def _clip_args(case, h, w, org=(0, 0)):
+    """(constants, k_apply, output shape) of clipping's map for a (h, w)
+    frame, its input a window at `org` of RCD's output."""
+    from ansel_tpu_torch.ops import clipping
+
+    op = clipping.Clipping()
+    p = dataclasses.replace(clipping.ClippingParams(), **CLIP_CASES[case])
+    meta = RawMeta(width=w, height=h)
+    full = ImageSpec(width=w, height=h, colorspace=Colorspace.CAMERA_RGB)
+    plan = op.plan(engine.PlanContext(meta=meta), full, p)
+    si = dataclasses.replace(full, org_y=org[0], org_x=org[1],
+                             width=w - org[1], height=h - org[0], pad_w=0,
+                             pad_h=0)
+    so = plan.spec_out
+    k, k_apply = clipping.clip_map(dict(plan.static), si, so)
+    return torch.from_numpy(k), k_apply, (si.pad_h, si.pad_w), (so.pad_h,
+                                                               so.pad_w)
+
+
+@pytest.mark.parametrize("case", sorted(CLIP_CASES))
+@pytest.mark.parametrize("hw,org", [((2, 3), (0, 0)), ((137, 401), (0, 0)),
+                                    ((137, 401), (9, 27)),
+                                    ((1000, 1504), (6, 24))])
+def test_clip_warp_kernel_matches_plain(cuda, case, hw, org):
+    """Clipping's map on odd frames and windowed inputs, bit for bit."""
+    k, k_apply, (h, w), (oh, ow) = _clip_args(case, *hw, org)
+    rng = np.random.default_rng(h + w)
+    x = torch.from_numpy(rng.uniform(0, 1, (3, h, w)).astype(np.float32)
+                         ).to(cuda)
+    before = warp.LAUNCHES
+    got = warp.clip_warp(x, k, k_apply, oh, ow)
+    assert warp.LAUNCHES == before + 1
+    want = warp.clip_warp_reference(x, k, k_apply, oh, ow)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == (3, oh, ow)
+    assert torch.equal(got, want)
+
+
+def test_clip_warp_kernel_at_24_mp(cuda):
+    """Config 9's map at its 4000 x 6016 frame."""
+    k, k_apply, (h, w), (oh, ow) = _clip_args("rotate-crop", configs.BENCH_H,
+                                              configs.BENCH_W)
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    x = torch.rand((3, h, w), generator=gen, device=cuda)
+    got = warp.clip_warp(x, k, k_apply, oh, ow)
+    want = warp.clip_warp_reference(x, k, k_apply, oh, ow)
+    assert torch.equal(got, want)
+    assert (got == 0).float().mean().item() < 0.01
+
+
+@pytest.mark.parametrize("hw", [(5, 7), (136, 400)])
+@pytest.mark.parametrize("variant,P,K,launches", [
+    (0, 1, 15, 2), (1, 1, 15, 2), (0, 2, 20, 2), (1, 2, 20, 2),
+    (0, 9, 3, 1), (1, 9, 3, 1), (0, 12, 2, 1), (1, 12, 2, 1)])
+def test_nlm_kernel_on_wide_lattices(cuda, hw, variant, P, K, launches):
+    """Lattices past MAX_OFFSETS run in chunks carried in float32
+    scratch, patch radii past MAX_P through the wide form: bit for bit."""
+    x = _noisy((3,) + hw, K, cuda)
+    offs = search_offsets(K)
+    if variant == 1:
+        n = 2 * P + 1
+        args = (torch.tensor(0.005, device=cuda), 0.1 * n * n, 1.0 / 1.1)
+    else:
+        args = (0.02, 0.0, 1.0)
+    before = nlm.LAUNCHES
+    got = nlm.nlm(x, offs, P, (1.0, 0.5, 0.7), *args, variant)
+    assert nlm.LAUNCHES == before + launches
+    want = nlm.nlm_reference(x, offs, P, (1.0, 0.5, 0.7), *args, variant)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert torch.equal(got, want)
+
+
+def test_config9_export_on_cuda_matches_cpu(cuda, tmp_path):
+    """Config 9 at 160 x 240: a DNG with its GainMap, exported from its
+    sidecar through the CLI on the card (launches pinned) and on the
+    CPU."""
+    from ansel_tpu_torch import cli
+    from ansel_tpu_torch.io.encode import read_png16
+    from ansel_tpu_torch.io.xmp import XMPDocument, write_xmp
+    from ansel_tpu_torch.pipeline.blend import BlendParams
+    from test_dng import opcode_list2_blob, write_dng
+
+    h, w = 160, 240
+    raw, _, _ = synth_raw(h=h, w=w, kind="gradients")
+    mv, mh = configs.DNG9_MAP_POINTS
+    blob = opcode_list2_blob(h, w, mv, mh, configs.gain_maps9())
+    dng = str(tmp_path / "in.dng")
+    write_dng(dng, configs.mosaic9(raw), black=256.0, white=16383.0,
+              extra_tags=[(51009, 7, len(blob), blob)])
+    xmp = str(tmp_path / "in.xmp")
+    write_xmp(xmp, XMPDocument(history=[
+        port.HistoryItem(op, dict(p), blend_params=BlendParams())
+        for op, p in configs.HISTORIES[9]]))
+    mods = (rcd, pw, warp, sepblur, iir, nlm, eaw, diffuse, markesteijn,
+            bgrid)
+    for mod in mods:
+        mod.LAUNCHES = 0
+    out = str(tmp_path / "card.png")
+    assert cli.main([dng, xmp, out, "--bpp", "16", "--no-icc"]) == 0
+    # no lens stage: the one warp launch is clipping's map
+    launches = [m.LAUNCHES for m in mods]
+    assert launches[0] == 1 and launches[1] >= 1 and launches[2] == 1
+    assert launches[3:] == [0] * 7
+    cpu = str(tmp_path / "cpu.png")
+    assert cli.main([dng, xmp, cpu, "--bpp", "16", "--no-icc", "--device",
+                     "cpu"]) == 0
+    got, want = read_png16(out), read_png16(cpu)
+    assert got.shape == want.shape
+    assert np.abs(got.astype(np.int64) - want).max() / 65535.0 \
+        <= 1.0 / 255.0

@@ -19,7 +19,6 @@ from ansel_tpu.io.synthetic import synth_raw
 from ansel_tpu.kernels.rcd_pallas import rcd_demosaic_pallas
 from ansel_tpu.ops.base import pad_to
 from ansel_tpu.pipeline import engine as ref_engine
-from ansel_tpu_torch.core import types as port_types
 from ansel_tpu_torch.io import configs, encode
 
 torch.set_num_threads(2)
@@ -194,14 +193,6 @@ def test_config1_fuses_stages_4_to_8_into_one_chain(slice144):
     assert [k for k, *_ in port.steps] == ["stage"] * 4 + ["chain"]
 
 
-def _gain_maps(meta):
-    maps = tuple(port_types.DngGainMap(
-        top=t, left=l, bottom=meta.height, right=meta.width,
-        map_points_v=2, map_points_h=2, map_gain=(1.0,) * 4)
-        for t in (0, 1) for l in (0, 1))
-    return dataclasses.replace(meta, gain_maps=maps)
-
-
 def _xtrans(meta):
     return dataclasses.replace(meta, xtrans=configs.XTRANS6)
 
@@ -216,7 +207,6 @@ def _xtrans(meta):
     ([("demosaic", {"demosaicing_method": 7})], None, {}),   # fallback
     ([("demosaic", {"green_eq": 1})], None, {}),
     ([("demosaic", {"color_smoothing": 2})], None, {}),
-    ([("rawprepare", {"flat_field": 1})], _gain_maps, {}),
     ([("filmicrgb", {"version": 4})], None, {}),             # spline v5
     ([("filmicrgb", {"version": 0})], None, {}),             # spline v1
     ([("exposure", {"exposure": 5.0}), ("filmicrgb", {})], None, {}),
@@ -232,13 +222,12 @@ def _xtrans(meta):
     ([("demosaic", {"color_smoothing": 2})], _xtrans, {}),
     ([("highlights", {"mode": 3})], _xtrans, {}),  # Laplacian on X-Trans
     (CONFIG1, None, {"pipe_type": "preview"}),
-    (CONFIG1, None, {"scale": 0.5}),
 ], ids=["lch", "inpaint", "laplacian", "harmonic", "ppg", "amaze",
-        "bilinear", "green-eq", "smoothing", "gain-map", "filmic-v5",
+        "bilinear", "green-eq", "smoothing", "filmic-v5",
         "filmic-v1", "filmic-reconstruct", "colorin-icc", "colorout-icc",
         "unported-op", "denoise-auto-profile", "diffuse-6-scales",
         "bilat-grid", "xtrans-dual", "xtrans-smoothing",
-        "xtrans-laplacian", "preview", "scaled"])
+        "xtrans-laplacian", "preview"])
 def test_unported_branches_raise_at_plan_time(items, meta_fn, kw):
     _, meta, _ = synth_raw(h=64, w=128)
     if meta_fn is not None:
