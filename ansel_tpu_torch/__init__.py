@@ -6,11 +6,14 @@ Pallas kernels become hand-written CUDA kernels under `csrc/`, built by
 nvcc at first use (`kernels/_build.py`).  It imports neither JAX nor
 `ansel_tpu`.
 
-Ported so far: 29 of the reference's 88 ops, on the paths of bench
+Ported so far: 50 of the reference's 88 ops, on the paths of bench
 configs 1-4 (a default develop; the high-ISO denoise stack; diffuse,
 toneequal and the local Laplacian at 45 MP; X-Trans Markesteijn and
-lens) and the port's configs 7 (the bilateral-grid modules) and 8 (hot
-pixels, raw denoise, CA correction, NLM, defringe, bloom); the XMP
+lens) and the port's configs 7 (the bilateral-grid modules), 8 (hot
+pixels, raw denoise, CA correction, NLM, defringe, bloom), 9 (a camera
+DNG's flat field, flip and clipping) and 10 (a graded look: colour
+balance rgb, the curves, colour zones, the contrast equaliser, a
+vignette and a graduated ND); the camera raw loader, the XMP
 sidecar reader and writer (`io/xmp.py`), the headless export
 (`pipeline/export.py`) and its CLI:
 

@@ -28,6 +28,19 @@ def apply_matrix(img: torch.Tensor, M) -> torch.Tensor:
     return torch.stack(rows)
 
 
+def fdiv(a, b) -> torch.Tensor:
+    """a / b as one IEEE float32 division, as the chain kernel divides,
+    where a or b is a Python float: on CUDA torch multiplies `t / float`
+    by the float's reciprocal and computes `float / t` as the float
+    times `reciprocal(t)`, which round otherwise by an ulp, and a long
+    chain carries that ulp into its display output."""
+    if not isinstance(a, torch.Tensor):
+        a = torch.full((), a, dtype=b.dtype, device=b.device)
+    if not isinstance(b, torch.Tensor):
+        b = torch.full((), b, dtype=a.dtype, device=a.device)
+    return a / b
+
+
 def srgb_encode(x: torch.Tensor) -> torch.Tensor:
     """Linear -> sRGB transfer (IEC 61966-2-1)."""
     a = 0.055

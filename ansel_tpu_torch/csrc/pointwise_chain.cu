@@ -6,7 +6,11 @@
 // Pallas kernel takes an arbitrary traced Python function; here each
 // stage body is written out once below and the group is a small program:
 // per stage an opcode, an offset into a float32 consts buffer and up to
-// eight static ints (kernels/pointwise.py packs it).
+// eight static ints (kernels/pointwise.py packs it).  A stage that reads
+// pixel positions (the Pallas kernel's with_pos: vignette, graduatednd)
+// gets the pixel's row and column in the array, derived from the flat
+// index and the array's width; the Pallas-safe atan_pos and atan2_full
+// (ansel_tpu/kernels/pointwise.py:72,92) are device functions here.
 //
 // What bounds it: instruction issue.  3 planes are read and 3 written,
 // 577 MB at 24 MP (0.17 ms at 3.35 TB/s), but config 1's AgX chain needs
@@ -46,6 +50,17 @@ enum Opcode {
   OP_COLOROUT = 5,
   OP_CONVERT_WORK_LAB = 6,
   OP_CONVERT_LAB_WORK = 7,
+  OP_COLORBALANCERGB = 8,
+  OP_RGBCURVE = 9,
+  OP_RGBLEVELS = 10,
+  OP_BASECURVE = 11,
+  OP_TONECURVE = 12,
+  OP_LEVELS = 13,
+  OP_BASICADJ = 14,
+  OP_COLORZONES = 15,
+  OP_NEGADOCTOR = 16,
+  OP_VIGNETTE = 17,
+  OP_GRADUATEDND = 18,
 };
 enum Trc { TRC_SRGB = 0, TRC_LINEAR = 1, TRC_GAMMA = 2 };
 constexpr int MAX_STAGES = 16;
@@ -60,6 +75,8 @@ constexpr float NORM_MIN = 1.52587890625e-05f;
 constexpr double YRG_RW = 0.21902143;
 constexpr double YRG_GW = 0.54371398;
 constexpr double CIE_Y_2006 = 1.05785528;
+constexpr double PI = 3.141592653589793;     // math.pi
+constexpr double SQRT2 = 1.4142135623730951;  // math.sqrt(2.0)
 
 // NaN if either is NaN (max.NaN.f32, one instruction), else fmaxf/fminf;
 // the host form is what the gcov build of scripts/chain_count.py runs
@@ -500,9 +517,557 @@ __device__ __forceinline__ void convert_lab_work(float* v, const float* k) {
   mat3(k, xyz, v);
 }
 
-// one stage's body on one pixel: k is the stage's consts, a its ints
+// ------------------------------------------------- shared pieces of the
+// grading stages (ansel_tpu/kernels/pointwise.py, ansel_tpu/pixel/curves.py,
+// ansel_tpu/color/spaces.py)
+
+// atan_pos: atan2(y, x) for y, x >= 0, the minimax odd polynomial in
+// Horner form with the pi/2 fold (kernels/pointwise.py:atan_pos)
+__device__ float atan_pos(float y, float x) {
+  float big = jmax(jmax(x, y), K(1e-20));
+  float small = jmin(x, y);
+  float z = small / big;
+  float s = z * z;
+  float u = K(0.00282363896258175373077393);
+  u = u * s + K(-0.0159569028764963150024414);
+  u = u * s + K(0.0425049886107444763183594);
+  u = u * s + K(-0.0748900920152664184570312);
+  u = u * s + K(0.106347933411598205566406);
+  u = u * s + K(-0.142027363181114196777344);
+  u = u * s + K(0.199926957488059997558594);
+  u = u * s + K(-0.333331018686294555664062);
+  float theta = u * s * z + z;
+  return y > x ? K(PI / 2.0) - theta : theta;
+}
+
+// atan2_full: the quadrant fold of atan_pos by the signs of x and y
+__device__ float atan2_full(float y, float x) {
+  float t = atan_pos(fabsf(y), fabsf(x));
+  t = x < 0.0f ? K(PI) - t : t;
+  return y < 0.0f ? -t : t;
+}
+
+// curves.eval_curve over n nodes at c (xs, then ys, then ms): each
+// segment overwrites the one before where x >= its first node; linear
+// past the outer nodes.  The node count is a run-time loop bound.
+__device__ float eval_curve(float x, const float* c, int n) {
+  const float *xs = c, *ys = c + n, *ms = c + 2 * n;
+  float out = ys[0] + ms[0] * (x - xs[0]);
+#pragma unroll 1
+  for (int k = 0; k < n - 1; ++k) {
+    float h = jmax(xs[k + 1] - xs[k], K(1e-9));
+    float u = jclip((x - xs[k]) / h, 0.0f, 1.0f);
+    float u2 = u * u;
+    float u3 = u2 * u;
+    float val = ys[k] * (2.0f * u3 - 3.0f * u2 + 1.0f) + ms[k] * h * (u3 - 2.0f * u2 + u) +
+                ys[k + 1] * (-2.0f * u3 + 3.0f * u2) + ms[k + 1] * h * (u3 - u2);
+    out = x >= xs[k] ? val : out;
+  }
+  return x > xs[n - 1] ? ys[n - 1] + ms[n - 1] * (x - xs[n - 1]) : out;
+}
+
+// rgbcurve.rgb_norm (preserve-colors norms); w: the work profile's Y row
+enum { NORM_NONE = 0, NORM_LUMINANCE, NORM_MAX, NORM_AVERAGE, NORM_SUM, NORM_NORM, NORM_POWER };
+__device__ float rgb_norm(const float* v, int kind, const float* w) {
+  switch (kind) {
+    case NORM_LUMINANCE: return w[0] * v[0] + w[1] * v[1] + w[2] * v[2];
+    case NORM_AVERAGE: return (v[0] + v[1] + v[2]) / 3.0f;
+    case NORM_SUM: return v[0] + v[1] + v[2];
+    case NORM_NORM: return sqrtf(v[0] * v[0] + v[1] * v[1] + v[2] * v[2]);
+    case NORM_POWER: {
+      float a0 = fabsf(v[0]), a1 = fabsf(v[1]), a2 = fabsf(v[2]);
+      return (a0 * a0 * a0 + a1 * a1 * a1 + a2 * a2 * a2) /
+             jmax(a0 * a0 + a1 * a1 + a2 * a2, K(1e-12));
+    }
+    default: return max3(v);
+  }
+}
+
+// spaces.yrg_to_lms and the grading RGB matrices
+__device__ void yrg_to_lms(const float* yrg, float* lms) {
+  float r = yrg[1], g = yrg[2];
+  float b = 1.0f - r - g;
+  lms[0] = K(0.95) * r + K(0.38) * g + K(0.00) * b;
+  lms[1] = K(0.05) * r + K(0.62) * g + K(0.03) * b;
+  lms[2] = K(0.00) * r + K(0.00) * g + K(0.97) * b;
+  float denom = K(0.68990272) * lms[0] + K(0.34832189) * lms[1];
+  float a = denom == 0.0f ? 0.0f : yrg[0] / denom;
+  for (int i = 0; i < 3; ++i) lms[i] = lms[i] * a;
+}
+__device__ __forceinline__ void lms_to_grading(const float* lms, float* rgb) {
+  rgb[0] = K(1.0877193) * lms[0] + K(-0.66666667) * lms[1] + K(0.02061856) * lms[2];
+  rgb[1] = K(-0.0877193) * lms[0] + K(1.66666667) * lms[1] + K(-0.05154639) * lms[2];
+  rgb[2] = K(0.0) * lms[0] + K(0.0) * lms[1] + K(1.03092784) * lms[2];
+}
+__device__ __forceinline__ void grading_to_lms(const float* rgb, float* lms) {
+  lms[0] = K(0.95) * rgb[0] + K(0.38) * rgb[1] + K(0.00) * rgb[2];
+  lms[1] = K(0.05) * rgb[0] + K(0.62) * rgb[1] + K(0.03) * rgb[2];
+  lms[2] = K(0.00) * rgb[0] + K(0.00) * rgb[1] + K(0.97) * rgb[2];
+}
+
+// ------------------------------------------------------- colorbalancergb
+// consts: in_mat 0, out_mat 9, global 18, shadows 21, highlights 24,
+// midtones 27, midtones_Y 30, white_fulcrum 31, grey_fulcrum 32, contrast
+// 33, shadows_weight 34, highlights_weight 35, midtones_weight 36,
+// mask_grey_fulcrum 37, chroma_global 38, chroma 39, saturation_global 42,
+// saturation 43, brilliance_global 46, brilliance 47, vibrance 50, hue_cos
+// 51, hue_sin 52, gamut_f 53 (97 Fourier coefficients), L_white 150,
+// JzAzBz inverse matrices JZ_AI 151 and JZ_MI 160; ints: the saturation
+// formula
+enum { SAT_JZAZBZ = 0, SAT_DTUCS = 1 };
+constexpr int FOURIER_K = 48;
+constexpr double JZ_B = 1.15, JZ_G = 0.66, JZ_C1 = 0.8359375, JZ_C2 = 18.8515625,
+                 JZ_C3 = 18.6875, JZ_N = 0.159301758, JZ_P = 134.034375, JZ_D = -0.56,
+                 JZ_D0 = 1.6295499532821566e-11;
+constexpr double MASK_EXP = 0.4101205819200422;
+
+// colorbalancergb._fourier_eval: the per-hue gamut series from the
+// (cos h, sin h) recurrence
+__device__ float fourier_eval(const float* coef, float cos_h, float sin_h) {
+  float out = coef[0] + coef[1] * cos_h + coef[2] * sin_h;
+  float ck = cos_h, sk = sin_h;
+#pragma unroll 1
+  for (int k = 2; k <= FOURIER_K; ++k) {
+    float ck2 = ck * cos_h - sk * sin_h;
+    float sk2 = sk * cos_h + ck * sin_h;
+    ck = ck2;
+    sk = sk2;
+    out = out + coef[2 * k - 1] * ck + coef[2 * k] * sk;
+  }
+  return out;
+}
+
+// soft_clip (colorbalancergb.c:537-543)
+__device__ __forceinline__ float soft_clip(float x, float soft, float hard) {
+  float norm = jmax(hard - soft, K(1e-12));
+  return x > soft ? soft + (1.0f - expf(-(x - soft) / norm)) * norm : x;
+}
+
+__device__ void xyz_to_jzazbz(const float* xyz, float* jab) {
+  float X = xyz[0], Y = xyz[1], Z = xyz[2];
+  float p[3], lms[3], pq[3], iab[3];
+  p[0] = K(JZ_B) * X - K(JZ_B - 1.0) * Z;
+  p[1] = K(JZ_G) * Y - K(JZ_G - 1.0) * X;
+  p[2] = Z;
+  lms[0] = K(0.41478972) * p[0] + K(0.579999) * p[1] + K(0.0146480) * p[2];
+  lms[1] = K(-0.2015100) * p[0] + K(1.120649) * p[1] + K(0.0531008) * p[2];
+  lms[2] = K(-0.0166008) * p[0] + K(0.264800) * p[1] + K(0.6684799) * p[2];
+  for (int i = 0; i < 3; ++i) {
+    float y = powf(jmax(lms[i] / 10000.0f, 0.0f), K(JZ_N));
+    pq[i] = powf((K(JZ_C1) + K(JZ_C2) * y) / (1.0f + K(JZ_C3) * y), K(JZ_P));
+  }
+  iab[0] = K(0.5) * pq[0] + K(0.5) * pq[1] + K(0.0) * pq[2];
+  iab[1] = K(3.524000) * pq[0] + K(-4.066708) * pq[1] + K(0.542708) * pq[2];
+  iab[2] = K(0.199076) * pq[0] + K(1.096799) * pq[1] + K(-1.295875) * pq[2];
+  jab[0] = jmax((K(1.0 + JZ_D) * iab[0]) / (1.0f + K(JZ_D) * iab[0]) - K(JZ_D0), 0.0f);
+  jab[1] = iab[1];
+  jab[2] = iab[2];
+}
+
+// ai, mi: JZ_AI and JZ_MI, row-major
+__device__ void jzazbz_to_xyz(const float* jab, const float* ai, const float* mi, float* xyz) {
+  float Iz = jab[0] + K(JZ_D0);
+  Iz = jmax(Iz / (K(1.0 + JZ_D) - K(JZ_D) * Iz), 0.0f);
+  float iab[3] = {Iz, jab[1], jab[2]}, pq[3], lms[3], p[3];
+  mat3(ai, iab, pq);
+  for (int i = 0; i < 3; ++i) {
+    float y = powf(jmax(pq[i], 0.0f), K(1.0 / JZ_P));
+    lms[i] = 10000.0f * powf(jmax((K(JZ_C1) - y) / (K(JZ_C3) * y - K(JZ_C2)), 0.0f),
+                             K(1.0 / JZ_N));
+  }
+  mat3(mi, lms, p);
+  float X = (p[0] + K(JZ_B - 1.0) * p[2]) / K(JZ_B);
+  float Y = (p[1] + K(JZ_G - 1.0) * X) / K(JZ_G);
+  xyz[0] = X;
+  xyz[1] = Y;
+  xyz[2] = p[2];
+}
+
+// colorbalancergb._saturation_jzazbz (colorbalancergb.c:764-840)
+__device__ void cbrgb_saturation_jzazbz(float* xyz, const float* k, float boost_s,
+                                        float boost_b) {
+  float in[3] = {jmax(xyz[0], 0.0f), jmax(xyz[1], 0.0f), jmax(xyz[2], 0.0f)}, jab[3];
+  xyz_to_jzazbz(in, jab);
+  float Jz = jab[0];
+  float Cz = sqrtf(jab[1] * jab[1] + jab[2] * jab[2]);
+  float inv_cz = Cz > 0.0f ? 1.0f / jmax(Cz, K(1e-20)) : 0.0f;
+  float cos_H = jab[1] * inv_cz;
+  float sin_H = jab[2] * inv_cz;
+  float T = atan_pos(Cz, Jz);
+  float hyp = sqrtf(Jz * Jz + Cz * Cz);
+  float inv_h = hyp > 0.0f ? 1.0f / jmax(hyp, K(1e-20)) : 0.0f;
+  float sin_T = Cz * inv_h;
+  float cos_T = hyp > 0.0f ? Jz * inv_h : 1.0f;
+  float S0 = Jz * cos_T + Cz * sin_T;
+  float O1 = S0 * jmin(jmax(T * boost_s, -T), K(PI / 2.0) - T);
+  float S1 = jmax(S0 * (1.0f + boost_b), 0.0f);
+  float Jz2 = jmax(S1 * cos_T - O1 * sin_T, 0.0f);
+  float Cz2 = jmax(S1 * sin_T + O1 * cos_T, 0.0f);
+  float max_sat_h = jmax(fourier_eval(k + 53, cos_H, sin_H), K(1e-6));
+  float sat_px = Jz2 > 0.0f
+                     ? soft_clip(Cz2 / jmax(Jz2, K(1e-20)), K(0.8) * max_sat_h, max_sat_h)
+                     : max_sat_h;
+  float max_C_at_sat = Jz2 * sat_px;
+  float max_J_at_sat = sat_px > 0.0f ? Cz2 / jmax(sat_px, K(1e-20)) : Jz2;
+  Jz2 = 0.5f * (Jz2 + max_J_at_sat);
+  Cz2 = 0.5f * (Cz2 + max_C_at_sat);
+  float Iz = Jz2 + K(JZ_D0);
+  Iz = jmax(Iz / (K(1.0 + JZ_D) - K(JZ_D) * Iz), 0.0f);
+  const float* ai = k + 151;
+  float max_C = Cz2;
+  for (int row = 0; row < 3; ++row) {
+    float denom = ai[3 * row + 1] * cos_H + ai[3 * row + 2] * sin_H;
+    float lms_test = Iz * ai[3 * row] + Cz2 * denom;
+    float lim = -Iz * ai[3 * row] / (fabsf(denom) > K(1e-12) ? denom : K(1e-12));
+    max_C = lms_test < 0.0f ? jmin(lim, max_C) : max_C;
+  }
+  float out[3] = {Jz2, max_C * cos_H, max_C * sin_H};
+  jzazbz_to_xyz(out, ai, k + 160, xyz);
+}
+
+// colorbalancergb._saturation_dtucs (colorbalancergb.c:841-884)
+__device__ void cbrgb_saturation_dtucs(float* xyz, const float* k, float boost_s,
+                                       float boost_b) {
+  const float L_white = k[150];
+  float X = xyz[0], Y = jmax(xyz[1], 0.0f), Z = xyz[2];
+  float ssum = jmax(X + Y + Z, K(1e-12));
+  float xx = X / ssum, yy = Y / ssum;
+  float uvd0 = K(-0.783941002840055) * xx + K(0.277512987809202) * yy + K(0.153836578598858);
+  float uvd1 = K(0.745273540913283) * xx - K(0.205375866083878) * yy - K(0.165478376301988);
+  float uvd2 = K(0.318707282433486) * xx + K(2.16743692732158) * yy + K(0.291320554395942);
+  float U = uvd0 / uvd2, V = uvd1 / uvd2;
+  float Us = K(1.39656225667) * U / (fabsf(U) + K(1.49217352929));
+  float Vs = K(1.4513954287) * V / (fabsf(V) + K(1.52488637914));
+  float Up = K(-1.124983854323892) * Us - K(0.980483721769325) * Vs;
+  float Vp = K(1.86323315098672) * Us + K(1.971853092390862) * Vs;
+  float M2 = Up * Up + Vp * Vp;
+  float M = sqrtf(M2);
+  float inv_m = M > 0.0f ? 1.0f / jmax(M, K(1e-20)) : 0.0f;
+  float cos_H = M > 0.0f ? Up * inv_m : 1.0f;
+  float sin_H = Vp * inv_m;
+  float Yh = powf(jmax(Y, K(1e-12)), K(0.631651345306265));
+  float L_star = K(2.098883786377) * Yh / (Yh + K(1.12426773749357));
+  float J = L_star / L_white;
+  float C = K(15.932993652962535) * powf(L_star, K(0.6523997524738018)) *
+            powf(M2, K(0.6007557017508491)) / L_white;
+  float B = J * (powf(C, K(1.33654221029386)) + 1.0f);
+  float radius = sqrtf(C * C + B * B);
+  float inv_r = radius > 0.0f ? 1.0f / jmax(radius, K(1e-20)) : 0.0f;
+  float sin_T = C * inv_r;
+  float cos_T = B * inv_r;
+  float P = jmax(C, K(1e-30));
+  float W = sin_T * C + cos_T * B;
+  float a = jmax(1.0f + boost_s, 0.0f);
+  float b = jmax(1.0f + boost_b, 0.0f);
+  float max_a = sqrtf(P * P + W * W) / P;
+  a = soft_clip(a, 0.5f * max_a, max_a);
+  float P_p = (a - 1.0f) * P;
+  float W_p = sqrtf(jmax(P * P * (1.0f - a * a), 0.0f) + W * W) * b;
+  float C2 = jmax(cos_T * P_p + sin_T * W_p, 0.0f);
+  float B2 = jmax(-sin_T * P_p + cos_T * W_p, 0.0f);
+  float J2 = B2 / (powf(C2, K(1.33654221029386)) + 1.0f);
+  float maxM2 = jmax(fourier_eval(k + 53, cos_H, sin_H), K(1e-12));
+  float max_chroma = K(15.932993652962535) *
+                     powf(jmax(J2 * L_white, K(1e-12)), K(0.6523997524738018)) *
+                     powf(maxM2, K(0.6007557017508491)) / L_white;
+  float B_bound = J2 * (powf(max_chroma, K(1.33654221029386)) + 1.0f);
+  float S_bound = max_chroma / jmax(B_bound, K(1e-20));
+  float S = B2 > 0.0f ? C2 / jmax(B2, K(1e-20)) : 0.0f;
+  S = soft_clip(S, K(0.8) * S_bound, S_bound);
+  float C3 = S * B2;
+  float J3 = B2 / (powf(C3, K(1.33654221029386)) + 1.0f);
+  float L3 = J3 * L_white;
+  float M3 = powf(jmax(C3 * L_white / (K(15.932993652962535) *
+                                       powf(jmax(L3, K(1e-12)), K(0.6523997524738018))),
+                       0.0f),
+                  K(0.8322850678616855));
+  float Up3 = M3 * cos_H;
+  float Vp3 = M3 * sin_H;
+  float Us3 = K(-5.037522385190711) * Up3 - K(2.504856328185843) * Vp3;
+  float Vs3 = K(4.760029407436461) * Up3 + K(2.874012963239247) * Vp3;
+  float U3 = K(-1.49217352929) * Us3 / (fabsf(Us3) - K(1.39656225667));
+  float V3 = K(-1.52488637914) * Vs3 / (fabsf(Vs3) - K(1.4513954287));
+  float xyd0 = K(0.167171472114775) * U3 + K(0.141299802443708) * V3 - K(0.00801531300850582);
+  float xyd1 = K(-0.150959086409163) * U3 - K(0.155185060382272) * V3 - K(0.00843312433578007);
+  float xyd2 = K(0.940254742367256) * U3 + K(1.0) * V3 - K(0.0256325967652889);
+  float xd = xyd0 / xyd2;
+  float yd = xyd1 / xyd2;
+  float Y3 = powf(jmax(K(1.12426773749357) * L3 / jmax(K(2.098883786377) - L3, K(1e-9)), 0.0f),
+                  K(1.5831518565279648));
+  float safe_y = jmax(yd, K(1e-9));
+  xyz[0] = xd * Y3 / safe_y;
+  xyz[1] = Y3;
+  xyz[2] = (1.0f - xd - yd) * Y3 / safe_y;
+}
+
+__device__ __forceinline__ void colorbalancergb(float* v, const float* k, const int* a) {
+  float rgb[3] = {jmax(v[0], 0.0f), jmax(v[1], 0.0f), jmax(v[2], 0.0f)}, lms[3], yrg[3];
+  mat3(k, rgb, lms);
+  lms_to_yrg(lms, yrg);
+  float Y = jmax(yrg[0], 0.0f);
+  // opacity masks (colorbalancergb.c:509-534)
+  float mgf = k[37];
+  float off = powf(jmax(Y, K(1e-12)), K(MASK_EXP)) - mgf;
+  float off_n = off / mgf;
+  float op_s = 1.0f / (1.0f + expf(off_n * k[34]));
+  float op_h = 1.0f / (1.0f + expf(-off_n * k[35]));
+  float cp_s = 1.0f - op_s, cp_h = 1.0f - op_h;
+  float op_m = expf(-(off * off) * k[36] / 4.0f) * (cp_s * cp_s) * (cp_h * cp_h) * 8.0f;
+  // hue rotation, chroma and vibrance in the Yrg chromaticity plane
+  float r_c = yrg[1] - K(YRG_RW);
+  float g_c = yrg[2] - K(YRG_GW);
+  float hc = k[51], hs = k[52];
+  float r_rot = hc * r_c - hs * g_c;
+  float g_rot = hs * r_c + hc * g_c;
+  float chroma_in = sqrtf(r_rot * r_rot + g_rot * g_rot);
+  float inv_c = chroma_in > 0.0f ? 1.0f / jmax(chroma_in, K(1e-20)) : 0.0f;
+  float cos_h = r_rot * inv_c;
+  float sin_h = g_rot * inv_c;
+  const float* ch = k + 39;
+  float chroma_boost = k[38] + op_s * ch[0] + op_m * ch[1] + op_h * ch[2];
+  float vib = k[50] * (1.0f - powf(jmax(chroma_in, 0.0f), fabsf(k[50])));
+  float chroma_out = chroma_in * jmax(1.0f + chroma_boost + vib, 0.0f);
+  float safe_cos = fabsf(cos_h) > K(1e-9) ? cos_h : K(1e-9);
+  float safe_sin = fabsf(sin_h) > K(1e-9) ? sin_h : K(1e-9);
+  float r_lim = K(-YRG_RW) / safe_cos;
+  float g_lim = K(-YRG_GW) / safe_sin;
+  float s_lim = K(1.0 - YRG_RW - YRG_GW) / (safe_cos + safe_sin);
+  if (chroma_out * cos_h + K(YRG_RW) < 0.0f) chroma_out = jmin(r_lim, chroma_out);
+  if (chroma_out * sin_h + K(YRG_GW) < 0.0f) chroma_out = jmin(g_lim, chroma_out);
+  if ((chroma_out * cos_h + K(YRG_RW)) + (chroma_out * sin_h + K(YRG_GW)) > 1.0f)
+    chroma_out = jmin(s_lim, chroma_out);
+  yrg[0] = Y;
+  yrg[1] = chroma_out * cos_h + K(YRG_RW);
+  yrg[2] = chroma_out * sin_h + K(YRG_GW);
+  // 4-way grading in grading RGB
+  float grading[3];
+  yrg_to_lms(yrg, lms);
+  lms_to_grading(lms, grading);
+  const float *gl = k + 18, *sh = k + 21, *hl = k + 24, *mt = k + 27;
+  float wf = k[31];
+  for (int i = 0; i < 3; ++i) {
+    float g = grading[i] + gl[i];
+    g = g * (cp_h * (cp_s + op_s * sh[i]) + op_h * hl[i]);
+    float sgn = g > 0.0f ? 1.0f : (g < 0.0f ? -1.0f : g);
+    grading[i] = sgn * powf(fabsf(g) / wf, mt[i]) * wf;
+  }
+  grading_to_lms(grading, lms);
+  lms_to_yrg(lms, yrg);
+  float Y2 = powf(jmax(yrg[0] / wf, 0.0f), k[30]) * wf;
+  Y2 = k[32] * powf(jmax(Y2 / k[32], 0.0f), k[33]);
+  yrg[0] = Y2;
+  yrg_to_lms(yrg, lms);
+  float xyz[3];
+  xyz[0] = K(1.80794659) * lms[0] + K(-1.29971660) * lms[1] + K(0.34785879) * lms[2];
+  xyz[1] = K(0.61783960) * lms[0] + K(0.39595453) * lms[1] + K(-0.04104687) * lms[2];
+  xyz[2] = K(-0.12546960) * lms[0] + K(0.20478038) * lms[1] + K(1.74274183) * lms[2];
+  const float *sat = k + 43, *bri = k + 47;
+  float boost_b = k[46] + op_s * bri[0] + op_m * bri[1] + op_h * bri[2];
+  float boost_s = k[42] + op_s * sat[0] + op_m * sat[1] + op_h * sat[2];
+  if (a[0] == SAT_DTUCS)
+    cbrgb_saturation_dtucs(xyz, k, boost_s, boost_b);
+  else
+    cbrgb_saturation_jzazbz(xyz, k, boost_s, boost_b);
+  for (int i = 0; i < 3; ++i) xyz[i] = jmax(xyz[i], 0.0f);
+  mat3(k + 9, xyz, v);
+  for (int i = 0; i < 3; ++i) v[i] = jmax(v[i], 0.0f);
+}
+
+// -------------------------------------------------------------- rgbcurve
+// consts: curves 0, 1, 2 (3 n_i each), the work Y row after them
+// ints: autoscale, norm, n0, n1, n2
+__device__ __forceinline__ void rgbcurve(float* v, const float* k, const int* a) {
+  int n0 = a[2], n1 = a[3], n2 = a[4];
+  const float *c1 = k + 3 * n0, *c2 = c1 + 3 * n1, *yw = c2 + 3 * n2;
+  if (a[0] == 0 && a[1] != NORM_NONE) {  // SCALE_AUTOMATIC_RGB, a norm
+    float ratio_src = jmax(rgb_norm(v, a[1], yw), K(1e-9));
+    float f = eval_curve(ratio_src, k, n0) / ratio_src;
+    for (int i = 0; i < 3; ++i) v[i] = v[i] * f;
+  } else if (a[0] == 0) {
+    for (int i = 0; i < 3; ++i) v[i] = eval_curve(v[i], k, n0);
+  } else {
+    v[0] = eval_curve(v[0], k, n0);
+    v[1] = eval_curve(v[1], c1, n1);
+    v[2] = eval_curve(v[2], c2, n2);
+  }
+}
+
+// ------------------------------------------------------------- rgblevels
+// consts: lo 0, hi 3, ig 6, work Y row 9; ints: autoscale, norm
+__device__ __forceinline__ float levels_remap(float v, float lo, float hi, float ig) {
+  return powf(jclip((v - lo) / (hi - lo), 0.0f, 1.0f), ig);
+}
+__device__ __forceinline__ void rgblevels(float* v, const float* k, const int* a) {
+  const float *lo = k, *hi = k + 3, *ig = k + 6;
+  if (a[0] == 1 && a[1] != 0) {  // LINKED, a norm
+    float n = jmax(rgb_norm(v, a[1], k + 9), K(1e-6));
+    float f = levels_remap(n, lo[0], hi[0], ig[0]) / n;
+    for (int i = 0; i < 3; ++i) v[i] = v[i] * f;
+  } else if (a[0] == 1) {
+    for (int i = 0; i < 3; ++i) v[i] = levels_remap(v[i], lo[0], hi[0], ig[0]);
+  } else {
+    for (int i = 0; i < 3; ++i) v[i] = levels_remap(v[i], lo[i], hi[i], ig[i]);
+  }
+}
+
+// ------------------------------------------------------------- basecurve
+// consts: the curve (3 n), the work Y row; ints: norm, n
+__device__ __forceinline__ void basecurve(float* v, const float* k, const int* a) {
+  int n = a[1];
+  if (a[0] != 0) {
+    float nv = jmax(rgb_norm(v, a[0], k + 3 * n), K(1e-9));
+    float f = eval_curve(nv, k, n) / nv;
+    for (int i = 0; i < 3; ++i) v[i] = v[i] * f;
+  } else {
+    for (int i = 0; i < 3; ++i) v[i] = eval_curve(v[i], k, n);
+  }
+}
+
+// ------------------------------------------------ tonecurve, levels (Lab)
+// tonecurve consts: the L curve (3 n); ints: n
+__device__ __forceinline__ void tonecurve(float* v, const float* k, const int* a) {
+  float L_out = eval_curve(v[0] / 100.0f, k, a[0]) * 100.0f;
+  float ratio = L_out / jmax(v[0], K(1e-6));
+  v[0] = L_out;
+  v[1] = v[1] * ratio;
+  v[2] = v[2] * ratio;
+}
+
+// levels consts: lo 0, hi 1, inv_gamma 2
+__device__ __forceinline__ void levels(float* v, const float* k) {
+  float norm = jclip((v[0] - k[0]) / (k[1] - k[0]), 0.0f, 1.0f);
+  float L_out = 100.0f * powf(norm, k[2]);
+  float ratio = L_out / jmax(v[0], K(1e-6));
+  v[0] = L_out;
+  v[1] = v[1] * ratio;
+  v[2] = v[2] * ratio;
+}
+
+// -------------------------------------------------------------- basicadj
+// consts: black 0, scale 1, hlcomp 2, hlrange 3, gamma 4, contrast 5,
+// grey 6, saturation 7, vibrance 8, work Y row 9
+// ints: plain_contrast, norm, has_gamma, has_satvib, has_hl
+__device__ __forceinline__ void basicadj(float* v, const float* k, const int* a) {
+  const float* y = k + 9;
+  for (int i = 0; i < 3; ++i) v[i] = (v[i] - k[0]) * k[1];
+  if (a[4]) {
+    float lum = y[0] * v[0] + y[1] * v[1] + y[2] * v[2];
+    float ratio = 1.0f;
+    if (lum > 0.0f) {  // hlcurve (basicadj.c:852-880)
+      float val = lum + (k[3] - 1.0f);
+      val = val == 0.0f ? K(1e-6) : val;
+      float Yc = jmax(val / k[3] * k[2], K(-0.999999));
+      ratio = log1pf(Yc) * (k[3] / (val * k[2]));
+    }
+    for (int i = 0; i < 3; ++i) v[i] = v[i] * ratio;
+  }
+  if (a[2])
+    for (int i = 0; i < 3; ++i) v[i] = v[i] > 0.0f ? powf(jmax(v[i], 0.0f), k[4]) : v[i];
+  if (a[0]) {
+    float ig = 1.0f / k[6];
+    for (int i = 0; i < 3; ++i)
+      v[i] = v[i] > 0.0f ? powf(jmax(v[i] * ig, 0.0f), k[5]) * k[6] : v[i];
+  }
+  if (a[1] != 0) {
+    float lum = y[0] * v[0] + y[1] * v[1] + y[2] * v[2];
+    float ig = 1.0f / k[6];
+    float clum = powf(jmax(lum * ig, 0.0f), k[5]) * k[6];
+    float ratio = lum > 0.0f ? clum / jmax(lum, K(1e-12)) : 1.0f;
+    for (int i = 0; i < 3; ++i) v[i] = v[i] * ratio;
+  }
+  if (a[3]) {
+    float avg = (v[0] + v[1] + v[2]) / 3.0f;
+    float d0 = avg - v[0], d1 = avg - v[1], d2 = avg - v[2];
+    float delta = sqrtf(d0 * d0 + d1 * d1 + d2 * d2);
+    float P = k[8] * (1.0f - powf(jmax(delta, 0.0f), fabsf(k[8])));
+    for (int i = 0; i < 3; ++i) v[i] = avg + (k[7] + P) * (v[i] - avg);
+  }
+}
+
+// ------------------------------------------------------------ colorzones
+// consts: curves 0, 1, 2 (3 n_i each), mix; ints: select, n0, n1, n2
+__device__ __forceinline__ void colorzones(float* v, const float* k, const int* a) {
+  int n0 = a[1], n1 = a[2], n2 = a[3];
+  const float *c1 = k + 3 * n0, *c2 = c1 + 3 * n1;
+  float mix = c2[3 * n2];
+  float L = v[0], A = v[1], B = v[2];
+  float C = sqrtf(A * A + B * B);
+  float h = atan2_full(B, A) / K(2.0 * PI) + 0.5f;
+  float t = a[0] == 0   ? jclip(L / 100.0f, 0.0f, 1.0f)
+            : a[0] == 1 ? jclip(C / K(128.0 * SQRT2), 0.0f, 1.0f)
+                        : h;
+  float sel_L = eval_curve(t, k, n0);
+  float sel_C = eval_curve(t, c1, n1);
+  float sel_h = eval_curve(t, c2, n2);
+  float L2 = L + 100.0f * (sel_L - 0.5f) * 2.0f * mix * 0.5f;
+  float C2 = C * jmax(powf(2.0f, 4.0f * (sel_C - 0.5f) * mix), 0.0f);
+  float h2 = h + (sel_h - 0.5f) * K(60.0 / 360.0) * mix;
+  float ang = (h2 - 0.5f) * 2.0f * K(PI);
+  v[0] = jclip(L2, 0.0f, 100.0f);
+  v[1] = C2 * cosf(ang);
+  v[2] = C2 * sinf(ang);
+}
+
+// ------------------------------------------------------------ negadoctor
+// consts: Dmin 0, wb_high 3, offset 6, black 9, exposure 10, gamma 11,
+// soft_clip 12, soft_clip_comp 13
+constexpr double NEGA_THRESHOLD = 2.3283064365386963e-10;
+constexpr double LOG10_E = 2.302585092994046;
+__device__ __forceinline__ void negadoctor(float* v, const float* k) {
+  for (int i = 0; i < 3; ++i) {
+    float density = -(logf(k[i]) - logf(jmax(v[i], K(NEGA_THRESHOLD)))) / K(LOG10_E);
+    float corrected = k[3 + i] * density + k[6 + i];
+    float print_linear = -(k[10] * expf(corrected * K(LOG10_E)) + k[9]);
+    float pg = powf(jmax(print_linear, 0.0f), k[11]);
+    float sc = k[12], comp = k[13];
+    v[i] = pg > sc ? sc + (1.0f - expf(-(pg - sc) / comp)) * comp : pg;
+  }
+}
+
+// --------------------------------------- vignette, graduatednd (with_pos)
+// yy, xx: the pixel's row and column in the array, as floats
+// vignette consts: scale 0, falloff 1, brightness 2, saturation 3, cx 4,
+// cy 5, whratio 6, shape 7, half width 8, half height 9
+__device__ __forceinline__ void vignette(float* v, const float* k, float yy, float xx) {
+  float xs = (xx - k[8]) / k[8] - k[4];
+  float ys = (yy - k[9]) / k[9] - k[5];
+  float xw = xs / k[6];
+  float d = sqrtf(xw * xw + ys * ys);
+  d = powf(jmax(d, K(1e-9)), k[7]);
+  float inner = k[0];
+  float outer = inner + jmax(k[1], K(1e-4));
+  float t = jclip((d - inner) / (outer - inner), 0.0f, 1.0f);
+  t = t * t * (3.0f - 2.0f * t);
+  float gain = 1.0f + k[2] * t;
+  for (int i = 0; i < 3; ++i) v[i] = v[i] * gain;
+  float mean = (v[0] + v[1] + v[2]) / 3.0f;
+  float sat = 1.0f + k[3] * t;
+  for (int i = 0; i < 3; ++i) v[i] = mean + (v[i] - mean) * sat;
+}
+
+// graduatednd consts: density 0, sinv 1, cosv 2, offset 3, hardness 4,
+// color 5, color1 8, half width 11, half height 12, 1 / filter radius 13
+__device__ __forceinline__ void graduatednd(float* v, const float* k, float yy, float xx) {
+  float hardness = k[13] / (1.0f - (0.5f + k[4] * K(0.9) / 2.0f)) * 0.5f;
+  float length =
+      (k[1] * (-1.0f + xx / k[11]) - k[2] * (-1.0f + yy / k[12]) - 1.0f + k[3]) * hardness;
+  float dens = k[0];
+  float t = dens > 0.0f ? jclip(0.5f + length, 0.0f, 1.0f) : jclip(0.5f - length, 0.0f, 1.0f);
+  float density = exp2f(fabsf(dens) * t);
+  for (int i = 0; i < 3; ++i) v[i] = jmax(0.0f, v[i] / (k[5 + i] + k[8 + i] * density));
+}
+
+// whether opcode OP reads the pixel's position
 template <int OP>
-__device__ __forceinline__ void apply(float* v, const float* k, const int* a) {
+constexpr bool reads_pos() {
+  return OP == OP_VIGNETTE || OP == OP_GRADUATEDND;
+}
+
+// one stage's body on one pixel: k is the stage's consts, a its ints;
+// yy, xx the pixel's row and column (read by the with_pos opcodes only)
+template <int OP>
+__device__ __forceinline__ void apply(float* v, const float* k, const int* a, float yy,
+                                      float xx) {
   if constexpr (OP == OP_EXPOSURE) {
     exposure(v, k);
   } else if constexpr (OP == OP_MATRIX) {
@@ -516,15 +1081,38 @@ __device__ __forceinline__ void apply(float* v, const float* k, const int* a) {
     colorout(v, k, a);
   } else if constexpr (OP == OP_CONVERT_WORK_LAB) {
     convert_work_lab(v, k);
-  } else {
-    static_assert(OP == OP_CONVERT_LAB_WORK, "unknown opcode");
+  } else if constexpr (OP == OP_CONVERT_LAB_WORK) {
     convert_lab_work(v, k);
+  } else if constexpr (OP == OP_COLORBALANCERGB) {
+    colorbalancergb(v, k, a);
+  } else if constexpr (OP == OP_RGBCURVE) {
+    rgbcurve(v, k, a);
+  } else if constexpr (OP == OP_RGBLEVELS) {
+    rgblevels(v, k, a);
+  } else if constexpr (OP == OP_BASECURVE) {
+    basecurve(v, k, a);
+  } else if constexpr (OP == OP_TONECURVE) {
+    tonecurve(v, k, a);
+  } else if constexpr (OP == OP_LEVELS) {
+    levels(v, k);
+  } else if constexpr (OP == OP_BASICADJ) {
+    basicadj(v, k, a);
+  } else if constexpr (OP == OP_COLORZONES) {
+    colorzones(v, k, a);
+  } else if constexpr (OP == OP_NEGADOCTOR) {
+    negadoctor(v, k);
+  } else if constexpr (OP == OP_VIGNETTE) {
+    vignette(v, k, yy, xx);
+  } else {
+    static_assert(OP == OP_GRADUATEDND, "unknown opcode");
+    graduatednd(v, k, yy, xx);
   }
 }
 
-// The interpreter: any program, one pixel per thread.
+// The interpreter: any program, one pixel per thread; w is the array's
+// width (a with_pos stage's row and column come from the flat index).
 __global__ void __launch_bounds__(THREADS)
-chain(const float* __restrict__ x, float* __restrict__ y, long long n,
+chain(const float* __restrict__ x, float* __restrict__ y, long long n, int w,
       const int* __restrict__ prog, int nstages, const float* __restrict__ consts,
       int nconsts) {
   __shared__ int sprog[MAX_STAGES * RECORD];
@@ -539,14 +1127,31 @@ chain(const float* __restrict__ x, float* __restrict__ y, long long n,
       const int* rec = sprog + s * RECORD;
       const float* k = sk + rec[1];
       const int* a = rec + 2;
+      float yy = 0.0f, xx = 0.0f;
+      if (rec[0] == OP_VIGNETTE || rec[0] == OP_GRADUATEDND) {
+        long long r = i / w;
+        yy = (float)r;
+        xx = (float)(i - r * w);
+      }
       switch (rec[0]) {
-        case OP_EXPOSURE: apply<OP_EXPOSURE>(v, k, a); break;
-        case OP_MATRIX: apply<OP_MATRIX>(v, k, a); break;
-        case OP_CHANNELMIXERRGB: apply<OP_CHANNELMIXERRGB>(v, k, a); break;
-        case OP_FILMIC_AGX: apply<OP_FILMIC_AGX>(v, k, a); break;
-        case OP_COLOROUT: apply<OP_COLOROUT>(v, k, a); break;
-        case OP_CONVERT_WORK_LAB: apply<OP_CONVERT_WORK_LAB>(v, k, a); break;
-        case OP_CONVERT_LAB_WORK: apply<OP_CONVERT_LAB_WORK>(v, k, a); break;
+        case OP_EXPOSURE: apply<OP_EXPOSURE>(v, k, a, yy, xx); break;
+        case OP_MATRIX: apply<OP_MATRIX>(v, k, a, yy, xx); break;
+        case OP_CHANNELMIXERRGB: apply<OP_CHANNELMIXERRGB>(v, k, a, yy, xx); break;
+        case OP_FILMIC_AGX: apply<OP_FILMIC_AGX>(v, k, a, yy, xx); break;
+        case OP_COLOROUT: apply<OP_COLOROUT>(v, k, a, yy, xx); break;
+        case OP_CONVERT_WORK_LAB: apply<OP_CONVERT_WORK_LAB>(v, k, a, yy, xx); break;
+        case OP_CONVERT_LAB_WORK: apply<OP_CONVERT_LAB_WORK>(v, k, a, yy, xx); break;
+        case OP_COLORBALANCERGB: apply<OP_COLORBALANCERGB>(v, k, a, yy, xx); break;
+        case OP_RGBCURVE: apply<OP_RGBCURVE>(v, k, a, yy, xx); break;
+        case OP_RGBLEVELS: apply<OP_RGBLEVELS>(v, k, a, yy, xx); break;
+        case OP_BASECURVE: apply<OP_BASECURVE>(v, k, a, yy, xx); break;
+        case OP_TONECURVE: apply<OP_TONECURVE>(v, k, a, yy, xx); break;
+        case OP_LEVELS: apply<OP_LEVELS>(v, k, a, yy, xx); break;
+        case OP_BASICADJ: apply<OP_BASICADJ>(v, k, a, yy, xx); break;
+        case OP_COLORZONES: apply<OP_COLORZONES>(v, k, a, yy, xx); break;
+        case OP_NEGADOCTOR: apply<OP_NEGADOCTOR>(v, k, a, yy, xx); break;
+        case OP_VIGNETTE: apply<OP_VIGNETTE>(v, k, a, yy, xx); break;
+        case OP_GRADUATEDND: apply<OP_GRADUATEDND>(v, k, a, yy, xx); break;
         default: break;  // the wrapper admits known opcodes only
       }
     }
@@ -565,15 +1170,18 @@ chain(const float* __restrict__ x, float* __restrict__ y, long long n,
 // ints stay run-time values, uniform across the grid.  One thread per
 // pixel: two or four pixels a thread, tried on the card, were slower
 // (their data-dependent branches run one after the other, and a warp
-// spans more pixels, so it diverges more often).  Every form fits in 32
-// registers, so 8 blocks of 256 fill an SM.
-constexpr int FIXED_CONSTS = 256;
-constexpr int FIXED_MIN_BLOCKS = 8;
+// spans more pixels, so it diverges more often).  The forms of configs
+// 1-9 fit in 32 registers, so 8 blocks of 256 fill an SM; a program with
+// colorbalancergb or colorzones gets 64 (4 blocks) rather than spill.
+// The consts may take 4 KB: kernel parameters may hold 32764 bytes since
+// CUDA 12.1 on Volta and newer, and config 10's second chain needs 388.
+constexpr int FIXED_CONSTS = 1024;
 
 struct FixedArgs {
   const float* x;
   float* y;
   long long n;
+  int w;  // the array's width: a with_pos stage's row and column
   int a[MAX_STAGES * STAGE_INTS];
   float k[FIXED_CONSTS];
 };
@@ -588,25 +1196,34 @@ struct Prog {
   static constexpr int count = sizeof...(S);
   static constexpr int ops[count] = {S::op...};
   static constexpr int offs[count] = {S::off...};
+  static constexpr bool pos = (reads_pos<S::op>() || ...);
+  static constexpr int min_blocks =
+      ((S::op == OP_COLORBALANCERGB || S::op == OP_COLORZONES) || ...) ? 4 : 8;
 };
 
 // stages I.. of P on one pixel
 template <class P, int I>
-__device__ __forceinline__ void run_from(float* v, const FixedArgs& p) {
+__device__ __forceinline__ void run_from(float* v, const FixedArgs& p, float yy, float xx) {
   if constexpr (I < P::count) {
-    apply<P::ops[I]>(v, p.k + P::offs[I], p.a + I * STAGE_INTS);
-    run_from<P, I + 1>(v, p);
+    apply<P::ops[I]>(v, p.k + P::offs[I], p.a + I * STAGE_INTS, yy, xx);
+    run_from<P, I + 1>(v, p, yy, xx);
   }
 }
 
 template <class P>
-__global__ void __launch_bounds__(THREADS, FIXED_MIN_BLOCKS)
+__global__ void __launch_bounds__(THREADS, P::min_blocks)
 chain_fixed(const __grid_constant__ FixedArgs p) {
   const long long n = p.n;
   const long long i = (long long)blockIdx.x * THREADS + threadIdx.x;
   if (i >= n) return;
   float v[3] = {p.x[i], p.x[n + i], p.x[2 * n + i]};
-  run_from<P, 0>(v, p);
+  float yy = 0.0f, xx = 0.0f;
+  if constexpr (P::pos) {
+    long long r = i / p.w;
+    yy = (float)r;
+    xx = (float)(i - r * p.w);
+  }
+  run_from<P, 0>(v, p, yy, xx);
   p.y[i] = v[0];
   p.y[n + i] = v[1];
   p.y[2 * n + i] = v[2];
@@ -635,16 +1252,26 @@ using Fixed = std::tuple<
     // channelmixerrgb: colorin, [channelmixerrgb,] filmicrgb, colorout
     Prog<Stage<OP_MATRIX, 0>, Stage<OP_CHANNELMIXERRGB, 9>, Stage<OP_FILMIC_AGX, 76>,
          Stage<OP_COLOROUT, 146>>,
-    Prog<Stage<OP_MATRIX, 0>, Stage<OP_FILMIC_AGX, 9>, Stage<OP_COLOROUT, 79>>>;
+    Prog<Stage<OP_MATRIX, 0>, Stage<OP_FILMIC_AGX, 9>, Stage<OP_COLOROUT, 79>>,
+    // config 10: exposure, graduatednd, colorin, channelmixerrgb, to Lab;
+    // from Lab, colorbalancergb, rgbcurve, filmicrgb, to Lab, tonecurve,
+    // colorzones, from Lab, vignette, colorout
+    Prog<Stage<OP_EXPOSURE, 0>, Stage<OP_GRADUATEDND, 2>, Stage<OP_MATRIX, 16>,
+         Stage<OP_CHANNELMIXERRGB, 25>, Stage<OP_CONVERT_WORK_LAB, 92>>,
+    Prog<Stage<OP_CONVERT_LAB_WORK, 0>, Stage<OP_COLORBALANCERGB, 12>, Stage<OP_RGBCURVE, 181>,
+         Stage<OP_FILMIC_AGX, 211>, Stage<OP_CONVERT_WORK_LAB, 281>, Stage<OP_TONECURVE, 293>,
+         Stage<OP_COLORZONES, 308>, Stage<OP_CONVERT_LAB_WORK, 357>, Stage<OP_VIGNETTE, 369>,
+         Stage<OP_COLOROUT, 379>>>;
 constexpr int NFIXED = (int)std::tuple_size<Fixed>::value;
 
 template <class P>
-int launch_fixed(const float* x, float* y, long long n, const int* ints, const float* consts,
-                 int nconsts, cudaStream_t stream) {
+int launch_fixed(const float* x, float* y, long long n, int w, const int* ints,
+                 const float* consts, int nconsts, cudaStream_t stream) {
   FixedArgs p;
   p.x = x;
   p.y = y;
   p.n = n;
+  p.w = w;
   for (int i = 0; i < MAX_STAGES * STAGE_INTS; ++i)
     p.a[i] = i < P::count * STAGE_INTS ? ints[i] : 0;
   for (int i = 0; i < FIXED_CONSTS; ++i) p.k[i] = i < nconsts ? consts[i] : 0.0f;
@@ -655,9 +1282,10 @@ int launch_fixed(const float* x, float* y, long long n, const int* ints, const f
 
 template <size_t... I>
 int launch_fixed_id(int id, std::index_sequence<I...>, const float* x, float* y, long long n,
-                    const int* ints, const float* consts, int nconsts, cudaStream_t stream) {
+                    int w, const int* ints, const float* consts, int nconsts,
+                    cudaStream_t stream) {
   int rc = (int)cudaErrorInvalidValue;
-  ((id == (int)I ? (rc = launch_fixed<std::tuple_element_t<I, Fixed>>(x, y, n, ints, consts,
+  ((id == (int)I ? (rc = launch_fixed<std::tuple_element_t<I, Fixed>>(x, y, n, w, ints, consts,
                                                                       nconsts, stream))
                  : 0),
    ...);
@@ -695,29 +1323,31 @@ int pointwise_chain_fixed_program(int id, int* ops, int* offs) {
   return describe_fixed(id, std::make_index_sequence<NFIXED>{}, ops, offs);
 }
 
-// x, y: (3, n) float32 planes; prog: nstages * RECORD int32; consts:
-// nconsts float32; all on the device.  Launches the interpreter on
-// `stream`, returns cudaGetLastError().
-int pointwise_chain(const float* x, float* y, long long n, const int* prog, int nstages,
+// x, y: (3, n) float32 planes of an array w wide; prog: nstages * RECORD
+// int32; consts: nconsts float32; all on the device.  Launches the
+// interpreter on `stream`, returns cudaGetLastError().
+int pointwise_chain(const float* x, float* y, long long n, int w, const int* prog, int nstages,
                     const float* consts, int nconsts, int num_sms, void* stream) {
+  if (w < 1 || n % w != 0) return (int)cudaErrorInvalidValue;
   long long blocks = (n + THREADS - 1) / THREADS;
   long long cap = (long long)num_sms * 8;
   if (blocks > cap) blocks = cap;
   if (blocks < 1) blocks = 1;
-  chain<<<(unsigned)blocks, THREADS, 0, (cudaStream_t)stream>>>(x, y, n, prog, nstages, consts,
-                                                               nconsts);
+  chain<<<(unsigned)blocks, THREADS, 0, (cudaStream_t)stream>>>(x, y, n, w, prog, nstages,
+                                                               consts, nconsts);
   return (int)cudaGetLastError();
 }
 
-// Specialised program `id` on x, y ((3, n) float32 planes on the device);
-// ints (its stages' STAGE_INTS each) and consts (nconsts <= FIXED_CONSTS)
-// are host arrays, passed by value.  Returns cudaGetLastError().
-int pointwise_chain_fixed(int id, const float* x, float* y, long long n, const int* ints,
+// Specialised program `id` on x, y ((3, n) float32 planes of an array w
+// wide, on the device); ints (its stages' STAGE_INTS each) and consts
+// (nconsts <= FIXED_CONSTS) are host arrays, passed by value.  Returns
+// cudaGetLastError().
+int pointwise_chain_fixed(int id, const float* x, float* y, long long n, int w, const int* ints,
                           const float* consts, int nconsts, void* stream) {
-  if (id < 0 || id >= NFIXED || nconsts > FIXED_CONSTS || n < 1)
+  if (id < 0 || id >= NFIXED || nconsts > FIXED_CONSTS || n < 1 || w < 1 || n % w != 0)
     return (int)cudaErrorInvalidValue;
-  return launch_fixed_id(id, std::make_index_sequence<NFIXED>{}, x, y, n, ints, consts, nconsts,
-                         (cudaStream_t)stream);
+  return launch_fixed_id(id, std::make_index_sequence<NFIXED>{}, x, y, n, w, ints, consts,
+                         nconsts, (cudaStream_t)stream);
 }
 
 }  // extern "C"

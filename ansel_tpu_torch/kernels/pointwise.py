@@ -8,7 +8,8 @@ function; CUDA cannot, so each stage names an opcode with a body written
 in the kernel, and `pack_chain` turns the group into a small program:
 per stage an opcode, an offset into a float32 consts buffer and up to
 eight static ints.  The plain twin runs the stages' torch functions in
-order.
+order; a stage that reads pixel positions (`needs_pos`, the Pallas
+kernel's `with_pos`) gets each pixel's row and column in the array.
 
 The programs the configs build (`FIXED`) each have a kernel of their own
 in the same source, with the opcodes and const offsets as template
@@ -24,6 +25,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import math
 from typing import Any, Tuple
 
 import torch
@@ -36,14 +38,28 @@ OP_FILMIC_AGX = 4
 OP_COLOROUT = 5
 OP_CONVERT_WORK_LAB = 6
 OP_CONVERT_LAB_WORK = 7
-_KNOWN_OPS = {OP_EXPOSURE, OP_MATRIX, OP_CHANNELMIXERRGB, OP_FILMIC_AGX,
-              OP_COLOROUT, OP_CONVERT_WORK_LAB, OP_CONVERT_LAB_WORK}
+OP_COLORBALANCERGB = 8
+OP_RGBCURVE = 9
+OP_RGBLEVELS = 10
+OP_BASECURVE = 11
+OP_TONECURVE = 12
+OP_LEVELS = 13
+OP_BASICADJ = 14
+OP_COLORZONES = 15
+OP_NEGADOCTOR = 16
+OP_VIGNETTE = 17
+OP_GRADUATEDND = 18
+_KNOWN_OPS = frozenset(range(OP_EXPOSURE, OP_GRADUATEDND + 1))
 TRC_SRGB, TRC_LINEAR, TRC_GAMMA = 0, 1, 2
 MAX_STAGES = 16
 STAGE_INTS = 8
 RECORD = 2 + STAGE_INTS
 MAX_CONSTS = 1024
-FIXED_CONSTS = 256
+# a specialised program's consts travel in its kernel's parameters: 4 KB
+# of them, and the ints, stay inside the 32764 bytes of kernel parameters
+# that CUDA 12.1 and later allow on Volta and newer (config 10's second
+# chain needs 388)
+FIXED_CONSTS = 1024
 
 # the specialised programs, as ((opcode, const offset), ...) per stage, in
 # the order of csrc/pointwise_chain.cu's `Fixed` (the library reports
@@ -68,6 +84,15 @@ FIXED = (
     ((OP_MATRIX, 0), (OP_CHANNELMIXERRGB, 9), (OP_FILMIC_AGX, 76),
      (OP_COLOROUT, 146)),
     ((OP_MATRIX, 0), (OP_FILMIC_AGX, 9), (OP_COLOROUT, 79)),
+    # config 10: exposure, graduatednd, colorin, channelmixerrgb, to Lab;
+    # from Lab, colorbalancergb, rgbcurve, filmicrgb, to Lab, tonecurve,
+    # colorzones, from Lab, vignette, colorout
+    ((OP_EXPOSURE, 0), (OP_GRADUATEDND, 2), (OP_MATRIX, 16),
+     (OP_CHANNELMIXERRGB, 25), (OP_CONVERT_WORK_LAB, 92)),
+    ((OP_CONVERT_LAB_WORK, 0), (OP_COLORBALANCERGB, 12), (OP_RGBCURVE, 181),
+     (OP_FILMIC_AGX, 211), (OP_CONVERT_WORK_LAB, 281), (OP_TONECURVE, 293),
+     (OP_COLORZONES, 308), (OP_CONVERT_LAB_WORK, 357), (OP_VIGNETTE, 369),
+     (OP_COLOROUT, 379)),
 )
 
 # launches of the CUDA kernels since the count was last set to 0: one per
@@ -77,9 +102,9 @@ LAUNCHES = 0
 
 @dataclasses.dataclass(frozen=True)
 class Chain:
-    """One fused group in both forms: `stages` = ((fn, coeffs), ...) for
-    the plain twin; `prog` (int32) and `consts` (float32) on the group's
-    device for the interpreter; `fixed`, the index in FIXED of the
+    """One fused group in both forms: `stages` = ((fn, coeffs,
+    needs_pos), ...) for the plain twin; `prog` (int32) and `consts`
+    (float32) on the group's device for the interpreter; `fixed`, the index in FIXED of the
     specialised program it matches (-1: none), with its stages' ints and
     its consts as host arrays for that kernel's parameters."""
 
@@ -121,7 +146,8 @@ def pack_chain(specs, coeffs, device) -> Chain:
     ints = [v for s in range(0, len(prog), RECORD)
             for v in prog[s + 2:s + RECORD]]
     return Chain(
-        stages=tuple((spec.fn, c) for spec, c in zip(specs, coeffs)),
+        stages=tuple((spec.fn, c, spec.needs_pos)
+                     for spec, c in zip(specs, coeffs)),
         prog=torch.tensor(prog, dtype=torch.int32, device=device),
         consts=torch.tensor(consts or [0.0], dtype=torch.float32,
                             device=device),
@@ -130,11 +156,56 @@ def pack_chain(specs, coeffs, device) -> Chain:
         host_consts=(ctypes.c_float * max(1, len(consts)))(*consts))
 
 
+def positions(x: torch.Tensor):
+    """(yy, xx): each pixel's float32 row and column in x (C, H, W), as
+    the Pallas kernel's iota gives them to a `with_pos` stage."""
+    _, h, w = x.shape
+    yy = torch.arange(h, dtype=torch.float32, device=x.device)[:, None]
+    xx = torch.arange(w, dtype=torch.float32, device=x.device)[None, :]
+    return yy.expand(h, w), xx.expand(h, w)
+
+
 def pointwise_chain_reference(x: torch.Tensor, chain: Chain) -> torch.Tensor:
-    """Plain torch: the stages' functions in order."""
-    for fn, c in chain.stages:
-        x = fn(x, c)
+    """Plain torch: the stages' functions in order; a stage that reads
+    pixel positions gets them as `positions(x)`."""
+    pos = None
+    for fn, c, needs_pos in chain.stages:
+        if needs_pos:
+            pos = positions(x) if pos is None else pos
+            x = fn(x, c, *pos)
+        else:
+            x = fn(x, c)
     return x
+
+
+def atan_pos(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """atan2(y, x) restricted to the first quadrant (y, x >= 0), as the
+    Pallas kernels compute it (their TPU lowering has no atan): a minimax
+    odd polynomial on [0, 1] in Horner form plus the fold
+    atan(t) = pi/2 - atan(1/t).  |err| < 2e-7 rad."""
+    big = torch.clamp(torch.maximum(x, y), min=1e-20)
+    small = torch.minimum(x, y)
+    z = small / big
+    s = z * z
+    u = 0.00282363896258175373077393
+    for k in _ATAN_POLY:
+        u = u * s + k
+    theta = u * s * z + z
+    return torch.where(y > x, math.pi / 2.0 - theta, theta)
+
+
+_ATAN_POLY = (-0.0159569028764963150024414, 0.0425049886107444763183594,
+              -0.0748900920152664184570312, 0.106347933411598205566406,
+              -0.142027363181114196777344, 0.199926957488059997558594,
+              -0.333331018686294555664062)
+
+
+def atan2_full(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Full-range atan2(y, x) from the first-quadrant polynomial, folded
+    by the signs of x and y.  |err| < 2e-7 rad."""
+    t = atan_pos(torch.abs(y), torch.abs(x))
+    t = torch.where(x < 0.0, math.pi - t, t)
+    return torch.where(y < 0.0, -t, t)
 
 
 def _lib():
@@ -143,12 +214,13 @@ def _lib():
     lib = _build.load("pointwise_chain")
     if not getattr(lib, "_typed", False):
         p = ctypes.c_void_p
-        lib.pointwise_chain.argtypes = [p, p, ctypes.c_longlong, p,
-                                        ctypes.c_int, p, ctypes.c_int,
-                                        ctypes.c_int, p]
+        lib.pointwise_chain.argtypes = [p, p, ctypes.c_longlong,
+                                        ctypes.c_int, p, ctypes.c_int, p,
+                                        ctypes.c_int, ctypes.c_int, p]
         lib.pointwise_chain.restype = ctypes.c_int
         lib.pointwise_chain_fixed.argtypes = [ctypes.c_int, p, p,
-                                              ctypes.c_longlong, p, p,
+                                              ctypes.c_longlong,
+                                              ctypes.c_int, p, p,
                                               ctypes.c_int, p]
         lib.pointwise_chain_fixed.restype = ctypes.c_int
         lib.pointwise_chain_fixed_program.argtypes = [ctypes.c_int, p, p]
@@ -184,7 +256,8 @@ def pointwise_chain(x: torch.Tensor, chain: Chain) -> torch.Tensor:
     """(3, H, W) float32 -> (3, H, W) through every stage of `chain`.  A
     CPU tensor runs the plain twin; a CUDA tensor launches one kernel of
     csrc/pointwise_chain.cu: the chain's specialised program, or the
-    interpreter when it has none (`fixed` -1)."""
+    interpreter when it has none (`fixed` -1).  The kernel derives a
+    stage's pixel positions from the flat index and W."""
     if x.device.type == "cpu":
         return pointwise_chain_reference(x, chain)
     if x.device.type != "cuda":
@@ -207,11 +280,12 @@ def pointwise_chain(x: torch.Tensor, chain: Chain) -> torch.Tensor:
         stream = torch.cuda.current_stream().cuda_stream
         if chain.fixed >= 0:
             rc = lib.pointwise_chain_fixed(
-                chain.fixed, x.data_ptr(), y.data_ptr(), n, chain.host_ints,
-                chain.host_consts, len(chain.host_consts), stream)
+                chain.fixed, x.data_ptr(), y.data_ptr(), n, x.shape[2],
+                chain.host_ints, chain.host_consts, len(chain.host_consts),
+                stream)
         else:
             rc = lib.pointwise_chain(x.data_ptr(), y.data_ptr(), n,
-                                     prog.data_ptr(), nstages,
+                                     x.shape[2], prog.data_ptr(), nstages,
                                      consts.data_ptr(), consts.numel(), sms,
                                      stream)
     if rc != 0:

@@ -144,16 +144,19 @@ class PointwiseSpec:
     """One per-pixel stage in two forms.
 
     fn(x, c) -> x: the plain torch version on a (3, H, W) tensor, with
-      `c` the stage's coefficient dict of device tensors.
+      `c` the stage's coefficient dict of device tensors; fn(x, c, yy, xx)
+      where `needs_pos` is set, yy and xx each pixel's float32 row and
+      column in x.
     opcode, ints: the chain kernel's stage (csrc/pointwise_chain.cu) and
       its static integers (at most eight).
     consts: names of coefficient entries the kernel reads, in order, each
       flattened row-major to float32.
     extra: host constants the kernel reads after them (matrices baked in
       at plan time, float64 folds the reference computes in Python).
-    needs_pos: the stage reads each pixel's absolute position, so it is
-      a full-frame boundary of the ROI walk and the chain kernel, which
-      has no positions yet, does not take it."""
+    needs_pos: the stage reads each pixel's position in its array (the
+      Pallas kernel's `with_pos`), so it is a full-frame boundary of the
+      ROI walk; the chain kernel derives the positions from the flat
+      index and the array's width."""
 
     fn: Any
     opcode: int

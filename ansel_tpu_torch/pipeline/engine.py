@@ -145,10 +145,10 @@ class _ConvertOp(ops_base.Op):
                 xyz = tr.apply_matrix(b, M)
                 f = []
                 for i in range(3):
-                    r = xyz[i] / white[i]
+                    r = tr.fdiv(xyz[i], white[i])
                     f.append(torch.where(
                         r > tr.LAB_EPS, torch.clamp(r, min=1e-12) ** (1.0 / 3.0),
-                        (tr.LAB_KAPPA * r + 16.0) / 116.0))
+                        tr.fdiv(tr.LAB_KAPPA * r + 16.0, 116.0)))
                 return torch.stack([116.0 * f[1] - 16.0,
                                     500.0 * (f[0] - f[1]),
                                     200.0 * (f[1] - f[2])])
@@ -158,14 +158,15 @@ class _ConvertOp(ops_base.Op):
             M = cm.WORK_FROM_XYZ.tolist()
 
             def fn(b, c):
-                fy = (b[0] + 16.0) / 116.0
-                fx = fy + b[1] / 500.0
-                fz = fy - b[2] / 200.0
+                fy = tr.fdiv(b[0] + 16.0, 116.0)
+                fx = fy + tr.fdiv(b[1], 500.0)
+                fz = fy - tr.fdiv(b[2], 200.0)
                 out = []
                 for i, fc in enumerate((fx, fy, fz)):
                     f3 = fc * fc * fc
                     out.append(torch.where(f3 > tr.LAB_EPS, f3,
-                                           (116.0 * fc - 16.0) / tr.LAB_KAPPA)
+                                           tr.fdiv(116.0 * fc - 16.0,
+                                                   tr.LAB_KAPPA))
                                * white[i])
                 return tr.apply_matrix(torch.stack(out), M)
 
@@ -176,16 +177,17 @@ class _ConvertOp(ops_base.Op):
         return PointwiseSpec(fn=fn, opcode=opcode, extra=extra)
 
 
+def _same_window(a: ImageSpec, b: ImageSpec) -> bool:
+    return (a.org_y == b.org_y and a.org_x == b.org_x
+            and a.pad_h == b.pad_h and a.pad_w == b.pad_w
+            and a.height == b.height and a.width == b.width)
+
+
 def _rewindow(x, spec_from: ImageSpec, spec_to: ImageSpec):
     """Slice the producing stage's buffer down to the consuming stage's
     (possibly smaller) planned window, re-padding to lane shape.
     Identical windows are a no-op."""
-    if (spec_from.org_y == spec_to.org_y
-            and spec_from.org_x == spec_to.org_x
-            and spec_from.pad_h == spec_to.pad_h
-            and spec_from.pad_w == spec_to.pad_w
-            and spec_from.height == spec_to.height
-            and spec_from.width == spec_to.width):
+    if _same_window(spec_from, spec_to):
         return x
     y0 = spec_to.org_y - spec_from.org_y
     x0 = spec_to.org_x - spec_from.org_x
@@ -420,19 +422,17 @@ class Pipeline:
 
     def _chain_spec(self, s: PlannedOp):
         """The stage's PointwiseSpec if the chain kernel can run it, else
-        None; a pointwise stage that reads pixel positions is refused."""
+        None."""
         if not self._fusable(s):
             return None
-        spec = s.op.pointwise_spec(s.plan, self.ctx)
-        if spec is not None and spec.needs_pos:
-            raise not_ported(s.name, "a pointwise stage that reads pixel "
-                             "positions (the chain kernel's with_pos)")
-        return spec
+        return s.op.pointwise_spec(s.plan, self.ctx)
 
     def schedule(self, coeffs, start: int = 0, end: Optional[int] = None):
         """Stages [start, end) as run steps, given their device coefficients:
         ("stage", i, i + 1, c) runs one op; ("chain", i, j, Chain) runs
-        stages i..j-1 as one chain (at most pointwise.MAX_STAGES long)."""
+        stages i..j-1 as one chain (at most pointwise.MAX_STAGES long, and
+        split where the ROI walk hands the next stage a smaller window
+        than its producer's, after a full-frame boundary)."""
         end = len(self.stages) if end is None else end
         steps = []
         i = start
@@ -444,7 +444,9 @@ class Pipeline:
                 continue
             specs = [spec]
             j = i + 1
-            while j < end and len(specs) < pw.MAX_STAGES:
+            while j < end and len(specs) < pw.MAX_STAGES \
+                    and _same_window(self.stages[j - 1].plan.spec_out,
+                                     self.stages[j].plan.spec_in):
                 sp = self._chain_spec(self.stages[j])
                 if sp is None:
                     break

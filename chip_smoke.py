@@ -36,9 +36,14 @@ entry points a user calls, at their full frames:
     flip (orientation 6), clipping (a 2-degree rotation and a 5% crop),
     exposure and filmicrgb to a 16-bit PNG, then with `--width 2048
     --height 2048` (initialscale) to a JPEG and a PDF: RCD, the warp
-    kernel on clipping's map and the chain.  Config 2's NLM input also
-    runs the lattices past the kernel's chunk (K 15) and a patch radius
-    past its template limit (P 9).
+    kernel on clipping's map and the chain;
+  * the port's config 10 at 24 MP (4000 x 6016), a graded look on top of
+    config 1 (graduatednd, atrous, colorbalancergb, rgbcurve, tonecurve,
+    colorzones, vignette): RCD, the chain in two programs of 5 and 10
+    stages that read pixel positions, and the EAW kernel's atrous
+    variant; each of the eleven grading opcodes is also held alone.
+    Config 2's NLM input also runs the lattices past the kernel's chunk
+    (K 15) and a patch radius past its template limit (P 9).
 
 Each path runs with the launch counts set to 0 just before it and read
 just after.  Every chain each config builds is also timed on its own
@@ -121,6 +126,15 @@ STAGES8 = ["rawprepare", "temperature", "highlights", "cacorrect",
 LAUNCHES9 = dict(NO_LAUNCHES, rcd=1, chain=1, warp=1)
 STAGES9 = ["rawprepare", "temperature", "highlights", "demosaic", "flip",
            "clipping", "exposure", "colorin", "filmicrgb", "colorout"]
+# config 10: the two chains (the second with colorbalancergb, the three
+# curves and vignette), RCD, one atrous EAW scale each of the seven the
+# 24 MP frame plans
+LAUNCHES10 = dict(NO_LAUNCHES, rcd=1, chain=2, eaw=7)
+STAGES10 = ["rawprepare", "temperature", "highlights", "demosaic",
+            "exposure", "graduatednd", "colorin", "channelmixerrgb",
+            "_convert", "atrous", "_convert", "colorbalancergb", "rgbcurve",
+            "filmicrgb", "_convert", "tonecurve", "colorzones", "_convert",
+            "vignette", "colorout"]
 # run B's bounding box
 BOX9 = 2048
 NOISE_SIGMA = 200.0  # sensor units of 16383: a high-ISO mosaic
@@ -171,9 +185,24 @@ OPS_CHAIN = {(1, 0): (1095, 57), (2, 0): (847, 42), (3, 0): (6, 0),
              (7, 2): (219, 3),
              # config 9 runs config 4's program (1) on its clipped frame;
              # config 4's count, not recounted on config 9's pixels
-             (9, 0): (846, 42)}
+             (9, 0): (846, 42),
+             (10, 0): (741, 33), (10, 1): (4692, 162),
+             # each grading opcode alone on config 10's chain inputs
+             # (`--opcodes`), colorbalancergb in dt UCS (1) and JzAzBz (0)
+             (10, "colorbalancergb", 1): (2016, 73),
+             (10, "colorbalancergb", 0): (2093, 60),
+             (10, "rgbcurve"): (270, 6), (10, "rgblevels"): (143, 4),
+             (10, "basecurve"): (254, 6), (10, "tonecurve"): (253, 6),
+             (10, "levels"): (134, 3), (10, "basicadj"): (388, 11),
+             (10, "colorzones"): (747, 16), (10, "negadoctor"): (397, 13),
+             (10, "vignette"): (177, 7), (10, "graduatednd"): (139, 8)}
 FLOPS_SEPBLUR_PER_TAP = 4        # two passes, a multiply and an add each
 FLOPS_EAW = 25 * 24 + 10         # 25 taps; the divide and the detail
+# the atrous variant per pixel: 25 taps of the three differences and
+# squares 6, the chroma sum 1, the two scaled exponents 2 and fast
+# exponentials 8, the two tap weights 2, three products and sums 6 and
+# three weight sums 3; then three divides and three details
+FLOPS_EAW_ATROUS = 25 * 28 + 6
 FLOPS_NLM_PER_OFFSET = 31        # d2 11, box sum 4 (the column sums
                                  # shared), weight 9, sums 7
 FLOPS_IIR = 30                   # per value: 15 per axis, both recursions
@@ -418,6 +447,8 @@ def plain_twins(keep=()):
         (sepblur, "sep_blur", sepblur.sep_blur_reference),
         (eaw, "eaw_dn_coarse",
          lambda x, s, c: eaw.eaw_coarse_reference(x, s, c, eaw.DN)),
+        (eaw, "eaw_atrous_coarse",
+         lambda x, s, c: eaw.eaw_coarse_reference(x, s, c, eaw.ATROUS)),
         (nlm, "nlm", nlm.nlm_reference),
         (iir, "gaussian_iir", iir.gaussian_iir_reference),
         (diffuse, "diffuse_iteration", diffuse.diffuse_iteration_reference),
@@ -1778,6 +1809,154 @@ def run_config9(card, record, raw, meta, phases, tmp):
     return launches
 
 
+def captured10(pipe, raw_dev):
+    """Run config 10 once on a device-resident raw and keep the arguments
+    of its two chains and its atrous EAW scales."""
+    calls = {"chain": [], "eaw": []}
+    real = {"chain": pw.pointwise_chain, "eaw": eaw.eaw_atrous_coarse}
+
+    def keep(key):
+        def call(*args):
+            calls[key].append(args)
+            return real[key](*args)
+        return call
+
+    with swapped([(pw, "pointwise_chain", keep("chain")),
+                  (eaw, "eaw_atrous_coarse", keep("eaw"))]):
+        pipe.run_padded(raw_dev)
+    expect(len(calls["chain"]) == LAUNCHES10["chain"]
+           and [a[1] for a in calls["eaw"]] == list(range(LAUNCHES10["eaw"])),
+           f"unexpected config-10 calls {len(calls['chain'])} chains, "
+           f"scales {[a[1] for a in calls['eaw']]}")
+    return calls
+
+
+def check_atrous10(calls, record):
+    """The EAW kernel's atrous variant on config 10's seven scales (Lab,
+    the equaliser's sharpen): kernel vs twin at STENCIL_TOL, kernel and
+    plain ms per scale, the bound per scale."""
+    err, ms, plain_ms = 0.0, [], []
+    for x, scale, sharpen in calls:
+        got = eaw.eaw_atrous_coarse(x, scale, sharpen)
+        want = eaw.eaw_coarse_reference(x, scale, sharpen, eaw.ATROUS)
+        for g, w_ in zip(got, want):
+            mx, _ = compare(g, w_)
+            expect(mx <= STENCIL_TOL, f"eaw atrous s={scale}: max {mx}")
+            err = max(err, mx)
+        del got, want
+        ms.append(median_ms(lambda: eaw.eaw_atrous_coarse(x, scale,
+                                                          sharpen)))
+        plain_ms.append(median_ms(
+            lambda: eaw.eaw_coarse_reference(x, scale, sharpen, eaw.ATROUS),
+            PLAIN_REPEATS))
+    x = calls[0][0]
+    b_ms, b_by = bound(3 * nbytes(x), FLOPS_EAW_ATROUS * x[0].numel())
+    record["eaw-atrous"] = dict(max_abs_err=err, ms=float(np.mean(ms)),
+                                plain_ms=float(np.mean(plain_ms)),
+                                library_ms=None, bound_ms=b_ms,
+                                bound_by=b_by, per_scale_ms=ms)
+    print(f"[eaw-atrous] config 10's {len(calls)} scales on "
+          f"{tuple(x.shape)}, kernel vs plain: max {err:.3g} (tol "
+          f"{STENCIL_TOL:g}) | ms kernel/plain: "
+          + ", ".join(f"s{i} {a:.3f}/{b:.1f}"
+                      for i, (a, b) in enumerate(zip(ms, plain_ms)))
+          + f" | bound {b_ms:.3f} ms per scale ({b_by})", flush=True)
+
+
+def check_opcodes10(meta, calls, record):
+    """Each grading opcode (8-18), as a one-stage chain on config 10's
+    chain inputs (the RGB ops on the demosaiced image, the Lab ops on the
+    second chain's input): kernel (the interpreter) vs its plain twin,
+    bounds scaled as check_chains scales them; device ms and the bound
+    from the opcode's OPS_CHAIN count.  colorbalancergb runs both
+    saturation formulas.  Returns the rows."""
+    rows = []
+    for key, x, name, prm in configs.grading_jobs([a[0] for a in calls]):
+        chain = configs.opcode_chain(meta, name, prm, x.shape, x.device)
+        got = pw.pointwise_chain(x, chain)
+        want = pw.pointwise_chain_reference(x, chain)
+        mx, mean = compare(got, want)
+        scale = max(1.0, want.abs().max().item())
+        changed = (want - x).abs().max().item()
+        del got, want
+        expect(changed > 1e-3, f"opcode {key}: output equals input")
+        expect(mx <= CHAIN_MAX_TOL * scale
+               and mean <= CHAIN_MEAN_TOL * scale,
+               f"opcode {key}: max {mx}, mean {mean} (x {scale:.3g})")
+        ms = median_ms(lambda: pw.pointwise_chain(x, chain))
+        plain_ms = median_ms(
+            lambda: pw.pointwise_chain_reference(x, chain),
+            PLAIN_REPEATS)
+        fp32, mufu = OPS_CHAIN[key]
+        px = x[0].numel()
+        b_ms, b_by = bound(2 * nbytes(x),
+                           instructions=(fp32 + mufu) * px,
+                           sfu=mufu * px)
+        label = "/".join(str(k) for k in key[1:])
+        rows.append(dict(op=label, max_abs_err=mx, ms=ms,
+                         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by))
+        print(f"[opcode] {label} alone on {tuple(x.shape)}: "
+              f"vs plain max {mx:.3g} mean {mean:.3g} (tol "
+              f"{CHAIN_MAX_TOL:g} / {CHAIN_MEAN_TOL:g} x {scale:.3g}) | "
+              f"kernel {ms:.4f} ms, plain {plain_ms:.1f} ms, bound "
+              f"{b_ms:.4f} ms ({b_by}; {fp32} float32 + {mufu} MUFU a "
+              "pixel)", flush=True)
+    record["opcodes10"] = rows
+
+
+def run_config10(card, record, raw, raw_dev, meta, phases):
+    """Config 10 at 24 MP, the graded look: through the user's entry point
+    with launches counted, against the composed twins; then its two chains,
+    the atrous scales and each new opcode alone on the arguments the pipe
+    hands them, and the pipe's timing and peak memory."""
+    pipe = port.compile_pipeline(meta, configs.history(10))
+    stages = [s.name for s in pipe.pipe.stages]
+    expect(stages == STAGES10, f"unexpected config-10 plan {stages}")
+    expect(pipe.fused_groups() == [STAGES10[4:9], STAGES10[10:]],
+           f"unexpected chains {pipe.fused_groups()}")
+    expect(raw.shape == pipe.pipe.spec_in.array_shape, "raw needs padding")
+    with timed(phases, "pipe10 vs plain"):
+        reset_launches()
+        out = pipe.output_array(raw)
+        launches = read_launches()
+        expect(launches == LAUNCHES10, f"config-10 launches {launches}")
+        expect(out.shape == (3, H, W), f"output shape {out.shape}")
+        expect(bool(np.isfinite(out).all()) and out.min() >= 0.0
+               and out.max() <= 1.0, "output not finite or outside [0, 1]")
+        reset_launches()
+        with plain_twins():
+            plain = pipe.output_array(raw)
+        expect(all(v == 0 for v in read_launches().values()),
+               f"the plain composition launched kernels: {read_launches()}")
+        pipe_err = float(np.abs(out - plain).max())
+        expect(pipe_err <= PIPE_TOL, f"config 10 vs plain: max {pipe_err}")
+        del plain
+    with timed(phases, "capture10"):
+        calls = captured10(pipe, raw_dev)
+    with timed(phases, "chain10"):
+        rows = check_chains(10, calls["chain"], pipe.fused_groups())
+        for i, row in enumerate(rows):
+            record[f"chain10.{i}"] = row
+    with timed(phases, "eaw-atrous"):
+        check_atrous10(calls["eaw"], record)
+    with timed(phases, "opcodes10"):
+        check_opcodes10(meta, calls["chain"], record)
+    del calls
+    with timed(phases, "pipe10 timing"):
+        per_img = time_pipe(pipe, raw_dev, REPEATS)
+        peak, held = pipe_peak(pipe, raw_dev)
+    print(f"[pipe10] config 10 {H}x{W}: {len(stages)} stages, chains "
+          f"{pipe.fused_groups()} (programs "
+          f"{[a.fixed for k, _, _, a in pipe.steps if k == 'chain']}), "
+          f"launches {launches}, vs plain max {pipe_err:.3g} (tol 1/255), "
+          f"range [{out.min():.3g}, {out.max():.3g}] | "
+          f"{1.0 / per_img:.2f} img/s, {per_img * 1e3:.2f} ms/img "
+          f"(device-resident input, {REPEATS} repeats after 2 warm-ups), "
+          f"peak device memory {peak:.3f} GB ({held:.3f} GB held before) on "
+          f"{card}", flush=True)
+    return launches
+
+
 def run_devtest_and_entry(phases):
     """The CLI's card diagnostic, then entry()'s fn on the card against
     the same fn with every kernel's plain twin."""
@@ -1835,6 +2014,7 @@ def main():
         with tempfile.TemporaryDirectory() as tmp:
             run_config8(card, raw_dev, meta, phases, tmp)
             launches9 = run_config9(card, record, raw, meta, phases, tmp)
+        launches10 = run_config10(card, record, raw, raw_dev, meta, phases)
         run_devtest_and_entry(phases)
         del raw_dev
         with timed(phases, "mosaic3 wait"):
@@ -1894,7 +2074,24 @@ def main():
                      **{k: record["warp-clip"][k] for k in keys})]
         if key == "nlm":
             entry_["wide"] = r["wide"]
+        if key == "chain":
+            # the grading opcodes, each alone on config 10's arguments
+            entry_["opcodes"] = record["opcodes10"]
         kernels.append(entry_)
+    # config 10: its two chains (each one launch per image) and the EAW
+    # kernel's atrous variant (one launch per scale)
+    for i in range(LAUNCHES10["chain"]):
+        kernels.append({"name": f"pointwise_chain[config10.{i}]",
+                        "route": "cuda",
+                        "source": "ansel_tpu_torch/csrc/pointwise_chain.cu",
+                        "replaces": "ansel_tpu/kernels/pointwise.py:30",
+                        "launches": 1,
+                        **{k: record[f"chain10.{i}"][k] for k in keys}})
+    kernels.append({"name": "eaw_atrous_coarse", "route": "cuda",
+                    "source": "ansel_tpu_torch/csrc/eaw.cu",
+                    "replaces": "ansel_tpu/kernels/eaw_pallas.py:205",
+                    "launches": launches10["eaw"],
+                    **{k: record["eaw-atrous"][k] for k in keys}})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

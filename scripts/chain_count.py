@@ -3,7 +3,8 @@
 chain of the port's configs needs in the fused colour chain
 (`csrc/pointwise_chain.cu`), counted from its SASS.
 
-    python3 scripts/chain_count.py [--configs 1 2 3 4 7] [--stride 64]
+    python3 scripts/chain_count.py [--configs 1 2 3 4 7 10] [--stride 64]
+                                   [--opcodes]
 
 Three steps, on the machine with the card:
 
@@ -15,13 +16,21 @@ Three steps, on the machine with the card:
    `chip_smoke.py` makes it) with the chain wrapper's arguments kept;
    every `--stride`-th pixel of each chain's input goes through the same
    source built for the host with gcc's coverage instrumentation, which
-   counts how often each source line runs on that data.
+   counts how often each source line runs on that data.  With
+   `--opcodes`, also each op of `configs.GRADING_CASES` (its first
+   parameter set, both saturation formulas of colorbalancergb) as a
+   one-stage chain on config 10's chain inputs, as `chip_smoke.py`
+   launches them: the RGB ops on the demosaiced image, the Lab ops on the
+   second chain's input.
 3. Each SASS basic block of the interpreter kernel (`chain`) is weighted
    by the runs per pixel of its lines: a line of the kernel itself by its
    count over the pixels; a line of a device function without a loop by
    its count over the function's calls (the share of calls that take its
    branch); a line of a function with a loop by 1 if it ran at all (its
-   copies in SASS are the unrolled iterations); a line of a template
+   copies in SASS are the unrolled iterations), unless the loop is
+   marked `#pragma unroll 1` (a curve's nodes, the gamut series): then
+   by its count over the function's calls, the iterations a call runs; a
+   line of a template
    instantiated more than once (the stage dispatch `apply`), or of a
    file other than the chain source (a CUDA header), by 1, leaving the
    weight to its caller.  An instruction's weight is the product along
@@ -93,7 +102,7 @@ typedef void* cudaStream_t;
 typedef int cudaError_t;
 """
 
-# runs the kernel as one thread over a file's pixels:
+# runs the kernel as one thread over a file's pixels (one row of them):
 # n (int64), stages, consts (int32), prog, consts, 3 n floats
 HOST_MAIN = r"""
 #include <cstdio>
@@ -110,7 +119,7 @@ int main(int argc, char** argv) {
       fread(k.data(), 4, nk, f) != (size_t)nk ||
       fread(x.data(), 4, x.size(), f) != x.size()) return 1;
   fclose(f);
-  chain(x.data(), y.data(), n, prog.data(), ns, k.data(), nk);
+  chain(x.data(), y.data(), n, (int)n, prog.data(), ns, k.data(), nk);
   return 0;
 }
 """
@@ -229,9 +238,14 @@ def weigh(blocks, counts, funcs, pixels, src_lines):
     loops = {}
 
     def has_loop(fn):
+        """'rolled' for a loop kept rolled (`#pragma unroll 1`), True for
+        another loop, False for none."""
         if fn not in loops:
-            loops[fn] = any(re.search(r"\bfor\s*\(", src_lines[i - 1])
-                            for i in range(fn[0], fn[1] + 1))
+            body = src_lines[fn[0] - 1:fn[1]]
+            loops[fn] = ("rolled" if any("#pragma unroll 1" in ln
+                                         for ln in body)
+                         else any(re.search(r"\bfor\s*\(", ln)
+                                  for ln in body))
         return loops[fn]
 
     switch = next(i for i, ln in enumerate(src_lines, 1)
@@ -249,6 +263,8 @@ def weigh(blocks, counts, funcs, pixels, src_lines):
             c = counts.get(line, fn[2])
             if level == len(chain) - 1:
                 w *= c / pixels
+            elif has_loop(fn) == "rolled":
+                w *= c / fn[2] if fn[2] else 0.0
             elif has_loop(fn):
                 w *= 1.0 if c > 0 else 0.0
             else:
@@ -273,10 +289,12 @@ def weigh(blocks, counts, funcs, pixels, src_lines):
     return whole, bodies
 
 
-def captured_chains(n):
+def captured_chains(n, meta_out=None):
     """(x, chain) of each chain call of config n's pipe at its frame."""
     h, w = configs.FRAMES[n]
     raw, meta, scene = synth_raw(h=h, w=w, kind="gradients")
+    if meta_out is not None:
+        meta_out.append(meta)
     if n in configs.XTRANS_CONFIGS:
         raw, meta = configs.remosaic_xtrans(meta, scene)
     pipe = port.compile_pipeline(meta, configs.history(n))
@@ -291,6 +309,18 @@ def captured_chains(n):
     return calls
 
 
+def opcode_jobs():
+    """((10, op[, formula]), x, chain) of each op of configs.GRADING_CASES
+    as a one-stage chain on config 10's chain inputs, as chip_smoke.py
+    launches them."""
+    meta = []
+    calls = captured_chains(10, meta)
+    return [(key, x, configs.opcode_chain(meta[0], name, prm, x.shape,
+                                          x.device))
+            for key, x, name, prm in configs.grading_jobs(
+                [x for x, _ in calls])]
+
+
 def fmt(parts):
     """'kind n.n, ...' of a {kind: instructions per pixel}."""
     return ", ".join(f"{k} {v:.1f}" for k, v in sorted(parts.items()))
@@ -298,8 +328,10 @@ def fmt(parts):
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--configs", type=int, nargs="+", default=[1, 2, 3, 4, 7])
+    ap.add_argument("--configs", type=int, nargs="+",
+                    default=[1, 2, 3, 4, 7, 10])
     ap.add_argument("--stride", type=int, default=64)
+    ap.add_argument("--opcodes", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("chain_count: no CUDA device")
@@ -310,21 +342,23 @@ def main():
         print(f"[sass] {KERNEL}: {sum(len(b) for b in blocks)} instructions "
               f"in {len(blocks)} blocks (slow paths left out)", flush=True)
         exe = host_source(tmp)
-        for n in args.configs:
-            for i, (x, chain) in enumerate(captured_chains(n)):
-                xs = x.reshape(3, -1)[:, ::args.stride].cpu().numpy()
-                counts, funcs = line_counts(exe, tmp, xs, chain)
-                whole, bodies = weigh(blocks, counts, funcs, xs.shape[1],
-                                      src_lines)
-                table[(n, i)] = (round(bodies["fp32"]),
-                                 round(bodies["mufu"]))
-                ops = [int(r[0]) for r in
-                       chain.prog.view(-1, pw.RECORD).tolist()]
-                print(f"[count] config {n} chain {i} opcodes {ops} on "
-                      f"{xs.shape[1]} pixels of {tuple(x.shape)}: kernel "
-                      f"{sum(whole.values()):.1f} per pixel ({fmt(whole)}); "
-                      f"opcode bodies {sum(bodies.values()):.1f} "
-                      f"({fmt(bodies)})", flush=True)
+        jobs = [((n, i), x, chain) for n in args.configs
+                for i, (x, chain) in enumerate(captured_chains(n))]
+        if args.opcodes:
+            jobs += opcode_jobs()
+        for key, x, chain in jobs:
+            xs = x.reshape(3, -1)[:, ::args.stride].cpu().numpy()
+            counts, funcs = line_counts(exe, tmp, xs, chain)
+            whole, bodies = weigh(blocks, counts, funcs, xs.shape[1],
+                                  src_lines)
+            table[key] = (round(bodies["fp32"]), round(bodies["mufu"]))
+            ops = [int(r[0]) for r in
+                   chain.prog.view(-1, pw.RECORD).tolist()]
+            print(f"[count] {key} opcodes {ops} on "
+                  f"{xs.shape[1]} pixels of {tuple(x.shape)}: kernel "
+                  f"{sum(whole.values()):.1f} per pixel ({fmt(whole)}); "
+                  f"opcode bodies {sum(bodies.values()):.1f} "
+                  f"({fmt(bodies)})", flush=True)
     print("OPS_CHAIN = " + repr(table), flush=True)
 
 

@@ -1083,3 +1083,127 @@ def test_config9_export_on_cuda_matches_cpu(cuda, tmp_path):
     assert got.shape == want.shape
     assert np.abs(got.astype(np.int64) - want).max() / 65535.0 \
         <= 1.0 / 255.0
+
+
+# --- the grading opcodes, config 10's chains and atrous -------------------
+
+GRADING = [(name, kind, label, params)
+           for name, kind, a, b in configs.GRADING_CASES
+           for label, params in (("A", a), ("B", b))]
+
+
+def _grading_input(kind, hw, cuda, seed=12):
+    """Work RGB in [-0.05, 1.6] or Lab (L in [0, 100], a, b in +-80),
+    some zeros."""
+    rng = np.random.default_rng(seed)
+    if kind == "lab":
+        x = np.stack([rng.uniform(0.0, 100.0, hw), rng.uniform(-80, 80, hw),
+                      rng.uniform(-80, 80, hw)])
+    else:
+        x = rng.uniform(-0.05, 1.6, (3,) + hw)
+    x = x.astype(np.float32)
+    x[:, 0, :3] = 0.0
+    return torch.from_numpy(x).to(cuda)
+
+
+@pytest.mark.parametrize("name,kind,label,params", GRADING,
+                         ids=[f"{n}-{l}" for n, _, l, _ in GRADING])
+def test_grading_opcode_matches_plain(cuda, name, kind, label, params):
+    """Each opcode as a one-stage chain (the interpreter: no specialised
+    program holds one), on a frame of whole tiles and an odd one, against
+    its plain twin; both bounds scale with the output's largest magnitude
+    (Lab outputs reach 100 and more), as chip_smoke.py's do."""
+    meta = synth_raw(h=16, w=16)[1]
+    for hw in [(64, 256), (5, 7)]:
+        x = _grading_input(kind, hw, cuda)
+        chain = configs.opcode_chain(meta, name, params, x.shape, cuda)
+        assert chain.fixed == -1
+        before = pw.LAUNCHES
+        got = pw.pointwise_chain(x, chain)
+        assert pw.LAUNCHES == before + 1
+        want = pw.pointwise_chain_reference(x, chain)
+        torch.cuda.synchronize()
+        assert torch.isfinite(want).all() and torch.isfinite(got).all()
+        assert (want - x).abs().max().item() > 1e-3
+        scale = max(1.0, want.abs().max().item())
+        d = (got - want).abs()
+        assert d.max().item() <= CHAIN_MAX_TOL * scale, (d.max().item(), scale)
+        assert d.mean().item() <= CHAIN_MEAN_TOL * scale, \
+            (d.mean().item(), scale)
+
+
+def _config10_calls(cuda, h=144, w=400):
+    """Config 10 on the card at h x w: (pipe, output, the chain calls'
+    (x, chain), the atrous EAW calls' (x, scale, sharpen), launches)."""
+    raw, meta, _ = synth_raw(h=h, w=w, kind="gradients")
+    pipe = port.compile_pipeline(meta, configs.history(10), device=cuda)
+    calls = {"chain": [], "eaw": []}
+    real_chain, real_eaw = pw.pointwise_chain, eaw.eaw_atrous_coarse
+
+    def ch(x, c):
+        calls["chain"].append((x, c))
+        return real_chain(x, c)
+
+    def ew(x, s, k):
+        calls["eaw"].append((x, s, k))
+        return real_eaw(x, s, k)
+
+    pw.pointwise_chain, eaw.eaw_atrous_coarse = ch, ew
+    rcd.LAUNCHES = pw.LAUNCHES = eaw.LAUNCHES = 0
+    try:
+        out = pipe.output_array(raw)
+    finally:
+        pw.pointwise_chain, eaw.eaw_atrous_coarse = real_chain, real_eaw
+    launches = (rcd.LAUNCHES, pw.LAUNCHES, eaw.LAUNCHES)
+    return pipe, out, raw, meta, calls, launches
+
+
+def test_config10_chains_on_cuda(cuda):
+    """Config 10's two chains run their specialised programs (with_pos in
+    both: graduatednd in the first, vignette in the second), equal to the
+    interpreter bit for bit and to the plain twins within the chain's
+    tolerance; the pipe launches RCD once, the chain twice and the atrous
+    EAW once a scale, and matches the CPU run within a display code."""
+    pipe, out, raw, meta, calls, launches = _config10_calls(cuda)
+    scales = [s for s in pipe.pipe.stages if s.name == "atrous"][0].plan.static
+    assert launches == (1, 2, scales)
+    assert len(calls["chain"]) == 2
+    for x, chain in calls["chain"]:
+        assert chain.fixed >= 0
+        got = pw.pointwise_chain(x, chain)
+        interpreted = pw.pointwise_chain(x, dataclasses.replace(chain,
+                                                                fixed=-1))
+        want = pw.pointwise_chain_reference(x, chain)
+        torch.cuda.synchronize()
+        assert torch.equal(got, interpreted)
+        scale = max(1.0, want.abs().max().item())
+        d = (got - want).abs()
+        assert d.max().item() <= CHAIN_MAX_TOL * scale, (d.max().item(), scale)
+        assert d.mean().item() <= CHAIN_MEAN_TOL * scale
+    want = port.compile_pipeline(meta, configs.history(10),
+                                 device="cpu").output_array(raw)
+    assert np.abs(out - want).max() <= 1.0 / 255.0
+
+
+def test_atrous_kernel_on_config10_arguments(cuda):
+    """The EAW kernel's atrous variant on each scale config 10's atrous
+    hands it (Lab, sharpen 0.00125), at 144 x 400, and at the 24 MP
+    frame's shape on a Lab ramp with edges for the first three scales."""
+    _, _, _, _, calls, _ = _config10_calls(cuda)
+    assert calls["eaw"]
+    rng = np.random.default_rng(4)
+    big = np.stack([np.linspace(0, 100, 6016, dtype=np.float32)[None]
+                    .repeat(4000, 0),
+                    (40 * rng.standard_normal((4000, 6016))).astype(np.float32),
+                    np.zeros((4000, 6016), np.float32)])
+    big[:, 1000:2000, 2000:4000] += 20.0
+    big = torch.from_numpy(big).to(cuda)
+    cases = [(x, s, k) for x, s, k in calls["eaw"]] + [
+        (big, s, calls["eaw"][0][2]) for s in range(3)]
+    for x, s, k in cases:
+        got = eaw.eaw_atrous_coarse(x, s, k)
+        want = eaw.eaw_coarse_reference(x, s, k, eaw.ATROUS)
+        torch.cuda.synchronize()
+        for g, w_ in zip(got, want):
+            assert (g - w_).abs().max().item() <= STENCIL_TOL * max(
+                1.0, w_.abs().max().item())

@@ -287,7 +287,7 @@ def test_run_stages_schedules_each_stage_as_the_export(monkeypatch):
     real = pw.pointwise_chain
 
     def spy(x, chain):
-        chains.append(tuple(op for op, _ in chain.stages))
+        chains.append(tuple(op for op, _, _ in chain.stages))
         return real(x, chain)
 
     monkeypatch.setattr(pw, "pointwise_chain", spy)

@@ -161,9 +161,9 @@ def test_an_unknown_op_is_skipped(frame, pallas_rcd, op):
 
 def test_an_unported_reference_op_is_still_refused(frame):
     _, meta, _ = frame
-    with pytest.raises(NotImplementedError, match="colorbalancergb"):
+    with pytest.raises(NotImplementedError, match="lut3d"):
         ansel_tpu_torch.Pipeline(
-            meta, [ansel_tpu_torch.HistoryItem("colorbalancergb", {})],
+            meta, [ansel_tpu_torch.HistoryItem("lut3d", {})],
             device="cpu")
 
 

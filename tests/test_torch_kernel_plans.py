@@ -251,7 +251,7 @@ def _config_chains(config):
                   if kind == "chain"]
 
 
-@pytest.mark.parametrize("config", [1, 2, 3, 4, 7])
+@pytest.mark.parametrize("config", [1, 2, 3, 4, 7, 10])
 def test_pack_chain_picks_a_specialised_program(config):
     """Every chain the config builds has a kernel of its own: its
     (opcode, const offset) sequence is the chosen entry of FIXED, and the
@@ -266,11 +266,23 @@ def test_pack_chain_picks_a_specialised_program(config):
         assert list(c.host_consts) == c.consts.tolist()
 
 
+def test_pack_chain_fixed_consts_hold_config10():
+    """Config 10's second chain (colorbalancergb's 169 consts, three
+    curves) needs more than the 256 consts the fixed programs once took:
+    they take FIXED_CONSTS (4 KB), inside CUDA's 32764-byte parameters."""
+    _, chains = _config_chains(10)
+    sizes = [c.consts.numel() for _, _, c in chains]
+    assert sizes[1] > 256 and max(sizes) <= pw.FIXED_CONSTS
+    args = 8 + 8 + 8 + 4 + 4 * pw.MAX_STAGES * pw.STAGE_INTS \
+        + 4 * pw.FIXED_CONSTS
+    assert args <= 32764
+
+
 def test_pack_chain_interprets_an_unlisted_program():
     """A sequence outside FIXED runs the interpreter."""
     pipe, ((i, j, c),) = _config_chains(1)
     specs = [pipe.pipe._chain_spec(s) for s in pipe.pipe.stages[i:j]]
-    coeffs = [k for _, k in c.stages]
+    coeffs = [k for _, k, _ in c.stages]
     assert pw.pack_chain(specs, coeffs, "cpu").fixed == c.fixed >= 0
     assert pw.pack_chain(specs[:-1], coeffs[:-1], "cpu").fixed == -1
     assert pw.pack_chain(specs[::-1], coeffs[::-1], "cpu").fixed == -1

@@ -102,8 +102,10 @@ def _positional_exposure(pkg, monkeypatch):
 
     class Positional(type(plain)):
         def pointwise_spec(self, plan, ctx):
-            return dataclasses.replace(super().pointwise_spec(plan, ctx),
-                                       needs_pos=True)
+            spec = super().pointwise_spec(plan, ctx)
+            return dataclasses.replace(
+                spec, needs_pos=True,
+                fn=lambda x, c, yy, xx, _fn=spec.fn: _fn(x, c))
 
     monkeypatch.setitem(base._OPS, "exposure", Positional())
 
@@ -130,9 +132,16 @@ def test_positional_stage_is_a_full_frame_boundary(monkeypatch):
         assert same == (i <= at), p.name
     assert port.stages[at].op.roi_in(port.stages[at].plan, port.ctx,
                                      win) is None
-    # the chain kernel has no positions: the engine refuses to chain it
-    with pytest.raises(NotImplementedError):
-        ansel_tpu_torch.pipeline.engine.CompiledPipe(port)
+    # the chain kernel takes it; its chain ends there, where the window
+    # shrinks, and the next one runs on the window: the full run's crop
+    compiled = ansel_tpu_torch.pipeline.engine.CompiledPipe(port)
+    chains = [(i, j) for kind, i, j, _ in compiled.steps if kind == "chain"]
+    assert chains == [(at, at + 1), (at + 1, len(names))]
+    got = compiled.output_array(raw)
+    whole = ansel_tpu_torch.compile_pipeline(
+        meta, _hist(ansel_tpu_torch, CONFIG1), device="cpu").output_array(raw)
+    y0, x0, h, w = win
+    assert np.array_equal(got, whole[:, y0:y0 + h, x0:x0 + w])
 
 
 def test_resolve_history_matches_reference_for_config1():
@@ -212,7 +221,7 @@ def _xtrans(meta):
     ([("exposure", {"exposure": 5.0}), ("filmicrgb", {})], None, {}),
     ([("colorin", {"type": 0})], None, {}),                  # ICC file
     ([("colorout", {"type": 0})], None, {}),                 # ICC file
-    ([("colorbalancergb", {})], None, {}),                   # not ported
+    ([("lut3d", {})], None, {}),                             # not ported
     ([("denoiseprofile", {})], None, {}),          # automatic noise profile
     ([("diffuse", {"radius": 12})], None, {}),     # 6 wavelet scales
     # bilat's grid (mode 0) and bloom are ported: this case holds
