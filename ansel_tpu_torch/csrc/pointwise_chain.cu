@@ -61,6 +61,18 @@ enum Opcode {
   OP_NEGADOCTOR = 16,
   OP_VIGNETTE = 17,
   OP_GRADUATEDND = 18,
+  OP_VELVIA = 19,
+  OP_VIBRANCE = 20,
+  OP_COLORCONTRAST = 21,
+  OP_COLORCORRECTION = 22,
+  OP_COLISA = 23,
+  OP_SPLITTONING = 24,
+  OP_COLORIZE = 25,
+  OP_COLORBALANCE = 26,
+  OP_SPLITTONINGRGB = 27,
+  OP_LOWLIGHT = 28,
+  OP_PROFILE_GAMMA = 29,
+  OP_COLORCHECKER = 30,
 };
 enum Trc { TRC_SRGB = 0, TRC_LINEAR = 1, TRC_GAMMA = 2 };
 constexpr int MAX_STAGES = 16;
@@ -1057,6 +1069,254 @@ __device__ __forceinline__ void graduatednd(float* v, const float* k, float yy, 
   for (int i = 0; i < 3; ++i) v[i] = jmax(0.0f, v[i] / (k[5 + i] + k[8 + i] * density));
 }
 
+// ------------------------------------------------ the legacy look (19-30)
+// ansel_tpu/ops/{velvia,vibrance,colorcontrast,colorcorrection,colisa,
+// splittoning,colorize,colorbalance,splittoningrgb,lowlight,
+// profile_gamma,colorchecker}.py, each in its reference's operand order
+
+// velvia consts: strength 0, bias 1
+__device__ __forceinline__ void velvia(float* v, const float* k) {
+  float pmax = max3(v), pmin = min3(v);
+  float plum = (pmax + pmin) * 0.5f;
+  float psat = plum <= 0.5f ? (pmax - pmin) / (K(1e-5) + pmax + pmin)
+                            : (pmax - pmin) / (K(1e-5) + jmax(2.0f - pmax - pmin, 0.0f));
+  float bias = k[1];
+  float pweight = jclip(((1.0f - 1.5f * psat) + (1.0f + fabsf(plum - 0.5f) * 2.0f) * (1.0f - bias)) /
+                            (1.0f + (1.0f - bias)),
+                        0.0f, 1.0f);
+  float sat = k[0] * pweight;
+  float total = (v[0] + v[1]) + v[2];
+  for (int i = 0; i < 3; ++i) v[i] = jclip(v[i] + sat * (v[i] - (total - v[i]) * 0.5f), 0.0f, 1.0f);
+}
+
+// vibrance consts: amount 0
+__device__ __forceinline__ void vibrance(float* v, const float* k) {
+  float sw = sqrtf(v[1] * v[1] + v[2] * v[2]) / 256.0f;
+  float ls = 1.0f - k[0] * sw * 0.25f;
+  float ss = 1.0f + k[0] * sw;
+  v[0] = v[0] * ls;
+  v[1] = v[1] * ss;
+  v[2] = v[2] * ss;
+}
+
+// colorcontrast consts: slope 0 (3), offset 3 (3); ints: unbound
+__device__ __forceinline__ void colorcontrast(float* v, const float* k, const int* a) {
+  for (int i = 0; i < 3; ++i) v[i] = v[i] * k[i] + k[3 + i];
+  if (!a[0]) {
+    v[1] = jclip(v[1], -128.0f, 128.0f);
+    v[2] = jclip(v[2], -128.0f, 128.0f);
+  }
+}
+
+// colorcorrection consts: a_scale 0, a_base 1, b_scale 2, b_base 3,
+// saturation 4
+__device__ __forceinline__ void colorcorrection(float* v, const float* k) {
+  float A = k[4] * (v[1] + v[0] * k[0] + k[1]);
+  float B = k[4] * (v[2] + v[0] * k[2] + k[3]);
+  v[1] = A;
+  v[2] = B;
+}
+
+// colisa consts: contrast 0, m1sq 1, scale 2, gamma 3, saturation 4;
+// ints: linear contrast (the contrast slider at or below 0)
+__device__ __forceinline__ void colisa(float* v, const float* k, const int* a) {
+  float t = v[0] / 100.0f;
+  float L;
+  if (a[0]) {
+    L = k[0] * (100.0f * t - 50.0f) + 50.0f;
+  } else {
+    float s = 2.0f * t - 1.0f;
+    L = 50.0f * (k[2] * s / sqrtf(1.0f + k[1] * s * s) + 1.0f);
+  }
+  v[0] = 100.0f * powf(jmax(L / 100.0f, 0.0f), k[3]);
+  v[1] = v[1] * k[4];
+  v[2] = v[2] * k[4];
+}
+
+// Python's float % (torch.remainder): fmod, moved into the divisor's sign
+__device__ __forceinline__ float py_mod(float a, float b) {
+  float m = fmodf(a, b);
+  return (m != 0.0f && ((b < 0.0f) != (m < 0.0f))) ? m + b : m;
+}
+
+// ops/_hsl.hsl_to_rgb of one pixel
+__device__ void hsl_to_rgb(float h, float s, float l, float* rgb) {
+  float c = (1.0f - fabsf(2.0f * l - 1.0f)) * s;
+  float hp = py_mod(h, 1.0f) * 6.0f;
+  float xv = c * (1.0f - fabsf(py_mod(hp, 2.0f) - 1.0f));
+  float m = l - c / 2.0f;
+  float r, g, b;
+  if (hp < 1.0f) {
+    r = c, g = xv, b = 0.0f;
+  } else if (hp < 2.0f) {
+    r = xv, g = c, b = 0.0f;
+  } else if (hp < 3.0f) {
+    r = 0.0f, g = c, b = xv;
+  } else if (hp < 4.0f) {
+    r = 0.0f, g = xv, b = c;
+  } else if (hp < 5.0f) {
+    r = xv, g = 0.0f, b = c;
+  } else {
+    r = c, g = 0.0f, b = xv;
+  }
+  rgb[0] = r + m;
+  rgb[1] = g + m;
+  rgb[2] = b + m;
+}
+
+// splittoning consts: shadow hue 0, shadow saturation 1, highlight hue 2,
+// highlight saturation 3, balance 4, compress 5
+__device__ __forceinline__ void splittoning(float* v, const float* k) {
+  float xc[3];
+  for (int i = 0; i < 3; ++i) xc[i] = jclip(v[i], 0.0f, 1.0f);
+  float l = (max3(xc) + min3(xc)) * 0.5f;
+  float sh[3], hl[3];
+  hsl_to_rgb(k[0], k[1], l, sh);
+  hsl_to_rgb(k[2], k[3], l, hl);
+  float ra_sh = jclip((k[4] - k[5] - l) * 2.0f, 0.0f, 1.0f);
+  float ra_hl = jclip((l - (k[4] + k[5])) * 2.0f, 0.0f, 1.0f);
+  for (int i = 0; i < 3; ++i) {
+    float o = xc[i] * (1.0f - ra_sh) + sh[i] * ra_sh;
+    o = o * (1.0f - ra_hl) + hl[i] * ra_hl;
+    v[i] = jclip(o, 0.0f, 1.0f);
+  }
+}
+
+// colorize consts: L target less half the mix 0, mix 1, a 2, b 3
+__device__ __forceinline__ void colorize(float* v, const float* k) {
+  v[0] = k[0] + v[0] * k[1];
+  v[1] = 0.0f + k[2];
+  v[2] = 0.0f + k[3];
+}
+
+// colorbalance consts: lift 0, gamma 3, gain 6 (per channel, the master
+// folded in), saturation 9, saturation_out 10, contrast 11, grey 12, work
+// Y row 13; ints: mode
+enum { CB_LIFT_GAMMA_GAIN = 0, CB_SLOPE_OFFSET_POWER = 1 };
+__device__ __forceinline__ void colorbalance(float* v, const float* k, const int* a) {
+  const float* yw = k + 13;
+  float lum = yw[0] * v[0] + yw[1] * v[1] + yw[2] * v[2];
+  float o[3];
+  for (int i = 0; i < 3; ++i) {
+    float s = jmax(lum + k[9] * (v[i] - lum), 0.0f);
+    float ig = 1.0f / jmax(k[3 + i], K(1e-6));
+    float base = a[0] == CB_SLOPE_OFFSET_POWER ? s * k[6 + i] + (k[i] - 1.0f)
+                                               : k[6 + i] * (s + (k[i] - 1.0f) * (1.0f - s));
+    o[i] = powf(jmax(base, 0.0f), ig);
+  }
+  float grey = k[12];
+  for (int i = 0; i < 3; ++i) o[i] = grey * powf(jmax(o[i] / grey, K(1e-9)), k[11]);
+  lum = yw[0] * o[0] + yw[1] * o[1] + yw[2] * o[2];
+  for (int i = 0; i < 3; ++i) v[i] = lum + k[10] * (o[i] - lum);
+}
+
+// splittoningrgb consts: dark matrix 0, bright matrix 9, dark key 18,
+// bright key 19, work Y row 20
+__device__ __forceinline__ void splittoningrgb(float* v, const float* k) {
+  const float *dm = k, *bm = k + 9, *y = k + 20;
+  float lum = jmax(y[0] * v[0] + y[1] * v[1] + y[2] * v[2], 0.0f);
+  float dl = k[18], bl = k[19];
+  float seg = jmax(bl - dl, NORM_MIN);
+  float a_dark = jclip(1.0f - (dl - lum) / seg, 0.0f, 1.0f);
+  float a_mid = jclip((lum - dl) / seg, 0.0f, 1.0f);
+  float a_bright = jclip(1.0f - (lum - bl) / seg, 0.0f, 1.0f);
+  bool below = lum <= dl, above = lum >= bl;
+  float out[3];
+  for (int r = 0; r < 3; ++r) {
+    float acc = 0.0f;
+    for (int c = 0; c < 3; ++c) {
+      float id = r == c ? 1.0f : 0.0f;
+      float d = dm[3 * r + c], b = bm[3 * r + c];
+      float m = below   ? id + a_dark * (d - id)
+                : above ? id + a_bright * (b - id)
+                        : d + a_mid * (b - d);
+      acc = c == 0 ? m * v[c] : acc + m * v[c];
+    }
+    out[r] = acc;
+  }
+  for (int i = 0; i < 3; ++i) v[i] = out[i];
+}
+
+// lowlight consts: the transition curve (3 n: xs, ys, ms), the scotopic
+// white XYZ 3 n, the Lab white 3 n + 3; ints: n.  Lab <-> XYZ as
+// ansel_tpu/color/transforms.py computes them (the cube root as
+// exp(log(r) / 3))
+__device__ __forceinline__ void lowlight(float* v, const float* k, const int* a) {
+  const int n = a[0];
+  const float *sw = k + 3 * n, *wt = sw + 3;
+  float fy = (v[0] + 16.0f) / 116.0f;
+  float f[3] = {fy + v[1] / 500.0f, fy, fy - v[2] / 200.0f};
+  float xyz[3];
+  for (int i = 0; i < 3; ++i) {
+    float f3 = f[i] * f[i] * f[i];
+    xyz[i] = (f3 > K(LAB_EPS) ? f3 : (116.0f * f[i] - 16.0f) / K(LAB_KAPPA)) * wt[i];
+  }
+  float denom = jmax(xyz[0], K(0.01));
+  float V = xyz[1] * (K(1.33) * (1.0f + (xyz[1] + xyz[2]) / denom) - K(1.68));
+  V = jclip(0.5f * V, 0.0f, 1.0f);
+  float w = jclip(eval_curve(v[0] / 100.0f, k, n), 0.0f, 1.0f);
+  for (int i = 0; i < 3; ++i) {
+    float mixed = w * xyz[i] + (1.0f - w) * V * sw[i];
+    float r = mixed / wt[i];
+    float croot = expf(logf(jmax(r, K(1e-12))) * K(1.0 / 3.0));
+    f[i] = r > K(LAB_EPS) ? croot : (K(LAB_KAPPA) * r + 16.0f) / 116.0f;
+  }
+  v[0] = 116.0f * f[1] - 16.0f;
+  v[1] = 500.0f * (f[0] - f[1]);
+  v[2] = 200.0f * (f[1] - f[2]);
+}
+
+// profile_gamma, log mode consts: grey 0, shadows 1, range 2; gamma mode
+// consts: a 0, b 1, c 2, g 3, linear 4; ints: the branch (0 log, 1 a
+// scale, 2 a pure power, 3 a power with a linear toe)
+constexpr double PG_NOISE = 1.52587890625e-05;  // 2^-16
+__device__ __forceinline__ void profile_gamma(float* v, const float* k, const int* a) {
+  for (int i = 0; i < 3; ++i) {
+    float x = v[i];
+    switch (a[0]) {
+      case 0: {
+        float t = jmax(x / k[0], K(PG_NOISE));
+        t = (log2f(t) - k[1]) / k[2];
+        v[i] = jmax(t, K(PG_NOISE));
+        break;
+      }
+      case 1: v[i] = x * k[2]; break;
+      case 2: v[i] = powf(jmax(x, 0.0f), k[3]); break;
+      default: {
+        float toe = k[2] * x;
+        float power = powf(jmax(k[0] * jmax(x, 0.0f) + k[1], 0.0f), k[3]);
+        v[i] = x < k[4] ? toe : power;
+      }
+    }
+  }
+}
+
+// colorchecker consts: coeff_L, coeff_a, coeff_b (N + 4 each: the N
+// patches' weights, then offset, L, a, b), the N source patches (3 N);
+// ints: N (at most 12 in a chain; the patch loop a run-time bound)
+__device__ __forceinline__ void colorchecker(float* v, const float* k, const int* a) {
+  const int N = a[0];
+  const float *cl = k, *ca = k + (N + 4), *cb = k + 2 * (N + 4), *src = k + 3 * (N + 4);
+  const float x0 = v[0], x1 = v[1], x2 = v[2];
+  float oL = cl[N] + cl[N + 1] * x0 + cl[N + 2] * x1 + cl[N + 3] * x2;
+  float oa = ca[N] + ca[N + 1] * x0 + ca[N + 2] * x1 + ca[N + 3] * x2;
+  float ob = cb[N] + cb[N + 1] * x0 + cb[N + 2] * x1 + cb[N + 3] * x2;
+  // the patch loop stays rolled; the channels are written out (no inner
+  // loop), so scripts/chain_count.py weighs each line by its iterations
+#pragma unroll 1
+  for (int j = 0; j < N; ++j) {
+    float d0 = x0 - src[3 * j], d1 = x1 - src[3 * j + 1], d2 = x2 - src[3 * j + 2];
+    float r2 = d0 * d0 + d1 * d1 + d2 * d2;
+    float phi = r2 * logf(jmax(r2, K(1e-8)));
+    oL = oL + cl[j] * phi;
+    oa = oa + ca[j] * phi;
+    ob = ob + cb[j] * phi;
+  }
+  v[0] = oL;
+  v[1] = oa;
+  v[2] = ob;
+}
+
 // whether opcode OP reads the pixel's position
 template <int OP>
 constexpr bool reads_pos() {
@@ -1103,6 +1363,30 @@ __device__ __forceinline__ void apply(float* v, const float* k, const int* a, fl
     negadoctor(v, k);
   } else if constexpr (OP == OP_VIGNETTE) {
     vignette(v, k, yy, xx);
+  } else if constexpr (OP == OP_VELVIA) {
+    velvia(v, k);
+  } else if constexpr (OP == OP_VIBRANCE) {
+    vibrance(v, k);
+  } else if constexpr (OP == OP_COLORCONTRAST) {
+    colorcontrast(v, k, a);
+  } else if constexpr (OP == OP_COLORCORRECTION) {
+    colorcorrection(v, k);
+  } else if constexpr (OP == OP_COLISA) {
+    colisa(v, k, a);
+  } else if constexpr (OP == OP_SPLITTONING) {
+    splittoning(v, k);
+  } else if constexpr (OP == OP_COLORIZE) {
+    colorize(v, k);
+  } else if constexpr (OP == OP_COLORBALANCE) {
+    colorbalance(v, k, a);
+  } else if constexpr (OP == OP_SPLITTONINGRGB) {
+    splittoningrgb(v, k);
+  } else if constexpr (OP == OP_LOWLIGHT) {
+    lowlight(v, k, a);
+  } else if constexpr (OP == OP_PROFILE_GAMMA) {
+    profile_gamma(v, k, a);
+  } else if constexpr (OP == OP_COLORCHECKER) {
+    colorchecker(v, k, a);
   } else {
     static_assert(OP == OP_GRADUATEDND, "unknown opcode");
     graduatednd(v, k, yy, xx);
@@ -1152,6 +1436,18 @@ chain(const float* __restrict__ x, float* __restrict__ y, long long n, int w,
         case OP_NEGADOCTOR: apply<OP_NEGADOCTOR>(v, k, a, yy, xx); break;
         case OP_VIGNETTE: apply<OP_VIGNETTE>(v, k, a, yy, xx); break;
         case OP_GRADUATEDND: apply<OP_GRADUATEDND>(v, k, a, yy, xx); break;
+        case OP_VELVIA: apply<OP_VELVIA>(v, k, a, yy, xx); break;
+        case OP_VIBRANCE: apply<OP_VIBRANCE>(v, k, a, yy, xx); break;
+        case OP_COLORCONTRAST: apply<OP_COLORCONTRAST>(v, k, a, yy, xx); break;
+        case OP_COLORCORRECTION: apply<OP_COLORCORRECTION>(v, k, a, yy, xx); break;
+        case OP_COLISA: apply<OP_COLISA>(v, k, a, yy, xx); break;
+        case OP_SPLITTONING: apply<OP_SPLITTONING>(v, k, a, yy, xx); break;
+        case OP_COLORIZE: apply<OP_COLORIZE>(v, k, a, yy, xx); break;
+        case OP_COLORBALANCE: apply<OP_COLORBALANCE>(v, k, a, yy, xx); break;
+        case OP_SPLITTONINGRGB: apply<OP_SPLITTONINGRGB>(v, k, a, yy, xx); break;
+        case OP_LOWLIGHT: apply<OP_LOWLIGHT>(v, k, a, yy, xx); break;
+        case OP_PROFILE_GAMMA: apply<OP_PROFILE_GAMMA>(v, k, a, yy, xx); break;
+        case OP_COLORCHECKER: apply<OP_COLORCHECKER>(v, k, a, yy, xx); break;
         default: break;  // the wrapper admits known opcodes only
       }
     }
@@ -1253,6 +1549,14 @@ using Fixed = std::tuple<
     Prog<Stage<OP_MATRIX, 0>, Stage<OP_CHANNELMIXERRGB, 9>, Stage<OP_FILMIC_AGX, 76>,
          Stage<OP_COLOROUT, 146>>,
     Prog<Stage<OP_MATRIX, 0>, Stage<OP_FILMIC_AGX, 9>, Stage<OP_COLOROUT, 79>>,
+    // config 11: exposure, colorin, channelmixerrgb, colorbalance,
+    // filmicrgb, to Lab, colisa, colorcontrast, from Lab, velvia, to Lab,
+    // vibrance, from Lab, splittoning, colorout
+    Prog<Stage<OP_EXPOSURE, 0>, Stage<OP_MATRIX, 2>, Stage<OP_CHANNELMIXERRGB, 11>,
+         Stage<OP_COLORBALANCE, 78>, Stage<OP_FILMIC_AGX, 94>, Stage<OP_CONVERT_WORK_LAB, 164>,
+         Stage<OP_COLISA, 176>, Stage<OP_COLORCONTRAST, 181>, Stage<OP_CONVERT_LAB_WORK, 187>,
+         Stage<OP_VELVIA, 199>, Stage<OP_CONVERT_WORK_LAB, 201>, Stage<OP_VIBRANCE, 213>,
+         Stage<OP_CONVERT_LAB_WORK, 214>, Stage<OP_SPLITTONING, 226>, Stage<OP_COLOROUT, 232>>,
     // config 10: exposure, graduatednd, colorin, channelmixerrgb, to Lab;
     // from Lab, colorbalancergb, rgbcurve, filmicrgb, to Lab, tonecurve,
     // colorzones, from Lab, vignette, colorout

@@ -1,11 +1,13 @@
-// The warps for Hopper (sm_90a): lens's distortion and TCA map, and
-// clipping's crop / rotate / keystone map, each by bilinear gather.
+// The warps for Hopper (sm_90a): lens's distortion and TCA map,
+// clipping's crop / rotate / keystone map and ashift's homography, each
+// by bilinear gather, and liquify's brush displacement over its stamps.
 //
 // Replaces: ansel_tpu/kernels/warp_pallas.py:warp_bilinear (the two-pass
-// Pallas resampler, driven by warp_model with lens's coordinate map, and
-// through ops/_warpcommon.warp_static with clipping's).  On a GPU the
-// gather is direct, so the kernel follows the JAX package's CPU form
-// operation for operation.  Lens (ops/lens.py: coord, _sample_bilinear):
+// Pallas resampler, driven by warp_model with lens's and liquify's
+// coordinate maps, and through ops/_warpcommon.warp_static with
+// clipping's and ashift's).  On a GPU the gather is direct, so the kernel
+// follows the JAX package's CPU form operation for operation.  Lens
+// (ops/lens.py: coord, _sample_bilinear):
 //   yn, xn = (y - cy) / rnorm, (x - cx) / rnorm;  r = sqrt(yn^2 + xn^2)
 //   m      = the ptlens / poly3 / poly5 multiplier (or 1), / scale,
 //            times the channel's TCA polynomial t0 + t1 r + t2 r^2 (R, B)
@@ -20,20 +22,40 @@
 //     div = (d xx - a yy) hh + (b yy - e xx) hg + ae - bd
 //     sx, sy = (e xx - b yy) / div + kxa, -(d xx - a yy) / div + kya
 //   (sy, sx) -= 0.5; zero where the source is outside the frame
-// and both sample the four corners of (clip(floor(s), 0, n - 2)) weighted
-// by clip(s - corner, 0, 1), summed in order.  Built with --fmad=false and
+// Ashift (ops/ashift.py:161-184): the inverse homography m, rounded to 12
+// digits on the host and then to float32,
+//   den = m6 x + m7 y + m8, 1e-9 where |den| < 1e-9
+//   sx = (m0 x + m1 y + m2) / den, sy = (m3 x + m4 y + m5) / den
+//   zero where the source is outside [0, w - 1] x [0, h - 1]
+// Liquify (ops/liquify.py:248-308, the per-pixel form every backend but
+// the TPU runs): over the stamp-union window, the displacement
+//   d(p) = -sum_k where(r_k(p) < 1, clip(poly_k(r_k), 0, 1), 0) . S_k(p)
+// with r_k = |p - c_k| / R_k, poly_k a degree-8 polynomial in Horner
+// form and S_k the stamp's vector or, for a radial stamp, its magnitude
+// times (p - c_k) / R_k times +1 or -1; then src = p + d(p), sampled from
+// the whole frame and written into a copy of it.
+// All sample the four corners of (clip(floor(s), 0, n - 2)) weighted by
+// clip(s - corner, 0, 1), summed in order.  Built with --fmad=false and
 // true divisions, like the plain twins (kernels/warp.py).
 //
 // What bounds it: memory.  Three planes read and three written, 24 B per
 // pixel (0.17 ms at 24 MP and 3.35 TB/s), against some 45 float32
-// operations per channel-pixel for lens and about 30 per pixel for
-// clipping's map.  The displacement of a crop or a small rotation is a
-// shift plus a few pixels per row, so a warp's corner reads stay within
-// rows the caches hold.
+// operations per channel-pixel for lens, about 30 per pixel for
+// clipping's map and 20 for the homography.  Liquify adds about 40
+// operations per pixel and stamp whose disc holds the pixel, which a
+// real brush path keeps to a few dozen per pixel.  The displacement of a
+// crop, a small rotation or a brush is a shift plus a few pixels per
+// row, so a warp's corner reads stay within rows the caches hold.
 //
 // Design: one thread per output pixel for all channels; the map is a
 // functor evaluated in the kernel (no coordinate planes in device memory),
-// and the sampler a device function the maps share.
+// and the sampler a device function the maps share.  Liquify's kernel
+// runs over the stamp-union window only, one 16 x 16 tile a block: the
+// stamps pass through shared memory in chunks of 256, each with a flag
+// (set by the thread that loads it) for whether its disc can reach the
+// tile; the block skips the others together.  The skip is exact, since a
+// stamp at r >= 1 adds -(+-0) to the sum, which leaves it as it is, and
+// the flag is conservative: a disc grown by 1% of its radius and 2 px.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -143,14 +165,48 @@ __device__ __forceinline__ bool clip_source(const ClipMap& k, int y, int x,
   return fx >= 0.0f && fx <= k.w_m1 && fy >= 0.0f && fy <= k.h_m1;
 }
 
-__global__ void clip_warp_kernel(const float* __restrict__ x,
-                                 float* __restrict__ out, int c, int h, int w,
-                                 int oh, int ow, const ClipMap k) {
+// ashift's inverse homography, as kernels/warp.HOMOGRAPHY_CONSTS orders
+// it (row-major), with the source frame's last row and column
+struct HomographyMap {
+  float m[9];
+  float w_m1, h_m1;
+};
+constexpr int HOMOGRAPHY_NCONSTS = 9;
+
+__device__ __forceinline__ bool homography_source(const HomographyMap& k,
+                                                  int y, int x, float& sy,
+                                                  float& sx) {
+  const float ys = (float)y, xs = (float)x;
+  float den = k.m[6] * xs + k.m[7] * ys + k.m[8];
+  den = fabsf(den) < 1e-9f ? 1e-9f : den;
+  sx = (k.m[0] * xs + k.m[1] * ys + k.m[2]) / den;
+  sy = (k.m[3] * xs + k.m[4] * ys + k.m[5]) / den;
+  return sx >= 0.0f && sx <= k.w_m1 && sy >= 0.0f && sy <= k.h_m1;
+}
+
+struct ClipSource {
+  ClipMap k;
+  __device__ bool operator()(int y, int x, float& sy, float& sx) const {
+    return clip_source(k, y, x, sy, sx);
+  }
+};
+struct HomographySource {
+  HomographyMap k;
+  __device__ bool operator()(int y, int x, float& sy, float& sx) const {
+    return homography_source(k, y, x, sy, sx);
+  }
+};
+
+// a static map's warp of (c, h, w) onto (c, oh, ow), zero outside
+template <class Map>
+__global__ void map_warp_kernel(const float* __restrict__ x,
+                                float* __restrict__ out, int c, int h, int w,
+                                int oh, int ow, const Map map) {
   const int px = blockIdx.x * BX + threadIdx.x;
   const int py = blockIdx.y * BY + threadIdx.y;
   if (px >= ow || py >= oh) return;
   float sy, sx;
-  const bool inside = clip_source(k, py, px, sy, sx);
+  const bool inside = map(py, px, sy, sx);
   const size_t plane = (size_t)h * w, oplane = (size_t)oh * ow;
   const size_t o = (size_t)py * ow + px;
   for (int ch = 0; ch < c; ++ch)
@@ -158,11 +214,94 @@ __global__ void clip_warp_kernel(const float* __restrict__ x,
         inside ? sample_bilinear(x + ch * plane, h, w, sy, sx) : 0.0f;
 }
 
+template <class Map>
+int launch_map(const float* x, float* out, int c, int h, int w, int oh,
+               int ow, const Map& map, cudaStream_t stream) {
+  const dim3 block(BX, BY);
+  const dim3 grid((ow + BX - 1) / BX, (oh + BY - 1) / BY);
+  map_warp_kernel<Map><<<grid, block, 0, stream>>>(x, out, c, h, w, oh, ow,
+                                                   map);
+  return (int)cudaGetLastError();
+}
+
+// ----------------------------------------------------------------- liquify
+// one stamp: centre, radius, vector, magnitude, radial sign, falloff
+// polynomial (highest power first), as kernels/warp.STAMP_FIELDS orders it
+constexpr int STAMP = 16;
+constexpr int S_PX = 0, S_PY = 1, S_R = 2, S_SX = 3, S_SY = 4, S_SMAG = 5,
+              S_RADIAL = 6, S_POLY = 7, POLY_TERMS = 9;
+constexpr int LT = 16;          // a block's tile: LT x LT pixels
+constexpr int CHUNK = LT * LT;  // stamps staged per pass, one per thread
+
+// one pixel's displacement: acc -= the stamp's term, in the order of
+// liquify.py:_dmap (Horner's degree-8 polynomial from f = 0, the clip and
+// the disc test as selects, the radial term ((f smag) dx / R) radial)
+__device__ __forceinline__ void stamp_term(const float* s, float xx, float yy,
+                                           float& ax, float& ay) {
+  const float dx = xx - s[S_PX], dy = yy - s[S_PY];
+  const float d = sqrtf(dx * dx + dy * dy) / s[S_R];
+  float f = 0.0f;
+#pragma unroll
+  for (int k = 0; k < POLY_TERMS; ++k) f = f * d + s[S_POLY + k];
+  f = d < 1.0f ? fminf(fmaxf(f, 0.0f), 1.0f) : 0.0f;
+  float tx, ty;
+  if (s[S_RADIAL] != 0.0f) {
+    tx = f * s[S_SMAG] * dx / s[S_R] * s[S_RADIAL];
+    ty = f * s[S_SMAG] * dy / s[S_R] * s[S_RADIAL];
+  } else {
+    tx = f * s[S_SX];
+    ty = f * s[S_SY];
+  }
+  ax = ax - tx;
+  ay = ay - ty;
+}
+
+// window (y0, x0, wh, ww) of out (a copy of x) <- x sampled at the
+// displaced positions; stamps: (k, STAMP) float32
+__global__ void __launch_bounds__(CHUNK)
+liquify_kernel(const float* __restrict__ x, float* __restrict__ out, int c,
+               int h, int w, int y0, int x0, int wh, int ww,
+               const float* __restrict__ stamps, int k) {
+  __shared__ float sst[CHUNK][STAMP + 1];
+  __shared__ int keep[CHUNK];
+  const int t = threadIdx.y * LT + threadIdx.x;
+  const int ty0 = y0 + blockIdx.y * LT, tx0 = x0 + blockIdx.x * LT;
+  const int py = ty0 + threadIdx.y, px = tx0 + threadIdx.x;
+  const float yy = (float)py, xx = (float)px;
+  // the tile's pixel centres span [tx0, tx1] x [ty0, ty1]
+  const float tx1 = (float)(tx0 + LT - 1), ty1 = (float)(ty0 + LT - 1);
+  float ax = 0.0f, ay = 0.0f;
+  for (int base = 0; base < k; base += CHUNK) {
+    const int n = min(CHUNK, k - base);
+    if (t < n) {
+      const float* src = stamps + (size_t)(base + t) * STAMP;
+#pragma unroll
+      for (int f = 0; f < STAMP; ++f) sst[t][f] = src[f];
+      const float cx = sst[t][S_PX], cy = sst[t][S_PY];
+      const float gx = fmaxf(fmaxf((float)tx0 - cx, cx - tx1), 0.0f);
+      const float gy = fmaxf(fmaxf((float)ty0 - cy, cy - ty1), 0.0f);
+      const float reach = sst[t][S_R] * 1.01f + 2.0f;
+      keep[t] = gx * gx + gy * gy < reach * reach;
+    }
+    __syncthreads();
+    for (int j = 0; j < n; ++j)
+      if (keep[j]) stamp_term(sst[j], xx, yy, ax, ay);
+    __syncthreads();
+  }
+  if (py >= y0 + wh || px >= x0 + ww) return;
+  const float sx = xx + ax, sy = yy + ay;
+  const size_t plane = (size_t)h * w, o = (size_t)py * w + px;
+  for (int ch = 0; ch < c; ++ch)
+    out[ch * plane + o] = sample_bilinear(x + ch * plane, h, w, sy, sx);
+}
+
 }  // namespace
 
 extern "C" {
 
 int clip_warp_nconsts() { return CLIP_NCONSTS; }
+int homography_warp_nconsts() { return HOMOGRAPHY_NCONSTS; }
+int liquify_stamp_floats() { return STAMP; }
 
 // x: (c, h, w), out: (c, oh, ow) float32 on the device, h, w >= 2;
 // consts: the CLIP_NCONSTS float32 constants in host memory; k_apply: the
@@ -172,13 +311,40 @@ int clip_warp(const float* x, float* out, int c, int h, int w, int oh,
               int ow, const float* consts, int k_apply, void* stream) {
   if (h < 2 || w < 2 || c < 1 || oh < 1 || ow < 1)
     return (int)cudaErrorInvalidValue;
-  ClipMap k;
-  memcpy(&k, consts, CLIP_NCONSTS * sizeof(float));
-  k.k_apply = k_apply;
-  const dim3 block(BX, BY);
-  const dim3 grid((ow + BX - 1) / BX, (oh + BY - 1) / BY);
-  clip_warp_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(x, out, c, h, w,
-                                                               oh, ow, k);
+  ClipSource map;
+  memcpy(&map.k, consts, CLIP_NCONSTS * sizeof(float));
+  map.k.k_apply = k_apply;
+  return launch_map(x, out, c, h, w, oh, ow, map, (cudaStream_t)stream);
+}
+
+// x: (c, h, w), out: (c, oh, ow) float32 on the device, h, w >= 2;
+// consts: the 9 float32 entries of the inverse homography (row-major) in
+// host memory.  Launches on `stream`, returns cudaGetLastError().
+int homography_warp(const float* x, float* out, int c, int h, int w, int oh,
+                    int ow, const float* consts, void* stream) {
+  if (h < 2 || w < 2 || c < 1 || oh < 1 || ow < 1)
+    return (int)cudaErrorInvalidValue;
+  HomographySource map;
+  memcpy(map.k.m, consts, HOMOGRAPHY_NCONSTS * sizeof(float));
+  map.k.w_m1 = (float)(w - 1);
+  map.k.h_m1 = (float)(h - 1);
+  return launch_map(x, out, c, h, w, oh, ow, map, (cudaStream_t)stream);
+}
+
+// x, out: (c, h, w) float32 on the device, out a copy of x, h, w >= 2;
+// the window (y0, x0, wh, ww) inside the frame; stamps: (k, STAMP)
+// float32 on the device.  Launches on `stream`, returns
+// cudaGetLastError().
+int liquify_warp(const float* x, float* out, int c, int h, int w, int y0,
+                 int x0, int wh, int ww, const float* stamps, int k,
+                 void* stream) {
+  if (h < 2 || w < 2 || c < 1 || wh < 1 || ww < 1 || k < 1 || y0 < 0 ||
+      x0 < 0 || y0 + wh > h || x0 + ww > w)
+    return (int)cudaErrorInvalidValue;
+  const dim3 block(LT, LT);
+  const dim3 grid((ww + LT - 1) / LT, (wh + LT - 1) / LT);
+  liquify_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
+      x, out, c, h, w, y0, x0, wh, ww, stamps, k);
   return (int)cudaGetLastError();
 }
 

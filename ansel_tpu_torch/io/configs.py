@@ -1,12 +1,15 @@
 """The bench configurations the port runs (`bench.py:CONFIGS`), and the
-port's own configs 7, 8, 9 and 10, defined once for the chip smoke, the
-profile script and the tests.
+port's own configs 7, 8, 9, 10 and 11, defined once for the chip smoke,
+the profile script and the tests.
 
 Each history is a tuple of (op, params) pairs, so that a test can build
 the JAX package's `HistoryItem`s from the same pairs as the port's.
 """
 
 from __future__ import annotations
+
+import math
+import struct
 
 # frame of bench configs 1 and 2: a 24 MP Bayer raw
 BENCH_H, BENCH_W = 4000, 6016
@@ -29,6 +32,72 @@ def _curves(*curves, maxnodes=20):
         flat = [v for node in nodes for v in node]
         out += flat + [0.0] * (2 * maxnodes - len(flat))
     return tuple(out)
+
+
+# liquify's node record (`ansel_tpu/ops/liquify.py:decode_nodes`, 76
+# bytes, 100 of them): header, warp, bezier controls
+LIQUIFY_NODES = 100
+PATH_MOVE, PATH_CURVE = 1, 3
+WARP_LINEAR, WARP_RADIAL_GROW, WARP_RADIAL_SHRINK = 0, 1, 2
+
+
+def liquify_node(ptype, prev, nxt, point, strength, radius, warp_type,
+                  control=(0.5, 0.5), ctrl1=0j, ctrl2=0j):
+    head = struct.pack("<4i3bB", ptype, 0, 0, 0, prev, 0, nxt, 0)
+    warp = struct.pack("<8fii", point.real, point.imag, strength.real,
+                       strength.imag, radius.real, radius.imag, control[0],
+                       control[1], warp_type, 0)
+    return head + warp + struct.pack("<4f", ctrl1.real, ctrl1.imag,
+                                     ctrl2.real, ctrl2.imag)
+
+
+def liquify_nodes(h: int, w: int) -> bytes:
+    """Config 11's liquify blob for an (h, w) frame: a retouch brush path
+    (one PATH_MOVE and three PATH_CURVE nodes, linear warps of radius 150
+    px and strength 40 px at 24 MP, across a stroke of about 1500 px),
+    then a radial-grow and a radial-shrink single stamp; every length
+    scales with w / 6016, so a small test frame holds the same
+    geometry."""
+    s = w / BENCH_W
+    path = [complex(0.36 * w, 0.55 * h), complex(0.45 * w, 0.50 * h),
+            complex(0.53 * w, 0.54 * h), complex(0.61 * w, 0.50 * h)]
+    push, reach = complex(0.0, -40.0 * s), 150.0 * s
+    blob = b""
+    for k, pt in enumerate(path):
+        nxt = k + 1 if k + 1 < len(path) else -1
+        if k == 0:
+            blob += liquify_node(PATH_MOVE, -1, nxt, pt, pt + push,
+                                  pt + reach, WARP_LINEAR)
+            continue
+        d = pt - path[k - 1]
+        bend = d * 0.15j
+        blob += liquify_node(PATH_CURVE, k - 1, nxt, pt, pt + push,
+                              pt + reach, WARP_LINEAR,
+                              ctrl1=path[k - 1] + d / 3.0 + bend,
+                              ctrl2=pt - d / 3.0 + bend)
+    for pt, grow, r, warp_type in (
+            (complex(0.25 * w, 0.35 * h), 60.0, 200.0, WARP_RADIAL_GROW),
+            (complex(0.75 * w, 0.65 * h), 50.0, 180.0, WARP_RADIAL_SHRINK)):
+        blob += liquify_node(PATH_MOVE, -1, -1, pt, pt + grow * s,
+                              pt + r * s, warp_type, control=(0.3, 0.7))
+    return blob + b"\0" * (76 * LIQUIFY_NODES - len(blob))
+
+
+def checker_patches(n: int) -> dict:
+    """colorchecker params with n patches: sources spread over Lab (L 20-90,
+    a and b on a circle of radius 15-45), each target moved by a few
+    units."""
+    src = [(20.0 + 70.0 * (k % 6) / 5.0,
+            (15.0 + 30.0 * (k % 4) / 3.0) * math.cos(2.0 * math.pi * k / n),
+            (15.0 + 30.0 * (k % 4) / 3.0) * math.sin(2.0 * math.pi * k / n))
+           for k in range(n)]
+    tgt = [(L + 2.0 + (k % 3), a * 1.05 + 3.0 * math.sin(k),
+            b * 0.95 - 2.0 * math.cos(k)) for k, (L, a, b) in enumerate(src)]
+    pad = (0.0,) * (49 - n)
+    return {"num_patches": n,
+            **{f"{kind}_{ch}": tuple(p[i] for p in pts) + pad
+               for kind, pts in (("source", src), ("target", tgt))
+               for i, ch in enumerate("Lab")}}
 
 
 HISTORIES = {
@@ -130,6 +199,30 @@ HISTORIES = {
          ("graduatednd", {"density": 1.0, "hardness": 20.0,
                           "rotation": 10.0, "hue": 0.6,
                           "saturation": 0.2})),
+    # the port's own: a pre-3.0 catalogue's look on config 1's develop,
+    # straightened and retouched: perspective correction (a 1.5-degree
+    # rotation and a vertical lens shift, crop mode on), a liquify brush
+    # path and two radial stamps, then the legacy look (colour balance's
+    # slope/offset/power with a warm gain and a cool lift, velvia,
+    # vibrance, colour contrast, contrast/brightness/saturation and split
+    # toning)
+    11: (("exposure", {"exposure": 0.5}),
+         ("channelmixerrgb", {}),
+         ("filmicrgb", {}),
+         ("ashift", {"rotation": 1.5, "lensshift_v": 0.25,
+                     "f_length": 28.0, "crop_factor": 1.5, "cropmode": 1,
+                     "cl": 0.03, "cr": 0.97, "ct": 0.03, "cb": 0.97}),
+         ("liquify", {"nodes": liquify_nodes(BENCH_H, BENCH_W)}),
+         ("colorbalance", {"mode": 1, "lift": (1.0, 0.99, 1.0, 1.012),
+                           "gamma": (1.0, 1.0, 1.02, 1.0),
+                           "gain": (1.0, 1.05, 1.0, 0.95),
+                           "saturation": 1.05, "contrast": 1.1}),
+         ("velvia", {"strength": 25.0}),
+         ("vibrance", {"amount": 25.0}),
+         ("colorcontrast", {"a_steepness": 1.2, "b_steepness": 1.2}),
+         ("colisa", {"contrast": 0.2, "brightness": 0.05,
+                     "saturation": 0.1}),
+         ("splittoning", {"compress": 20.0})),
 }
 
 # the eleven grading ops of the chain kernel (opcodes 8-18), each with two
@@ -185,6 +278,94 @@ GRADING_CASES = (
 )
 
 
+# the twelve legacy pointwise ops of the chain kernel (opcodes 19-30), as
+# (op, input kind, parameter sets): "rgb" work RGB, "lab" Lab, "camera"
+# camera RGB (profile_gamma runs before colorin).  The first set is
+# config 11's where config 11 has the op; each other set takes another
+# branch: colorbalance's three modes, colisa's sigmoid and linear
+# contrast, profile_gamma's log, toe and pure power forms, colorchecker
+# with 12 patches (in the chain) and 24 (alone, as the JAX package runs
+# it), splittoningrgb's coinciding keys, colorcontrast's clamp.
+_H11 = {op: p for op, p in HISTORIES[11]}
+LEGACY_CASES = (
+    ("velvia", "rgb", (_H11["velvia"], {"strength": 60.0, "bias": 0.3})),
+    ("vibrance", "lab", (_H11["vibrance"], {"amount": -40.0})),
+    ("colorcontrast", "lab",
+     (_H11["colorcontrast"],
+      {"a_steepness": 1.8, "a_offset": 10.0, "b_steepness": 0.7,
+       "b_offset": -5.0, "unbound": 0})),
+    ("colorcorrection", "lab",
+     ({"hia": 10.0, "hib": 15.0, "loa": -8.0, "lob": -12.0,
+       "saturation": 1.1},
+      {"hia": -5.0, "hib": 20.0, "loa": 5.0, "lob": -20.0,
+       "saturation": 0.8})),
+    ("colisa", "lab",
+     (_H11["colisa"],
+      {"contrast": -0.3, "brightness": -0.2, "saturation": -0.4})),
+    ("splittoning", "rgb",
+     (_H11["splittoning"],
+      {"shadow_hue": 0.6, "shadow_saturation": 0.8, "highlight_hue": 0.1,
+       "highlight_saturation": 0.7, "balance": 0.35, "compress": 5.0})),
+    ("colorize", "lab",
+     ({"hue": 0.08, "saturation": 0.6, "source_lightness_mix": 60.0,
+       "lightness": 45.0},
+      {"hue": 0.55, "saturation": 0.3, "source_lightness_mix": 20.0,
+       "lightness": 60.0})),
+    ("colorbalance", "rgb",
+     (_H11["colorbalance"],
+      {"mode": 0, "lift": (1.0, 1.02, 1.0, 0.98),
+       "gamma": (1.05, 1.0, 0.97, 1.0), "gain": (0.95, 1.0, 1.03, 1.0),
+       "saturation_out": 1.1, "grey": 20.0, "contrast": 0.9},
+      {"mode": 2, "lift": (0.98, 1.0, 1.0, 1.03),
+       "gamma": (1.0, 1.1, 1.0, 0.9), "gain": (1.02, 1.0, 1.0, 1.0),
+       "saturation": 0.9})),
+    ("splittoningrgb", "rgb",
+     ({"ev": (-3.0, 1.0), "temperature": (7000.0, 3500.0)},
+      {"ev": (-2.0, -2.0), "temperature": (4500.0, 6500.0),
+       "red": (0.9, 0.1, 0.0, 1.1, -0.1, 0.0),
+       "normalize": (1, 1, 1, 0, 0, 0)})),
+    ("lowlight", "lab",
+     ({"blueness": 40.0,
+       "transition_y": (1.0, 0.8, 0.6, 0.4, 0.2, 0.1)},
+      {"blueness": 0.0,
+       "transition_y": (0.2, 0.4, 0.6, 0.8, 0.9, 1.0)})),
+    ("profile_gamma", "camera",
+     ({"mode": 0}, {"mode": 1, "linear": 0.1, "gamma": 0.45},
+      {"mode": 1, "linear": 0.0, "gamma": 0.5})),
+    ("colorchecker", "lab", (checker_patches(12), checker_patches(24))),
+)
+# the stage of config 11's chain whose input each legacy op takes when it
+# runs alone on config 11's arguments: its own where config 11 has it,
+# else the first Lab stage (colisa's input), colour balance's (scene-
+# referred work RGB) or colorin's (camera RGB after exposure, where
+# profile_gamma sits)
+LEGACY_AT = {"lowlight": "colisa", "colorcorrection": "colisa",
+             "colorize": "colisa", "colorchecker": "colisa",
+             "splittoningrgb": "colorbalance", "profile_gamma": "colorin"}
+
+
+def legacy_jobs(x, chain, names):
+    """(key, x, op, params) of each LEGACY_CASES op as it runs alone on
+    config 11's arguments: `x` the input of config 11's chain, `chain`
+    that chain and `names` its stages' names; the stage inputs come from
+    the chain's plain twin stage by stage.  Keyed (11, op), profile_gamma
+    (11, op, i) for each of its sets, colorchecker on its first (12
+    patches, in the chain)."""
+    inputs = {}
+    for (fn, c, needs_pos), name in zip(chain.stages, names):
+        inputs.setdefault(name, x)
+        x = fn(x, c)
+    jobs = []
+    for name, _, sets in LEGACY_CASES:
+        xin = inputs[LEGACY_AT.get(name, name)]
+        if name == "profile_gamma":
+            jobs += [((11, name, i), xin, name, prm)
+                     for i, prm in enumerate(sets)]
+        else:
+            jobs.append(((11, name), xin, name, sets[0]))
+    return jobs
+
+
 def grading_jobs(chain_inputs):
     """(key, x, op, params) of each GRADING_CASES op as it runs alone on
     config 10's arguments: `chain_inputs` are the inputs of config 10's
@@ -204,7 +385,7 @@ def grading_jobs(chain_inputs):
 
 
 def opcode_chain(meta, op_name, params, shape, device, colorspace=None):
-    """One op of GRADING_CASES as a one-stage chain for a (3, H, W) array
+    """One op of GRADING_CASES or LEGACY_CASES as a one-stage chain for a (3, H, W) array
     `shape`: the op planned on a frame of that size in its input space
     (or `colorspace`), its coefficients on `device`, packed by
     `pointwise.pack_chain`."""
@@ -229,7 +410,8 @@ def opcode_chain(meta, op_name, params, shape, device, colorspace=None):
 FRAMES = {1: (BENCH_H, BENCH_W), 2: (BENCH_H, BENCH_W),
           3: (BENCH3_H, BENCH3_W), 4: (BENCH4_H, BENCH4_W),
           7: (BENCH_H, BENCH_W), 8: (BENCH_H, BENCH_W),
-          9: (BENCH_H, BENCH_W), 10: (BENCH_H, BENCH_W)}
+          9: (BENCH_H, BENCH_W), 10: (BENCH_H, BENCH_W),
+          11: (BENCH_H, BENCH_W)}
 # config 9's DNG: a 14-bit mosaic and a GainMap of 17 x 25 points per
 # RGGB filter
 DNG9_BITS = 14

@@ -23,6 +23,7 @@ interpreter.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import dataclasses
 import math
@@ -49,7 +50,19 @@ OP_COLORZONES = 15
 OP_NEGADOCTOR = 16
 OP_VIGNETTE = 17
 OP_GRADUATEDND = 18
-_KNOWN_OPS = frozenset(range(OP_EXPOSURE, OP_GRADUATEDND + 1))
+OP_VELVIA = 19
+OP_VIBRANCE = 20
+OP_COLORCONTRAST = 21
+OP_COLORCORRECTION = 22
+OP_COLISA = 23
+OP_SPLITTONING = 24
+OP_COLORIZE = 25
+OP_COLORBALANCE = 26
+OP_SPLITTONINGRGB = 27
+OP_LOWLIGHT = 28
+OP_PROFILE_GAMMA = 29
+OP_COLORCHECKER = 30
+_KNOWN_OPS = frozenset(range(OP_EXPOSURE, OP_COLORCHECKER + 1))
 TRC_SRGB, TRC_LINEAR, TRC_GAMMA = 0, 1, 2
 MAX_STAGES = 16
 STAGE_INTS = 8
@@ -84,6 +97,14 @@ FIXED = (
     ((OP_MATRIX, 0), (OP_CHANNELMIXERRGB, 9), (OP_FILMIC_AGX, 76),
      (OP_COLOROUT, 146)),
     ((OP_MATRIX, 0), (OP_FILMIC_AGX, 9), (OP_COLOROUT, 79)),
+    # config 11: exposure, colorin, channelmixerrgb, colorbalance,
+    # filmicrgb, to Lab, colisa, colorcontrast, from Lab, velvia, to Lab,
+    # vibrance, from Lab, splittoning, colorout
+    ((OP_EXPOSURE, 0), (OP_MATRIX, 2), (OP_CHANNELMIXERRGB, 11),
+     (OP_COLORBALANCE, 78), (OP_FILMIC_AGX, 94), (OP_CONVERT_WORK_LAB, 164),
+     (OP_COLISA, 176), (OP_COLORCONTRAST, 181), (OP_CONVERT_LAB_WORK, 187),
+     (OP_VELVIA, 199), (OP_CONVERT_WORK_LAB, 201), (OP_VIBRANCE, 213),
+     (OP_CONVERT_LAB_WORK, 214), (OP_SPLITTONING, 226), (OP_COLOROUT, 232)),
     # config 10: exposure, graduatednd, colorin, channelmixerrgb, to Lab;
     # from Lab, colorbalancergb, rgbcurve, filmicrgb, to Lab, tonecurve,
     # colorzones, from Lab, vignette, colorout
@@ -96,8 +117,10 @@ FIXED = (
 )
 
 # launches of the CUDA kernels since the count was last set to 0: one per
-# call, whether it runs a specialised program or the interpreter
+# call, whether it runs a specialised program or the interpreter; and the
+# same per program (its index in FIXED, -1 the interpreter)
 LAUNCHES = 0
+PROGRAM_LAUNCHES = collections.Counter()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -291,4 +314,5 @@ def pointwise_chain(x: torch.Tensor, chain: Chain) -> torch.Tensor:
     if rc != 0:
         raise RuntimeError(f"pointwise_chain: CUDA launch failed ({rc})")
     LAUNCHES += 1
+    PROGRAM_LAUNCHES[chain.fixed] += 1
     return y

@@ -1,7 +1,7 @@
 """The warps: the CUDA kernels (`csrc/warp.cu`) and their plain twins.
 
 Each resamples a (C, H, W) image at per-pixel source coordinates from a
-closed-form map evaluated per output pixel, with two maps:
+closed-form map evaluated per output pixel, with four maps:
 
 * lens's (`ansel_tpu/ops/lens.py` `coord`: the distortion multiplier of
   the ptlens, poly3 or poly5 model, `/ scale`, and per R/B channel the
@@ -9,26 +9,34 @@ closed-form map evaluated per output pixel, with two maps:
 * clipping's inverse map (`ansel_tpu/ops/clipping.py` `_inverse_coords`:
   translate, undo the keystone shears, rotate back, the optional
   projective keystone), with the outside mask folded in: an output
-  pixel whose source lies outside the frame is 0.
+  pixel whose source lies outside the frame is 0;
+* ashift's inverse homography (`ansel_tpu/ops/ashift.py` `apply`), its
+  outside mask folded in likewise;
+* liquify's brush displacement (`ansel_tpu/ops/liquify.py` `_dmap`): the
+  sum over its stamps at each pixel of the stamp-union window, the
+  window sampled from the whole frame and pasted into a copy of it.
 
 On the TPU the JAX package resamples with the two-pass Pallas warp
 (`ansel_tpu/kernels/warp_pallas.py:warp_bilinear`, driven by
-`warp_model`); on the CPU with a direct bilinear gather
-(`ops/lens.py:_sample_bilinear`).  A GPU gathers directly, so the port
-follows the CPU form operation for operation: corner (y0, x0) =
-clip(floor(s), 0, n - 2), weights clip(s - y0, 0, 1), the four corner
-terms summed in order.  Divisions are true divisions by tensors (a CUDA
-tensor divided by a Python float is multiplied by its reciprocal), as in
-the kernel.  Clipping's constants are float32 values computed on the
-host (`ops/clipping.clip_map`), as JAX rounds the float64 Python
-constants of `_inverse_coords`.
+`warp_model`, for liquify on a stride-8 grid of the map); on the CPU
+with a direct bilinear gather of the exact map (`ops/lens.py:
+_sample_bilinear`).  A GPU gathers directly, so the port follows the
+CPU form operation for operation: corner (y0, x0) = clip(floor(s), 0,
+n - 2), weights clip(s - y0, 0, 1), the four corner terms summed in
+order.  Divisions are true divisions by tensors (a CUDA tensor divided
+by a Python float is multiplied by its reciprocal), as in the kernel.
+Clipping's and ashift's constants are float32 values computed on the
+host (`ops/clipping.clip_map`, `ops/ashift.homography_consts`), as JAX
+rounds the float64 Python constants of their maps.
 
-`lens_warp` and `clip_warp` launch the kernel for a CUDA tensor and run
-`lens_warp_reference` / `clip_warp_reference` for a CPU tensor.
+`lens_warp`, `clip_warp`, `homography_warp` and `liquify_warp` launch
+the kernel for a CUDA tensor and run their `*_reference` twins for a CPU
+tensor.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import torch
@@ -43,15 +51,26 @@ MODIFY_TCA = 1
 MODIFY_VIGNETTING = 2
 MODIFY_DISTORTION = 8
 
-# launches of the CUDA kernels (both maps) since the count was last set
-# to 0
+# launches of the CUDA kernels (every map) since the count was last set
+# to 0, and the same per map ("lens", "clip", "homography", "liquify")
 LAUNCHES = 0
+MAP_LAUNCHES = collections.Counter()
 
 # clipping's float32 constants, in the order of csrc/warp.cu's ClipMap
 CLIP_CONSTS = ("c_px", "c_py", "t_px", "t_py", "k_h", "k_v", "m0", "m1",
                "m2", "m3", "tx", "ty", "ksp_x", "ksp_y", "a", "b", "d", "e",
                "hg", "hh", "ae", "bd", "kxa", "kya", "out_oy", "out_ox",
                "in_oy", "in_ox", "w_m1", "h_m1")
+
+
+# ashift's inverse homography: its nine entries, row-major
+HOMOGRAPHY_CONSTS = 9
+# one liquify stamp in the kernel's buffer: centre, radius, vector,
+# magnitude, radial sign (+1 grow, -1 shrink, 0 linear), then the nine
+# coefficients of its falloff polynomial, highest power first
+STAMP_FIELDS = ("px", "py", "R", "sx", "sy", "smag", "radial")
+POLY_TERMS = 9
+STAMP = len(STAMP_FIELDS) + POLY_TERMS
 
 
 def pack_consts(c) -> torch.Tensor:
@@ -162,6 +181,81 @@ def clip_warp_reference(x: torch.Tensor, k: torch.Tensor, k_apply: int,
     return torch.where(inside[None], out, torch.zeros((), device=x.device))
 
 
+def homography_coords(k: torch.Tensor, h: int, w: int, device):
+    """ashift's map on an (h, w) frame: -> (source y, source x, inside the
+    frame), each (h, w); `k` the HOMOGRAPHY_CONSTS (float32)."""
+    m = k.tolist()
+    f32 = torch.float32
+    ys = torch.arange(h, dtype=f32, device=device)[:, None]
+    xs = torch.arange(w, dtype=f32, device=device)[None, :]
+    den = m[6] * xs + m[7] * ys + m[8]
+    den = torch.where(torch.abs(den) < 1e-9,
+                      torch.full((), 1e-9, dtype=f32, device=device), den)
+    sx = (m[0] * xs + m[1] * ys + m[2]) / den
+    sy = (m[3] * xs + m[4] * ys + m[5]) / den
+    inside = (sx >= 0) & (sx <= w - 1) & (sy >= 0) & (sy <= h - 1)
+    return sy, sx, inside
+
+
+def homography_warp_reference(x: torch.Tensor, k: torch.Tensor
+                              ) -> torch.Tensor:
+    """Plain torch: (C, H, W) -> (C, H, W)."""
+    _, h, w = x.shape
+    sy, sx, inside = homography_coords(k, h, w, x.device)
+    out = torch.stack([sample_bilinear(x[i], sy, sx)
+                       for i in range(x.shape[0])])
+    return torch.where(inside[None], out, torch.zeros((), device=x.device))
+
+
+def pack_stamps(c) -> torch.Tensor:
+    """liquify's coefficient dict (each field (K,), poly (K, 9)) -> the
+    (K, STAMP) float32 buffer the kernel reads, on the coefficients'
+    device."""
+    cols = [c[k].reshape(-1, 1) for k in STAMP_FIELDS] + [c["poly"]]
+    return torch.cat(cols, dim=1).float().contiguous()
+
+
+def liquify_displacement(stamps: torch.Tensor, win):
+    """The stamps' summed displacement (dx, dy) at each pixel of the
+    window (y0, y1, x0, x1), each (y1 - y0, x1 - x0), and the pixels'
+    absolute (yy, xx): liquify.py's _dmap, stamp by stamp in order."""
+    y0, y1, x0, x1 = win
+    dev = stamps.device
+    f32 = torch.float32
+    xx = torch.arange(x1 - x0, dtype=f32, device=dev)[None, :] + x0
+    yy = torch.arange(y1 - y0, dtype=f32, device=dev)[:, None] + y0
+    xx, yy = xx.expand(y1 - y0, x1 - x0), yy.expand(y1 - y0, x1 - x0)
+    ax = torch.zeros_like(xx)
+    ay = torch.zeros_like(xx)
+    zero = torch.zeros((), dtype=f32, device=dev)
+    for s in stamps:
+        px, py, R, sx, sy, smag, radial = s[:len(STAMP_FIELDS)]
+        dx = xx - px
+        dy = yy - py
+        d = torch.sqrt(dx * dx + dy * dy) / R
+        f = torch.zeros_like(d)
+        for p in s[len(STAMP_FIELDS):]:
+            f = f * d + p
+        f = torch.where(d < 1.0, torch.clamp(f, 0.0, 1.0), zero)
+        is_rad = radial != 0.0
+        ax = ax - torch.where(is_rad, f * smag * dx / R * radial, f * sx)
+        ay = ay - torch.where(is_rad, f * smag * dy / R * radial, f * sy)
+    return ax, ay, yy, xx
+
+
+def liquify_warp_reference(x: torch.Tensor, stamps: torch.Tensor,
+                           win) -> torch.Tensor:
+    """Plain torch: (C, H, W) -> (C, H, W), the window (y0, y1, x0, x1)
+    resampled at the displaced positions, the rest a copy of x."""
+    y0, y1, x0, x1 = win
+    ax, ay, yy, xx = liquify_displacement(stamps, win)
+    sx, sy = xx + ax, yy + ay
+    out = x.clone()
+    out[:, y0:y1, x0:x1] = torch.stack([sample_bilinear(x[i], sy, sx)
+                                        for i in range(x.shape[0])])
+    return out
+
+
 def _lib():
     from . import _build
 
@@ -172,12 +266,28 @@ def _lib():
         lib.lens_warp.restype = ctypes.c_int
         lib.clip_warp.argtypes = [p, p, i, i, i, i, i, p, i, p]
         lib.clip_warp.restype = ctypes.c_int
-        lib.clip_warp_nconsts.restype = ctypes.c_int
-        if lib.clip_warp_nconsts() != len(CLIP_CONSTS):
+        lib.homography_warp.argtypes = [p, p, i, i, i, i, i, p, p]
+        lib.homography_warp.restype = ctypes.c_int
+        lib.liquify_warp.argtypes = [p, p, i, i, i, i, i, i, i, p, i, p]
+        lib.liquify_warp.restype = ctypes.c_int
+        for fn in ("clip_warp_nconsts", "homography_warp_nconsts",
+                   "liquify_stamp_floats"):
+            getattr(lib, fn).argtypes = []
+            getattr(lib, fn).restype = ctypes.c_int
+        if (lib.clip_warp_nconsts(), lib.homography_warp_nconsts(),
+                lib.liquify_stamp_floats()) != (
+                    len(CLIP_CONSTS), HOMOGRAPHY_CONSTS, STAMP):
             raise RuntimeError("csrc/warp.cu and kernels/warp.py disagree on "
-                               "clipping's constants")
+                               "the maps' constants")
         lib._typed = True
     return lib
+
+
+def _check_image(x: torch.Tensor):
+    if (x.dtype != torch.float32 or x.dim() != 3 or not x.is_contiguous()
+            or min(x.shape[1:]) < 2):
+        raise ValueError("warp: needs a contiguous (C, H, W) float32 tensor "
+                         f"with H, W >= 2, got {x.dtype} {tuple(x.shape)}")
 
 
 def clip_warp(x: torch.Tensor, k: torch.Tensor, k_apply: int, oh: int,
@@ -194,10 +304,9 @@ def clip_warp(x: torch.Tensor, k: torch.Tensor, k_apply: int, oh: int,
         return clip_warp_reference(x, k, k_apply, oh, ow)
     if x.device.type != "cuda":
         raise ValueError(f"warp: unsupported device {x.device}")
-    if (x.dtype != torch.float32 or x.dim() != 3 or not x.is_contiguous()
-            or min(x.shape[1:]) < 2 or oh < 1 or ow < 1):
-        raise ValueError("warp: needs a contiguous (C, H, W) float32 tensor "
-                         f"with H, W >= 2, got {x.dtype} {tuple(x.shape)}")
+    _check_image(x)
+    if oh < 1 or ow < 1:
+        raise ValueError(f"clip_warp: empty output {oh}x{ow}")
     global LAUNCHES
     lib = _lib()
     c, h, w = x.shape
@@ -209,6 +318,73 @@ def clip_warp(x: torch.Tensor, k: torch.Tensor, k_apply: int, oh: int,
     if rc != 0:
         raise RuntimeError(f"warp: CUDA launch failed ({rc})")
     LAUNCHES += 1
+    MAP_LAUNCHES["clip"] += 1
+    return out
+
+
+def homography_warp(x: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """ashift's warp of a (C, H, W) float32 image onto the same frame, zero
+    where the source falls outside it; `k` the HOMOGRAPHY_CONSTS, float32
+    on the host.  A CPU tensor runs the plain version; a CUDA tensor
+    launches csrc/warp.cu."""
+    k = k.detach().to("cpu", torch.float32).contiguous()
+    if k.numel() != HOMOGRAPHY_CONSTS:
+        raise ValueError(f"homography_warp: needs {HOMOGRAPHY_CONSTS} "
+                         f"constants, got {k.numel()}")
+    if x.device.type == "cpu":
+        return homography_warp_reference(x, k)
+    if x.device.type != "cuda":
+        raise ValueError(f"warp: unsupported device {x.device}")
+    _check_image(x)
+    global LAUNCHES
+    lib = _lib()
+    c, h, w = x.shape
+    out = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.homography_warp(x.data_ptr(), out.data_ptr(), c, h, w, h,
+                                 w, k.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"warp: CUDA launch failed ({rc})")
+    LAUNCHES += 1
+    MAP_LAUNCHES["homography"] += 1
+    return out
+
+
+def liquify_warp(x: torch.Tensor, stamps: torch.Tensor,
+                 win) -> torch.Tensor:
+    """liquify's warp of a (C, H, W) float32 image: the window (y0, y1,
+    x0, x1) resampled at each pixel displaced by the sum of the stamps
+    (`pack_stamps`, (K, STAMP) float32 on the image's device), the rest a
+    copy.  A CPU tensor runs the plain version; a CUDA tensor copies the
+    image and launches csrc/warp.cu over the window, reading the image
+    and writing the copy."""
+    y0, y1, x0, x1 = (int(v) for v in win)
+    if x.device.type == "cpu":
+        return liquify_warp_reference(x, stamps, (y0, y1, x0, x1))
+    if x.device.type != "cuda":
+        raise ValueError(f"warp: unsupported device {x.device}")
+    _check_image(x)
+    c, h, w = x.shape
+    if not (0 <= y0 < y1 <= h and 0 <= x0 < x1 <= w):
+        raise ValueError(f"liquify_warp: window {win} outside {h}x{w}")
+    if (stamps.device != x.device or stamps.dtype != torch.float32
+            or stamps.dim() != 2 or stamps.shape[1] != STAMP
+            or stamps.shape[0] < 1 or not stamps.is_contiguous()):
+        raise ValueError("liquify_warp: needs (K, 16) float32 stamps on the "
+                         "image's device")
+    global LAUNCHES
+    lib = _lib()
+    out = x.clone()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.liquify_warp(x.data_ptr(), out.data_ptr(), c, h, w, y0, x0,
+                              y1 - y0, x1 - x0, stamps.data_ptr(),
+                              stamps.shape[0], stream)
+    if rc != 0:
+        raise RuntimeError(f"warp: CUDA launch failed ({rc})")
+    LAUNCHES += 1
+    MAP_LAUNCHES["liquify"] += 1
     return out
 
 
@@ -243,4 +419,5 @@ def lens_warp(x: torch.Tensor, k: torch.Tensor, model: int, flags: int,
     if rc != 0:
         raise RuntimeError(f"warp: CUDA launch failed ({rc})")
     LAUNCHES += 1
+    MAP_LAUNCHES["lens"] += 1
     return out

@@ -41,7 +41,13 @@ entry points a user calls, at their full frames:
     config 1 (graduatednd, atrous, colorbalancergb, rgbcurve, tonecurve,
     colorzones, vignette): RCD, the chain in two programs of 5 and 10
     stages that read pixel positions, and the EAW kernel's atrous
-    variant; each of the eleven grading opcodes is also held alone.
+    variant; each of the eleven grading opcodes is also held alone;
+  * the port's config 11 at 24 MP (4000 x 6016), a pre-3.0 catalogue's
+    look on config 1, straightened and retouched (ashift, liquify,
+    colorbalance, velvia, vibrance, colorcontrast, colisa, splittoning):
+    RCD, the warp kernel on ashift's homography and on liquify's brush
+    displacement over its window, and the chain in one program of 15
+    stages; each of the twelve legacy opcodes is also held alone.
     Config 2's NLM input also runs the lattices past the kernel's chunk
     (K 15) and a patch radius past its template limit (P 9).
 
@@ -135,6 +141,14 @@ STAGES10 = ["rawprepare", "temperature", "highlights", "demosaic",
             "_convert", "atrous", "_convert", "colorbalancergb", "rgbcurve",
             "filmicrgb", "_convert", "tonecurve", "colorzones", "_convert",
             "vignette", "colorout"]
+# config 11: RCD, the warp twice (ashift's homography, liquify's window),
+# one chain of 15 stages
+LAUNCHES11 = dict(NO_LAUNCHES, rcd=1, chain=1, warp=2)
+STAGES11 = ["rawprepare", "temperature", "highlights", "demosaic", "ashift",
+            "liquify", "exposure", "colorin", "channelmixerrgb",
+            "colorbalance", "filmicrgb", "_convert", "colisa",
+            "colorcontrast", "_convert", "velvia", "_convert", "vibrance",
+            "_convert", "splittoning", "colorout"]
 # run B's bounding box
 BOX9 = 2048
 NOISE_SIGMA = 200.0  # sensor units of 16383: a high-ISO mosaic
@@ -175,27 +189,40 @@ SFU_PER_S = 132 * 16 * 1.98e9
 # one max.NaN) and the MUFU instructions inside division, sqrtf, log2f
 # and powf, each basic block weighted by how often that config's chain
 # input takes its source lines (a gcov build of the same source over
-# every 64th pixel); compares, selects, branches, integer work and the
+# every 64th pixel; a block of an opcode body by its body instructions
+# alone, and not by a rolled loop's control, which runs once a call more
+# than the loop's body); compares, selects, branches, integer work and the
 # dispatch are the implementation's and left out, as are the division
 # and square-root slow paths (scripts/chain_count.py on an H100; recount
 # when csrc/pointwise_chain.cu or a config's chain changes)
 OPS_CHAIN = {(1, 0): (1095, 57), (2, 0): (847, 42), (3, 0): (6, 0),
-             (3, 1): (15, 0), (3, 2): (839, 45), (3, 3): (219, 3),
-             (4, 0): (846, 42), (7, 0): (183, 6), (7, 1): (899, 45),
+             (3, 1): (15, 0), (3, 2): (835, 45), (3, 3): (219, 3),
+             (4, 0): (846, 42), (7, 0): (183, 6), (7, 1): (895, 45),
              (7, 2): (219, 3),
              # config 9 runs config 4's program (1) on its clipped frame;
              # config 4's count, not recounted on config 9's pixels
              (9, 0): (846, 42),
-             (10, 0): (741, 33), (10, 1): (4692, 162),
+             (10, 0): (491, 28), (10, 1): (4028, 152), (11, 0): (2231, 88),
              # each grading opcode alone on config 10's chain inputs
              # (`--opcodes`), colorbalancergb in dt UCS (1) and JzAzBz (0)
-             (10, "colorbalancergb", 1): (2016, 73),
-             (10, "colorbalancergb", 0): (2093, 60),
-             (10, "rgbcurve"): (270, 6), (10, "rgblevels"): (143, 4),
-             (10, "basecurve"): (254, 6), (10, "tonecurve"): (253, 6),
-             (10, "levels"): (134, 3), (10, "basicadj"): (388, 11),
-             (10, "colorzones"): (747, 16), (10, "negadoctor"): (397, 13),
-             (10, "vignette"): (177, 7), (10, "graduatednd"): (139, 8)}
+             (10, "colorbalancergb", 1): (1927, 72),
+             (10, "colorbalancergb", 0): (1960, 59),
+             (10, "rgbcurve"): (156, 5), (10, "rgblevels"): (74, 4),
+             (10, "basecurve"): (140, 5), (10, "tonecurve"): (140, 5),
+             (10, "levels"): (62, 3), (10, "basicadj"): (321, 10),
+             (10, "colorzones"): (537, 15), (10, "negadoctor"): (318, 12),
+             (10, "vignette"): (109, 6), (10, "graduatednd"): (61, 7),
+             # each legacy opcode alone on config 11's chain's stage inputs
+             # (`configs.legacy_jobs`), profile_gamma in its three forms
+             (11, "velvia"): (58, 2), (11, "vibrance"): (15, 1),
+             (11, "colorcontrast"): (6, 0), (11, "colorcorrection"): (8, 0),
+             (11, "colisa"): (79, 3), (11, "splittoning"): (147, 0),
+             (11, "colorize"): (4, 0), (11, "colorbalance"): (330, 12),
+             (11, "splittoningrgb"): (118, 3), (11, "lowlight"): (407, 14),
+             (11, "profile_gamma", 0): (174, 8),
+             (11, "profile_gamma", 1): (231, 5),
+             (11, "profile_gamma", 2): (135, 3),
+             (11, "colorchecker"): (390, 0)}
 FLOPS_SEPBLUR_PER_TAP = 4        # two passes, a multiply and an add each
 FLOPS_EAW = 25 * 24 + 10         # 25 taps; the divide and the detail
 # the atrous variant per pixel: 25 taps of the three differences and
@@ -255,6 +282,16 @@ FLOPS_WARP = 125
 # 6, the outside test 4 (no keystone in config 9), then per channel the
 # bilinear sample 25
 FLOPS_CLIP_MAP, FLOPS_CLIP_CHANNEL = 18, 25
+# ashift's homography per pixel: the denominator 4, the two numerators 4
+# each and their divisions 2, the outside test 4; then per channel the
+# bilinear sample 25
+FLOPS_HOMOGRAPHY_MAP = 18
+# liquify per pixel and stamp whose disc holds the pixel: the offsets 2,
+# the distance 5 (two products, a sum, the square root, the division),
+# Horner's nine steps 18, the clip 2, the term 2 and the sums 2; a
+# radial stamp's term takes 8 rather than 2.  Per pixel of the window,
+# the source position 2, then per channel the bilinear sample 25
+FLOPS_LIQUIFY_PAIR, FLOPS_LIQUIFY_RADIAL = 31, 6
 # the grid slice per pixel: the row weights 15, the bins 3 and their four
 # tests; per channel and valid bin (b0, and b0 + 1 unless b0 = D - 1) the
 # two column blends 6, the row blend 3 and the bin weight 2 (b0: 1 - f
@@ -396,7 +433,8 @@ def check_chains(config, calls, groups):
         b_ms, b_by = bound(2 * nbytes(x), instructions=(fp32 + mufu) * px,
                            sfu=mufu * px)
         rows.append(dict(max_abs_err=mx, ms=ms, plain_ms=plain_ms,
-                         library_ms=None, bound_ms=b_ms, bound_by=b_by))
+                         library_ms=None, bound_ms=b_ms, bound_by=b_by,
+                         program=chain.fixed))
         print(f"[chain] config {config} chain {i} {'+'.join(names)} on "
               f"{tuple(x.shape)}: program {chain.fixed}, equal to the "
               f"interpreter; vs plain max {mx:.3g} mean {mean:.3g} (tol "
@@ -418,10 +456,18 @@ KERNEL_MODULES = {"rcd": rcd, "chain": pw, "eaw": eaw, "nlm": nlm,
 def reset_launches():
     for mod in KERNEL_MODULES.values():
         mod.LAUNCHES = 0
+    pw.PROGRAM_LAUNCHES.clear()
+    warp.MAP_LAUNCHES.clear()
 
 
 def read_launches():
     return {k: mod.LAUNCHES for k, mod in KERNEL_MODULES.items()}
+
+
+def read_split():
+    """The launches since reset_launches of each chain program (its index
+    in pointwise.FIXED, -1 the interpreter) and of each warp map."""
+    return dict(pw.PROGRAM_LAUNCHES), dict(warp.MAP_LAUNCHES)
 
 
 @contextlib.contextmanager
@@ -456,6 +502,8 @@ def plain_twins(keep=()):
          markesteijn.xtrans_markesteijn_reference),
         (warp, "lens_warp", warp.lens_warp_reference),
         (warp, "clip_warp", warp.clip_warp_reference),
+        (warp, "homography_warp", warp.homography_warp_reference),
+        (warp, "liquify_warp", warp.liquify_warp_reference),
         (bgrid, "slice_grid", bgrid.slice_grid_reference),
     ] if swap[0] not in keep])
 
@@ -1131,7 +1179,10 @@ def run_config4(card, record, raw, meta, phases):
         reset_launches()
         out = pipe.output_array(raw)
         launches = read_launches()
+        _, maps = read_split()
         expect(launches == LAUNCHES4, f"config-4 launches {launches}")
+        expect(maps == {"lens": 1}, f"config-4 warp maps {maps}")
+        launches["maps"] = maps
         expect(out.shape == (3, H4, W4), f"output shape {out.shape}")
         expect(bool(np.isfinite(out).all()) and out.min() >= 0.0
                and out.max() <= 1.0, "output not finite or outside [0, 1]")
@@ -1732,9 +1783,12 @@ def run_config9(card, record, raw, meta, phases, tmp):
         rc = cli.main([dng, sidecar, png, "--bpp", "16", "--no-icc", "-v"])
         cli_s = time.perf_counter() - t
         launches = read_launches()
+        _, maps = read_split()
     expect(rc == 0, f"cli exit {rc}")
     # config 9 has no lens stage: its warp launches are clipping's map
     expect(launches == LAUNCHES9, f"config-9 launches {launches}")
+    expect(maps == {"clip": 1}, f"config-9 warp maps {maps}")
+    launches["maps"] = maps
     raw9, meta9 = load_raw(dng)
     expect(len(meta9.gain_maps) == 4, "the DNG's GainMaps were not read")
     with timed(phases, "pipe9 vs plain"):
@@ -1863,15 +1917,13 @@ def check_atrous10(calls, record):
           + f" | bound {b_ms:.3f} ms per scale ({b_by})", flush=True)
 
 
-def check_opcodes10(meta, calls, record):
-    """Each grading opcode (8-18), as a one-stage chain on config 10's
-    chain inputs (the RGB ops on the demosaiced image, the Lab ops on the
-    second chain's input): kernel (the interpreter) vs its plain twin,
-    bounds scaled as check_chains scales them; device ms and the bound
-    from the opcode's OPS_CHAIN count.  colorbalancergb runs both
-    saturation formulas.  Returns the rows."""
+def check_opcodes(meta, jobs):
+    """Each job (key, x, op, params) as a one-stage chain on its input:
+    kernel (the interpreter) vs its plain twin, bounds scaled as
+    check_chains scales them; device ms and the bound from the opcode's
+    OPS_CHAIN count.  Returns the rows."""
     rows = []
-    for key, x, name, prm in configs.grading_jobs([a[0] for a in calls]):
+    for key, x, name, prm in jobs:
         chain = configs.opcode_chain(meta, name, prm, x.shape, x.device)
         got = pw.pointwise_chain(x, chain)
         want = pw.pointwise_chain_reference(x, chain)
@@ -1901,7 +1953,7 @@ def check_opcodes10(meta, calls, record):
               f"kernel {ms:.4f} ms, plain {plain_ms:.1f} ms, bound "
               f"{b_ms:.4f} ms ({b_by}; {fp32} float32 + {mufu} MUFU a "
               "pixel)", flush=True)
-    record["opcodes10"] = rows
+    return rows
 
 
 def run_config10(card, record, raw, raw_dev, meta, phases):
@@ -1915,11 +1967,17 @@ def run_config10(card, record, raw, raw_dev, meta, phases):
     expect(pipe.fused_groups() == [STAGES10[4:9], STAGES10[10:]],
            f"unexpected chains {pipe.fused_groups()}")
     expect(raw.shape == pipe.pipe.spec_in.array_shape, "raw needs padding")
+    # the specialised program of each chain
+    fixed = [a.fixed for k, _, _, a in pipe.steps if k == "chain"]
     with timed(phases, "pipe10 vs plain"):
         reset_launches()
         out = pipe.output_array(raw)
         launches = read_launches()
+        programs, maps = read_split()
         expect(launches == LAUNCHES10, f"config-10 launches {launches}")
+        expect(programs == {f: 1 for f in fixed} and not maps,
+               f"config-10 programs {programs}, warp maps {maps}")
+        launches["programs"] = programs
         expect(out.shape == (3, H, W), f"output shape {out.shape}")
         expect(bool(np.isfinite(out).all()) and out.min() >= 0.0
                and out.max() <= 1.0, "output not finite or outside [0, 1]")
@@ -1940,12 +1998,217 @@ def run_config10(card, record, raw, raw_dev, meta, phases):
     with timed(phases, "eaw-atrous"):
         check_atrous10(calls["eaw"], record)
     with timed(phases, "opcodes10"):
-        check_opcodes10(meta, calls["chain"], record)
+        # each grading opcode (8-18) on config 10's chain inputs: the RGB
+        # ops on the demosaiced image, the Lab ops on the second chain's
+        # input; colorbalancergb in both saturation formulas
+        record["opcodes10"] = check_opcodes(meta, configs.grading_jobs(
+            [a[0] for a in calls["chain"]]))
     del calls
     with timed(phases, "pipe10 timing"):
         per_img = time_pipe(pipe, raw_dev, REPEATS)
         peak, held = pipe_peak(pipe, raw_dev)
     print(f"[pipe10] config 10 {H}x{W}: {len(stages)} stages, chains "
+          f"{pipe.fused_groups()} (programs "
+          f"{[a.fixed for k, _, _, a in pipe.steps if k == 'chain']}), "
+          f"launches {launches}, vs plain max {pipe_err:.3g} (tol 1/255), "
+          f"range [{out.min():.3g}, {out.max():.3g}] | "
+          f"{1.0 / per_img:.2f} img/s, {per_img * 1e3:.2f} ms/img "
+          f"(device-resident input, {REPEATS} repeats after 2 warm-ups), "
+          f"peak device memory {peak:.3f} GB ({held:.3f} GB held before) on "
+          f"{card}", flush=True)
+    return launches
+
+
+def captured11(pipe, raw_dev):
+    """Run config 11 once on a device-resident raw and keep the arguments
+    of its chain and its two warps."""
+    calls = {"chain": [], "homography": [], "liquify": []}
+    real = {"chain": pw.pointwise_chain, "homography": warp.homography_warp,
+            "liquify": warp.liquify_warp}
+
+    def keep(key):
+        def call(*args):
+            calls[key].append(args)
+            return real[key](*args)
+        return call
+
+    with swapped([(pw, "pointwise_chain", keep("chain")),
+                  (warp, "homography_warp", keep("homography")),
+                  (warp, "liquify_warp", keep("liquify"))]):
+        pipe.run_padded(raw_dev)
+    counts = {k: len(v) for k, v in calls.items()}
+    expect(counts == {"chain": 1, "homography": 1, "liquify": 1},
+           f"unexpected config-11 calls {counts}")
+    return calls
+
+
+def check_warp_ashift(calls, record):
+    """ashift's homography on config 11's (3, 4000, 6016) demosaiced image,
+    against the twin bit for bit, and grid_sample on the same source
+    coordinates (the grid precomputed, the mask applied after) as the
+    yardstick."""
+    (x, k), = calls
+    got = warp.homography_warp(x, k)
+    want = warp.homography_warp_reference(x, k)
+    mx, mean = compare(got, want)
+    expect(torch.equal(got, want), f"warp-ashift: max {mx}")
+    zero = (got == 0).all(dim=0).float().mean().item()
+    del got
+    ms = median_ms(lambda: warp.homography_warp(x, k))
+    plain_ms = median_ms(lambda: warp.homography_warp_reference(x, k),
+                         PLAIN_REPEATS)
+    _, h, w = x.shape
+    sy, sx, inside = warp.homography_coords(k, h, w, x.device)
+    grid = torch.stack([sx / (w - 1) * 2 - 1, sy / (h - 1) * 2 - 1],
+                       -1)[None]
+    planes = x[None]
+
+    def library():
+        return F.grid_sample(planes, grid, mode="bilinear",
+                             padding_mode="border", align_corners=True)
+
+    lx, _ = compare(torch.where(inside[None, None], library(), 0.0)[0], want)
+    expect(lx <= 1e-3, f"grid_sample yardstick: {lx}")
+    del want
+    lib_ms = median_ms(library)
+    px = h * w
+    b_ms, b_by = bound(2 * nbytes(x),
+                       (FLOPS_HOMOGRAPHY_MAP + 3 * FLOPS_CLIP_CHANNEL) * px)
+    record["warp-ashift"] = dict(max_abs_err=mx, ms=ms, plain_ms=plain_ms,
+                                 library_ms=lib_ms, bound_ms=b_ms,
+                                 bound_by=b_by)
+    print(f"[warp-ashift] {tuple(x.shape)} ashift's inverse homography, "
+          f"{zero:.1%} of the frame outside the source, kernel vs plain: "
+          f"max {mx:.3g} mean {mean:.3g} (bit-equal); grid_sample vs plain "
+          f"max {lx:.3g} | kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, "
+          f"grid_sample {lib_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by})",
+          flush=True)
+
+
+def liquify_pairs(stamps, win):
+    """(pixel-stamp pairs of the window with the pixel inside the stamp's
+    disc, those of radial stamps) for these stamps ((K, STAMP) float32 on
+    the host), counted in float64: the work this run's data needs."""
+    y0, y1, x0, x1 = win
+    pairs = radial = 0
+    for s in stamps:
+        px, py, r = float(s[0]), float(s[1]), float(s[2])
+        ya, yb = max(y0, int(np.floor(py - r))), min(y1, int(np.ceil(py + r)) + 1)
+        xa, xb = max(x0, int(np.floor(px - r))), min(x1, int(np.ceil(px + r)) + 1)
+        if ya >= yb or xa >= xb:
+            continue
+        yy, xx = np.mgrid[ya:yb, xa:xb]
+        n = int((np.hypot(xx - px, yy - py) / r < 1.0).sum())
+        pairs += n
+        radial += n if s[6] != 0.0 else 0
+    return pairs, radial
+
+
+def check_warp_liquify(calls, record):
+    """liquify's warp on config 11's ashift output: its stamps over the
+    stamp-union window, pasted into a copy of the frame; against the twin
+    bit for bit; the wrapper timed (the frame's copy and the window's
+    kernel); grid_sample of the window at the twin's displaced positions
+    (the grid precomputed) as the yardstick."""
+    (x, stamps, win), = calls
+    y0, y1, x0, x1 = win
+    got = warp.liquify_warp(x, stamps, win)
+    want = warp.liquify_warp_reference(x, stamps, win)
+    mx, mean = compare(got, want)
+    expect(torch.equal(got, want), f"warp-liquify: max {mx}")
+    moved = (got - x).abs().max().item()
+    expect(moved > 1e-3, "liquify moved nothing")
+    del got
+    ms = median_ms(lambda: warp.liquify_warp(x, stamps, win))
+    plain_ms = median_ms(lambda: warp.liquify_warp_reference(x, stamps, win),
+                         PLAIN_REPEATS)
+    _, h, w = x.shape
+    ax, ay, yy, xx = warp.liquify_displacement(stamps, win)
+    sx, sy = xx + ax, yy + ay
+    grid = torch.stack([sx / (w - 1) * 2 - 1, sy / (h - 1) * 2 - 1],
+                       -1)[None]
+    planes = x[None]
+
+    def library():
+        return F.grid_sample(planes, grid, mode="bilinear",
+                             padding_mode="border", align_corners=True)
+
+    lx, _ = compare(library()[0], want[:, y0:y1, x0:x1])
+    expect(lx <= 1e-3, f"grid_sample yardstick: {lx}")
+    del want, ax, ay, yy, xx, sx, sy
+    lib_ms = median_ms(library)
+    pairs, radial = liquify_pairs(stamps.cpu().numpy(), win)
+    wpx = (y1 - y0) * (x1 - x0)
+    flops = (FLOPS_LIQUIFY_PAIR * pairs + FLOPS_LIQUIFY_RADIAL * radial
+             + (2 + 3 * FLOPS_CLIP_CHANNEL) * wpx)
+    b_ms, b_by = bound(2 * nbytes(x), flops)
+    record["warp-liquify"] = dict(max_abs_err=mx, ms=ms, plain_ms=plain_ms,
+                                  library_ms=lib_ms, bound_ms=b_ms,
+                                  bound_by=b_by)
+    print(f"[warp-liquify] {tuple(x.shape)} {stamps.shape[0]} stamps over "
+          f"the window {win} ({wpx / 1e6:.2f} MP; {pairs / wpx:.1f} stamps "
+          f"a pixel on average), kernel vs plain: max {mx:.3g} mean "
+          f"{mean:.3g} (bit-equal), moved up to {moved:.3g} | kernel (copy "
+          f"and window) {ms:.3f} ms, plain {plain_ms:.1f} ms, grid_sample "
+          f"(the window) {lib_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by}; "
+          f"{flops / 1e9:.2f} G float32 operations)", flush=True)
+
+
+def run_config11(card, record, raw, raw_dev, meta, phases):
+    """Config 11 at 24 MP, the legacy look straightened and retouched:
+    through the user's entry point with launches counted, against the
+    composed twins; then its chain, both warps and each legacy opcode
+    alone on the arguments the pipe hands them, and the pipe's timing and
+    peak memory."""
+    pipe = port.compile_pipeline(meta, configs.history(11))
+    stages = [s.name for s in pipe.pipe.stages]
+    expect(stages == STAGES11, f"unexpected config-11 plan {stages}")
+    expect(pipe.fused_groups() == [STAGES11[6:]],
+           f"unexpected chains {pipe.fused_groups()}")
+    ashift = pipe.pipe.stages[STAGES11.index("ashift")].plan
+    # R11: the crop mode is recorded and, as in the JAX package, not applied
+    expect(ashift.static[1] is not None and ashift.spec_out == ashift.spec_in,
+           "ashift changed the frame")
+    fixed = [a.fixed for k, _, _, a in pipe.steps if k == "chain"]
+    with timed(phases, "pipe11 vs plain"):
+        reset_launches()
+        out = pipe.output_array(raw)
+        launches = read_launches()
+        programs, maps = read_split()
+        expect(launches == LAUNCHES11, f"config-11 launches {launches}")
+        expect(programs == {f: 1 for f in fixed}
+               and maps == {"homography": 1, "liquify": 1},
+               f"config-11 programs {programs}, warp maps {maps}")
+        launches["programs"], launches["maps"] = programs, maps
+        expect(out.shape == (3, H, W), f"output shape {out.shape}")
+        expect(bool(np.isfinite(out).all()) and out.min() >= 0.0
+               and out.max() <= 1.0, "output not finite or outside [0, 1]")
+        reset_launches()
+        with plain_twins():
+            plain = pipe.output_array(raw)
+        expect(all(v == 0 for v in read_launches().values()),
+               f"the plain composition launched kernels: {read_launches()}")
+        pipe_err = float(np.abs(out - plain).max())
+        expect(pipe_err <= PIPE_TOL, f"config 11 vs plain: max {pipe_err}")
+        del plain
+    with timed(phases, "capture11"):
+        calls = captured11(pipe, raw_dev)
+    with timed(phases, "chain11"):
+        (record["chain11.0"],) = check_chains(11, calls["chain"],
+                                              pipe.fused_groups())
+    with timed(phases, "warp-ashift"):
+        check_warp_ashift(calls["homography"], record)
+    with timed(phases, "warp-liquify"):
+        check_warp_liquify(calls["liquify"], record)
+    with timed(phases, "opcodes11"):
+        (x, chain), = calls["chain"]
+        record["opcodes11"] = check_opcodes(meta, configs.legacy_jobs(
+            x, chain, pipe.fused_groups()[0]))
+    del calls
+    with timed(phases, "pipe11 timing"):
+        per_img = time_pipe(pipe, raw_dev, REPEATS)
+        peak, held = pipe_peak(pipe, raw_dev)
+    print(f"[pipe11] config 11 {H}x{W}: {len(stages)} stages, chains "
           f"{pipe.fused_groups()} (programs "
           f"{[a.fixed for k, _, _, a in pipe.steps if k == 'chain']}), "
           f"launches {launches}, vs plain max {pipe_err:.3g} (tol 1/255), "
@@ -2015,6 +2278,7 @@ def main():
             run_config8(card, raw_dev, meta, phases, tmp)
             launches9 = run_config9(card, record, raw, meta, phases, tmp)
         launches10 = run_config10(card, record, raw, raw_dev, meta, phases)
+        launches11 = run_config11(card, record, raw, raw_dev, meta, phases)
         run_devtest_and_entry(phases)
         del raw_dev
         with timed(phases, "mosaic3 wait"):
@@ -2064,29 +2328,51 @@ def main():
                   "replaces": replaces, "launches": launches[key],
                   **{k: r[k] for k in keys}}
         if key == "warp":
-            # the top-level numbers are lens's map (config 4); both maps
-            # with their own launches and numbers
-            entry_["launches"] = launches["warp"] + launches9["warp"]
+            # the top-level numbers are lens's map (config 4); every map
+            # with its launches in its config's run and its own numbers
+            entry_["launches"] = (launches["warp"] + launches9["warp"]
+                                  + launches11["warp"])
             entry_["maps"] = [
-                dict(map="lens", launches=launches["warp"],
+                dict(map="lens", launches=launches4["maps"]["lens"],
                      **{k: r[k] for k in keys}),
-                dict(map="clipping", launches=launches9["warp"],
-                     **{k: record["warp-clip"][k] for k in keys})]
+                dict(map="clipping", launches=launches9["maps"]["clip"],
+                     **{k: record["warp-clip"][k] for k in keys}),
+                dict(map="ashift",
+                     launches=launches11["maps"]["homography"],
+                     **{k: record["warp-ashift"][k] for k in keys}),
+                dict(map="liquify", launches=launches11["maps"]["liquify"],
+                     **{k: record["warp-liquify"][k] for k in keys})]
         if key == "nlm":
             entry_["wide"] = r["wide"]
         if key == "chain":
-            # the grading opcodes, each alone on config 10's arguments
-            entry_["opcodes"] = record["opcodes10"]
+            # the grading and legacy opcodes, each alone on config 10's
+            # and config 11's arguments
+            entry_["opcodes"] = record["opcodes10"] + record["opcodes11"]
         kernels.append(entry_)
-    # config 10: its two chains (each one launch per image) and the EAW
-    # kernel's atrous variant (one launch per scale)
+    # config 10: its two chains (the launches of each one's program) and
+    # the EAW kernel's atrous variant (one launch per scale)
     for i in range(LAUNCHES10["chain"]):
+        row = record[f"chain10.{i}"]
         kernels.append({"name": f"pointwise_chain[config10.{i}]",
                         "route": "cuda",
                         "source": "ansel_tpu_torch/csrc/pointwise_chain.cu",
                         "replaces": "ansel_tpu/kernels/pointwise.py:30",
-                        "launches": 1,
-                        **{k: record[f"chain10.{i}"][k] for k in keys}})
+                        "launches": launches10["programs"][row["program"]],
+                        **{k: row[k] for k in keys}})
+    # config 11: its one chain of 15 stages, and the warp kernel on
+    # ashift's and on liquify's map, each with its launches in [pipe11]
+    row = record["chain11.0"]
+    kernels.append({"name": "pointwise_chain[config11.0]", "route": "cuda",
+                    "source": "ansel_tpu_torch/csrc/pointwise_chain.cu",
+                    "replaces": "ansel_tpu/kernels/pointwise.py:30",
+                    "launches": launches11["programs"][row["program"]],
+                    **{k: row[k] for k in keys}})
+    for m, fn in (("ashift", "homography"), ("liquify", "liquify")):
+        kernels.append({"name": f"{fn}_warp", "route": "cuda",
+                        "source": "ansel_tpu_torch/csrc/warp.cu",
+                        "replaces": "ansel_tpu/kernels/warp_pallas.py:121",
+                        "launches": launches11["maps"][fn],
+                        **{k: record[f"warp-{m}"][k] for k in keys}})
     kernels.append({"name": "eaw_atrous_coarse", "route": "cuda",
                     "source": "ansel_tpu_torch/csrc/eaw.cu",
                     "replaces": "ansel_tpu/kernels/eaw_pallas.py:205",

@@ -3,8 +3,8 @@
 chain of the port's configs needs in the fused colour chain
 (`csrc/pointwise_chain.cu`), counted from its SASS.
 
-    python3 scripts/chain_count.py [--configs 1 2 3 4 7 10] [--stride 64]
-                                   [--opcodes]
+    python3 scripts/chain_count.py [--configs 1 2 3 4 7 10 11]
+                                   [--stride 64] [--opcodes]
 
 Three steps, on the machine with the card:
 
@@ -21,7 +21,9 @@ Three steps, on the machine with the card:
    parameter set, both saturation formulas of colorbalancergb) as a
    one-stage chain on config 10's chain inputs, as `chip_smoke.py`
    launches them: the RGB ops on the demosaiced image, the Lab ops on the
-   second chain's input.
+   second chain's input; and each op of `configs.LEGACY_CASES` (its
+   first set, profile_gamma's three) on the input of the stage of config
+   11's chain that `configs.legacy_jobs` picks.
 3. Each SASS basic block of the interpreter kernel (`chain`) is weighted
    by the runs per pixel of its lines: a line of the kernel itself by its
    count over the pixels; a line of a device function without a loop by
@@ -35,7 +37,15 @@ Three steps, on the machine with the card:
    file other than the chain source (a CUDA header), by 1, leaving the
    weight to its caller.  An instruction's weight is the product along
    its inline chain, and a block's the largest of its instructions' (a
-   predicated instruction issues whether or not its branch is taken).
+   predicated instruction issues whether or not its branch is taken),
+   over the opcode bodies' instructions where the block holds any (the
+   dispatch work the compiler sinks into a case's first block runs once
+   a stage, whichever case runs), and over those that are not a rolled
+   loop's control where the block holds any (the `for` line runs once a
+   call more than the body, and the compiler puts its first test into
+   the prologue's block, which would weigh the prologue as the loop's
+   iterations and the body as one more).  An accurate `logf` is a
+   polynomial in float32 instructions, with no MUFU.
    The division and square-root slow paths, and the blocks that call
    them, are left out: they run only on denormal or huge operands.
 
@@ -271,11 +281,32 @@ def weigh(blocks, counts, funcs, pixels, src_lines):
                 w *= min(1.0, c / fn[2]) if fn[2] else 0.0
         return w
 
+    def in_body(chain):
+        return bool(chain) and chain[-1][1] and switch < chain[-1][0] < default
+
+    def rolled_header(chain):
+        """Whether an instruction is a rolled loop's control (its `for`
+        line): that line runs once a call more than the body, and the
+        compiler puts its first test in the prologue's block."""
+        return any(ours and re.search(r"\bfor\s*\(", src_lines[line - 1])
+                   and "#pragma unroll 1" in src_lines[line - 2]
+                   for line, ours in chain)
+
     whole, bodies = collections.Counter(), collections.Counter()
     for block in blocks:
         if any("CALL" in ins for ins, _ in block):
             continue
-        bw = max(weight(chain) for _, chain in block)
+        # a block of an opcode body is weighed by its body instructions
+        # only: the compiler sinks dispatch work (the stage's const and int
+        # pointers, attributed to the kernel's lines, which run once a
+        # stage) into each case's first block, and that weight would make
+        # the body of an opcode the chain never runs count as run.  Nor is
+        # it weighed by a rolled loop's control, which would weigh the
+        # loop's prologue (colorchecker's affine part) as its iterations
+        chains = [chain for _, chain in block if in_body(chain)] \
+            or [chain for _, chain in block]
+        chains = [c for c in chains if not rolled_header(c)] or chains
+        bw = max(weight(chain) for chain in chains)
         if bw == 0.0:
             continue
         for ins, chain in block:
@@ -284,13 +315,14 @@ def weigh(blocks, counts, funcs, pixels, src_lines):
             kind = ("fp32" if op in FP32 else "mufu" if op == "MUFU"
                     else "shared load" if op == "LDS" else "other")
             whole[kind] += bw
-            if chain and chain[-1][1] and switch < chain[-1][0] < default:
+            if in_body(chain):
                 bodies[kind] += bw
     return whole, bodies
 
 
-def captured_chains(n, meta_out=None):
-    """(x, chain) of each chain call of config n's pipe at its frame."""
+def captured_chains(n, meta_out=None, groups_out=None):
+    """(x, chain) of each chain call of config n's pipe at its frame (the
+    chains' stage names appended to `groups_out`)."""
     h, w = configs.FRAMES[n]
     raw, meta, scene = synth_raw(h=h, w=w, kind="gradients")
     if meta_out is not None:
@@ -298,6 +330,8 @@ def captured_chains(n, meta_out=None):
     if n in configs.XTRANS_CONFIGS:
         raw, meta = configs.remosaic_xtrans(meta, scene)
     pipe = port.compile_pipeline(meta, configs.history(n))
+    if groups_out is not None:
+        groups_out.extend(pipe.fused_groups())
     raw_dev = torch.from_numpy(pad_to(raw, pipe.pipe.spec_in)).cuda()
     calls, real = [], pw.pointwise_chain
     pw.pointwise_chain = lambda x, c: calls.append((x, c)) or real(x, c)
@@ -311,14 +345,17 @@ def captured_chains(n, meta_out=None):
 
 def opcode_jobs():
     """((10, op[, formula]), x, chain) of each op of configs.GRADING_CASES
-    as a one-stage chain on config 10's chain inputs, as chip_smoke.py
-    launches them."""
-    meta = []
+    as a one-stage chain on config 10's chain inputs, and ((11, op[, i]),
+    x, chain) of each op of configs.LEGACY_CASES on config 11's, as
+    chip_smoke.py launches them."""
+    meta, groups = [], []
     calls = captured_chains(10, meta)
+    jobs = configs.grading_jobs([x for x, _ in calls])
+    (x, chain), = captured_chains(11, groups_out=groups)
+    jobs += configs.legacy_jobs(x, chain, groups[0])
     return [(key, x, configs.opcode_chain(meta[0], name, prm, x.shape,
                                           x.device))
-            for key, x, name, prm in configs.grading_jobs(
-                [x for x, _ in calls])]
+            for key, x, name, prm in jobs]
 
 
 def fmt(parts):
@@ -329,7 +366,7 @@ def fmt(parts):
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--configs", type=int, nargs="+",
-                    default=[1, 2, 3, 4, 7, 10])
+                    default=[1, 2, 3, 4, 7, 10, 11])
     ap.add_argument("--stride", type=int, default=64)
     ap.add_argument("--opcodes", action="store_true")
     args = ap.parse_args()

@@ -1,14 +1,17 @@
 #!/usr/bin/env python3
 """Where the time goes in the PyTorch/CUDA port's pipe, on one GPU.
 
-    python3 scripts/torch_profile.py [--config 1|2|3|4|7|8|9|10] [--images 3]
+    python3 scripts/torch_profile.py [--config 1|2|3|4|7|8|9|10|11]
+                                     [--images 3]
 
 Plans bench config 1, 2 (4000 x 6016), 3 (5504 x 8256), 4 (an X-Trans
 4000 x 6000 mosaic) or the port's config 7 (the bilateral-grid stack,
 4000 x 6016), 8 (the raw-cleanup export, 4000 x 6016) or 9 (the DNG
 export's flat field, flip and clipping: its 14-bit mosaic and GainMaps
-without the file, 4000 x 6016) or 10 (the graded look: the grading ops
-in two chains, atrous on the EAW kernel, 4000 x 6016) through
+without the file, 4000 x 6016), 10 (the graded look: the grading ops
+in two chains, atrous on the EAW kernel, 4000 x 6016) or 11 (the legacy
+look, straightened and retouched: ashift's and liquify's warps, one
+chain of 15 stages, 4000 x 6016) through
 `compile_pipeline`, warms up, then runs `run_padded` on a device-resident raw `--images`
 times without the profiler and `--images` times under torch.profiler.
 Prints one line per group of device kernels (ms per image and launches
@@ -54,7 +57,8 @@ GROUPS = {
     r"decompose<\d, \d>": "diffuse kernels",
     r"pde_group<\d, \d, \w+>": "diffuse kernels",
     r"mark_tile<\d+, \d+>": "Markesteijn kernel",
-    "lens_warp_kernel": "warp kernel", "clip_warp_kernel": "warp kernel",
+    "lens_warp_kernel": "warp kernel", r"map_warp_kernel<.+>": "warp kernel",
+    "liquify_kernel": "warp kernel",
     r"bgrid_slice_kernel<\d, \w+>": "bgrid kernel",
 }
 # device kernels listed by name, the slowest first

@@ -1207,3 +1207,194 @@ def test_atrous_kernel_on_config10_arguments(cuda):
         for g, w_ in zip(got, want):
             assert (g - w_).abs().max().item() <= STENCIL_TOL * max(
                 1.0, w_.abs().max().item())
+
+
+# --- the legacy opcodes, config 11's chain, ashift's and liquify's maps ----
+
+LEGACY = [(name, kind, i, params)
+          for name, kind, sets in configs.LEGACY_CASES
+          for i, params in enumerate(sets)
+          if not (name == "colorchecker" and params["num_patches"] > 12)]
+LEGACY_SPACE = {"lab": Colorspace.LAB, "rgb": Colorspace.WORK_RGB,
+                "camera": Colorspace.CAMERA_RGB}
+
+
+@pytest.mark.parametrize("name,kind,i,params", LEGACY,
+                         ids=[f"{n}-{i}" for n, _, i, _ in LEGACY])
+def test_legacy_opcode_matches_plain(cuda, name, kind, i, params):
+    """Each legacy opcode (19-30) as a one-stage chain (the interpreter),
+    on a frame of whole tiles and an odd one, against its plain twin, the
+    bounds scaled as in test_grading_opcode_matches_plain."""
+    meta = synth_raw(h=16, w=16)[1]
+    for hw in [(64, 256), (5, 7)]:
+        x = _grading_input("lab" if kind == "lab" else "rgb", hw, cuda)
+        chain = configs.opcode_chain(meta, name, params, x.shape, cuda,
+                                     LEGACY_SPACE[kind])
+        assert chain.fixed == -1
+        before = pw.LAUNCHES
+        got = pw.pointwise_chain(x, chain)
+        assert pw.LAUNCHES == before + 1
+        want = pw.pointwise_chain_reference(x, chain)
+        torch.cuda.synchronize()
+        assert torch.isfinite(want).all() and torch.isfinite(got).all()
+        # splittoningrgb with coinciding keys moves only the pixels within
+        # 1e-4 of its key, which a 5 x 7 frame may miss
+        if hw != (5, 7):
+            assert (want - x).abs().max().item() > 1e-3
+        scale = max(1.0, want.abs().max().item())
+        d = (got - want).abs()
+        assert d.max().item() <= CHAIN_MAX_TOL * scale, (d.max().item(), scale)
+        assert d.mean().item() <= CHAIN_MEAN_TOL * scale, \
+            (d.mean().item(), scale)
+
+
+def _config11(h, w):
+    """Config 11's history with liquify's path scaled to an h x w frame."""
+    return [port.HistoryItem(op, {"nodes": configs.liquify_nodes(h, w)}
+                             if op == "liquify" else dict(p))
+            for op, p in configs.HISTORIES[11]]
+
+
+def test_config11_on_cuda(cuda):
+    """Config 11 at 144 x 400: RCD once, the warp twice (ashift's
+    homography, liquify over its window; each map's count), the chain
+    once through its specialised program (that program's count), equal
+    to the interpreter bit for bit and to the twins within the chain's
+    tolerance; the pipe matches the CPU run within a display code."""
+    h, w = 144, 400
+    raw, meta, _ = synth_raw(h=h, w=w, kind="gradients")
+    pipe = port.compile_pipeline(meta, _config11(h, w), device=cuda)
+    calls, real = [], pw.pointwise_chain
+    pw.pointwise_chain = lambda x, c: calls.append((x, c)) or real(x, c)
+    rcd.LAUNCHES = pw.LAUNCHES = warp.LAUNCHES = 0
+    warp.MAP_LAUNCHES.clear()
+    pw.PROGRAM_LAUNCHES.clear()
+    try:
+        out = pipe.output_array(raw)
+    finally:
+        pw.pointwise_chain = real
+    assert (rcd.LAUNCHES, warp.LAUNCHES, pw.LAUNCHES) == (1, 2, 1)
+    assert warp.MAP_LAUNCHES == {"homography": 1, "liquify": 1}
+    (x, chain), = calls
+    assert pw.PROGRAM_LAUNCHES == {chain.fixed: 1}
+    records = chain.prog.view(-1, pw.RECORD)[:, :2].tolist()
+    assert chain.fixed >= 0
+    assert pw.FIXED[chain.fixed] == tuple(map(tuple, records))
+    got = pw.pointwise_chain(x, chain)
+    interpreted = pw.pointwise_chain(x, dataclasses.replace(chain, fixed=-1))
+    want = pw.pointwise_chain_reference(x, chain)
+    torch.cuda.synchronize()
+    assert torch.equal(got, interpreted)
+    d = (got - want).abs()
+    assert d.max().item() <= CHAIN_MAX_TOL and d.mean().item() <= CHAIN_MEAN_TOL
+    want = port.compile_pipeline(meta, _config11(h, w),
+                                 device="cpu").output_array(raw)
+    assert np.abs(out - want).max() <= 1.0 / 255.0
+
+
+def _ashift_consts(params, h, w):
+    from ansel_tpu_torch.ops.ashift import homography_consts
+
+    op = port.ops.base.get_op("ashift")
+    p = dataclasses.replace(op.default_params(None), **params)
+    spec = ImageSpec(width=w, height=h, colorspace=Colorspace.CAMERA_RGB)
+    plan = op.plan(port.ops.base.PlanContext(meta=None), spec, p)
+    return torch.from_numpy(homography_consts(plan.static[0]))
+
+
+ASHIFT_PARAMS = [dict(configs.HISTORIES[11][3][1]),
+                 {"rotation": -2.0, "lensshift_h": -0.3, "shear": 0.05,
+                  "aspect": 1.1, "orthocorr": 50.0}]
+
+
+@pytest.mark.parametrize("hw", [(2, 3), (137, 401), (1000, 1504)])
+@pytest.mark.parametrize("case", [0, 1])
+def test_homography_warp_kernel_matches_plain(cuda, hw, case):
+    """ashift's map on ragged frames, bit for bit (its twin's float32
+    operations in the same order, true divisions, no transcendental)."""
+    h, w = hw
+    k = _ashift_consts(ASHIFT_PARAMS[case], h, w)
+    rng = np.random.default_rng(6)
+    x = torch.from_numpy(rng.uniform(size=(3, h, w)).astype(np.float32)
+                         ).to(cuda)
+    before = warp.LAUNCHES
+    got = warp.homography_warp(x, k)
+    assert warp.LAUNCHES == before + 1
+    want = warp.homography_warp_reference(x, k)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def _stamps(blob, cuda):
+    from ansel_tpu_torch.ops import liquify
+
+    c = liquify.Liquify()._warp_arrays(liquify.LiquifyParams(blob))
+    return warp.pack_stamps({k: torch.from_numpy(np.asarray(v)).to(cuda)
+                             for k, v in c.items()})
+
+
+def _long_path(h, w):
+    """A brush path of radius 12 px across the frame's width, two curved
+    segments: some 750 stamps, three chunks of the kernel's shared
+    buffer."""
+    pts = [complex(0.05 * w, 0.5 * h), complex(0.5 * w, 0.4 * h),
+           complex(0.95 * w, 0.55 * h)]
+    blob = b""
+    for k, pt in enumerate(pts):
+        d = pt - pts[k - 1] if k else 0j
+        blob += configs.liquify_node(
+            configs.PATH_CURVE if k else configs.PATH_MOVE, k - 1,
+            k + 1 if k < 2 else -1, pt, pt + 6j, pt + 12.0,
+            configs.WARP_LINEAR,
+            ctrl1=pt - d + d / 3.0 + 0.2j * d, ctrl2=pt - d / 3.0)
+    return blob + b"\0" * (76 * configs.LIQUIFY_NODES - len(blob))
+
+
+@pytest.mark.parametrize("hw,win,path", [
+    ((96, 160), None, "config11"), ((137, 401), None, "config11"),
+    ((600, 1000), None, "config11"), ((600, 1000), (5, 597, 3, 998),
+                                      "config11"),
+    ((600, 1000), None, "long")])
+def test_liquify_warp_kernel_matches_plain(cuda, hw, win, path):
+    """liquify's warp with config 11's path scaled to the frame (112
+    stamps) and a long thin path (over 512 stamps: three chunks of the
+    kernel's shared buffer), over the plan's window and a ragged one; bit
+    for bit, and outside the window the input."""
+    from ansel_tpu_torch.ops import liquify
+
+    h, w = hw
+    blob = (configs.liquify_nodes(h, w) if path == "config11"
+            else _long_path(h, w))
+    stamps = _stamps(blob, cuda)
+    assert stamps.shape[0] > (512 if path == "long" else 100)
+    if win is None:
+        spec = ImageSpec(width=w, height=h, colorspace=Colorspace.CAMERA_RGB)
+        plan = liquify.Liquify().plan(port.ops.base.PlanContext(meta=None),
+                                      spec, liquify.LiquifyParams(blob))
+        win = plan.static[4]
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy(rng.uniform(size=(3, h, w)).astype(np.float32)
+                         ).to(cuda)
+    before = warp.LAUNCHES
+    got = warp.liquify_warp(x, stamps, win)
+    assert warp.LAUNCHES == before + 1
+    want = warp.liquify_warp_reference(x, stamps, win)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    y0, y1, x0, x1 = win
+    mask = torch.ones((h, w), dtype=torch.bool, device=cuda)
+    mask[y0:y1, x0:x1] = False
+    assert torch.equal(got[:, mask], x[:, mask])
+    assert (got - x).abs().max().item() > 1e-3
+
+
+def test_warp_kernels_refuse_bad_input(cuda):
+    x = torch.zeros((3, 8, 8), device=cuda)
+    k = torch.zeros(8)
+    with pytest.raises(ValueError):
+        warp.homography_warp(x, k)
+    stamps = torch.zeros((1, warp.STAMP), device=cuda)
+    with pytest.raises(ValueError):
+        warp.liquify_warp(x, stamps, (0, 9, 0, 8))
+    with pytest.raises(ValueError):
+        warp.liquify_warp(x, stamps.cpu(), (0, 8, 0, 8))
