@@ -1557,6 +1557,12 @@ using Fixed = std::tuple<
          Stage<OP_COLISA, 176>, Stage<OP_COLORCONTRAST, 181>, Stage<OP_CONVERT_LAB_WORK, 187>,
          Stage<OP_VELVIA, 199>, Stage<OP_CONVERT_WORK_LAB, 201>, Stage<OP_VIBRANCE, 213>,
          Stage<OP_CONVERT_LAB_WORK, 214>, Stage<OP_SPLITTONING, 226>, Stage<OP_COLOROUT, 232>>,
+    // config 12: exposure, colorin; filmicrgb alone after its highlight
+    // reconstruction; to Lab before grain (then config 3's from Lab +
+    // colorout)
+    Prog<Stage<OP_EXPOSURE, 0>, Stage<OP_MATRIX, 2>>,
+    Prog<Stage<OP_FILMIC_AGX, 0>>,
+    Prog<Stage<OP_CONVERT_WORK_LAB, 0>>,
     // config 10: exposure, graduatednd, colorin, channelmixerrgb, to Lab;
     // from Lab, colorbalancergb, rgbcurve, filmicrgb, to Lab, tonecurve,
     // colorzones, from Lab, vignette, colorout

@@ -1,6 +1,6 @@
 """The bench configurations the port runs (`bench.py:CONFIGS`), and the
-port's own configs 7, 8, 9, 10 and 11, defined once for the chip smoke,
-the profile script and the tests.
+port's own configs 7-12, defined once for the chip smoke, the profile
+script and the tests.
 
 Each history is a tuple of (op, params) pairs, so that a test can build
 the JAX package's `HistoryItem`s from the same pairs as the port's.
@@ -223,6 +223,18 @@ HISTORIES = {
          ("colisa", {"contrast": 0.2, "brightness": 0.05,
                      "saturation": 0.1}),
          ("splittoning", {"compress": 20.0})),
+    # the port's own: a landscape photographer's export of a hazy,
+    # back-lit scene with a blown sky, with film grain, to an 8-bit file:
+    # +1 EV, haze removal at the module's defaults, filmicrgb (AgX) with
+    # its highlight reconstruction planned and fired (the threshold 1 EV
+    # under the white point instead of 3 EV over it: the clip mask
+    # covers about 30% of the frame), grain at its defaults and dither
+    # for the 8-bit output
+    12: (("exposure", {"exposure": 1.0}),
+         ("hazeremoval", {}),
+         ("filmicrgb", {"reconstruct_threshold": -1.0}),
+         ("grain", {}),
+         ("dither", {"dither_type": 5})),
 }
 
 # the eleven grading ops of the chain kernel (opcodes 8-18), each with two
@@ -406,12 +418,58 @@ def opcode_chain(meta, op_name, params, shape, device, colorspace=None):
     return pw.pack_chain([op.pointwise_spec(plan, ctx)], [c], device)
 
 
+def colormapping_params(target_lab, source_lab, n: int = 3,
+                        dominance: float = 40.0,
+                        equalization: float = 60.0) -> dict:
+    """colormapping's params with source and target set (flag 3), as the
+    GUI's acquire fills them: the target's histogram and clusters from one
+    (3, H, W) Lab image, the source's inverse histogram and clusters from
+    another (`ops.colormapping.acquire_stats`)."""
+    import numpy as np
+
+    from ..ops.colormapping import HISTN, MAXN, acquire_stats
+
+    h_t, _, m_t, v_t, w_t = acquire_stats(target_lab, n)
+    _, inv_s, m_s, v_s, w_s = acquire_stats(source_lab, n)
+
+    def pad(a, size):
+        a = [float(v) for v in np.asarray(a, np.float64).reshape(-1)]
+        return tuple(a) + (0.0,) * (size - len(a))
+
+    return {"flag": 3, "n": n, "dominance": dominance,
+            "equalization": equalization,
+            "source_ihist": pad(inv_s, HISTN),
+            "source_mean": pad(m_s, 2 * MAXN),
+            "source_var": pad(v_s, 2 * MAXN),
+            "source_weight": pad(w_s, MAXN),
+            "target_hist": tuple(int(v) for v in h_t),
+            "target_mean": pad(m_t, 2 * MAXN),
+            "target_var": pad(v_t, 2 * MAXN),
+            "target_weight": pad(w_t, MAXN)}
+
+
+# the ops of the generator and the guided filters that config 12 does not
+# run, each alone on its frame: (op, params); colormapping's statistics
+# come from the frame (`colormapping_params`).  Censorize blurs at sigma 8
+# (the IIR kernel) and 3 (sepblur, 25 taps); the Laplacian is config 2's
+# with its salt
+OPS12 = (
+    ("censorize", {"radius_1": 8.0, "pixelate": 16.0, "radius_2": 3.0,
+                   "noise": 0.2}),
+    ("highlights", {"mode": 3, "clip": 1.0, "noise_level": 0.1}),
+    ("tonemap", {}),
+    ("globaltonemap", {"detail": 0.5}),
+    ("colormapping", None),
+    ("crystgrain", {}),
+)
+
+
 # each config's frame (height, width)
 FRAMES = {1: (BENCH_H, BENCH_W), 2: (BENCH_H, BENCH_W),
           3: (BENCH3_H, BENCH3_W), 4: (BENCH4_H, BENCH4_W),
           7: (BENCH_H, BENCH_W), 8: (BENCH_H, BENCH_W),
           9: (BENCH_H, BENCH_W), 10: (BENCH_H, BENCH_W),
-          11: (BENCH_H, BENCH_W)}
+          11: (BENCH_H, BENCH_W), 12: (BENCH_H, BENCH_W)}
 # config 9's DNG: a 14-bit mosaic and a GainMap of 17 x 25 points per
 # RGGB filter
 DNG9_BITS = 14

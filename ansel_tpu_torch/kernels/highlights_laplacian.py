@@ -13,9 +13,9 @@ launches per 24 MP image).  `lax.scan` becomes a Python loop.  Per-channel
 loops of the JAX code run as one operation over the channel axis where
 each element sees the same float32 operations in the same order.
 
-Not ported: the Poisson salt of the last iteration (noise_level > 0),
-drawn from `jax.random` bits torch cannot reproduce; the highlights op
-refuses it while planning.
+The Poisson salt of the last iteration (noise_level > 0) draws JAX's
+generator's normal bits (`pixel/prng`, the last key of
+split(PRNGKey(0x411E), iterations)), as the JAX package draws them.
 """
 
 from __future__ import annotations
@@ -26,6 +26,7 @@ import torch
 
 from ..core.types import CFAPattern
 from ..ops import _bayer
+from ..pixel import prng
 from ..pixel.resample import resize_bilinear
 from ..pixel.shifts import PaddedView, sep_filter
 
@@ -37,6 +38,7 @@ _B3 = (1.0 / 16.0, 4.0 / 16.0, 6.0 / 16.0, 4.0 / 16.0, 1.0 / 16.0)
 
 FIRST_SCALE = 1
 LAST_SCALE = 2
+SALT_SEED = 0x411E
 
 
 def _sep_blur4(x4, mult):
@@ -102,8 +104,11 @@ def _pick(g_is_g, g_is_b, v0, v1, v2):
     return torch.where(g_is_b, v2, torch.where(g_is_g, v1, v0))
 
 
-def _guide_laplacians(HF, LF, mask, out, mult, radius_sq, stype):
-    """guide_laplacians (laplacian.c:85-248) on (4, h, w) stacks."""
+def _guide_laplacians(HF, LF, mask, out, mult, radius_sq, stype,
+                      noise_level=0.0, key=None):
+    """guide_laplacians (laplacian.c:85-248) on (4, h, w) stacks; with a
+    `key` and a positive `noise_level`, the last scale adds the Poisson
+    salt."""
     pv = PaddedView(HF, mult)
     alpha = mask[3]
     inv_patch = 1.0 / 9.0
@@ -137,6 +142,13 @@ def _guide_laplacians(HF, LF, mask, out, mult, radius_sq, stype):
     out = new_hf if (stype & FIRST_SCALE) else out + new_hf
     if stype & LAST_SCALE:
         out = torch.clamp(out + LF, min=0.0)
+        if key is not None and noise_level > 0.0:
+            # Poisson-style salt: a half-normal of sigma value * noise
+            # (JAX's generator where the reference runs xoshiro)
+            g = prng.normal(key, out.shape, out.device)
+            noisy = out + torch.abs(g * out * noise_level)
+            a = alpha[None]
+            out = torch.clamp(a * noisy + (1.0 - a) * out, min=0.0)
         mag = torch.clamp(torch.sqrt(out[0] * out[0] + out[1] * out[1]
                                      + out[2] * out[2]), min=1e-6)
         out = torch.stack([out[0] / mag, out[1] / mag, out[2] / mag, mag])
@@ -188,9 +200,6 @@ def laplacian_reconstruct(x, clips, cfa: CFAPattern, scales_param: int,
                           solid_color: float, zoom: float = 1.0):
     """(H, W) Bayer mosaic -> reconstructed mosaic (process_laplacian).
     `clips` holds the R, G, B clip thresholds."""
-    if noise_level > 0.0:
-        raise NotImplementedError("laplacian_reconstruct: the noise salt "
-                                  "(jax.random bits) is not ported")
     h, w = x.shape
     clips = [torch.as_tensor(clips[i], dtype=x.dtype, device=x.device)
              for i in range(3)]
@@ -220,7 +229,9 @@ def laplacian_reconstruct(x, clips, cfa: CFAPattern, scales_param: int,
     scales = min(max(int(math.ceil(math.log2(max(final_radius, 1.0)))), 1),
                  MAX_NUM_SCALES)
 
-    def wavelets_pass(buf, variant_rgb):
+    noise = noise_level / eff_scale
+
+    def wavelets_pass(buf, variant_rgb, key=None):
         out = torch.zeros_like(buf)
         cur = buf
         for s in range(scales):
@@ -231,16 +242,21 @@ def laplacian_reconstruct(x, clips, cfa: CFAPattern, scales_param: int,
             if variant_rgb:
                 radius_sq = _equivalent_sigma(s * DS_FACTOR) ** 2
                 out = _guide_laplacians(hf, lf, ds_mask, out, mult,
-                                        radius_sq, stype)
+                                        radius_sq, stype, noise, key)
             else:
                 out = _heat_pde(hf, lf, ds_mask, out, mult, stype,
                                 solid_color)
             cur = lf
         return out
 
+    # the salt fires on the last iteration only (laplacian.c:530), with
+    # the last of the iterations' keys
+    iterations = max(int(iterations), 1)
+    salt_key = prng.split(prng.PRNGKey(SALT_SEED), iterations)[-1]
     buf = ds_interp
-    for _ in range(max(int(iterations), 1)):
-        buf = wavelets_pass(wavelets_pass(buf, True), False)
+    for it in range(iterations):
+        key = salt_key if it == iterations - 1 else None
+        buf = wavelets_pass(wavelets_pass(buf, True, key), False)
 
     up = resize_bilinear(buf, (4, h, w))
     # remosaic + composite (gather.c:455-485): undo the normalization

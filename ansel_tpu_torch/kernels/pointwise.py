@@ -105,6 +105,12 @@ FIXED = (
      (OP_COLISA, 176), (OP_COLORCONTRAST, 181), (OP_CONVERT_LAB_WORK, 187),
      (OP_VELVIA, 199), (OP_CONVERT_WORK_LAB, 201), (OP_VIBRANCE, 213),
      (OP_CONVERT_LAB_WORK, 214), (OP_SPLITTONING, 226), (OP_COLOROUT, 232)),
+    # config 12: exposure, colorin; filmicrgb alone after its highlight
+    # reconstruction; to Lab before grain (then config 3's from Lab +
+    # colorout)
+    ((OP_EXPOSURE, 0), (OP_MATRIX, 2)),
+    ((OP_FILMIC_AGX, 0),),
+    ((OP_CONVERT_WORK_LAB, 0),),
     # config 10: exposure, graduatednd, colorin, channelmixerrgb, to Lab;
     # from Lab, colorbalancergb, rgbcurve, filmicrgb, to Lab, tonecurve,
     # colorzones, from Lab, vignette, colorout

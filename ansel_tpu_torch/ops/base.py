@@ -199,3 +199,9 @@ def pad_to(img: np.ndarray, spec: ImageSpec) -> np.ndarray:
         return np.pad(img, ((0, spec.pad_h - h), (0, spec.pad_w - w)), mode="edge")
     _, h, w = img.shape
     return np.pad(img, ((0, 0), (0, spec.pad_h - h), (0, spec.pad_w - w)), mode="edge")
+
+
+def channel_mean(x):
+    """The mean of a (3, H, W) tensor's planes as XLA computes
+    `jnp.mean(x, axis=0)`: their sum times float32(1/3)."""
+    return (x[0] + x[1] + x[2]) * (1.0 / 3.0)

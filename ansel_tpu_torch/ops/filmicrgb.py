@@ -6,8 +6,11 @@ filmicrgb.c:3614-3932, commit-time coefficients) is copied from
 `ansel_tpu/ops/filmicrgb.py`.  The per-pixel half is ported for the AgX
 route only (filmic_agx, filmicrgb.c:2436-2520: `_agx_pixel`, with the log
 tone map filmicrgb.c:1025-1029 and the spline eval filmicrgb.c:1042-1140),
-in torch here and as the FILMIC_AGX stage of the chain kernel.  Colour
-sciences v1-v5 and highlight reconstruction raise at plan time.
+in torch here and as the FILMIC_AGX stage of the chain kernel, and the
+highlight reconstruction before it (filmicrgb.c:1408-1509, 2680-2780:
+noise inpainting and a-trous wavelet passes on the sepblur kernel), after
+which the tone map runs as a one-stage chain.  Colour sciences v1-v5
+raise at plan time.
 """
 
 from __future__ import annotations
@@ -20,8 +23,12 @@ import torch
 
 from ..core.params import cfield, params
 from ..core.types import Colorspace, ImageSpec
+from ..kernels import pointwise
 from ..kernels.pointwise import OP_FILMIC_AGX
-from .base import Op, OpPlan, PlanContext, PointwiseSpec, not_ported, register
+from ..pixel import prng
+from ..pixel.wavelets import bspline_blur
+from .base import (Op, OpPlan, PlanContext, PointwiseSpec, channel_mean,
+                   not_ported, register)
 
 NORM_MIN = 1.52587890625e-05  # 2^-16 (reference src/math/math.h:37)
 SAFETY_MARGIN = 0.01          # reference filmicrgb.c spline geometry
@@ -491,8 +498,6 @@ class FilmicRGB(Op):
         if version_class != CSCI_AGX_FIRST:
             raise not_ported(self.name, f"colour science v{version + 1} "
                              "(the spline route)")
-        if rec is not None:
-            raise not_ported(self.name, "highlight reconstruction")
         return OpPlan(spec_in=spec_in, spec_out=spec_in, static=static)
 
     def coeffs(self, ctx: PlanContext, plan: OpPlan, p: FilmicParams):
@@ -558,7 +563,27 @@ class FilmicRGB(Op):
         }
 
     def apply(self, x, c, plan: OpPlan, ctx: PlanContext):
-        return self._agx(x, c, plan.static)
+        """Highlight reconstruction when planned, then the AgX tone map
+        through the chain kernel as a program of its own (the JAX
+        package's `_apply_agx` runs it through `pallas_pointwise`)."""
+        rec = plan.static[5]
+        if rec is not None:
+            x = self._reconstruct_highlights(x, c, rec)
+        return pointwise.pointwise_chain(x.contiguous(),
+                                         self._agx_chain(x, c, plan))
+
+    def _agx_chain(self, x, c, plan):
+        """The one-stage AgX chain for these device coefficients, packed
+        once (packing reads the coefficients back to the host)."""
+        hit = _AGX_CHAINS.get(id(c))
+        if hit is None or hit[0] is not c \
+                or hit[1].prog.device != x.device:
+            chain = pointwise.pack_chain([self._agx_spec(plan)], [c],
+                                         x.device)
+            _AGX_CHAINS[id(c)] = hit = (c, chain)
+            while len(_AGX_CHAINS) > 8:
+                del _AGX_CHAINS[next(iter(_AGX_CHAINS))]
+        return hit[1]
 
     # consts the chain kernel reads, in order (25 floats)
     _AGX_CONSTS = ("M1", "M2", "M3", "M4", "M5", "lat_min", "lat_max",
@@ -567,6 +592,13 @@ class FilmicRGB(Op):
                    "beta_hue")
 
     def pointwise_spec(self, plan, ctx):
+        """The chain stage, except when highlight reconstruction is
+        planned (a spatial wavelet pass): then the stage runs alone."""
+        if plan.static[5] is not None:
+            return None
+        return self._agx_spec(plan)
+
+    def _agx_spec(self, plan):
         from . import filmic_agx as agx
         from ..color import matrices as cm
 
@@ -632,3 +664,83 @@ class FilmicRGB(Op):
         return agx.gamut_map(Y_final, chroma_final, ref_cos, ref_sin,
                              input_m, output_m, c["display_black"],
                              c["display_white"])
+
+    def _wavelets_reconstruct(self, inp, mask, c, scales: int,
+                              rgb_variant: bool):
+        """One wavelet reconstruction pass (reconstruct_highlights,
+        filmicrgb.c:1408-1509): the a-trous B-spline decompose (two
+        sepblur launches a scale); per scale the inpainted high
+        frequencies (blurred HF), the raw texture and their achromatic
+        syntheses blended under the clip mask."""
+        gamma = c["rec_gamma"]
+        gamma_c = 1.0 - gamma
+        beta = c["rec_beta"]
+        beta_c = 1.0 - beta
+        delta = c["rec_delta"]
+        m = mask[None]
+        recon = torch.clamp(inp * (1.0 - m), min=0.0)  # init_reconstruct
+        detail = inp
+        for s in range(scales):
+            LF = torch.clamp(bspline_blur(detail, s), min=0.0)
+            texture = detail - LF  # HF backup
+            HF = bspline_blur(texture, 0)  # inpaint blur
+            # fmaxabsf: the value of the largest |.|, its sign kept
+            t0, t1, t2 = texture[0], texture[1], texture[2]
+            t01 = torch.where(torch.abs(t0) > torch.abs(t1), t0, t1)
+            grey_texture = torch.where(torch.abs(t01) > torch.abs(t2),
+                                       t01, t2)
+            grey_details = channel_mean(HF)
+            if rgb_variant:
+                grey_HF = beta_c * (gamma_c * grey_details
+                                    + gamma * grey_texture)
+                details = (gamma_c * HF + gamma * texture) * beta \
+                    + grey_HF[None]
+                if s == scales - 1:
+                    grey_residual = beta_c * channel_mean(LF)
+                    residual = grey_residual[None] + LF * beta
+                else:
+                    residual = 0.0
+            else:
+                grey_HF = gamma_c * grey_details + gamma * grey_texture
+                details = 0.5 * ((gamma_c * HF + gamma * texture)
+                                 + grey_HF[None])
+                residual = LF if s == scales - 1 else 0.0
+            recon = recon + m * (delta * details + residual)
+            detail = LF
+        return recon
+
+    def _reconstruct_highlights(self, x, c, rec):
+        """Highlight reconstruction before the tone map (filmicrgb.c
+        process :2680-2780): the sigmoid clip mask, noise inpainting with
+        JAX's generator's normal draw (key 0, `pixel/prng`), the RGB
+        wavelet pass and `rec[1]` ratio passes.  The census gate
+        (`clipped > 9`, the JAX package's `lax.cond`) reads the count to
+        the host: one sync a call, and an unclipped frame pays only the
+        norm and the count."""
+        norm = torch.sqrt(torch.sum(torch.square(x), dim=0))
+        arg = -norm * (c["rec_feather"] / c["rec_threshold"]) \
+            + c["rec_feather"]
+        mask = torch.clamp(1.0 / (1.0 + torch.exp2(arg)), 0.0, 1.0)
+        clipped = int(torch.sum(arg < 4.0))
+        if clipped <= 9:
+            return x
+        scales, hq_iters = rec
+        sigma = x * (c["noise_level"] / c["rec_threshold"])
+        noise = x + sigma * prng.normal(prng.PRNGKey(0), x.shape, x.device)
+        inp = torch.clamp(x * (1.0 - mask[None]) + mask[None] * noise,
+                          min=0.0)
+        recon = self._wavelets_reconstruct(inp, mask, c, scales, True)
+        for _ in range(hq_iters):
+            # EUCLIDEAN_NORM_V1: plain sqrt-sum-squares (:991-992)
+            norms = torch.clamp(
+                torch.sqrt(torch.sum(torch.square(recon), dim=0)),
+                min=NORM_MIN)
+            ratios = recon / norms[None]
+            rr = self._wavelets_reconstruct(ratios, mask, c, scales, False)
+            recon = torch.clamp(rr, 0.0, 1.0) * norms[None]
+        return recon
+
+
+# one-stage AgX chains packed by FilmicRGB.apply, by id of their device
+# coefficients (each entry holds the dict, so the id stays its own)
+_AGX_CHAINS = {}

@@ -4,9 +4,9 @@ Reference: `ansel/src/iop/highlights/` — params struct common.h:428-446;
 modes common.h:403-410.  Planning is copied from
 `ansel_tpu/ops/highlights.py`.  Ported: CLIP (hard clamp at the
 threshold, highlights/clip.c) and the guided LAPLACIAN on Bayer mosaics
-(highlights/laplacian.c via kernels/highlights_laplacian.py) without its
-noise salt.  LCH, INPAINT, HARMONIC, LAPLACIAN on X-Trans and LAPLACIAN
-with noise_level > 0 raise at plan time.
+(highlights/laplacian.c via kernels/highlights_laplacian.py) with its
+noise salt.  LCH, INPAINT, HARMONIC and LAPLACIAN on X-Trans raise at
+plan time.
 """
 
 from __future__ import annotations
@@ -78,9 +78,6 @@ class Highlights(Op):
         if p.mode == MODE_LAPLACIAN:
             if spec_in.cfa is CFAPattern.XTRANS:
                 raise not_ported(self.name, "mode LAPLACIAN on X-Trans")
-            if round(float(p.noise_level), 6) > 0.0:
-                raise not_ported(self.name, "mode LAPLACIAN with noise "
-                                 "(its jax.random salt)")
         # reference clamps processed_maximum to the clip threshold
         pmax = tuple(m if m > 0 else 1.0 for m in ctx.processed_maximum)
         clipval = p.clip * min(pmax)

@@ -240,10 +240,18 @@ def coeffs_to_device(coeffs, device) -> List[Optional[dict]]:
         if c is None:
             out.append(None)
             continue
-        out.append({k: torch.as_tensor(np.asarray(v, dtype=np.float32),
-                                       device=dev)
-                    for k, v in c.items()})
+        out.append({k: _to_device(v, dev) for k, v in c.items()})
     return out
+
+
+def _to_device(v, dev):
+    """One coefficient as a float32 tensor; a list of arrays of unlike
+    shapes (crystgrain's kernel banks) as a list of them."""
+    try:
+        host = np.asarray(v, dtype=np.float32)
+    except ValueError:
+        return [_to_device(e, dev) for e in v]
+    return torch.as_tensor(host, device=dev)
 
 
 class Pipeline:
@@ -493,12 +501,18 @@ def _fingerprint(coeffs) -> Tuple:
         if c is None:
             out.append(None)
             continue
-        entries = []
-        for k in sorted(c):
-            v = np.asarray(c[k], dtype=np.float32)
-            entries.append((k, v.shape, v.tobytes()))
-        out.append(tuple(entries))
+        out.append(tuple((k, _host_print(c[k])) for k in sorted(c)))
     return tuple(out)
+
+
+def _host_print(v):
+    """(shape, float32 bytes) of one coefficient, or a tuple of them for
+    a list of arrays of unlike shapes."""
+    try:
+        host = np.asarray(v, dtype=np.float32)
+    except ValueError:
+        return tuple(_host_print(e) for e in v)
+    return host.shape, host.tobytes()
 
 
 # (signature, device) -> (coefficient fingerprint, device coeffs, steps)

@@ -1,12 +1,17 @@
-"""Surface blurs of toneequal's luminance mask (`ansel_tpu/pixel/guided.py`;
-reference `src/pixel/fast_guided_filter.h`, `src/pixel/eigf.h`).
+"""Guided filters (`ansel_tpu/pixel/guided.py`; reference
+`src/pixel/guided_filter.c`, `src/pixel/fast_guided_filter.h`,
+`src/pixel/eigf.h`).
 
-`fast_surface_blur` (the guided filter at a 4x downsample) takes its box
-means from `pixel/blur.box_blur`; `eigf_surface_blur` (the
-exposure-independent guided filter) blurs its (average, square) pair with
-`pixel/blur.gaussian_iir`, the IIR kernel on the device.  The full-size
-`guided_filter`, `fast_guided_filter` and `eigf` wait for the ops that
-use them.
+The full-size filters: `guided_filter` (He et al.; hazeremoval, tonemap,
+globaltonemap), `fast_guided_filter` (its (a, b) surface at a block-mean
+downsample, upsampled as `jax.image.resize(..., "linear")` through
+`pixel/resample.resize_bilinear`; colormapping) and `eigf` (the
+exposure-independent variant).  Then toneequal's surface blurs:
+`fast_surface_blur` (the guided filter at a 4x downsample) and
+`eigf_surface_blur` (its (average, square) pair through
+`pixel/blur.gaussian_iir`, the IIR kernel on the device).  Every box mean
+is `pixel/blur.box_blur`: the sepblur kernel for radii up to 7,
+cumulative sums beyond.
 """
 
 from __future__ import annotations
@@ -14,6 +19,67 @@ from __future__ import annotations
 import torch
 
 from .blur import box_blur, gaussian_iir
+from .resample import resize_bilinear
+from .shifts import pad_tail
+
+
+def guided_filter(guide: torch.Tensor, src: torch.Tensor, radius: int,
+                  eps: float) -> torch.Tensor:
+    """Classic guided filter on (H, W) planes."""
+    mean_i = box_blur(guide, radius)
+    mean_p = box_blur(src, radius)
+    corr_ip = box_blur(guide * src, radius)
+    corr_ii = box_blur(guide * guide, radius)
+    # clamp: the box sums' float32 cancellation can push var below 0
+    var_i = torch.clamp(corr_ii - mean_i * mean_i, min=0.0)
+    cov_ip = corr_ip - mean_i * mean_p
+    a = cov_ip / (var_i + eps)
+    b = mean_p - a * mean_i
+    return box_blur(a, radius) * guide + box_blur(b, radius)
+
+
+def fast_guided_filter(guide: torch.Tensor, src: torch.Tensor, radius: int,
+                       eps: float, scaling: int = 4) -> torch.Tensor:
+    """Subsampled guided filter (fast_guided_filter.h:280-344): the (a, b)
+    affine surface on a `scaling`-times block-mean downsample at radius /
+    scaling, upsampled bilinearly and applied at full size."""
+    if radius < 4 or scaling <= 1:
+        return guided_filter(guide, src, radius, eps)
+    s = int(scaling)
+    H, W = guide.shape[-2:]
+    Hp, Wp = -(-H // s) * s, -(-W // s) * s
+    g = pad_tail(guide, Hp - H, Wp - W)
+    p = pad_tail(src, Hp - H, Wp - W)
+    gs = g.reshape(Hp // s, s, Wp // s, s).mean(dim=(1, 3))
+    ps = p.reshape(Hp // s, s, Wp // s, s).mean(dim=(1, 3))
+    r = max(1, radius // s)
+    mean_i = box_blur(gs, r)
+    mean_p = box_blur(ps, r)
+    corr_ip = box_blur(gs * ps, r)
+    corr_ii = box_blur(gs * gs, r)
+    var_i = torch.clamp(corr_ii - mean_i * mean_i, min=0.0)
+    cov_ip = corr_ip - mean_i * mean_p
+    a = box_blur(cov_ip / (var_i + eps), r)
+    b = box_blur(mean_p - (cov_ip / (var_i + eps)) * mean_i, r)
+    a_full = resize_bilinear(a, (Hp, Wp))[..., :H, :W]
+    b_full = resize_bilinear(b, (Hp, Wp))[..., :H, :W]
+    return a_full * guide + b_full
+
+
+def eigf(guide: torch.Tensor, src: torch.Tensor, radius: int,
+         feathering: float) -> torch.Tensor:
+    """Exposure-independent guided filter (eigf.h): the local variance
+    normalised by the local mean squared."""
+    mean_g = box_blur(guide, radius)
+    mean_s = box_blur(src, radius)
+    corr_gg = box_blur(guide * guide, radius)
+    corr_gs = box_blur(guide * src, radius)
+    var_g = torch.clamp(corr_gg - mean_g * mean_g, min=0.0)
+    cov_gs = corr_gs - mean_g * mean_s
+    norm = torch.clamp(mean_g * mean_g, min=1e-12)
+    a = cov_gs / (var_g + feathering * norm)
+    b = mean_s - a * mean_g
+    return box_blur(a, radius) * guide + box_blur(b, radius)
 
 
 def _upsample_node(x: torch.Tensor, s: int, axis: int) -> torch.Tensor:

@@ -2,7 +2,7 @@
 `jax.image.resize`.
 
 `resize_bilinear` and `resize_lanczos3` equal `jax.image.resize(x, shape,
-"bilinear" / "lanczos3")`.  JAX resamples with antialias=True: each
+"bilinear" / "lanczos3")`, `resize_nearest` its "nearest".  JAX resamples with antialias=True: each
 changed axis is a product with a weight matrix built by
 `compute_weight_mat` (jax/_src/image/scale.py): half-pixel centres, the
 kernel (triangle, or Lanczos of radius 3) widened by max(1/scale, 1), each
@@ -92,6 +92,21 @@ def resize_bilinear(x: torch.Tensor, shape, kernel=_triangle) -> torch.Tensor:
     return torch.einsum("...hw,hu,wv->...uv", x,
                         _weights_on(h, oh, x.device, kernel),
                         _weights_on(w, ow, x.device, kernel))
+
+
+def resize_nearest(x: torch.Tensor, shape) -> torch.Tensor:
+    """`jax.image.resize(x, shape, "nearest")` on the last two axes: each
+    output index takes floor((i + 0.5) * m / n) in float32 (divided by a
+    0-dim tensor: torch divides by a Python float through its
+    reciprocal on the card)."""
+    for axis in (-2, -1):
+        m, n = x.shape[axis], int(shape[axis])
+        if m == n:
+            continue
+        pos = (torch.arange(n, dtype=torch.float32, device=x.device) + 0.5) \
+            * float(m) / torch.full((), float(n), device=x.device)
+        x = torch.index_select(x, x.dim() + axis, torch.floor(pos).long())
+    return x
 
 
 # --- the reference's resamplers (initialscale, finalscale) -----------------

@@ -1,11 +1,13 @@
-"""Edge-aware a-trous wavelet scales (`ansel_tpu/pixel/wavelets.py`;
-reference `src/pixel/eaw.c`).
+"""A-trous wavelet scales (`ansel_tpu/pixel/wavelets.py`; reference
+`src/pixel/eaw.c`): the edge-aware ones and the plain B-spline blur.
 
 Every scale goes to the EAW kernel's wrapper (`kernels/eaw.py`): the CUDA
 kernel on the device, its plain twin on the CPU.  Both compute what the
 TPU's Pallas kernel computes; the JAX package's XLA path differs from it
 by dividing by the weight sum where the kernel multiplies by its inverse.
 The sum of squares stays a plain torch reduction, as in the JAX package.
+`bspline_blur` (the JAX package's `_sep_blur`) is the sepblur kernel's
+dilated B3 blur.
 """
 
 from __future__ import annotations
@@ -36,3 +38,14 @@ def eaw_decompose_scale(x: torch.Tensor, scale: int, sharpen):
     """One scale of the atrous equalizer's edge-aware decompose
     (reference eaw.c eaw_decompose) -> (coarse, detail)."""
     return eaw.eaw_atrous_coarse(x.contiguous(), scale, sharpen)
+
+
+B3 = (1.0 / 16.0, 4.0 / 16.0, 6.0 / 16.0, 4.0 / 16.0, 1.0 / 16.0)
+
+
+def bspline_blur(x: torch.Tensor, scale: int, kernel=B3) -> torch.Tensor:
+    """Separable dilated 5-tap B-spline blur on (..., H, W) with hole size
+    2^scale (the sepblur kernel on the device)."""
+    from .shifts import sep_filter
+
+    return sep_filter(x, kernel, dilation=1 << scale)

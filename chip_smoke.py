@@ -47,7 +47,17 @@ entry points a user calls, at their full frames:
     colorbalance, velvia, vibrance, colorcontrast, colisa, splittoning):
     RCD, the warp kernel on ashift's homography and on liquify's brush
     displacement over its window, and the chain in one program of 15
-    stages; each of the twelve legacy opcodes is also held alone.
+    stages; each of the twelve legacy opcodes is also held alone;
+  * the port's config 12 at 24 MP (4000 x 6016), a hazy back-lit
+    landscape with a blown sky exported with film grain to 8 bits
+    (exposure +1 EV, hazeremoval, filmicrgb with its highlight
+    reconstruction planned and fired, grain, dither): RCD, the chain in
+    four programs (filmicrgb's AgX alone after the reconstruction) and
+    sepblur 36 times for the reconstruction's a-trous passes at
+    dilations 1-256; before it JAX's generator (`pixel/prng`) on the card
+    against the CPU, after it each op of `configs.OPS12` (censorize on
+    the IIR and sepblur kernels, the salted Laplacian, tonemap,
+    globaltonemap, colormapping, crystgrain) alone on its frame.
     Config 2's NLM input also runs the lattices past the kernel's chunk
     (K 15) and a patch radius past its template limit (P 9).
 
@@ -90,6 +100,7 @@ from ansel_tpu_torch.kernels import pointwise as pw
 from ansel_tpu_torch.ops.base import pad_to
 from ansel_tpu_torch.pipeline.blend import BlendParams
 from ansel_tpu_torch.pipeline.export import export_image
+from ansel_tpu_torch.pixel import prng
 from ansel_tpu_torch.pixel.nlmeans import search_offsets
 
 H, W = configs.BENCH_H, configs.BENCH_W
@@ -149,6 +160,15 @@ STAGES11 = ["rawprepare", "temperature", "highlights", "demosaic", "ashift",
             "colorbalance", "filmicrgb", "_convert", "colisa",
             "colorcontrast", "_convert", "velvia", "_convert", "vibrance",
             "_convert", "splittoning", "colorout"]
+# config 12: RCD; the chain four times (exposure + colorin, filmicrgb's
+# AgX after its highlight reconstruction, to Lab, from Lab + colorout);
+# sepblur 36 times for the reconstruction (9 scales x 2 blurs x 2 passes)
+# and 3 times for grain's box means
+LAUNCHES12 = dict(NO_LAUNCHES, rcd=1, chain=4, sepblur=39)
+HR_BLURS12 = 36
+STAGES12 = ["rawprepare", "temperature", "highlights", "demosaic",
+            "hazeremoval", "exposure", "colorin", "filmicrgb", "_convert",
+            "grain", "_convert", "colorout", "dither"]
 # run B's bounding box
 BOX9 = 2048
 NOISE_SIGMA = 200.0  # sensor units of 16383: a high-ISO mosaic
@@ -158,6 +178,12 @@ PLAIN_REPEATS = 2    # plain twins at 24 MP take up to 0.6 s each
 PIPE2_REPEATS = 3
 PIPE3_REPEATS = 3
 PIPE4_REPEATS = 10
+PIPE12_REPEATS = 5
+OPS12_REPEATS = 2
+# the generator's normal draw on the card against the CPU: erf_inv's
+# log1p and sqrt are torch's on either device and may part in the last
+# bit; values reach ~5.4 (an ulp 4.8e-7)
+NORMAL_TOL = 1e-6
 PIPE7_REPEATS = 5
 PIPE8_REPEATS = 5
 PIPE9_REPEATS = 10
@@ -222,7 +248,12 @@ OPS_CHAIN = {(1, 0): (1095, 57), (2, 0): (847, 42), (3, 0): (6, 0),
              (11, "profile_gamma", 0): (174, 8),
              (11, "profile_gamma", 1): (231, 5),
              (11, "profile_gamma", 2): (135, 3),
-             (11, "colorchecker"): (390, 0)}
+             (11, "colorchecker"): (390, 0),
+             # config 12: [exposure, colorin], filmicrgb's AgX alone
+             # after its highlight reconstruction, to Lab, from Lab +
+             # colorout (config 3's program on config 12's pixels)
+             (12, 0): (21, 0), (12, 1): (666, 39), (12, 2): (183, 6),
+             (12, 3): (219, 3)}
 FLOPS_SEPBLUR_PER_TAP = 4        # two passes, a multiply and an add each
 FLOPS_EAW = 25 * 24 + 10         # 25 taps; the divide and the detail
 # the atrous variant per pixel: 25 taps of the three differences and
@@ -2220,6 +2251,276 @@ def run_config11(card, record, raw, raw_dev, meta, phases):
     return launches
 
 
+def check_prng(card):
+    """JAX's generator on the card against the same calls on the CPU at
+    config 12's shapes: the keys and splits, the bits of each uniform and
+    randint draw, the normal draws within NORMAL_TOL; each draw's device
+    ms."""
+    key = prng.PRNGKey(0x5EED)
+    expect(prng.split(key, 30, device="cuda") == prng.split(key, 30),
+           "split on the card differs from the host's")
+    draws = [
+        ("dither uniform", prng.uniform, (prng.PRNGKey(353), (3, H, W))),
+        ("grain normal", prng.normal, (prng.PRNGKey(773), (H, W))),
+        ("HR normal", prng.normal, (prng.PRNGKey(0), (3, H, W))),
+        ("censorize uniform", prng.uniform,
+         (prng.PRNGKey(1259), (3, H, W), -0.5, 0.5)),
+        ("crystgrain randint", prng.randint, (key, (H, W), 0, 4)),
+    ]
+    rows = []
+    for label, fn, args in draws:
+        got = fn(*args, device="cuda").cpu()
+        want = fn(*args)
+        if fn is prng.normal:
+            mx = (got - want).abs().max().item()
+            same = (got == want).float().mean().item()
+            expect(mx <= NORMAL_TOL, f"prng {label}: max {mx}")
+            how = f"max {mx:.3g}, {same:.4f} equal"
+        else:
+            expect(torch.equal(got, want), f"prng {label}: bits differ")
+            how = "bit-equal"
+        del got, want
+        ms = median_ms(lambda: fn(*args, device="cuda"), 3)
+        rows.append(f"{label} {args[1]} {how}, {ms:.2f} ms")
+    print(f"[prng] PRNGKey and split(30) equal the host's; card vs CPU: "
+          f"{'; '.join(rows)} (normal tol {NORMAL_TOL:g}) on {card}",
+          flush=True)
+
+
+def captured12(pipe, raw_dev):
+    """Run config 12 once on a device-resident raw and keep the arguments
+    of its four chain calls and of its sepblur calls (the first at each
+    dilation and tap count, with each one's call count)."""
+    calls = {"chain": [], "sepblur": {}, "counts": {}}
+    real_chain, real_sb = pw.pointwise_chain, sepblur.sep_blur
+
+    def ch(*args):
+        calls["chain"].append(args)
+        return real_chain(*args)
+
+    def sb(x, taps, d=1):
+        k = (len(taps), d)
+        calls["sepblur"].setdefault(k, (x, taps, d))
+        calls["counts"][k] = calls["counts"].get(k, 0) + 1
+        return real_sb(x, taps, d)
+
+    with swapped([(pw, "pointwise_chain", ch), (sepblur, "sep_blur", sb)]):
+        pipe.run_padded(raw_dev)
+    hr = {k: n for k, n in calls["counts"].items() if k[0] == 5}
+    expect(len(calls["chain"]) == LAUNCHES12["chain"]
+           and sum(hr.values()) == HR_BLURS12
+           and sum(calls["counts"].values()) == LAUNCHES12["sepblur"],
+           f"unexpected config-12 calls {len(calls['chain'])} chains, "
+           f"sepblur {calls['counts']}")
+    return calls
+
+
+def check_sepblur_hr(calls, record):
+    """The reconstruction's B3 blurs of (3, 4000, 6016) at dilations 1 to
+    256 (the two-pass form from 256): kernel vs twin bit for bit, device
+    ms of the kernel, the twin and a depthwise F.conv2d of the same
+    dilated 5 x 5 product, and the byte bound; the image's 36 launches
+    summed by their counts."""
+    rows, err, tot = [], 0.0, dict(ms=0.0, plain_ms=0.0, library_ms=0.0,
+                                   bound_ms=0.0)
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for (n, d), (x, taps, _) in sorted(calls["sepblur"].items()):
+            if n != 5:
+                continue
+            got = sepblur.sep_blur(x, taps, d)
+            want = sepblur.sep_blur_reference(x, taps, d)
+            mx, _ = compare(got, want)
+            expect(torch.equal(got, want), f"sepblur HR d={d}: max {mx}")
+            err = max(err, mx)
+            del got, want
+            k = torch.tensor(taps, device=x.device)
+            weight = torch.outer(k, k).expand(x.shape[0], 1, 5, 5)
+            weight = weight.contiguous()
+            xp = F.pad(x[None], (2 * d,) * 4, mode="replicate")
+            ms = median_ms(lambda: sepblur.sep_blur(x, taps, d))
+            plain_ms = median_ms(
+                lambda: sepblur.sep_blur_reference(x, taps, d), PLAIN_REPEATS)
+            lib_ms = median_ms(lambda: F.conv2d(xp, weight, dilation=d,
+                                                groups=x.shape[0]))
+            del xp
+            b_ms, b_by = bound(2 * nbytes(x),
+                               FLOPS_SEPBLUR_PER_TAP * len(taps) * x.numel())
+            count = calls["counts"][(n, d)]
+            for key_, v in (("ms", ms), ("plain_ms", plain_ms),
+                            ("library_ms", lib_ms), ("bound_ms", b_ms)):
+                tot[key_] += count * v
+            rows.append(f"d={d} x{count} {ms:.4f}/{plain_ms:.2f}/"
+                        f"{lib_ms:.3f}")
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    record["sepblur-hr"] = dict(max_abs_err=err, bound_by=b_by,
+                                per_image=tot, launches=HR_BLURS12,
+                                **{k: v / HR_BLURS12 for k, v in tot.items()})
+    print(f"[sepblur-hr] filmicrgb's reconstruction, {tuple(x.shape)} B3 "
+          f"kernel vs plain: max {err:.3g} (bit-equal) | ms kernel/plain/"
+          f"conv2d: {', '.join(rows)} | per image ({HR_BLURS12} launches): "
+          f"kernel {tot['ms']:.3f} ms, plain {tot['plain_ms']:.1f}, conv2d "
+          f"{tot['library_ms']:.3f}, bound {tot['bound_ms']:.3f} ms "
+          f"({b_by})", flush=True)
+
+
+def run_config12(card, record, raw, raw_dev, meta, phases):
+    """Config 12 at 24 MP, the hazy landscape with a blown sky: through
+    the user's entry point with launches counted (the census read once),
+    against the composed twins; then its four chains and the
+    reconstruction's blurs on the arguments the pipe hands them, and the
+    pipe's timing and peak memory."""
+    pipe = port.compile_pipeline(meta, configs.history(12))
+    stages = [s.name for s in pipe.pipe.stages]
+    expect(stages == STAGES12, f"unexpected config-12 plan {stages}")
+    groups = [STAGES12[5:7], STAGES12[8:9], STAGES12[10:12]]
+    expect(pipe.fused_groups() == groups,
+           f"unexpected chains {pipe.fused_groups()}")
+    rec = pipe.pipe.stages[STAGES12.index("filmicrgb")].plan.static[5]
+    expect(rec == (9, 1), f"reconstruction planned as {rec}")
+    expect(raw.shape == pipe.pipe.spec_in.array_shape, "raw needs padding")
+    with timed(phases, "pipe12 vs plain"):
+        reset_launches()
+        out = pipe.output_array(raw)
+        launches = read_launches()
+        programs, maps = read_split()
+        expect(launches == LAUNCHES12, f"config-12 launches {launches}")
+        expect(len(programs) == 4 and -1 not in programs and not maps,
+               f"config-12 programs {programs}, warp maps {maps}")
+        launches["programs"] = programs
+        expect(out.shape == (3, H, W), f"output shape {out.shape}")
+        expect(bool(np.isfinite(out).all()) and out.min() >= 0.0
+               and out.max() <= 1.0, "output not finite or outside [0, 1]")
+        reset_launches()
+        with plain_twins():
+            plain = pipe.output_array(raw)
+        expect(all(v == 0 for v in read_launches().values()),
+               f"the plain composition launched kernels: {read_launches()}")
+        pipe_err = float(np.abs(out - plain).max())
+        expect(pipe_err <= PIPE_TOL, f"config 12 vs plain: max {pipe_err}")
+        del plain
+    with timed(phases, "capture12"):
+        calls = captured12(pipe, raw_dev)
+        i = STAGES12.index("filmicrgb")
+        x_in = pipe.pipe.trace_fn(0, i)(raw_dev, pipe.coeffs[:i])
+        c = pipe.coeffs[i]
+        norm = torch.sqrt(torch.sum(x_in * x_in, dim=0))
+        arg = -norm * (c["rec_feather"] / c["rec_threshold"]) \
+            + c["rec_feather"]
+        clipped = int(torch.sum(arg < 4.0))
+        expect(clipped > 9, f"census {clipped}: the reconstruction skipped")
+        del x_in, norm, arg
+    with timed(phases, "chain12"):
+        names = [["exposure", "colorin"], ["filmicrgb"], ["_convert"],
+                 ["_convert", "colorout"]]
+        for j, row in enumerate(check_chains(12, calls["chain"], names)):
+            record[f"chain12.{j}"] = row
+    with timed(phases, "sepblur-hr"):
+        check_sepblur_hr(calls, record)
+    del calls
+    with timed(phases, "pipe12 timing"):
+        per_img = time_pipe(pipe, raw_dev, PIPE12_REPEATS)
+        peak, held = pipe_peak(pipe, raw_dev)
+    print(f"[pipe12] config 12 {H}x{W}: {len(stages)} stages, chains "
+          f"{pipe.fused_groups()} + filmicrgb's AgX after its reconstruction "
+          f"(rec {rec}, census fired: {clipped} pixels, one host read), "
+          f"launches {launches} (sepblur {HR_BLURS12} for the "
+          f"reconstruction), vs plain max {pipe_err:.3g} (tol 1/255), range "
+          f"[{out.min():.3g}, {out.max():.3g}] | {1.0 / per_img:.2f} img/s, "
+          f"{per_img * 1e3:.2f} ms/img (device-resident input, "
+          f"{PIPE12_REPEATS} repeats after 2 warm-ups), peak device memory "
+          f"{peak:.3f} GB ({held:.3f} GB held before) on {card}", flush=True)
+    return launches
+
+
+def op_alone(meta, raw_dev, name, params):
+    """(pipe, i, x): `name` after config 12's +1 EV, planned by the
+    user's entry point at the 24 MP frame, and its stage's input."""
+    hist = [port.HistoryItem("exposure", {"exposure": 1.0}),
+            port.HistoryItem(name, params)]
+    pipe = port.compile_pipeline(meta, hist)
+    i = [s.name for s in pipe.pipe.stages].index(name)
+    return pipe, i, pipe.pipe.trace_fn(0, i)(raw_dev, pipe.coeffs[:i])
+
+
+def check_iir_censorize(calls, record):
+    """censorize's sigma-8 Gaussian of (3, 4000, 6016) on the IIR kernel
+    against the twin (IIR_TOL, bit-equal), with its bound."""
+    (x, coef, lo, hi), = calls
+    got = iir.gaussian_iir(x, coef, lo, hi)
+    want = iir.gaussian_iir_reference(x, coef, lo, hi)
+    mx, _ = compare(got, want)
+    expect(mx <= IIR_TOL and torch.equal(got, want), f"iir censorize: {mx}")
+    del got, want
+    ms = median_ms(lambda: iir.gaussian_iir(x, coef, lo, hi))
+    plain_ms = median_ms(lambda: iir.gaussian_iir_reference(x, coef, lo, hi),
+                         1)
+    b_ms, b_by = bound(2 * nbytes(x), FLOPS_IIR * x.numel())
+    floor_ms = iir.latency_floor_ms(*x.shape[-2:])
+    record["iir-censorize"] = dict(max_abs_err=mx, ms=ms, plain_ms=plain_ms,
+                                   library_ms=None, bound_ms=b_ms,
+                                   bound_by=b_by, launches=1)
+    print(f"[iir-censorize] {tuple(x.shape)} sigma 8, kernel vs plain: max "
+          f"{mx:.3g} (tol {IIR_TOL:g}; bit-equal) | kernel {ms:.4f} ms, "
+          f"plain {plain_ms:.1f} ms, bound {b_ms:.4f} ms ({b_by}), latency "
+          f"floor {floor_ms:.4f} ms", flush=True)
+
+
+def run_ops12(card, record, meta, raw_dev, phases):
+    """Each op of configs.OPS12 alone on config 12's frame after +1 EV,
+    through the stage's own run: its launches, within 1/255 of the same
+    stage with every kernel's twin, and its device ms; censorize's IIR
+    and 25-tap sepblur arguments against their twins."""
+    rows = []
+    for name, params in configs.OPS12:
+        if params is None:   # colormapping: statistics of the frame
+            _, _, lab = op_alone(meta, raw_dev, name, {})
+            small = lab[:, ::8, ::8].cpu().numpy()
+            params = configs.colormapping_params(
+                small, small[:, ::-1] * np.float32(0.9)
+                + np.float32([8.0, 5.0, -6.0]).reshape(3, 1, 1))
+            del lab
+        with timed(phases, f"ops12 {name}"):
+            pipe, i, x = op_alone(meta, raw_dev, name, params)
+
+            def run():
+                return pipe.pipe.trace_fn(i, i + 1)(x, pipe.coeffs[i:i + 1])
+
+            iir_calls, sb_calls = [], []
+            real_iir, real_sb = iir.gaussian_iir, sepblur.sep_blur
+            reset_launches()
+            with swapped([(iir, "gaussian_iir", lambda *a: iir_calls.append(
+                               a) or real_iir(*a)),
+                          (sepblur, "sep_blur", lambda v, t, d=1:
+                           sb_calls.append((v, t, d)) or real_sb(v, t, d))]):
+                got = run()
+            launches = {k: v for k, v in read_launches().items() if v}
+            with plain_twins():
+                want = run()
+            mx, mean = compare(got, want)
+            expect(mx <= PIPE_TOL, f"ops12 {name}: max {mx}")
+            changed = (got - x).abs().max().item()
+            expect(changed > 1e-3, f"ops12 {name}: output equals input")
+            del got, want
+            if name == "censorize":
+                check_iir_censorize(iir_calls, record)
+                v, t, d = sb_calls[0]
+                got = sepblur.sep_blur(v, t, d)
+                expect(torch.equal(got, sepblur.sep_blur_reference(v, t, d)),
+                       "sepblur censorize: not bit-equal")
+                del got
+            del iir_calls, sb_calls
+            ms = median_ms(run, OPS12_REPEATS)
+        rows.append(dict(op=name, launches=launches, max_abs_err=mx, ms=ms))
+        print(f"[ops12] {name} alone on {tuple(x.shape)}: launches "
+              f"{launches}, vs plain max {mx:.3g} mean {mean:.3g} (tol "
+              f"1/255) | {ms:.2f} ms on {card}", flush=True)
+        del pipe, x
+    record["ops12"] = rows
+
+
 def run_devtest_and_entry(phases):
     """The CLI's card diagnostic, then entry()'s fn on the card against
     the same fn with every kernel's plain twin."""
@@ -2279,6 +2580,10 @@ def main():
             launches9 = run_config9(card, record, raw, meta, phases, tmp)
         launches10 = run_config10(card, record, raw, raw_dev, meta, phases)
         launches11 = run_config11(card, record, raw, raw_dev, meta, phases)
+        with timed(phases, "prng"):
+            check_prng(card)
+        launches12 = run_config12(card, record, raw, raw_dev, meta, phases)
+        run_ops12(card, record, meta, raw_dev, phases)
         run_devtest_and_entry(phases)
         del raw_dev
         with timed(phases, "mosaic3 wait"):
@@ -2348,6 +2653,15 @@ def main():
             # the grading and legacy opcodes, each alone on config 10's
             # and config 11's arguments
             entry_["opcodes"] = record["opcodes10"] + record["opcodes11"]
+        if key == "sepblur":
+            # filmicrgb's reconstruction in config 12: per launch, and
+            # per image over its 36 launches
+            entry_["hr"] = {k: record["sepblur-hr"][k]
+                            for k in keys + ("launches", "per_image")}
+        if key == "iir":
+            # censorize's sigma-8 blur, alone on config 12's frame
+            entry_["censorize"] = {k: record["iir-censorize"][k]
+                                   for k in keys + ("launches",)}
         kernels.append(entry_)
     # config 10: its two chains (the launches of each one's program) and
     # the EAW kernel's atrous variant (one launch per scale)
@@ -2373,6 +2687,16 @@ def main():
                         "replaces": "ansel_tpu/kernels/warp_pallas.py:121",
                         "launches": launches11["maps"][fn],
                         **{k: record[f"warp-{m}"][k] for k in keys}})
+    # config 12: its four chain programs, each with its launches in
+    # [pipe12]
+    for j in range(LAUNCHES12["chain"]):
+        row = record[f"chain12.{j}"]
+        kernels.append({"name": f"pointwise_chain[config12.{j}]",
+                        "route": "cuda",
+                        "source": "ansel_tpu_torch/csrc/pointwise_chain.cu",
+                        "replaces": "ansel_tpu/kernels/pointwise.py:30",
+                        "launches": launches12["programs"][row["program"]],
+                        **{k: row[k] for k in keys}})
     kernels.append({"name": "eaw_atrous_coarse", "route": "cuda",
                     "source": "ansel_tpu_torch/csrc/eaw.cu",
                     "replaces": "ansel_tpu/kernels/eaw_pallas.py:205",

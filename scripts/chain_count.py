@@ -3,7 +3,7 @@
 chain of the port's configs needs in the fused colour chain
 (`csrc/pointwise_chain.cu`), counted from its SASS.
 
-    python3 scripts/chain_count.py [--configs 1 2 3 4 7 10 11]
+    python3 scripts/chain_count.py [--configs 1 2 3 4 7 10 11 12]
                                    [--stride 64] [--opcodes]
 
 Three steps, on the machine with the card:
@@ -366,7 +366,7 @@ def fmt(parts):
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--configs", type=int, nargs="+",
-                    default=[1, 2, 3, 4, 7, 10, 11])
+                    default=[1, 2, 3, 4, 7, 10, 11, 12])
     ap.add_argument("--stride", type=int, default=64)
     ap.add_argument("--opcodes", action="store_true")
     args = ap.parse_args()

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time goes in the PyTorch/CUDA port's pipe, on one GPU.
 
-    python3 scripts/torch_profile.py [--config 1|2|3|4|7|8|9|10|11]
+    python3 scripts/torch_profile.py [--config 1|2|3|4|7|8|9|10|11|12]
                                      [--images 3]
 
 Plans bench config 1, 2 (4000 x 6016), 3 (5504 x 8256), 4 (an X-Trans
@@ -11,7 +11,9 @@ export's flat field, flip and clipping: its 14-bit mosaic and GainMaps
 without the file, 4000 x 6016), 10 (the graded look: the grading ops
 in two chains, atrous on the EAW kernel, 4000 x 6016) or 11 (the legacy
 look, straightened and retouched: ashift's and liquify's warps, one
-chain of 15 stages, 4000 x 6016) through
+chain of 15 stages, 4000 x 6016) or 12 (the hazy landscape: hazeremoval,
+filmicrgb's highlight reconstruction, grain and dither, 4000 x 6016)
+through
 `compile_pipeline`, warms up, then runs `run_padded` on a device-resident raw `--images`
 times without the profiler and `--images` times under torch.profiler.
 Prints one line per group of device kernels (ms per image and launches

@@ -1398,3 +1398,71 @@ def test_warp_kernels_refuse_bad_input(cuda):
         warp.liquify_warp(x, stamps, (0, 9, 0, 8))
     with pytest.raises(ValueError):
         warp.liquify_warp(x, stamps.cpu(), (0, 8, 0, 8))
+
+
+def test_prng_bits_on_cuda_equal_the_cpu(cuda):
+    """JAX's generator on the card: the same keys and splits (hashed as
+    tensors there), and the same bits, uniforms and ints as on the CPU
+    (the int64 words are exact on both); the normal draw through erf_inv's
+    log1p and sqrt within an ulp or two of values up to ~5."""
+    from ansel_tpu_torch.pixel import prng
+
+    key = prng.PRNGKey(0x5EED)
+    assert prng.split(key, 30, device=cuda) == prng.split(key, 30)
+    for shape in [(3, 137, 401), (1000, 1504)]:
+        for fn in (prng.random_bits, prng.uniform):
+            got = fn(key, shape, device=cuda).cpu()
+            assert torch.equal(got, fn(key, shape))
+        got = prng.uniform(key, shape, -0.5, 0.5, device=cuda).cpu()
+        assert torch.equal(got, prng.uniform(key, shape, -0.5, 0.5))
+        got = prng.randint(key, shape, 0, 4, device=cuda).cpu()
+        assert torch.equal(got, prng.randint(key, shape, 0, 4))
+        got = prng.normal(key, shape, device=cuda).cpu()
+        want = prng.normal(key, shape)
+        assert (got - want).abs().max().item() <= 1e-6
+
+
+def _twins(monkeypatch):
+    """Compose the plain twins: each kernel wrapper the config-12 pipe
+    calls swapped for its plain version."""
+    monkeypatch.setattr(rcd, "rcd_demosaic", rcd.rcd_demosaic_reference)
+    monkeypatch.setattr(pw, "pointwise_chain", pw.pointwise_chain_reference)
+    monkeypatch.setattr(sepblur, "sep_blur", sepblur.sep_blur_reference)
+
+
+def test_config12_on_cuda(cuda, monkeypatch):
+    """Config 12 at 144 x 400 on the card: RCD once, the chain four times
+    (three chains and filmicrgb's AgX after its reconstruction, each its
+    own program), sepblur 2 x 5 scales x 2 passes for the reconstruction
+    and 3 for grain's box means; the output in [0, 1] and within a
+    display code of the same pipe with every kernel's twin (the CPU is no
+    yardstick here: hazeremoval's guided filter cancels on this frame,
+    ROADMAP R12, so the card's and the CPU's cumulative sums part)."""
+    h, w = 144, 400
+    raw, meta, _ = synth_raw(h=h, w=w, kind="gradients")
+    pipe = port.compile_pipeline(meta, configs.history(12), device=cuda)
+    scales = pipe.pipe.stages[7].plan.static[5][0]
+    assert pipe.pipe.stages[7].plan.static[5] == (5, 1)
+    rcd.LAUNCHES = pw.LAUNCHES = sepblur.LAUNCHES = 0
+    pw.PROGRAM_LAUNCHES.clear()
+    out = pipe.output_array(raw)
+    assert (rcd.LAUNCHES, pw.LAUNCHES, sepblur.LAUNCHES) == (
+        1, 4, 4 * scales + 3)
+    assert len(pw.PROGRAM_LAUNCHES) == 4 and -1 not in pw.PROGRAM_LAUNCHES
+    assert np.isfinite(out).all() and out.min() >= 0.0 and out.max() <= 1.0
+    _twins(monkeypatch)
+    want = pipe.output_array(raw)
+    assert np.abs(out - want).max() <= 1.0 / 255.0
+
+
+def test_sepblur_kernel_on_hr_arguments(cuda):
+    """filmicrgb's reconstruction hands sepblur (3, H, W) planes at
+    dilations 1 to 2^(scales - 1); from 256 the kernel takes its two-pass
+    form.  Bit-equal to the twin on a (3, 1000, 1504) frame of the
+    reconstruction's own input."""
+    x = torch.rand((3, 1000, 1504), device=cuda) * 3.0
+    for d in (1, 2, 8, 64, 128, 256):
+        got = sepblur.sep_blur(x, B3, d)
+        want = sepblur.sep_blur_reference(x, B3, d)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), d

@@ -251,7 +251,7 @@ def _config_chains(config):
                   if kind == "chain"]
 
 
-@pytest.mark.parametrize("config", [1, 2, 3, 4, 7, 10])
+@pytest.mark.parametrize("config", [1, 2, 3, 4, 7, 10, 12])
 def test_pack_chain_picks_a_specialised_program(config):
     """Every chain the config builds has a kernel of its own: its
     (opcode, const offset) sequence is the chosen entry of FIXED, and the
@@ -279,16 +279,21 @@ def test_pack_chain_fixed_consts_hold_config10():
 
 
 def test_pack_chain_interprets_an_unlisted_program():
-    """A sequence outside FIXED runs the interpreter."""
+    """A sequence outside FIXED runs the interpreter.  filmicrgb alone is
+    config 12's program (its stage after highlight reconstruction);
+    channelmixerrgb alone is in no config."""
     pipe, ((i, j, c),) = _config_chains(1)
     specs = [pipe.pipe._chain_spec(s) for s in pipe.pipe.stages[i:j]]
     coeffs = [k for _, k, _ in c.stages]
     assert pw.pack_chain(specs, coeffs, "cpu").fixed == c.fixed >= 0
     assert pw.pack_chain(specs[:-1], coeffs[:-1], "cpu").fixed == -1
     assert pw.pack_chain(specs[::-1], coeffs[::-1], "cpu").fixed == -1
-    agx = next(k for k, sp in enumerate(specs)
-               if sp.opcode == pw.OP_FILMIC_AGX)
-    assert pw.pack_chain(specs[agx:agx + 1], coeffs[agx:agx + 1],
+    ops = [sp.opcode for sp in specs]
+    agx = ops.index(pw.OP_FILMIC_AGX)
+    assert pw.FIXED[pw.pack_chain(specs[agx:agx + 1], coeffs[agx:agx + 1],
+                                  "cpu").fixed] == ((pw.OP_FILMIC_AGX, 0),)
+    mix = ops.index(pw.OP_CHANNELMIXERRGB)
+    assert pw.pack_chain(specs[mix:mix + 1], coeffs[mix:mix + 1],
                          "cpu").fixed == -1
 
 

@@ -145,10 +145,22 @@ def test_laplacian_runs_360_blurs_per_reconstruction(monkeypatch):
     assert sorted(set(calls)) == [1, 2, 4, 8, 16, 32]
 
 
-def test_laplacian_salt_is_refused():
-    with pytest.raises(NotImplementedError):
-        hl.laplacian_reconstruct(torch.zeros((16, 16)), [1.0, 1.0, 1.0],
-                                 CFAPattern.RGGB, 8, 2, 0.1, 0.5)
+def test_laplacian_salt_draws_once_with_the_last_key(monkeypatch):
+    """The salt (refused until JAX's generator was ported) fires once, on
+    the last iteration's guided pass, with the last of the iterations'
+    keys, on the (4, h/4, w/4) stack; the JAX package's salted run is
+    held in tests/test_torch_noise_ops.py."""
+    from ansel_tpu_torch.pixel import prng
+
+    draws, real = [], prng.normal
+    monkeypatch.setattr(prng, "normal", lambda key, shape, device="cpu":
+                        draws.append((key, tuple(shape)))
+                        or real(key, shape, device))
+    x = torch.from_numpy(_clipped_mosaic(64, 96, seed=3))
+    hl.laplacian_reconstruct(x, [0.8, 0.85, 0.9], CFAPattern.RGGB, 8, 3,
+                             0.1, 0.5)
+    assert draws == [(prng.split(prng.PRNGKey(hl.SALT_SEED), 3)[-1],
+                      (4, 16, 24))]
 
 
 @pytest.mark.parametrize("cfa", ["RGGB", "BGGR", "GRBG", "GBRG"])

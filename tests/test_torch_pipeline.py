@@ -209,7 +209,7 @@ def _xtrans(meta):
 @pytest.mark.parametrize("items,meta_fn,kw", [
     ([("highlights", {"mode": 1})], None, {}),
     ([("highlights", {"mode": 2})], None, {}),
-    ([("highlights", {"mode": 3, "noise_level": 0.1})], None, {}),  # salt
+    ([("blurs", {})], None, {}),                             # not ported
     ([("highlights", {"mode": 4})], None, {}),
     ([("demosaic", {"demosaicing_method": 0})], None, {}),   # PPG
     ([("demosaic", {"demosaicing_method": 1})], None, {}),   # AMaZE
@@ -218,24 +218,22 @@ def _xtrans(meta):
     ([("demosaic", {"color_smoothing": 2})], None, {}),
     ([("filmicrgb", {"version": 4})], None, {}),             # spline v5
     ([("filmicrgb", {"version": 0})], None, {}),             # spline v1
-    ([("exposure", {"exposure": 5.0}), ("filmicrgb", {})], None, {}),
+    ([("filmicrgb", {"version": 2})], None, {}),             # spline v3
     ([("colorin", {"type": 0})], None, {}),                  # ICC file
     ([("colorout", {"type": 0})], None, {}),                 # ICC file
     ([("lut3d", {})], None, {}),                             # not ported
     ([("denoiseprofile", {})], None, {}),          # automatic noise profile
     ([("diffuse", {"radius": 12})], None, {}),     # 6 wavelet scales
-    # bilat's grid (mode 0) and bloom are ported: this case holds
-    # censorize, a blur-family op that is not (it waits for the PRNG)
-    ([("censorize", {})], None, {}),
+    ([("retouch", {})], None, {}),                           # not ported
     ([("demosaic", {"demosaicing_method": 0x3001})], _xtrans, {}),  # dual
     ([("demosaic", {"color_smoothing": 2})], _xtrans, {}),
     ([("highlights", {"mode": 3})], _xtrans, {}),  # Laplacian on X-Trans
     (CONFIG1, None, {"pipe_type": "preview"}),
-], ids=["lch", "inpaint", "laplacian", "harmonic", "ppg", "amaze",
+], ids=["lch", "inpaint", "blurs", "harmonic", "ppg", "amaze",
         "bilinear", "green-eq", "smoothing", "filmic-v5",
-        "filmic-v1", "filmic-reconstruct", "colorin-icc", "colorout-icc",
+        "filmic-v1", "filmic-v3", "colorin-icc", "colorout-icc",
         "unported-op", "denoise-auto-profile", "diffuse-6-scales",
-        "bilat-grid", "xtrans-dual", "xtrans-smoothing",
+        "retouch", "xtrans-dual", "xtrans-smoothing",
         "xtrans-laplacian", "preview"])
 def test_unported_branches_raise_at_plan_time(items, meta_fn, kw):
     _, meta, _ = synth_raw(h=64, w=128)
