@@ -129,6 +129,7 @@ def main(argv=None):
         pipe = Pipeline(meta, doc.history if doc else [],
                         device=args.device,
                         scale=compute_export_scale(meta, settings),
+                        forms=doc.masks if doc else None,
                         order_version=doc.iop_order_version if doc else None)
         reps = run_stages(pipe, raw, nan_scan="nan" in args.debug)
         bad = nan_report(reps)

@@ -73,6 +73,8 @@ enum Opcode {
   OP_LOWLIGHT = 28,
   OP_PROFILE_GAMMA = 29,
   OP_COLORCHECKER = 30,
+  OP_KEEP = 31,
+  OP_BLEND = 32,
 };
 enum Trc { TRC_SRGB = 0, TRC_LINEAR = 1, TRC_GAMMA = 2 };
 constexpr int MAX_STAGES = 16;
@@ -1317,6 +1319,318 @@ __device__ __forceinline__ void colorchecker(float* v, const float* k, const int
   v[2] = ob;
 }
 
+// ------------------------------------------------------------ blends
+// A blended stage runs between two records (kernels/pointwise.py,
+// pipeline/blend.blend_specs): OP_KEEP holds the pixel the stage
+// receives, OP_BLEND mixes the stage's output with it as
+// pipeline/blend.apply_blend_pointwise does (ansel_tpu/pipeline/
+// blend.py:555-659): the parametric mask of the channels it reads, the
+// combine and polarity bits, the opacity and the contrast/brightness
+// curve, then the blend mode.  A mask without parametric factors is
+// folded on the host in float64, as the JAX package folds it at trace
+// time, and arrives as the float32 mask and 1 - mask.
+// ints: mode, flags (BF_*), the input channel ids read (a bit per id),
+// the output ones, each side's inverted factors; consts: mask or
+// opacity 0, 1 - mask or max(opacity, 1e-6) 1, 2^p 2, luma weights 3,
+// curve e 6, e - 1 7, brightness 8, 1 -+ brightness 9, base 10, the
+// scene RGB -> D65 XYZ matrix 11, then the trapezoid rows (6 each) of the
+// channels read, inputs first, in id order.
+enum { BF_REVERSE = 1, BF_LAB = 2, BF_PARAMETRIC = 4, BF_CURVE = 8, BF_INCL = 16, BF_INV = 32 };
+enum {
+  B_DISABLED = 0, B_NORMAL_OB, B_LIGHTEN, B_DARKEN, B_MULTIPLY, B_AVERAGE, B_ADD, B_SUBTRACT,
+  B_DIFFERENCE, B_SCREEN, B_OVERLAY, B_SOFTLIGHT, B_HARDLIGHT, B_VIVIDLIGHT, B_LINEARLIGHT,
+  B_PINLIGHT, B_LIGHTNESS, B_CHROMATICITY, B_HUE, B_COLOR,
+  B_COLORADJUST = 0x16, B_DIFFERENCE2 = 0x17, B_NORMAL2 = 0x18, B_BOUNDED = 0x19,
+  B_LAB_LIGHTNESS = 0x1A, B_LAB_COLOR = 0x1B, B_HSV_VALUE = 0x1C, B_HSV_COLOR = 0x1D,
+  B_LAB_L = 0x1E, B_LAB_A = 0x1F, B_LAB_B = 0x20, B_RGB_R = 0x21, B_RGB_G = 0x22, B_RGB_B = 0x23,
+  B_SUBTRACT_INVERSE = 0x25, B_DIVIDE = 0x26, B_DIVIDE_INVERSE = 0x27, B_GEOMETRIC_MEAN = 0x28,
+  B_HARMONIC_MEAN = 0x29,
+};
+
+// the channel values blend._lab_channels / _scene_channels give, by id;
+// the JzCzhz trio only where `need` reads it
+__device__ void blend_channels(const float* v, bool lab, int need, const float* k, float* ch) {
+  if (lab) {
+    ch[0] = v[0] / 100.0f;
+    ch[1] = v[1] / 256.0f;
+    ch[2] = v[2] / 256.0f;
+    if (need & 0x300) {
+      ch[8] = sqrtf(v[1] * v[1] + v[2] * v[2]) / K(128.0 * SQRT2);
+      ch[9] = atan2_full(v[2], v[1]) / K(2.0 * PI) + 0.5f;
+    }
+    return;
+  }
+  ch[0] = k[3] * v[0] + k[4] * v[1] + k[5] * v[2];
+  ch[1] = v[0];
+  ch[2] = v[1];
+  ch[3] = v[2];
+  if (need & 0x700) {
+    float c[3] = {jmax(v[0], 0.0f), jmax(v[1], 0.0f), jmax(v[2], 0.0f)};
+    float xyz[3], jab[3];
+    mat3(k + 11, c, xyz);
+    xyz_to_jzazbz(xyz, jab);
+    ch[8] = jab[0];
+    ch[9] = sqrtf(jab[1] * jab[1] + jab[2] * jab[2]);
+    ch[10] = atan2_full(jab[2], jab[1]) / K(2.0 * PI) + 0.5f;
+  }
+}
+
+// blend._factor: the trapezoid (p0, p1, p2, p3, 1 / rise, 1 / fall)
+__device__ __forceinline__ float blend_factor(float v, const float* p, bool inv) {
+  float f = v <= p[0]   ? 0.0f
+            : v < p[1]  ? (v - p[0]) * p[4]
+            : v <= p[2] ? 1.0f
+            : v < p[3]  ? 1.0f - (v - p[2]) * p[5]
+                        : 0.0f;
+  return inv ? 1.0f - f : f;
+}
+
+// the b-over-a value of blend._mode_fn's table (unknown modes: NORMAL2)
+__device__ float blend_mode_value(int mode, float a, float b, float pw) {
+  switch (mode) {
+    case B_BOUNDED: return jclip(b * pw, 0.0f, 1.0f);
+    case B_LIGHTEN: return jmax(a, b * pw);
+    case B_DARKEN: return jmin(a, b * pw);
+    case B_MULTIPLY: return a * b * pw;
+    case B_AVERAGE: return (a + b) / 2.0f;
+    case B_ADD: return a + pw * b;
+    case B_SUBTRACT: return jmax(a - pw * b, 0.0f);
+    case B_SUBTRACT_INVERSE: return jmax(b - pw * a, 0.0f);
+    case B_DIFFERENCE:
+    case B_DIFFERENCE2: return fabsf(a - b);
+    case B_SCREEN: return 1.0f - (1.0f - a) * (1.0f - b * pw);
+    case B_DIVIDE: return a / jmax(pw * b, K(1e-6));
+    case B_DIVIDE_INVERSE: return b / jmax(pw * a, K(1e-6));
+    case B_GEOMETRIC_MEAN: return sqrtf(jmax(a * b, 0.0f));
+    case B_HARMONIC_MEAN: return 2.0f * a * b / jmax(a + b, K(1e-6));
+    case B_OVERLAY: return a > 0.5f ? 1.0f - 2.0f * (1.0f - a) * (1.0f - b) : 2.0f * a * b;
+    case B_HARDLIGHT: return b > 0.5f ? 1.0f - 2.0f * (1.0f - a) * (1.0f - b) : 2.0f * a * b;
+    case B_SOFTLIGHT: return b > 0.5f ? 1.0f - (1.0f - a) * (1.0f - (b - 0.5f)) : a * (b + 0.5f);
+    case B_LINEARLIGHT: return a + 2.0f * b - 1.0f;
+    case B_VIVIDLIGHT:
+      return b > 0.5f ? a / jmax(2.0f * (1.0f - b), K(1e-6))
+                      : 1.0f - (1.0f - a) / jmax(2.0f * b, K(1e-6));
+    case B_PINLIGHT: return b > 0.5f ? jmax(a, 2.0f * (b - 0.5f)) : jmin(a, 2.0f * b);
+    default: return b * pw;  // NORMAL2, NORMAL_OB, DISABLED and unknown modes
+  }
+}
+
+// blend._hue_mix: the hue along the shortest way round, opacity m
+__device__ __forceinline__ float hue_mix(float ha, float hb, float m) {
+  float d = fabsf(ha - hb);
+  float s = d > 0.5f ? -m * (1.0f - d) / jmax(d, K(1e-9)) : m;
+  return py_mod(ha * (1.0f - s) + hb * s + 1.0f, 1.0f);
+}
+
+// blend._lab_to_lch01 and _lch01_to_lab
+__device__ void lab_to_lch01(const float* v, float* lch) {
+  float a = v[1] / 128.0f, b = v[2] / 128.0f;
+  lch[0] = v[0] / 100.0f;
+  lch[1] = sqrtf(a * a + b * b);
+  lch[2] = py_mod(atan2_full(b, a) / K(2.0 * PI) + 1.0f, 1.0f);
+}
+__device__ void lch01_to_lab(float L, float c, float h, float* out) {
+  float ang = K(2.0 * PI) * h;
+  out[0] = L * 100.0f;
+  out[1] = cosf(ang) * c * 128.0f;
+  out[2] = sinf(ang) * c * 128.0f;
+}
+
+// blend._rgb_to_hsv / _hsv_to_rgb
+__device__ void blend_rgb_to_hsv(const float* v, float* hsv) {
+  float r = v[0], g = v[1], b = v[2];
+  float mx = jmax(jmax(r, g), b), mn = jmin(jmin(r, g), b);
+  float d = mx - mn, dd = jmax(d, K(1e-9));
+  float hr = py_mod((g - b) / dd, 6.0f);
+  float hg = (b - r) / dd + 2.0f;
+  float hb = (r - g) / dd + 4.0f;
+  float h = (mx == r ? hr : (mx == g ? hg : hb)) / 6.0f;
+  hsv[0] = d < K(1e-9) ? 0.0f : h;
+  hsv[1] = mx < K(1e-9) ? 0.0f : d / jmax(mx, K(1e-9));
+  hsv[2] = mx;
+}
+__device__ void blend_hsv_to_rgb(float h, float s, float v, float* out) {
+  h = py_mod(h, 1.0f) * 6.0f;
+  float i = jmin(floorf(h), 5.0f);
+  float f = h - i;
+  float p = v * (1.0f - s), q = v * (1.0f - s * f), t = v * (1.0f - s * (1.0f - f));
+  const float c[3][6] = {{v, q, p, p, t, v}, {t, v, v, q, p, p}, {p, p, t, v, v, q}};
+  for (int ch = 0; ch < 3; ++ch) {
+    float o = c[ch][5];
+    for (int k = 4; k >= 0; --k) o = i <= (float)k ? c[ch][k] : o;
+    out[ch] = o;
+  }
+}
+
+// blend._rgb_to_hsl / _hsl_to_rgb
+__device__ void blend_rgb_to_hsl(const float* v, float* hsl) {
+  float r = v[0], g = v[1], b = v[2];
+  float mx = jmax(jmax(r, g), b), mn = jmin(jmin(r, g), b);
+  float l = 0.5f * (mx + mn);
+  float d = mx - mn;
+  float s = d < K(1e-9) ? 0.0f
+            : l > 0.5f  ? d / jmax(2.0f - mx - mn, K(1e-9))
+                        : d / jmax(mx + mn, K(1e-9));
+  float dd = jmax(d, K(1e-9));
+  float hr = g < b ? (g - b) / dd + 6.0f : (g - b) / dd;
+  float hg = (b - r) / dd + 2.0f;
+  float hb = (r - g) / dd + 4.0f;
+  float h = (mx == r ? hr : (mx == g ? hg : hb)) / 6.0f;
+  hsl[0] = d < K(1e-9) ? 0.0f : h;
+  hsl[1] = s;
+  hsl[2] = l;
+}
+__device__ __forceinline__ float hue2rgb(float p, float q, float t) {
+  t = py_mod(t + 1.0f, 1.0f);
+  return t < K(1.0 / 6.0)   ? p + (q - p) * 6.0f * t
+         : t < 0.5f         ? q
+         : t < K(2.0 / 3.0) ? p + (q - p) * (K(2.0 / 3.0) - t) * 6.0f
+                            : p;
+}
+__device__ void blend_hsl_to_rgb(float h, float s, float l, float* out) {
+  float q = l < 0.5f ? l * (1.0f + s) : l + s - l * s;
+  float p = 2.0f * l - q;
+  bool gray = s < K(1e-9);
+  out[0] = gray ? l : hue2rgb(p, q, h + K(1.0 / 3.0));
+  out[1] = gray ? l : hue2rgb(p, q, h);
+  out[2] = gray ? l : hue2rgb(p, q, h - K(1.0 / 3.0));
+}
+
+// blend._blend_hue_family: a, b after the reverse swap; m, om the mask
+// and 1 - mask
+__device__ void blend_hue_family(int mode, bool lab, const float* a, const float* b, float m,
+                                 float om, float* out) {
+  if (lab) {
+    float A[3], B[3];
+    lab_to_lch01(a, A);
+    lab_to_lch01(b, B);
+    if (mode == B_HUE) {
+      lch01_to_lab(A[0], A[1], hue_mix(A[2], B[2], m), out);
+    } else if (mode == B_COLOR) {
+      lch01_to_lab(A[0], A[1] * om + B[1] * m, hue_mix(A[2], B[2], m), out);
+    } else if (mode == B_COLORADJUST) {
+      lch01_to_lab(B[0], A[1] * om + B[1] * m, hue_mix(A[2], B[2], m), out);
+    } else if (mode == B_HSV_VALUE) {
+      out[0] = A[0] * om * 100.0f + B[0] * m * 100.0f;
+      out[1] = a[1];
+      out[2] = a[2];
+    } else {
+      out[0] = a[0];
+      out[1] = b[1] * m + a[1] * om;
+      out[2] = b[2] * m + a[2] * om;
+    }
+    return;
+  }
+  if (mode == B_HSV_VALUE || mode == B_HSV_COLOR) {
+    float A[3], B[3];
+    blend_rgb_to_hsv(a, A);
+    blend_rgb_to_hsv(b, B);
+    if (mode == B_HSV_VALUE) {
+      blend_hsv_to_rgb(A[0], A[1], A[2] * om + B[2] * m, out);
+      return;
+    }
+    float xa = A[1] * cosf(K(2.0 * PI) * A[0]), ya = A[1] * sinf(K(2.0 * PI) * A[0]);
+    float xb = B[1] * cosf(K(2.0 * PI) * B[0]), yb = B[1] * sinf(K(2.0 * PI) * B[0]);
+    float xc = xa * om + xb * m, yc = ya * om + yb * m;
+    float h = py_mod(atan2_full(yc, xc) / K(2.0 * PI) + 1.0f, 1.0f);
+    blend_hsv_to_rgb(h, sqrtf(xc * xc + yc * yc), A[2], out);
+    return;
+  }
+  float ca[3], cb[3], A[3], B[3];
+  for (int i = 0; i < 3; ++i) {
+    ca[i] = jclip(a[i], 0.0f, 1.0f);
+    cb[i] = jclip(b[i], 0.0f, 1.0f);
+  }
+  blend_rgb_to_hsl(ca, A);
+  blend_rgb_to_hsl(cb, B);
+  float h = hue_mix(A[0], B[0], m);
+  if (mode == B_HUE) {
+    blend_hsl_to_rgb(h, A[1], A[2], out);
+  } else {
+    blend_hsl_to_rgb(h, A[1] * om + B[1] * m, mode == B_COLOR ? A[2] : B[2], out);
+  }
+  for (int i = 0; i < 3; ++i) out[i] = jclip(out[i], 0.0f, 1.0f);
+}
+
+// the blend record: kept = the stage's input, v = its output (in, out)
+__device__ void blend(float* v, const float* kept, const float* k, const int* a) {
+  const int mode = a[0], flags = a[1];
+  const bool lab = flags & BF_LAB;
+  float m = k[0], om = k[1];
+  if (flags & BF_PARAMETRIC) {
+    const bool incl = flags & BF_INCL, inv = flags & BF_INV;
+    const float* rows = k + 20;
+    float ch[11], temp = 1.0f;
+    bool first = true;
+#pragma unroll 1
+    for (int side = 0; side < 2; ++side) {
+      const int need = a[2 + side], flip = a[4 + side];
+      if (!need) continue;
+      blend_channels(side ? v : kept, lab, need, k, ch);
+#pragma unroll 1
+      for (int i = 0; i < 11; ++i) {
+        if (!(need & (1 << i))) continue;
+        float f = blend_factor(ch[i], rows, (flip >> i) & 1);
+        temp = first ? f : temp * f;
+        first = false;
+        rows += 6;
+      }
+    }
+    const float base = k[10];
+    float mask = incl ? (inv ? (1.0f - base) * temp : 1.0f - (1.0f - base) * temp)
+                      : (inv ? 1.0f - base * temp : base * temp);
+    mask = mask * k[0];
+    if (flags & BF_CURVE) {
+      float x = mask / k[1];
+      x = 2.0f * x - 1.0f;
+      const float br = k[8];
+      if (br > 0.0f)
+        x = jmin((x + br) / k[9], 1.0f);
+      else if (br < 0.0f)
+        x = jmax((x + br) / k[9], -1.0f);
+      mask = jclip((x * k[6] / (1.0f + k[7] * fabsf(x))) / 2.0f + 0.5f, 0.0f, 1.0f) * k[0];
+    }
+    m = mask;
+    om = 1.0f - mask;
+  }
+  const float* A = kept;
+  const float* B = v;
+  float bv[3] = {v[0], v[1], v[2]};
+  B = bv;
+  if (flags & BF_REVERSE) {
+    A = bv;
+    B = kept;
+  }
+  float out[3];
+  if (mode == B_HUE || mode == B_COLOR || mode == B_COLORADJUST || mode == B_HSV_VALUE ||
+      mode == B_HSV_COLOR) {
+    blend_hue_family(mode, lab, A, B, m, om, out);
+  } else if (mode >= B_LAB_L && mode <= B_RGB_B) {
+    const int c = (mode - B_LAB_L) % 3;  // L, a, b, R, G, B
+    for (int i = 0; i < 3; ++i) out[i] = A[i] * om + (i == c ? B[i] * k[2] : A[i]) * m;
+  } else if (mode == B_LIGHTNESS || mode == B_LAB_LIGHTNESS || mode == B_CHROMATICITY ||
+             mode == B_LAB_COLOR) {
+    const bool light = mode == B_LIGHTNESS || mode == B_LAB_LIGHTNESS;
+    float bl[3];
+    if (lab) {
+      bl[0] = light ? B[0] : A[0];
+      bl[1] = light ? A[1] : B[1];
+      bl[2] = light ? A[2] : B[2];
+    } else {
+      float la = k[3] * A[0] + k[4] * A[1] + k[5] * A[2];
+      float lb = k[3] * B[0] + k[4] * B[1] + k[5] * B[2];
+      float r = light ? lb / jmax(la, K(1e-6)) : la / jmax(lb, K(1e-6));
+      for (int i = 0; i < 3; ++i) bl[i] = (light ? A[i] : B[i]) * r;
+    }
+    for (int i = 0; i < 3; ++i) out[i] = A[i] * om + bl[i] * m;
+  } else {
+    for (int i = 0; i < 3; ++i) out[i] = A[i] * om + blend_mode_value(mode, A[i], B[i], k[2]) * m;
+  }
+  v[0] = out[0];
+  v[1] = out[1];
+  v[2] = out[2];
+}
+
 // whether opcode OP reads the pixel's position
 template <int OP>
 constexpr bool reads_pos() {
@@ -1327,7 +1641,7 @@ constexpr bool reads_pos() {
 // yy, xx the pixel's row and column (read by the with_pos opcodes only)
 template <int OP>
 __device__ __forceinline__ void apply(float* v, const float* k, const int* a, float yy,
-                                      float xx) {
+                                      float xx, float* kept) {
   if constexpr (OP == OP_EXPOSURE) {
     exposure(v, k);
   } else if constexpr (OP == OP_MATRIX) {
@@ -1387,6 +1701,12 @@ __device__ __forceinline__ void apply(float* v, const float* k, const int* a, fl
     profile_gamma(v, k, a);
   } else if constexpr (OP == OP_COLORCHECKER) {
     colorchecker(v, k, a);
+  } else if constexpr (OP == OP_KEEP) {
+    kept[0] = v[0];
+    kept[1] = v[1];
+    kept[2] = v[2];
+  } else if constexpr (OP == OP_BLEND) {
+    blend(v, kept, k, a);
   } else {
     static_assert(OP == OP_GRADUATEDND, "unknown opcode");
     graduatednd(v, k, yy, xx);
@@ -1407,6 +1727,7 @@ chain(const float* __restrict__ x, float* __restrict__ y, long long n, int w,
   long long stride = (long long)gridDim.x * blockDim.x;
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
     float v[3] = {x[i], x[n + i], x[2 * n + i]};
+    float kept[3] = {0.0f, 0.0f, 0.0f};
     for (int s = 0; s < nstages; ++s) {
       const int* rec = sprog + s * RECORD;
       const float* k = sk + rec[1];
@@ -1418,36 +1739,38 @@ chain(const float* __restrict__ x, float* __restrict__ y, long long n, int w,
         xx = (float)(i - r * w);
       }
       switch (rec[0]) {
-        case OP_EXPOSURE: apply<OP_EXPOSURE>(v, k, a, yy, xx); break;
-        case OP_MATRIX: apply<OP_MATRIX>(v, k, a, yy, xx); break;
-        case OP_CHANNELMIXERRGB: apply<OP_CHANNELMIXERRGB>(v, k, a, yy, xx); break;
-        case OP_FILMIC_AGX: apply<OP_FILMIC_AGX>(v, k, a, yy, xx); break;
-        case OP_COLOROUT: apply<OP_COLOROUT>(v, k, a, yy, xx); break;
-        case OP_CONVERT_WORK_LAB: apply<OP_CONVERT_WORK_LAB>(v, k, a, yy, xx); break;
-        case OP_CONVERT_LAB_WORK: apply<OP_CONVERT_LAB_WORK>(v, k, a, yy, xx); break;
-        case OP_COLORBALANCERGB: apply<OP_COLORBALANCERGB>(v, k, a, yy, xx); break;
-        case OP_RGBCURVE: apply<OP_RGBCURVE>(v, k, a, yy, xx); break;
-        case OP_RGBLEVELS: apply<OP_RGBLEVELS>(v, k, a, yy, xx); break;
-        case OP_BASECURVE: apply<OP_BASECURVE>(v, k, a, yy, xx); break;
-        case OP_TONECURVE: apply<OP_TONECURVE>(v, k, a, yy, xx); break;
-        case OP_LEVELS: apply<OP_LEVELS>(v, k, a, yy, xx); break;
-        case OP_BASICADJ: apply<OP_BASICADJ>(v, k, a, yy, xx); break;
-        case OP_COLORZONES: apply<OP_COLORZONES>(v, k, a, yy, xx); break;
-        case OP_NEGADOCTOR: apply<OP_NEGADOCTOR>(v, k, a, yy, xx); break;
-        case OP_VIGNETTE: apply<OP_VIGNETTE>(v, k, a, yy, xx); break;
-        case OP_GRADUATEDND: apply<OP_GRADUATEDND>(v, k, a, yy, xx); break;
-        case OP_VELVIA: apply<OP_VELVIA>(v, k, a, yy, xx); break;
-        case OP_VIBRANCE: apply<OP_VIBRANCE>(v, k, a, yy, xx); break;
-        case OP_COLORCONTRAST: apply<OP_COLORCONTRAST>(v, k, a, yy, xx); break;
-        case OP_COLORCORRECTION: apply<OP_COLORCORRECTION>(v, k, a, yy, xx); break;
-        case OP_COLISA: apply<OP_COLISA>(v, k, a, yy, xx); break;
-        case OP_SPLITTONING: apply<OP_SPLITTONING>(v, k, a, yy, xx); break;
-        case OP_COLORIZE: apply<OP_COLORIZE>(v, k, a, yy, xx); break;
-        case OP_COLORBALANCE: apply<OP_COLORBALANCE>(v, k, a, yy, xx); break;
-        case OP_SPLITTONINGRGB: apply<OP_SPLITTONINGRGB>(v, k, a, yy, xx); break;
-        case OP_LOWLIGHT: apply<OP_LOWLIGHT>(v, k, a, yy, xx); break;
-        case OP_PROFILE_GAMMA: apply<OP_PROFILE_GAMMA>(v, k, a, yy, xx); break;
-        case OP_COLORCHECKER: apply<OP_COLORCHECKER>(v, k, a, yy, xx); break;
+        case OP_EXPOSURE: apply<OP_EXPOSURE>(v, k, a, yy, xx, kept); break;
+        case OP_MATRIX: apply<OP_MATRIX>(v, k, a, yy, xx, kept); break;
+        case OP_CHANNELMIXERRGB: apply<OP_CHANNELMIXERRGB>(v, k, a, yy, xx, kept); break;
+        case OP_FILMIC_AGX: apply<OP_FILMIC_AGX>(v, k, a, yy, xx, kept); break;
+        case OP_COLOROUT: apply<OP_COLOROUT>(v, k, a, yy, xx, kept); break;
+        case OP_CONVERT_WORK_LAB: apply<OP_CONVERT_WORK_LAB>(v, k, a, yy, xx, kept); break;
+        case OP_CONVERT_LAB_WORK: apply<OP_CONVERT_LAB_WORK>(v, k, a, yy, xx, kept); break;
+        case OP_COLORBALANCERGB: apply<OP_COLORBALANCERGB>(v, k, a, yy, xx, kept); break;
+        case OP_RGBCURVE: apply<OP_RGBCURVE>(v, k, a, yy, xx, kept); break;
+        case OP_RGBLEVELS: apply<OP_RGBLEVELS>(v, k, a, yy, xx, kept); break;
+        case OP_BASECURVE: apply<OP_BASECURVE>(v, k, a, yy, xx, kept); break;
+        case OP_TONECURVE: apply<OP_TONECURVE>(v, k, a, yy, xx, kept); break;
+        case OP_LEVELS: apply<OP_LEVELS>(v, k, a, yy, xx, kept); break;
+        case OP_BASICADJ: apply<OP_BASICADJ>(v, k, a, yy, xx, kept); break;
+        case OP_COLORZONES: apply<OP_COLORZONES>(v, k, a, yy, xx, kept); break;
+        case OP_NEGADOCTOR: apply<OP_NEGADOCTOR>(v, k, a, yy, xx, kept); break;
+        case OP_VIGNETTE: apply<OP_VIGNETTE>(v, k, a, yy, xx, kept); break;
+        case OP_GRADUATEDND: apply<OP_GRADUATEDND>(v, k, a, yy, xx, kept); break;
+        case OP_VELVIA: apply<OP_VELVIA>(v, k, a, yy, xx, kept); break;
+        case OP_VIBRANCE: apply<OP_VIBRANCE>(v, k, a, yy, xx, kept); break;
+        case OP_COLORCONTRAST: apply<OP_COLORCONTRAST>(v, k, a, yy, xx, kept); break;
+        case OP_COLORCORRECTION: apply<OP_COLORCORRECTION>(v, k, a, yy, xx, kept); break;
+        case OP_COLISA: apply<OP_COLISA>(v, k, a, yy, xx, kept); break;
+        case OP_SPLITTONING: apply<OP_SPLITTONING>(v, k, a, yy, xx, kept); break;
+        case OP_COLORIZE: apply<OP_COLORIZE>(v, k, a, yy, xx, kept); break;
+        case OP_COLORBALANCE: apply<OP_COLORBALANCE>(v, k, a, yy, xx, kept); break;
+        case OP_SPLITTONINGRGB: apply<OP_SPLITTONINGRGB>(v, k, a, yy, xx, kept); break;
+        case OP_LOWLIGHT: apply<OP_LOWLIGHT>(v, k, a, yy, xx, kept); break;
+        case OP_PROFILE_GAMMA: apply<OP_PROFILE_GAMMA>(v, k, a, yy, xx, kept); break;
+        case OP_COLORCHECKER: apply<OP_COLORCHECKER>(v, k, a, yy, xx, kept); break;
+        case OP_KEEP: apply<OP_KEEP>(v, k, a, yy, xx, kept); break;
+        case OP_BLEND: apply<OP_BLEND>(v, k, a, yy, xx, kept); break;
         default: break;  // the wrapper admits known opcodes only
       }
     }
@@ -1499,10 +1822,11 @@ struct Prog {
 
 // stages I.. of P on one pixel
 template <class P, int I>
-__device__ __forceinline__ void run_from(float* v, const FixedArgs& p, float yy, float xx) {
+__device__ __forceinline__ void run_from(float* v, const FixedArgs& p, float yy, float xx,
+                                         float* kept) {
   if constexpr (I < P::count) {
-    apply<P::ops[I]>(v, p.k + P::offs[I], p.a + I * STAGE_INTS, yy, xx);
-    run_from<P, I + 1>(v, p, yy, xx);
+    apply<P::ops[I]>(v, p.k + P::offs[I], p.a + I * STAGE_INTS, yy, xx, kept);
+    run_from<P, I + 1>(v, p, yy, xx, kept);
   }
 }
 
@@ -1519,7 +1843,8 @@ chain_fixed(const __grid_constant__ FixedArgs p) {
     yy = (float)r;
     xx = (float)(i - r * p.w);
   }
-  run_from<P, 0>(v, p, yy, xx);
+  float kept[3] = {0.0f, 0.0f, 0.0f};
+  run_from<P, 0>(v, p, yy, xx, kept);
   p.y[i] = v[0];
   p.y[n + i] = v[1];
   p.y[2 * n + i] = v[2];
@@ -1563,6 +1888,18 @@ using Fixed = std::tuple<
     Prog<Stage<OP_EXPOSURE, 0>, Stage<OP_MATRIX, 2>>,
     Prog<Stage<OP_FILMIC_AGX, 0>>,
     Prog<Stage<OP_CONVERT_WORK_LAB, 0>>,
+    // config 13: exposure, colorin, channelmixerrgb blended (a parametric
+    // mask of 3 channels), colorbalancergb blended (COLOR), filmicrgb, to
+    // Lab, tonecurve blended (LAB_LIGHTNESS); from Lab alone; colorzones
+    // blended (OVERLAY under a mask of 1 channel), from Lab, colorout
+    Prog<Stage<OP_EXPOSURE, 0>, Stage<OP_MATRIX, 2>, Stage<OP_KEEP, 11>,
+         Stage<OP_CHANNELMIXERRGB, 11>, Stage<OP_BLEND, 78>, Stage<OP_KEEP, 116>,
+         Stage<OP_COLORBALANCERGB, 116>, Stage<OP_BLEND, 285>, Stage<OP_FILMIC_AGX, 305>,
+         Stage<OP_CONVERT_WORK_LAB, 375>, Stage<OP_KEEP, 387>, Stage<OP_TONECURVE, 387>,
+         Stage<OP_BLEND, 402>>,
+    Prog<Stage<OP_CONVERT_LAB_WORK, 0>>,
+    Prog<Stage<OP_KEEP, 0>, Stage<OP_COLORZONES, 0>, Stage<OP_BLEND, 49>,
+         Stage<OP_CONVERT_LAB_WORK, 75>, Stage<OP_COLOROUT, 87>>,
     // config 10: exposure, graduatednd, colorin, channelmixerrgb, to Lab;
     // from Lab, colorbalancergb, rgbcurve, filmicrgb, to Lab, tonecurve,
     // colorzones, from Lab, vignette, colorout

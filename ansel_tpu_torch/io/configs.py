@@ -1,9 +1,12 @@
 """The bench configurations the port runs (`bench.py:CONFIGS`), and the
-port's own configs 7-12, defined once for the chip smoke, the profile
+port's own configs 7-13, defined once for the chip smoke, the profile
 script and the tests.
 
 Each history is a tuple of (op, params) pairs, so that a test can build
 the JAX package's `HistoryItem`s from the same pairs as the port's.
+Config 13's items also carry blend parameters and instances
+(`BLENDS13`) and its drawn forms (`FORMS13`), each as plain values that
+`history` and `forms13` turn into either package's classes.
 """
 
 from __future__ import annotations
@@ -237,6 +240,275 @@ HISTORIES = {
          ("dither", {"dither_type": 5})),
 }
 
+# the port's own: a portrait photographer's local edits on config 1's
+# develop, as a darktable sidecar carries them: a raw denoise under a
+# drawn gradient (the RAW blend colorspace), spot removal (two heals and
+# a clone) and a wavelet retouch (a heal on the image, a blur on scale 2
+# and a fill on the residual of 4 scales), a second exposure instance
+# lifting the face under a feathered ellipse, the channel mixer under a
+# parametric mask of the input's Jz and hz and the output's grey
+# (contrast and brightness on the mask), colour balance rgb's grade in
+# the COLOR mode, velvia under a group of drawn shapes with a wide mask
+# blur, a tone curve in LAB_LIGHTNESS and colour zones in OVERLAY on the
+# deepest shadows, vibrance
+# under a luminance range refined by the details slider (its flat areas)
+# with a narrow blur, and colour contrast through the ellipse's mask (the
+# raster side-band).  Its floats are float32 values, as its sidecar
+# carries them
+HISTORIES[13] = (
+    ("rawdenoise", {"threshold": 0.02}),
+    ("spots", None),
+    ("retouch", None),
+    ("exposure", {"exposure": 0.5}),
+    ("exposure", {"exposure": 0.7}),
+    ("channelmixerrgb", {}),
+    ("colorbalancergb", dict(HISTORIES[10][3][1])),
+    ("filmicrgb", {}),
+    ("velvia", {"strength": 40.0}),
+    ("tonecurve", dict(HISTORIES[10][5][1])),
+    ("colorzones", dict(HISTORIES[10][6][1])),
+    ("vibrance", {"amount": 40.0}),
+    ("colorcontrast", {"a_steepness": 1.4, "b_steepness": 1.4}),
+)
+
+# forms (mask ids 101-106 the blends', 201-203 spots', 301-303 retouch's),
+# as (type, nodes, clone source) in normalised coordinates, so that they
+# land inside any frame: a gradient, a feathered ellipse, a circle, a
+# polygon and a brush stroke, and a group (circle and polygon in union,
+# the stroke taken away)
+CIRCLE, POLYGON, GROUP, GRADIENT, ELLIPSE, BRUSH = 1, 2, 4, 16, 32, 64
+_SHOW_USE = 1 | 2
+UNION, DIFFERENCE = 1 << 3, 1 << 5
+
+
+def _poly(points, border):
+    """Bezier path nodes through `points` with controls on the chord."""
+    out = []
+    n = len(points)
+    for i, (x, y) in enumerate(points):
+        px, py = points[i - 1]
+        nx, ny = points[(i + 1) % n]
+        out.append((x, y, x + (px - x) / 4.0, y + (py - y) / 4.0,
+                    x + (nx - x) / 4.0, y + (ny - y) / 4.0, border, border,
+                    0))
+    return tuple(out)
+
+
+FORMS13 = {
+    101: (GRADIENT, ((0.5, 0.62, 0.0, 0.2, 0.0, 0.15, 1),), (0.0, 0.0)),
+    102: (ELLIPSE, ((0.45, 0.4, 0.12, 0.18, 20.0, 0.05, 0),), (0.0, 0.0)),
+    103: (CIRCLE, ((0.7, 0.3, 0.08, 0.04),), (0.0, 0.0)),
+    104: (POLYGON, _poly(((0.22, 0.62), (0.38, 0.6), (0.41, 0.78),
+                          (0.24, 0.8)), 0.02), (0.0, 0.0)),
+    105: (BRUSH, tuple(n[:8] + (1.0, 0.5, 0) for n in _poly(
+        ((0.25, 0.68), (0.31, 0.73), (0.36, 0.69)), 0.015)), (0.0, 0.0)),
+    106: (GROUP, ((103, 106, _SHOW_USE | UNION, 1.0),
+                  (104, 106, _SHOW_USE | UNION, 0.9),
+                  (105, 106, _SHOW_USE | DIFFERENCE, 1.0)), (0.0, 0.0)),
+    201: (CIRCLE, ((0.2, 0.2, 0.03, 0.01),), (0.25, 0.26)),
+    202: (CIRCLE, ((0.8, 0.75, 0.025, 0.01),), (0.76, 0.7)),
+    203: (ELLIPSE, ((0.6, 0.5, 0.04, 0.03, 0.0, 0.02, 0),), (0.65, 0.55)),
+    301: (CIRCLE, ((0.35, 0.25, 0.03, 0.01),), (0.38, 0.3)),
+    302: (POLYGON, _poly(((0.45, 0.75), (0.58, 0.78), (0.5, 0.88)), 0.02),
+          (0.0, 0.0)),
+    303: (CIRCLE, ((0.85, 0.2, 0.05, 0.02),), (0.0, 0.0)),
+}
+
+# blend modes, mask modes and colorspaces (pipeline/blend.py)
+_NORMAL2, _OVERLAY, _COLOR, _LAB_LIGHTNESS = 0x18, 10, 19, 0x1A
+_CS_RAW, _CS_LAB, _CS_SCENE = 1, 2, 4
+_ENABLED, _SHAPE, _PARAMETRIC, _RASTER = 1, 2, 4, 8
+# per item of HISTORIES[13] (by index): (multi_priority, blend params as
+# keyword arguments of BlendParams, or None)
+BLENDS13 = {
+    0: (0, dict(mask_mode=_ENABLED | _SHAPE, blend_cst=_CS_RAW,
+                blend_mode=_NORMAL2, mask_id=101)),
+    4: (1, dict(mask_mode=_ENABLED | _SHAPE, blend_cst=_CS_SCENE,
+                blend_mode=_NORMAL2, mask_id=102, feathering_radius=12.0)),
+    5: (0, dict(mask_mode=_ENABLED | _PARAMETRIC, blend_cst=_CS_SCENE,
+                blend_mode=_NORMAL2, opacity=90.0, contrast=0.2,
+                brightness=0.1,
+                # the input's Jz (8) and hz (10, inverted), the output's
+                # grey (0 + 4)
+                blendif=(1 << 8) | (1 << 10) | (1 << 4) | (1 << 26),
+                blendif_parameters=tuple(
+                    {4: (0.0, 0.0, 0.45, 0.9), 8: (0.0005, 0.003, 1.0, 1.0),
+                     10: (0.35, 0.45, 0.7, 0.8)}.get(i, (0.0, 0.0, 1.0, 1.0))[k]
+                    for i in range(16) for k in range(4)))),
+    6: (0, dict(mask_mode=_ENABLED, blend_cst=_CS_SCENE, blend_mode=_COLOR,
+                opacity=70.0)),
+    8: (0, dict(mask_mode=_ENABLED | _SHAPE, blend_cst=_CS_SCENE,
+                blend_mode=_NORMAL2, mask_id=106, blur_radius=6.0)),
+    9: (0, dict(mask_mode=_ENABLED, blend_cst=_CS_LAB,
+                blend_mode=_LAB_LIGHTNESS, opacity=50.0)),
+    # OVERLAY on unscaled Lab (R13: L in 0-100, so 1 - 2 (1 - a) (1 - b)
+    # reaches -1e4 where the input's L passes 0.5): under a mask of the
+    # input's L below 0.5, where it takes 2 a b
+    10: (0, dict(mask_mode=_ENABLED | _PARAMETRIC, blend_cst=_CS_LAB,
+                 blend_mode=_OVERLAY, opacity=40.0, blendif=1,
+                 blendif_parameters=(0.0, 0.0, 0.003, 0.005)
+                 + (0.0, 0.0, 1.0, 1.0) * 15)),
+    11: (0, dict(mask_mode=_ENABLED | _PARAMETRIC, blend_cst=_CS_LAB,
+                 blend_mode=_NORMAL2, blendif=1, details=-0.5,
+                 blur_radius=2.0,
+                 blendif_parameters=(0.2, 0.4, 0.8, 0.95)
+                 + (0.0, 0.0, 1.0, 1.0) * 15)),
+    12: (0, dict(mask_mode=_ENABLED | _RASTER, blend_cst=_CS_LAB,
+                 blend_mode=_NORMAL2, raster_mask_source="exposure",
+                 raster_mask_instance=1)),
+}
+
+
+def spots_params13(params_cls):
+    """spots' params: two heals (201, 202) and a clone (203)."""
+    ids = (201, 202, 203) + (0,) * 61
+    algos = (2, 2, 1) + (2,) * 61
+    return params_cls(clone_id=ids, clone_algo=algos)
+
+
+def retouch_params13(params_cls, pack_form):
+    """retouch's params at 4 scales: a heal on the image (301), a blur of
+    radius 6 on scale 2 (302) and a grey fill on the residual (303)."""
+    recs = (pack_form(301, 0, 2)
+            + pack_form(302, 2, 3, blur_radius=6.0)
+            + pack_form(303, 5, 4, fill_mode=1,
+                        fill_color=(0.18, 0.18, 0.18)))
+    blob = recs + b"\0" * (len(params_cls().rt_forms) - len(recs))
+    return params_cls(rt_forms=blob, num_scales=4)
+
+
+def _f32(v):
+    """v with every float rounded to float32, as a sidecar carries it (so
+    that the history and its sidecar plan alike)."""
+    import numpy as np
+
+    if isinstance(v, float):
+        return float(np.float32(v))
+    if isinstance(v, (tuple, list)):
+        return type(v)(_f32(e) for e in v)
+    if isinstance(v, dict):
+        return {k: _f32(e) for k, e in v.items()}
+    return v
+
+
+def forms13(form_cls) -> dict:
+    """Config 13's forms as `form_cls` (either package's masks.Form)."""
+    return {fid: form_cls(id=fid, type=t, name=f"form {fid}",
+                          nodes=[_f32(tuple(n)) for n in nodes],
+                          src=_f32(tuple(src)))
+            for fid, (t, nodes, src) in FORMS13.items()}
+
+
+def history13(item_cls, blend_cls, spots_cls, retouch_cls, pack_form):
+    """Config 13's history as `item_cls` items, with `blend_cls` blend
+    params and the spots and retouch params; floats rounded to float32 as
+    its sidecar carries them."""
+    out = []
+    for i, (op, p) in enumerate(HISTORIES[13]):
+        if op == "spots":
+            p = spots_params13(spots_cls)
+        elif op == "retouch":
+            p = retouch_params13(retouch_cls, pack_form)
+        else:
+            p = _f32(dict(p))
+        mp, kw = BLENDS13.get(i, (0, None))
+        out.append(item_cls(op, p, multi_priority=mp,
+                            blend_params=None if kw is None
+                            else blend_cls(**_f32(kw))))
+    return out
+
+
+# every blend mode (blend.h:63-110) and mask class of the chain kernel's
+# blend record, as (label, blend colorspace, BlendParams keyword
+# arguments): each mode under a uniform 70% mask with blend_parameter
+# 0.5 in Lab and in scene RGB (NORMAL2 and OVERLAY reversed too), then
+# the mask classes under NORMAL2: the contrast/brightness curve on a
+# uniform mask, the combine bits, a parametric factor of each channel of
+# the input and of the output, the polarity bits, several channels with
+# the curve.  The tests hold each against the JAX package; the card
+# tests and the chip smoke launch each as a blend record.
+BLEND_MODES = (0x18, 0x01, 0x00, 0x19, 0x02, 0x03, 0x04, 0x05, 0x06, 0x07,
+               0x25, 0x08, 0x17, 0x09, 0x26, 0x27, 0x28, 0x29, 0x0A, 0x0C,
+               0x0B, 0x0E, 0x0D, 0x0F, 0x10, 0x1A, 0x11, 0x1B, 0x1E, 0x1F,
+               0x20, 0x21, 0x22, 0x23, 0x12, 0x13, 0x16, 0x1C, 0x1D)
+_TRAPEZOIDS = ((0.1, 0.3, 0.7, 0.9), (0.0, 0.0, 0.6, 0.8),
+               (0.2, 0.4, 1.0, 1.0), (0.3, 0.45, 0.55, 0.7))
+
+
+def _blendif(bits, flip=0):
+    """blendif bits and parameters: each channel its trapezoid from
+    _TRAPEZOIDS in turn (Jz's and Cz's scaled to their small range)."""
+    prm = []
+    for i in range(16):
+        t = _TRAPEZOIDS[i % 4]
+        if i in (8, 9, 12, 13):
+            t = tuple(v * 0.01 if v < 1.0 else v for v in t)
+        prm += t
+    return dict(blendif=bits | (flip << 16), blendif_parameters=tuple(prm))
+
+
+def blend_cases():
+    out = []
+    for cst, tag, in_ids in ((_CS_LAB, "lab", (0, 1, 2, 8, 9)),
+                             (_CS_SCENE, "rgb", (0, 1, 2, 3, 8, 9, 10))):
+        base = dict(blend_cst=cst, mask_mode=_ENABLED, opacity=70.0,
+                    blend_parameter=0.5)
+        for mode in BLEND_MODES:
+            out.append((f"{tag}-mode-{mode:#04x}", cst,
+                        dict(base, blend_mode=mode)))
+        for mode in (0x18, 0x0A):
+            out.append((f"{tag}-mode-{mode:#04x}-reverse", cst,
+                        dict(base, blend_mode=mode | 0x80000000)))
+        par = dict(base, blend_mode=_NORMAL2,
+                   mask_mode=_ENABLED | _PARAMETRIC, opacity=85.0)
+        out += [
+            (f"{tag}-uniform-curve", cst,
+             dict(base, blend_mode=_NORMAL2, contrast=0.4, brightness=0.3)),
+            (f"{tag}-uniform-curve-dark", cst,
+             dict(base, blend_mode=_NORMAL2, contrast=-0.3,
+                  brightness=-0.4)),
+            (f"{tag}-uniform-inv", cst,
+             dict(base, blend_mode=_NORMAL2, mask_combine=1)),
+            (f"{tag}-uniform-incl", cst,
+             dict(base, blend_mode=_NORMAL2, mask_combine=2)),
+        ]
+        for i in in_ids:
+            out.append((f"{tag}-in-{i}", cst, dict(par, **_blendif(1 << i))))
+            out.append((f"{tag}-out-{i}", cst,
+                        dict(par, **_blendif(1 << (i + 4)))))
+        many = (1 << in_ids[0]) | (1 << in_ids[-1]) | (1 << (in_ids[1] + 4))
+        for combine in (0, 1, 2, 3):
+            out.append((f"{tag}-many-combine{combine}", cst,
+                        dict(par, mask_combine=combine,
+                             **_blendif(many, flip=1 << in_ids[-1]))))
+        out.append((f"{tag}-many-curve", cst,
+                    dict(par, contrast=0.5, brightness=-0.2,
+                         **_blendif(many))))
+    return tuple(out)
+
+
+# the stage between a blend case's keep and blend records: a 3 x 3 mix
+BLEND_CASE_MATRIX = ((0.9, 0.1, 0.05), (0.02, 1.1, -0.05), (0.0, 0.1, 0.95))
+
+
+def blend_case_chain(cst, kw, device):
+    """One case of `blend_cases()` as a chain of three records on
+    `device`: keep, a matrix stage (BLEND_CASE_MATRIX), and the blend of
+    the matrix's output over its input."""
+    import torch
+
+    from ..color.transforms import apply_matrix
+    from ..kernels import pointwise as pw
+    from ..ops.base import PointwiseSpec
+    from ..pipeline import blend
+
+    keep, rec = blend.blend_specs(blend.BlendParams(**kw), cst)
+    mid = PointwiseSpec(fn=lambda x, c: apply_matrix(x, c["M"]),
+                        opcode=pw.OP_MATRIX, consts=("M",))
+    m = torch.tensor(BLEND_CASE_MATRIX, dtype=torch.float32, device=device)
+    return pw.pack_chain([keep, mid, rec], [{}, {"M": m}, {}], device)
+
+
 # the eleven grading ops of the chain kernel (opcodes 8-18), each with two
 # parameter sets (the first config 10's where config 10 has it; the second
 # takes another branch: the other saturation formula, per-channel curves,
@@ -469,7 +741,8 @@ FRAMES = {1: (BENCH_H, BENCH_W), 2: (BENCH_H, BENCH_W),
           3: (BENCH3_H, BENCH3_W), 4: (BENCH4_H, BENCH4_W),
           7: (BENCH_H, BENCH_W), 8: (BENCH_H, BENCH_W),
           9: (BENCH_H, BENCH_W), 10: (BENCH_H, BENCH_W),
-          11: (BENCH_H, BENCH_W), 12: (BENCH_H, BENCH_W)}
+          11: (BENCH_H, BENCH_W), 12: (BENCH_H, BENCH_W),
+          13: (BENCH_H, BENCH_W)}
 # config 9's DNG: a 14-bit mosaic and a GainMap of 17 x 25 points per
 # RGGB filter
 DNG9_BITS = 14
@@ -488,10 +761,27 @@ XTRANS6 = (1, 2, 0, 1, 0, 2,
 
 def history(config: int, item_cls=None) -> list:
     """Config `config`'s history as `item_cls(op, params)` items, each
-    with its own params dict (the port's `HistoryItem` by default)."""
+    with its own params dict (the port's `HistoryItem` by default; config
+    13 as the port's classes, with its blends)."""
+    if config == 13 and item_cls is None:
+        from ..ops import retouch, spots
+        from ..pipeline.blend import BlendParams
+        from ..pipeline.engine import HistoryItem
+
+        return history13(HistoryItem, BlendParams, spots.SpotsParams,
+                         retouch.RetouchParams, retouch.pack_form)
     if item_cls is None:
         from ..pipeline.engine import HistoryItem as item_cls
     return [item_cls(op, dict(p)) for op, p in HISTORIES[config]]
+
+
+def forms(config: int) -> dict:
+    """The port's `masks.Form`s of config `config` (none but for 13)."""
+    if config != 13:
+        return {}
+    from ..pipeline.masks import Form
+
+    return forms13(Form)
 
 
 def remosaic_xtrans(meta, scene):

@@ -11,6 +11,13 @@ eight static ints.  The plain twin runs the stages' torch functions in
 order; a stage that reads pixel positions (`needs_pos`, the Pallas
 kernel's `with_pos`) gets each pixel's row and column in the array.
 
+A blended stage (`pipeline/blend.blend_specs`) is wrapped in two
+records: a keep record before it holds the pixel it receives, and a
+blend record after it mixes the stage's output with that pixel, as the
+JAX engine's fused chain calls `apply_blend_pointwise` on the same tile
+(`ansel_tpu/pipeline/engine.py:549-558`).  Records count against
+MAX_STAGES and the blend record's consts against MAX_CONSTS.
+
 The programs the configs build (`FIXED`) each have a kernel of their own
 in the same source, with the opcodes and const offsets as template
 parameters and the consts and ints passed by value; `pack_chain` marks a
@@ -62,7 +69,9 @@ OP_SPLITTONINGRGB = 27
 OP_LOWLIGHT = 28
 OP_PROFILE_GAMMA = 29
 OP_COLORCHECKER = 30
-_KNOWN_OPS = frozenset(range(OP_EXPOSURE, OP_COLORCHECKER + 1))
+OP_KEEP = 31    # holds the pixel before a blended stage
+OP_BLEND = 32   # mixes the stage's output with the held pixel
+_KNOWN_OPS = frozenset(range(OP_EXPOSURE, OP_BLEND + 1))
 TRC_SRGB, TRC_LINEAR, TRC_GAMMA = 0, 1, 2
 MAX_STAGES = 16
 STAGE_INTS = 8
@@ -111,6 +120,18 @@ FIXED = (
     ((OP_EXPOSURE, 0), (OP_MATRIX, 2)),
     ((OP_FILMIC_AGX, 0),),
     ((OP_CONVERT_WORK_LAB, 0),),
+    # config 13: exposure, colorin, channelmixerrgb blended (a parametric
+    # mask of 3 channels), colorbalancergb blended (COLOR), filmicrgb, to
+    # Lab, tonecurve blended (LAB_LIGHTNESS); from Lab alone; colorzones
+    # blended (OVERLAY under a mask of 1 channel), from Lab, colorout
+    ((OP_EXPOSURE, 0), (OP_MATRIX, 2), (OP_KEEP, 11),
+     (OP_CHANNELMIXERRGB, 11), (OP_BLEND, 78), (OP_KEEP, 116),
+     (OP_COLORBALANCERGB, 116), (OP_BLEND, 285), (OP_FILMIC_AGX, 305),
+     (OP_CONVERT_WORK_LAB, 375), (OP_KEEP, 387), (OP_TONECURVE, 387),
+     (OP_BLEND, 402)),
+    ((OP_CONVERT_LAB_WORK, 0),),
+    ((OP_KEEP, 0), (OP_COLORZONES, 0), (OP_BLEND, 49),
+     (OP_CONVERT_LAB_WORK, 75), (OP_COLOROUT, 87)),
     # config 10: exposure, graduatednd, colorin, channelmixerrgb, to Lab;
     # from Lab, colorbalancergb, rgbcurve, filmicrgb, to Lab, tonecurve,
     # colorzones, from Lab, vignette, colorout
@@ -143,6 +164,9 @@ class Chain:
     fixed: int = -1
     host_ints: Any = None
     host_consts: Any = None
+    # per stage: True for a blend record, whose fn(kept, x, c) reads the
+    # pixel the last keep record held
+    reads_kept: Tuple[bool, ...] = ()
 
 
 def _flat(v):
@@ -182,7 +206,8 @@ def pack_chain(specs, coeffs, device) -> Chain:
                             device=device),
         fixed=fixed,
         host_ints=(ctypes.c_int * len(ints))(*ints),
-        host_consts=(ctypes.c_float * max(1, len(consts)))(*consts))
+        host_consts=(ctypes.c_float * max(1, len(consts)))(*consts),
+        reads_kept=tuple(spec.reads_kept for spec in specs))
 
 
 def positions(x: torch.Tensor):
@@ -196,9 +221,14 @@ def positions(x: torch.Tensor):
 
 def pointwise_chain_reference(x: torch.Tensor, chain: Chain) -> torch.Tensor:
     """Plain torch: the stages' functions in order; a stage that reads
-    pixel positions gets them as `positions(x)`."""
-    pos = None
-    for fn, c, needs_pos in chain.stages:
+    pixel positions gets them as `positions(x)`, a blend record the
+    image the last keep record (an identity) received."""
+    pos = kept = None
+    for (fn, c, needs_pos), blend in zip(chain.stages, chain.reads_kept):
+        if blend:
+            x = fn(kept, x, c)
+            continue
+        kept = x
         if needs_pos:
             pos = positions(x) if pos is None else pos
             x = fn(x, c, *pos)

@@ -156,7 +156,9 @@ class PointwiseSpec:
     needs_pos: the stage reads each pixel's position in its array (the
       Pallas kernel's `with_pos`), so it is a full-frame boundary of the
       ROI walk; the chain kernel derives the positions from the flat
-      index and the array's width."""
+      index and the array's width.
+    reads_kept: a blend record: fn(kept, x, c), `kept` the image the
+      chain's last keep record received (`pipeline/blend.blend_specs`)."""
 
     fn: Any
     opcode: int
@@ -164,6 +166,7 @@ class PointwiseSpec:
     ints: tuple = ()
     extra: tuple = ()
     needs_pos: bool = False
+    reads_kept: bool = False
 
 
 _OPS: Dict[str, Op] = {}

@@ -10,13 +10,22 @@ into chains (`kernels/pointwise.py`) and then runs the stages eagerly.
 On CUDA a chain is one launch of the chain kernel; on the CPU it runs
 the stages' plain functions in order.
 
-A history item's blend parameters are decoded as the JAX package does:
-an undecodable blob, `mask_mode == MASK_DISABLED` or a stage that changes
-the array's shape plans as no blend.  `CompiledPipe` keeps what a pipe
-built (its device coefficients and packed steps) in `_PIPE_CACHE`, keyed
-by `Pipeline.signature()`, and reports each build or reuse to the
-supervisor (`core/supervisor.py`) as the JAX package reports its
-compile cache.
+A history item's blend parameters are decoded and planned as the JAX
+package plans them: an undecodable blob, `mask_mode == MASK_DISABLED` or
+a stage that changes the array's shape plans as no blend.  An active
+blend rides the stage's chain as a keep and a blend record
+(`pipeline/blend.blend_specs`) exactly where the JAX engine fuses it:
+a per-pixel mask (`blend_fusable_pointwise`) in Lab or scene RGB on a
+stage whose mask no later stage reads as its raster source.  Every other
+blended stage runs the spatial path (`run_steps`): the RAW blend
+colorspace through `apply_blend_raw`, drawn masks rasterised at the
+stage's window origin from the pipe's `forms`, the raster side-band of
+earlier stages' masks and the demosaic stage's raw-detail plane for the
+details slider.  `CompiledPipe` keeps what a pipe built (its device
+coefficients and packed steps) in `_PIPE_CACHE`, keyed by
+`Pipeline.signature()` (which holds each blend's blob and form
+geometry), and reports each build or reuse to the supervisor
+(`core/supervisor.py`) as the JAX package reports its compile cache.
 
 An export scale below 1 injects `initialscale` (everything after the
 camera-RGB stage runs at the export size), any other scale but 1
@@ -24,10 +33,10 @@ camera-RGB stage runs at the export size), any other scale but 1
 the JAX package does not register either (a module of a newer darktable)
 is skipped into `Pipeline.unsupported`, as there.
 
-Not ported: active blends, drawn and raster masks, PREVIEW/THUMBNAIL
-pipes (their PPG override), and every op of the JAX package's registry
-(`ops.base.REFERENCE_OPS`) not registered in `ansel_tpu_torch.ops`.  Each
-raises NotImplementedError while planning.
+Not ported: PREVIEW/THUMBNAIL pipes (their PPG override), and every op
+of the JAX package's registry (`ops.base.REFERENCE_OPS`) not registered
+in `ansel_tpu_torch.ops`.  Each raises NotImplementedError while
+planning.
 """
 
 from __future__ import annotations
@@ -50,6 +59,7 @@ from ..kernels import pointwise as pw
 from ..ops import base as ops_base
 from ..ops.base import PlanContext, PointwiseSpec, not_ported
 from . import blend as blend_mod
+from . import masks as masks_mod
 
 
 @dataclasses.dataclass
@@ -104,7 +114,10 @@ class PlannedOp:
     op: ops_base.Op
     plan: ops_base.OpPlan
     params: Any
-    multi_priority: int = 0
+    multi_priority: int = 0    # instance id (the raster side-band's key)
+    blend: Any = None          # BlendParams when active
+    blend_static: Any = None   # the blend blob (and form geometry): keys the cache
+    blend_form: Any = None     # masks.Form when the blend uses a drawn mask
 
 
 class _ConvertOp(ops_base.Op):
@@ -260,7 +273,7 @@ class Pipeline:
     RuntimeError rather than falling back to the CPU."""
 
     def __init__(self, meta: RawMeta, history: List[HistoryItem], *,
-                 device="cuda", scale: float = 1.0,
+                 device="cuda", scale: float = 1.0, forms=None,
                  order_version=None, pipe_type: str = PipeType.EXPORT,
                  out_window: Optional[Tuple[int, int, int, int]] = None,
                  roi: bool = True):
@@ -273,6 +286,8 @@ class Pipeline:
         self.ctx = PlanContext(meta=meta, scale=scale)
         self.stages: List[PlannedOp] = []
         self.unsupported: List[str] = []
+        self.forms = forms or {}  # drawn-mask forms {id: masks.Form}
+        self.ctx.notes["forms"] = self.forms  # spots and retouch read them
         self.ctx.notes["pipe_type"] = pipe_type
 
         spec = ImageSpec(
@@ -312,6 +327,8 @@ class Pipeline:
                     self.unsupported.append(f"{item.op} (colorspace skip)")
                     continue
             plan = op.plan(self.ctx, spec, p)
+            stage = PlannedOp(item.op, op, plan, p,
+                              multi_priority=item.multi_priority)
             # blending (reference dt_develop_blend_process) only for an
             # active blend on a geometry-preserving stage, as the JAX
             # package plans it; an undecodable blob is no blend
@@ -321,9 +338,16 @@ class Pipeline:
                       else blend_mod.decode_blend_params(item.blend_params))
                 if (blend_mod.blend_is_active(bp) and plan.spec_in.array_shape
                         == plan.spec_out.array_shape):
-                    raise not_ported(item.op, "blending and masks")
-            self.stages.append(PlannedOp(item.op, op, plan, p,
-                                         multi_priority=item.multi_priority))
+                    stage.blend = bp
+                    # the whole blob keys the pipe cache, and with a drawn
+                    # mask the form's geometry
+                    blend_sig = bp.codec.encode(bp)
+                    if bp.mask_mode & blend_mod.MASK_SHAPE:
+                        stage.blend_form = self.forms.get(bp.mask_id)
+                        blend_sig = (blend_sig, masks_mod.form_signature(
+                            stage.blend_form, self.forms))
+                    stage.blend_static = blend_sig
+            self.stages.append(stage)
             spec = plan.spec_out
         self.spec_out = spec
 
@@ -356,7 +380,7 @@ class Pipeline:
             full_out = (0, 0, so.height, so.width)
             full_in = (0, 0, si.height, si.width)
             win_out = tuple(win)
-            r = s.op.roi_in(s.plan, self.ctx, win_out)
+            r, use_out = self._blend_roi(s, win_out, full_out)
             if r is None:
                 # boundary: this stage computes the full frame; the
                 # engine slices between it and its windowed consumer
@@ -365,9 +389,36 @@ class Pipeline:
             else:
                 if tuple(r) != full_in:
                     any_proper = True
-                wins[i] = (tuple(r), win_out)
+                wins[i] = (tuple(r), use_out)
                 win = r
         return wins if any_proper else None
+
+    def _blend_roi(self, s: PlannedOp, win_out, full_out):
+        """(input window, the output window the stage computes) for
+        `win_out`, as the JAX package's blend-aware walk gives them: drawn
+        masks rasterise at the window's origin and parametric ones are
+        per pixel, so a blended stage windows; feathering and blur grow
+        the window it computes by their reach, and a raster source or the
+        details slider (whose producers' buffers hold another window)
+        make it a full-frame boundary."""
+        so = s.plan.spec_out
+        bp = s.blend
+        if win_out == full_out or bp is None:
+            return s.op.roi_in(s.plan, self.ctx, win_out), win_out
+        if bp.mask_mode & blend_mod.MASK_RASTER or abs(bp.details) > 1e-6:
+            return None, win_out
+        grow = 0
+        if bp.feathering_radius > 0.1:
+            grow += max(1, int(bp.feathering_radius))
+        if bp.blur_radius > 0.1:
+            grow += int(3.0 * bp.blur_radius + 1.0)
+        y0 = max(0, win_out[0] - grow)
+        x0 = max(0, win_out[1] - grow)
+        y1 = min(so.height, win_out[0] + win_out[2] + grow)
+        x1 = min(so.width, win_out[1] + win_out[3] + grow)
+        gwin = (y0, x0, y1 - y0, x1 - x0)
+        r = s.op.roi_in(s.plan, self.ctx, gwin)
+        return r, (gwin if r is not None else win_out)
 
     @staticmethod
     def _window_spec(spec: ImageSpec, win) -> ImageSpec:
@@ -394,8 +445,10 @@ class Pipeline:
                 plan = _CONVERT.plan_pair(spec_in, s.plan.static[1])
             else:
                 plan = s.op.plan(ctx, spec_in, s.params)
-            new_stages.append(PlannedOp(s.name, s.op, plan, s.params,
-                                        multi_priority=s.multi_priority))
+            new_stages.append(PlannedOp(
+                s.name, s.op, plan, s.params, multi_priority=s.multi_priority,
+                blend=s.blend, blend_static=s.blend_static,
+                blend_form=s.blend_form))
         ctx.notes.pop("_win_out", None)
         self.stages = new_stages
         self.ctx = ctx
@@ -408,7 +461,7 @@ class Pipeline:
             sig.append((s.name, s.multi_priority,
                         si.array_shape, so.array_shape,
                         (si.org_y, si.org_x, so.org_y, so.org_x),
-                        s.plan.static))
+                        s.plan.static, s.blend_static))
         return tuple(sig)
 
     def coeffs(self) -> List[Any]:
@@ -428,48 +481,103 @@ class Pipeline:
         return (s.plan.spec_in.array_shape == s.plan.spec_out.array_shape
                 and len(s.plan.spec_in.array_shape) == 3)
 
-    def _chain_spec(self, s: PlannedOp):
+    def _raster_sources(self):
+        """The names of the stages whose masks a later stage reads as its
+        raster source (`ansel_tpu/pipeline/engine.py:471-487`)."""
+        out = set()
+        for s in self.stages:
+            if s.blend is not None and s.blend.mask_mode & blend_mod.MASK_RASTER:
+                src = _raster_source_name(s.blend)
+                if src:
+                    out.add(src)
+        return out
+
+    @staticmethod
+    def _blend_cst(s: PlannedOp) -> int:
+        return (blend_mod.CS_LAB if s.plan.spec_out.colorspace is Colorspace.LAB
+                else blend_mod.CS_RGB_SCENE)
+
+    def _chain_spec(self, s: PlannedOp, raster_sources=None):
         """The stage's PointwiseSpec if the chain kernel can run it, else
-        None."""
+        None.  A blended stage joins a chain where the JAX engine fuses it:
+        a per-pixel mask in Lab or scene RGB, not read by a later stage as
+        its raster source (`raster_sources`, by default this pipe's)."""
         if not self._fusable(s):
             return None
+        if s.blend is not None:
+            if raster_sources is None:
+                raster_sources = self._raster_sources()
+            if (s.plan.spec_out.colorspace is Colorspace.RAW
+                    or s.name in raster_sources
+                    or not blend_mod.blend_fusable_pointwise(
+                        s.blend, self._blend_cst(s))):
+                return None
         return s.op.pointwise_spec(s.plan, self.ctx)
+
+    def _chain_records(self, s: PlannedOp, raster_sources):
+        """The chain records that run the stage: its spec, or keep, its
+        spec and blend for a blended stage; None where it cannot ride a
+        chain."""
+        spec = self._chain_spec(s, raster_sources)
+        if spec is None or s.blend is None:
+            return None if spec is None else [spec]
+        keep, blend = blend_mod.blend_specs(s.blend, self._blend_cst(s))
+        return [keep, spec, blend]
 
     def schedule(self, coeffs, start: int = 0, end: Optional[int] = None):
         """Stages [start, end) as run steps, given their device coefficients:
-        ("stage", i, i + 1, c) runs one op; ("chain", i, j, Chain) runs
-        stages i..j-1 as one chain (at most pointwise.MAX_STAGES long, and
-        split where the ROI walk hands the next stage a smaller window
-        than its producer's, after a full-frame boundary)."""
+        ("stage", i, i + 1, c) runs one op; ("blend", i, i + 1, c) one op
+        and its blend on the spatial path; ("chain", i, j, Chain) runs
+        stages i..j-1 as one chain (at most pointwise.MAX_STAGES records
+        and MAX_CONSTS consts, and split where the ROI walk hands the next
+        stage a smaller window than its producer's, after a full-frame
+        boundary)."""
         end = len(self.stages) if end is None else end
+        sources = self._raster_sources()
         steps = []
         i = start
         while i < end:
-            spec = self._chain_spec(self.stages[i])
-            if spec is None:
-                steps.append(("stage", i, i + 1, coeffs[i - start]))
+            specs = self._chain_records(self.stages[i], sources)
+            c = coeffs[i - start]
+            if specs is None:
+                kind = "stage" if self.stages[i].blend is None else "blend"
+                steps.append((kind, i, i + 1, c))
                 i += 1
                 continue
-            specs = [spec]
+            cs = _stage_coeffs(specs, c)
+            nconsts = _consts_of(specs, cs)
             j = i + 1
-            while j < end and len(specs) < pw.MAX_STAGES \
-                    and _same_window(self.stages[j - 1].plan.spec_out,
-                                     self.stages[j].plan.spec_in):
-                sp = self._chain_spec(self.stages[j])
+            while j < end and _same_window(self.stages[j - 1].plan.spec_out,
+                                           self.stages[j].plan.spec_in):
+                sp = self._chain_records(self.stages[j], sources)
                 if sp is None:
                     break
-                specs.append(sp)
+                c = _stage_coeffs(sp, coeffs[j - start])
+                n = _consts_of(sp, c)
+                if len(specs) + len(sp) > pw.MAX_STAGES \
+                        or nconsts + n > pw.MAX_CONSTS:
+                    break
+                specs += sp
+                cs += c
+                nconsts += n
                 j += 1
-            chain = pw.pack_chain(specs, coeffs[i - start:j - start],
-                                  self.device)
-            steps.append(("chain", i, j, chain))
+            steps.append(("chain", i, j, pw.pack_chain(specs, cs,
+                                                       self.device)))
             i = j
         return steps
 
-    def run_steps(self, x: torch.Tensor, steps) -> torch.Tensor:
-        """Run a schedule on `x`, the input of its first stage."""
+    def run_steps(self, x: torch.Tensor, steps, carry=None) -> torch.Tensor:
+        """Run a schedule on `x`, the input of its first stage.  `carry`
+        (a dict, filled in place) holds what later stages of the same run
+        read: the raster side-band ("masks", keyed by (name,
+        multi_priority) and (name, None)) and the demosaic stage's
+        raw-detail plane ("rawdetail")."""
         if not steps:
             return x
+        carry = {} if carry is None else carry
+        masks = carry.setdefault("masks", {})
+        needs_detail = any(s.blend is not None and abs(s.blend.details) > 1e-6
+                           for s in self.stages)
         start = steps[0][1]
         cur_spec = (self.stages[start - 1].plan.spec_out if start > 0
                     else self.spec_in)
@@ -478,19 +586,100 @@ class Pipeline:
             x = _rewindow(x, cur_spec, s.plan.spec_in)
             if kind == "chain":
                 x = pw.pointwise_chain(x.contiguous(), arg)
+            elif kind == "blend":
+                x = self._run_blended(x, s, arg, masks,
+                                      carry.get("rawdetail"))
             else:
                 x = s.op.apply(x, arg, s.plan, self.ctx)
+            if s.name == "demosaic" and needs_detail:
+                from ..pixel import detail as detail_mod
+
+                wb = [max(float(v), 1e-6)
+                      for v in self.ctx.meta.wb_coeffs[:3]]
+                carry["rawdetail"] = detail_mod.rawdetail_mask(x, wb)
             cur_spec = self.stages[j - 1].plan.spec_out
         return x
 
-    def trace_fn(self, start: int = 0, end: Optional[int] = None):
-        """run(x, coeffs) over stages[start:end], coeffs being the device
-        coefficients of those stages (the reference's entry of that name)."""
+    def _run_blended(self, x, s: PlannedOp, c, masks, rawdetail):
+        """One stage and its blend on the spatial path
+        (`ansel_tpu/pipeline/engine.py:623-700`)."""
+        y = s.op.apply(x, c, s.plan, self.ctx)
+        bp = s.blend
+        drawn = None
+        if s.blend_form is not None:
+            # normalised shape coordinates refer to the whole frame; a
+            # windowed stage rasterises at its window's origin
+            spec = s.plan.spec_out
+            drawn = masks_mod.rasterize(
+                s.blend_form, self.forms, spec.array_shape[-2],
+                spec.array_shape[-1], norm_h=spec.full_h or spec.height,
+                norm_w=spec.full_w or spec.width,
+                origin=(spec.org_y, spec.org_x), device=x.device)
+        if s.plan.spec_out.colorspace is Colorspace.RAW:
+            return blend_mod.apply_blend_raw(x, y, bp, drawn=drawn)
+        raster = None
+        if bp.mask_mode & blend_mod.MASK_RASTER:
+            src = _raster_source_name(bp)
+            if src:
+                raster = masks.get((src, bp.raster_mask_instance),
+                                   masks.get((src, None)))
+                sup.event("raster_mask", "read",
+                          f"{src}|{bp.raster_mask_instance}",
+                          links={"consumer": s.name})
+                if raster is None:
+                    # a named source that cannot be resolved is an error
+                    # (dt_dev_get_raster_mask); an empty one fills the mask
+                    raise RuntimeError(
+                        f"stage '{s.name}': raster mask source '{src}' "
+                        f"(instance {bp.raster_mask_instance}) has no mask "
+                        "upstream: enable a mask on the source module or "
+                        "drop the raster blend")
+        out, m = blend_mod.apply_blend(
+            x, y, bp, blend_mod.prepare_parameters(bp), self._blend_cst(s),
+            cm.WORK_Y, drawn=drawn, raster=raster, rawdetail=rawdetail,
+            return_mask=True)
+        sup.event("raster_mask", "create", f"{s.name}|{s.multi_priority}",
+                  links={"stage": s.name})
+        masks[(s.name, s.multi_priority)] = m
+        masks.setdefault((s.name, None), m)
+        return out
 
-        def run(x, coeffs):
-            return self.run_steps(x, self.schedule(coeffs, start, end))
+    def trace_fn(self, start: int = 0, end: Optional[int] = None):
+        """run(x, coeffs, carry=None) over stages[start:end], coeffs being
+        the device coefficients of those stages (the reference's entry of
+        that name); a `carry` dict handed from one call to the next holds
+        the raster side-band and the raw-detail plane across them, as the
+        JAX package's segmented run carries them."""
+
+        def run(x, coeffs, carry=None):
+            return self.run_steps(x, self.schedule(coeffs, start, end),
+                                  carry)
 
         return run
+
+
+def _raster_source_name(bp) -> str:
+    """A blend's raster source as a str ('' for none)."""
+    src = bp.raster_mask_source
+    if isinstance(src, bytes):
+        src = src.split(b"\0")[0].decode("utf-8", "ignore")
+    return (src or "").strip("\0")
+
+
+def _stage_coeffs(specs, c) -> list:
+    """A stage's coefficients for each of its chain records (the keep and
+    blend records read none)."""
+    return [{} if sp.opcode in (pw.OP_KEEP, pw.OP_BLEND) else c
+            for sp in specs]
+
+
+def _consts_of(specs, coeffs) -> int:
+    """The consts the records take in a packed chain."""
+    n = 0
+    for sp, c in zip(specs, coeffs):
+        n += sum(torch.as_tensor(c[k]).numel() for k in sp.consts) \
+            + len(sp.extra)
+    return n
 
 
 def _fingerprint(coeffs) -> Tuple:
@@ -576,9 +765,9 @@ class CompiledPipe:
 
 
 def compile_pipeline(meta: RawMeta, history: List[HistoryItem], *,
-                     device="cuda", scale: float = 1.0,
+                     device="cuda", scale: float = 1.0, forms=None,
                      order_version=None,
                      pipe_type: str = PipeType.EXPORT) -> CompiledPipe:
     return CompiledPipe(Pipeline(meta, history, device=device, scale=scale,
-                                 order_version=order_version,
+                                 forms=forms, order_version=order_version,
                                  pipe_type=pipe_type))

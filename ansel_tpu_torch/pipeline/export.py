@@ -7,7 +7,9 @@ raw + sidecar history -> planned pipe -> render -> encode.  The pipe
 runs on the CUDA card unless the caller passes `device="cpu"`.
 
 A bounding box that shrinks the image gives a scale below 1, for which
-`Pipeline` injects initialscale, as the JAX package does.
+`Pipeline` injects initialscale, as the JAX package does.  The
+sidecar's drawn forms (`XMPDocument.masks`) go to the pipe with its
+history.
 """
 
 from __future__ import annotations
@@ -58,17 +60,18 @@ def export_image(
     """raw mosaic + history (explicit or from sidecar) -> display RGB;
     optionally write the encoded file.  Returns (3, H, W) float32."""
     settings = settings or ExportSettings()
+    forms = None
     order_version = None
     if history is None:
         if xmp_path:
             doc = parse_xmp(xmp_path)
-            history = doc.history
+            history, forms = doc.history, doc.masks
             order_version = doc.iop_order_version
         else:
             history = []
     scale = compute_export_scale(meta, settings)
     pipe = CompiledPipe(Pipeline(meta, history, device=device, scale=scale,
-                                 order_version=order_version,
+                                 forms=forms, order_version=order_version,
                                  pipe_type=pipe_type))
     out = pipe.output_array(raw)
     if output_path:

@@ -10,7 +10,9 @@ The production path runs consecutive per-pixel stages as one chain;
 these runners split the pipe at every stage and schedule each alone with
 the engine's own `Pipeline.schedule`, so a per-pixel stage still runs as
 a one-stage chain (on the card, one launch of the chain kernel) and
-every other stage through `Op.apply`, as the export runs it.  On the
+every other stage through `Op.apply`, as the export runs it (a blended
+stage with its blend, the raster side-band and raw-detail plane carried
+from stage to stage).  On the
 card a stage is timed between CUDA events after one warm-up call; on the
 CPU with `perf_counter`.  Numbers are upper bounds of what the chained
 pipe spends on a stage (each stage reads and writes its own frame), and
@@ -74,10 +76,11 @@ def run_stages(pipe: engine_mod.Pipeline, raw: np.ndarray,
     x = torch.from_numpy(np.ascontiguousarray(ops_base.pad_to(
         np.asarray(raw, np.float32), pipe.spec_in))).to(pipe.device)
     reports: List[StageReport] = []
+    carry = {}
     for i, (s, c) in enumerate(zip(pipe.stages, coeffs)):
         steps = pipe.schedule([c], i, i + 1)
-        y, ms = _time_ms(lambda: pipe.run_steps(x, steps), pipe.device,
-                         repeats)
+        y, ms = _time_ms(lambda: pipe.run_steps(x, steps, carry),
+                         pipe.device, repeats)
         rep = StageReport(s.name, ms, tuple(y.shape))
         if nan_scan:
             # reduce on the device; read back four scalars

@@ -7,7 +7,8 @@ TPU's Pallas kernel computes; the JAX package's XLA path differs from it
 by dividing by the weight sum where the kernel multiplies by its inverse.
 The sum of squares stays a plain torch reduction, as in the JAX package.
 `bspline_blur` (the JAX package's `_sep_blur`) is the sepblur kernel's
-dilated B3 blur.
+dilated B3 blur; `atrous_decompose` and `atrous_reconstruct` (retouch's
+wavelet scales) are built on it.
 """
 
 from __future__ import annotations
@@ -49,3 +50,26 @@ def bspline_blur(x: torch.Tensor, scale: int, kernel=B3) -> torch.Tensor:
     from .shifts import sep_filter
 
     return sep_filter(x, kernel, dilation=1 << scale)
+
+
+def atrous_decompose(x: torch.Tensor, scales: int):
+    """-> ([detail_0 .. detail_{s-1}], residual), x = sum(details) +
+    residual: the B3 a-trous decompose (reference src/pixel/dwt.c), each
+    scale a `bspline_blur` at dilation 2^s."""
+    details = []
+    cur = x
+    for s in range(scales):
+        low = bspline_blur(cur, s)
+        details.append(cur - low)
+        cur = low
+    return details, cur
+
+
+def atrous_reconstruct(details, residual: torch.Tensor,
+                       gains=None) -> torch.Tensor:
+    """The residual plus each detail layer (times its gain)."""
+    out = residual
+    for i, d in enumerate(details):
+        g = 1.0 if gains is None else gains[i]
+        out = out + d * g
+    return out

@@ -59,7 +59,17 @@ entry points a user calls, at their full frames:
     the IIR and sepblur kernels, the salted Laplacian, tonemap,
     globaltonemap, colormapping, crystgrain) alone on its frame.
     Config 2's NLM input also runs the lattices past the kernel's chunk
-    (K 15) and a patch radius past its template limit (P 9).
+    (K 15) and a patch radius past its template limit (P 9);
+  * the port's config 13 at 24 MP (4000 x 6016), local edits on config
+    1's develop: a raw denoise under a drawn gradient (the RAW blend),
+    spots (two heals, a clone), a wavelet retouch, a second exposure under
+    a feathered ellipse whose mask a later Lab stage reads (the raster
+    side-band), parametric and hue-family blends that ride the chains as
+    keep and blend records, a group of drawn shapes under a wide mask
+    blur (the IIR), the details slider with a narrow one (sepblur): RCD,
+    the chain in four programs, sepblur and the IIR; every blend mode and
+    mask class as a blend record on its chain inputs (`[blend-modes]`);
+    its sidecar exported through `python -m ansel_tpu_torch.cli`.
 
 Each path runs with the launch counts set to 0 just before it and read
 just after.  Every chain each config builds is also timed on its own
@@ -170,6 +180,18 @@ STAGES12 = ["rawprepare", "temperature", "highlights", "demosaic",
             "hazeremoval", "exposure", "colorin", "filmicrgb", "_convert",
             "grain", "_convert", "colorout", "dither"]
 # run B's bounding box
+LAUNCHES13 = dict(NO_LAUNCHES, rcd=1, chain=4, sepblur=10, iir=2)
+STAGES13 = ["rawprepare", "temperature", "highlights", "rawdenoise",
+            "demosaic", "spots", "retouch", "exposure", "exposure",
+            "colorin", "channelmixerrgb", "colorbalancergb", "filmicrgb",
+            "_convert", "tonecurve", "colorcontrast", "_convert", "velvia",
+            "_convert", "vibrance", "colorzones", "_convert", "colorout"]
+# run steps: the RAW blend, the feathered ellipse, the raster consumer,
+# the group mask and the details slider on the spatial path
+KINDS13 = ["stage"] * 3 + ["blend"] + ["stage"] * 3 + ["blend", "chain",
+                                                       "blend", "chain",
+                                                       "blend", "chain",
+                                                       "blend", "chain"]
 BOX9 = 2048
 NOISE_SIGMA = 200.0  # sensor units of 16383: a high-ISO mosaic
 HOT8 = 1024          # hot photosites of config 8's frame, at the white point
@@ -179,6 +201,8 @@ PIPE2_REPEATS = 3
 PIPE3_REPEATS = 3
 PIPE4_REPEATS = 10
 PIPE12_REPEATS = 5
+PIPE13_REPEATS = 5
+BLEND_REPEATS = 5
 OPS12_REPEATS = 2
 # the generator's normal draw on the card against the CPU: erf_inv's
 # log1p and sqrt are torch's on either device and may part in the last
@@ -229,6 +253,9 @@ OPS_CHAIN = {(1, 0): (1095, 57), (2, 0): (847, 42), (3, 0): (6, 0),
              # config 4's count, not recounted on config 9's pixels
              (9, 0): (846, 42),
              (10, 0): (491, 28), (10, 1): (4028, 152), (11, 0): (2231, 88),
+             # config 13's chains, their blend records inside
+             (13, 0): (4045, 163), (13, 1): (63, 0), (13, 2): (183, 6),
+             (13, 3): (924, 18),
              # each grading opcode alone on config 10's chain inputs
              # (`--opcodes`), colorbalancergb in dt UCS (1) and JzAzBz (0)
              (10, "colorbalancergb", 1): (1927, 72),
@@ -2521,6 +2548,190 @@ def run_ops12(card, record, meta, raw_dev, phases):
     record["ops12"] = rows
 
 
+def captured13(pipe, raw_dev):
+    """Run config 13 once on a device-resident raw and keep the arguments
+    of its four chain calls."""
+    calls, real = [], pw.pointwise_chain
+
+    def ch(*args):
+        calls.append(args)
+        return real(*args)
+
+    with swapped([(pw, "pointwise_chain", ch)]):
+        pipe.run_padded(raw_dev)
+    expect(len(calls) == LAUNCHES13["chain"],
+           f"unexpected config-13 chain calls {len(calls)}")
+    return calls
+
+
+def stage_input13(pipe, raw_dev, name):
+    """The input of config 13's first stage called `name`, from the
+    pipe's own run (the raster side-band carried)."""
+    i = STAGES13.index(name)
+    return pipe.pipe.trace_fn(0, i)(raw_dev, pipe.coeffs[:i], {})
+
+
+def check_blend_modes(card, record, pipe, raw_dev):
+    """Each case of configs.blend_cases() (every blend mode in Lab and in
+    scene RGB, every mask class) as a chain of keep, a 3 x 3 matrix and
+    blend records through the interpreter on config 13's chain inputs at
+    24 MP: the scene RGB cases on channelmixerrgb's input, the Lab ones
+    on tonecurve's.  Kernel vs twin (bit-equal, else the largest
+    difference and the share of values that differ), device ms of both;
+    the bound is the bytes (the three planes read and written)."""
+    inputs = {4: stage_input13(pipe, raw_dev, "channelmixerrgb"),
+              2: stage_input13(pipe, raw_dev, "tonecurve")}
+    rows, worst, equal = [], 0.0, 0
+    for label, cst, kw in configs.blend_cases():
+        x = inputs[cst]
+        chain = configs.blend_case_chain(cst, kw, x.device)
+        got = pw.pointwise_chain(x, chain)
+        want = pw.pointwise_chain_reference(x, chain)
+        expect(torch.equal(torch.isnan(got), torch.isnan(want)),
+               f"blend {label}: NaN where the twin has none")
+        d = (got - want).abs().nan_to_num(0.0)
+        mx, mean = d.max().item(), d.mean().item()
+        share = (d > 0).float().mean().item()
+        scale = max(1.0, want.nan_to_num(0.0).abs().max().item())
+        del got, want, d
+        expect(mx <= CHAIN_MAX_TOL * scale and mean <= CHAIN_MEAN_TOL * scale,
+               f"blend {label}: max {mx}, mean {mean} (x {scale:.3g})")
+        equal += mx == 0.0
+        worst = max(worst, mx / scale)
+        ms = median_ms(lambda: pw.pointwise_chain(x, chain), BLEND_REPEATS)
+        plain_ms = median_ms(lambda: pw.pointwise_chain_reference(x, chain),
+                             1)
+        b_ms, b_by = bound(2 * nbytes(x))
+        rows.append(dict(case=label, max_abs_err=mx, differ=share, ms=ms,
+                         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by))
+        print(f"[blend-modes] {label} on {tuple(x.shape)}: "
+              + ("bit-equal" if mx == 0.0 else
+                 f"max {mx:.3g} (x {scale:.3g}), {share:.2e} of values "
+                 "differ") + f" | kernel {ms:.4f} ms, plain {plain_ms:.1f} "
+              f"ms, bound {b_ms:.4f} ms ({b_by})", flush=True)
+    record["blend-modes"] = rows
+    print(f"[blend-modes] {len(rows)} cases, {equal} bit-equal, largest "
+          f"difference {worst:.3g} of the output's magnitude (tol "
+          f"{CHAIN_MAX_TOL:g}) on {card}", flush=True)
+
+
+def step_times13(pipe, raw_dev):
+    """Device ms of each run step of config 13 (CUDA events, median of 3,
+    the raster side-band and raw-detail plane carried from the steps
+    before)."""
+    out = []
+    x, carry = raw_dev, {}
+    for step in pipe.steps:
+        kind, i, j, _ = step
+        times = []
+        for _ in range(3):
+            c = dict(carry, masks=dict(carry.get("masks", {})))
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            y = pipe.pipe.run_steps(x, [step], c)
+            b.record()
+            torch.cuda.synchronize()
+            times.append(a.elapsed_time(b))
+        carry = c
+        names = "+".join(s.name for s in pipe.pipe.stages[i:j])
+        out.append((f"{kind} {names}", float(np.median(times))))
+        x = y
+    return out
+
+
+def write_sidecar13(path):
+    write_xmp(path, XMPDocument(history=configs.history(13),
+                                masks=configs.forms(13)))
+
+
+def run_config13(card, record, raw, raw_dev, meta, phases, tmp):
+    """Config 13 at 24 MP, local edits on config 1's develop (a raw
+    denoise under a drawn gradient, spots, a wavelet retouch, a feathered
+    ellipse, parametric and hue-family blends on the chains, a group mask
+    with a wide blur, the details slider, the raster side-band): through
+    the user's entry point with launches counted, against the composed
+    twins; its chains on the arguments the pipe hands them; every blend
+    mode and mask class as a record; each step's device time, the pipe's
+    rate and peak memory; then its sidecar exported through `python -m
+    ansel_tpu_torch.cli` against the in-process export."""
+    pipe = port.compile_pipeline(meta, configs.history(13),
+                                 forms=configs.forms(13))
+    stages = [s.name for s in pipe.pipe.stages]
+    expect(stages == STAGES13, f"unexpected config-13 plan {stages}")
+    expect([k for k, *_ in pipe.steps] == KINDS13,
+           f"unexpected config-13 steps {[k for k, *_ in pipe.steps]}")
+    with timed(phases, "pipe13 vs plain"):
+        reset_launches()
+        out = pipe.output_array(raw)
+        launches = read_launches()
+        programs, maps = read_split()
+        expect(launches == LAUNCHES13, f"config-13 launches {launches}")
+        expect(len(programs) == 4 and -1 not in programs and not maps,
+               f"config-13 programs {programs}, warp maps {maps}")
+        launches["programs"] = programs
+        expect(out.shape == (3, H, W), f"output shape {out.shape}")
+        expect(bool(np.isfinite(out).all()) and out.min() >= 0.0
+               and out.max() <= 1.0, "output not finite or outside [0, 1]")
+        reset_launches()
+        with plain_twins():
+            plain = pipe.output_array(raw)
+        expect(all(v == 0 for v in read_launches().values()),
+               f"the plain composition launched kernels: {read_launches()}")
+        pipe_err = float(np.abs(out - plain).max())
+        pipe_mean = float(np.abs(out - plain).mean())
+        expect(pipe_err <= PIPE_TOL, f"config 13 vs plain: max {pipe_err}")
+        del plain
+    with timed(phases, "chain13"):
+        calls = captured13(pipe, raw_dev)
+        names = [g for g in pipe.fused_groups()]
+        for j, row in enumerate(check_chains(13, calls, names)):
+            record[f"chain13.{j}"] = row
+        del calls
+    with timed(phases, "blend-modes"):
+        check_blend_modes(card, record, pipe, raw_dev)
+    with timed(phases, "pipe13 timing"):
+        steps = step_times13(pipe, raw_dev)
+        per_img = time_pipe(pipe, raw_dev, PIPE13_REPEATS)
+        peak, held = pipe_peak(pipe, raw_dev)
+    print(f"[pipe13] config 13 {H}x{W}: {len(stages)} stages, chains "
+          f"{pipe.fused_groups()}, launches {launches}, vs plain max "
+          f"{pipe_err:.3g} mean {pipe_mean:.3g} (tol 1/255), range "
+          f"[{out.min():.3g}, {out.max():.3g}] | {1.0 / per_img:.2f} img/s, "
+          f"{per_img * 1e3:.2f} ms/img (device-resident input, "
+          f"{PIPE13_REPEATS} repeats after 2 warm-ups), peak device memory "
+          f"{peak:.3f} GB ({held:.3f} GB held before) | steps (device ms): "
+          + ", ".join(f"{n} {t:.3f}" for n, t in steps) + f" on {card}",
+          flush=True)
+    sidecar = os.path.join(tmp, "config13.xmp")
+    png = os.path.join(tmp, "config13.png")
+    bundle = os.path.join(tmp, "config13.npz")
+    with timed(phases, "pipe13 cli"):
+        write_sidecar13(sidecar)
+        save_raw(bundle, raw, meta)
+        t = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "ansel_tpu_torch.cli", bundle, sidecar,
+             png, "--bpp", "16", "--no-icc", "-v"],
+            capture_output=True, text=True, timeout=600)
+        cli_s = time.perf_counter() - t
+        expect(proc.returncode == 0,
+               f"cli exit {proc.returncode}: {proc.stderr[-2000:]}")
+        exported = export_image(raw, meta, xmp_path=sidecar)
+        expect(np.array_equal(read_png16(png), to_uint16(exported)),
+               "the CLI's PNG differs from the in-process export")
+        side_err = float(np.abs(exported - out).max())
+        expect(side_err <= PIPE_TOL,
+               f"the sidecar's export vs the render: max {side_err}")
+    print(f"[pipe13] config 13's sidecar (history, blends and {len(configs.forms(13))} "
+          f"forms) through `python -m ansel_tpu_torch.cli` to a 16-bit PNG: "
+          f"{cli_s:.2f} s wall (a new process: start, kernels loaded, raw "
+          f"bundle, pipe, PNG), equal to to_uint16 of the in-process "
+          f"export, which is within {side_err:.3g} of the render (filmicrgb's "
+          f"default params in float32) on {card}", flush=True)
+    return launches
+
+
 def run_devtest_and_entry(phases):
     """The CLI's card diagnostic, then entry()'s fn on the card against
     the same fn with every kernel's plain twin."""
@@ -2584,6 +2795,9 @@ def main():
             check_prng(card)
         launches12 = run_config12(card, record, raw, raw_dev, meta, phases)
         run_ops12(card, record, meta, raw_dev, phases)
+        with tempfile.TemporaryDirectory() as tmp:
+            launches13 = run_config13(card, record, raw, raw_dev, meta,
+                                      phases, tmp)
         run_devtest_and_entry(phases)
         del raw_dev
         with timed(phases, "mosaic3 wait"):
@@ -2651,8 +2865,10 @@ def main():
             entry_["wide"] = r["wide"]
         if key == "chain":
             # the grading and legacy opcodes, each alone on config 10's
-            # and config 11's arguments
+            # and config 11's arguments; every blend mode and mask class
+            # as a blend record on config 13's chain inputs
             entry_["opcodes"] = record["opcodes10"] + record["opcodes11"]
+            entry_["blend_records"] = record["blend-modes"]
         if key == "sepblur":
             # filmicrgb's reconstruction in config 12: per launch, and
             # per image over its 36 launches
@@ -2696,6 +2912,16 @@ def main():
                         "source": "ansel_tpu_torch/csrc/pointwise_chain.cu",
                         "replaces": "ansel_tpu/kernels/pointwise.py:30",
                         "launches": launches12["programs"][row["program"]],
+                        **{k: row[k] for k in keys}})
+    # config 13: its four chain programs (the blend records inside), each
+    # with its launches in [pipe13]
+    for j in range(LAUNCHES13["chain"]):
+        row = record[f"chain13.{j}"]
+        kernels.append({"name": f"pointwise_chain[config13.{j}]",
+                        "route": "cuda",
+                        "source": "ansel_tpu_torch/csrc/pointwise_chain.cu",
+                        "replaces": "ansel_tpu/kernels/pointwise.py:30",
+                        "launches": launches13["programs"][row["program"]],
                         **{k: row[k] for k in keys}})
     kernels.append({"name": "eaw_atrous_coarse", "route": "cuda",
                     "source": "ansel_tpu_torch/csrc/eaw.cu",

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time goes in the PyTorch/CUDA port's pipe, on one GPU.
 
-    python3 scripts/torch_profile.py [--config 1|2|3|4|7|8|9|10|11|12]
+    python3 scripts/torch_profile.py [--config 1|2|3|4|7|8|9|10|11|12|13]
                                      [--images 3]
 
 Plans bench config 1, 2 (4000 x 6016), 3 (5504 x 8256), 4 (an X-Trans
@@ -12,8 +12,9 @@ without the file, 4000 x 6016), 10 (the graded look: the grading ops
 in two chains, atrous on the EAW kernel, 4000 x 6016) or 11 (the legacy
 look, straightened and retouched: ashift's and liquify's warps, one
 chain of 15 stages, 4000 x 6016) or 12 (the hazy landscape: hazeremoval,
-filmicrgb's highlight reconstruction, grain and dither, 4000 x 6016)
-through
+filmicrgb's highlight reconstruction, grain and dither, 4000 x 6016) or
+13 (local edits: blends, drawn masks, spots and retouch, with its forms,
+4000 x 6016) through
 `compile_pipeline`, warms up, then runs `run_padded` on a device-resident raw `--images`
 times without the profiler and `--images` times under torch.profiler.
 Prints one line per group of device kernels (ms per image and launches
@@ -41,8 +42,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import ansel_tpu_torch as port  # noqa: E402
 from ansel_tpu_torch.io.configs import (  # noqa: E402
-    FRAMES, HISTORIES, XTRANS_CONFIGS, gain_map_meta9, history, mosaic9,
-    remosaic_xtrans)
+    FRAMES, HISTORIES, XTRANS_CONFIGS, forms, gain_map_meta9, history,
+    mosaic9, remosaic_xtrans)
 from ansel_tpu_torch.io.synthetic import synth_raw  # noqa: E402
 from ansel_tpu_torch.kernels import _build  # noqa: E402
 from ansel_tpu_torch.ops.base import pad_to  # noqa: E402
@@ -101,7 +102,8 @@ def main():
         raw = mosaic9(raw).astype(np.float32)
         meta = gain_map_meta9(meta)
     t = time.perf_counter()
-    pipe = port.compile_pipeline(meta, history(args.config), device="cuda")
+    pipe = port.compile_pipeline(meta, history(args.config), device="cuda",
+                                 forms=forms(args.config))
     plan_s = time.perf_counter() - t
     raw_dev = torch.from_numpy(pad_to(raw, pipe.pipe.spec_in)).cuda()
     for _ in range(2):
@@ -119,13 +121,13 @@ def main():
     # the host's time in each step of one image, nothing synchronised
     # between steps (where the enqueue waits), and the device span of each
     # step between CUDA events recorded around it
-    p, cur, marks = pipe.pipe, raw_dev, []
+    p, cur, marks, carry = pipe.pipe, raw_dev, [], {}
     for step in pipe.steps:
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         t = time.perf_counter()
         a.record()
-        cur = p.run_steps(cur, [step])
+        cur = p.run_steps(cur, [step], carry)
         b.record()
         names = "+".join(s.name for s in p.stages[step[1]:step[2]])
         marks.append((names, time.perf_counter() - t, a, b))
@@ -178,7 +180,7 @@ def main():
     cur, launches = raw_dev, []
     for step in pipe.steps:
         with profile(activities=[ProfilerActivity.CUDA]) as one:
-            cur = p.run_steps(cur, [step])
+            cur = p.run_steps(cur, [step], carry)
             torch.cuda.synchronize()
         k = sum(ev.count for ev in one.key_averages()
                 if ev.device_type == torch.autograd.DeviceType.CUDA)

@@ -214,6 +214,57 @@ def test_chain_kernel_refuses_bad_input(cuda):
         pw.pointwise_chain(x, cpu_chain)
 
 
+BLEND_CASES = configs.blend_cases()
+
+
+@pytest.mark.parametrize("label,cst,kw", BLEND_CASES,
+                         ids=[c[0] for c in BLEND_CASES])
+def test_blend_record_matches_plain(cuda, label, cst, kw):
+    """Every blend mode in Lab and scene RGB and every mask class as a
+    chain of keep, a matrix stage and blend records (the interpreter):
+    the plain twin's float32 operations in the same order, so bit for bit
+    but where a device function (cosf, sinf, powf in Jz) rounds otherwise
+    than torch's, within the chain's tolerance."""
+    rng = np.random.default_rng(len(label))
+    if cst == 2:   # Lab
+        x = np.stack([rng.uniform(0, 100, (37, 53)),
+                      rng.uniform(-80, 80, (37, 53)),
+                      rng.uniform(-80, 80, (37, 53))])
+    else:
+        x = rng.uniform(-0.05, 1.2, (3, 37, 53))
+    x = torch.from_numpy(x.astype(np.float32)).to(cuda)
+    chain = configs.blend_case_chain(cst, kw, cuda)
+    before = pw.LAUNCHES
+    got = pw.pointwise_chain(x, chain)
+    assert pw.LAUNCHES == before + 1
+    want = pw.pointwise_chain_reference(x, chain)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    scale = max(1.0, want.nan_to_num(0.0).abs().max().item())
+    d = (got - want).abs().nan_to_num(0.0)
+    assert d.max().item() <= CHAIN_MAX_TOL * scale
+    assert d.mean().item() <= CHAIN_MEAN_TOL * scale
+
+
+def test_config13_pipe_on_cuda_matches_cpu(cuda):
+    """Config 13 at 192 x 288 on the card (RCD, the four chains with their
+    blend records in their specialised programs, sepblur, the IIR) against
+    the same pipe on the CPU, which runs every twin."""
+    raw, meta, _ = synth_raw(h=192, w=288, kind="gradients")
+    on_card = port.compile_pipeline(meta, configs.history(13), device=cuda,
+                                    forms=configs.forms(13))
+    chains = [a for k, _, _, a in on_card.steps if k == "chain"]
+    assert len(chains) == 4 and all(c.fixed >= 0 for c in chains)
+    rcd.LAUNCHES = pw.LAUNCHES = iir.LAUNCHES = sepblur.LAUNCHES = 0
+    got = on_card.output_array(raw)
+    assert (rcd.LAUNCHES, pw.LAUNCHES) == (1, 4)
+    assert iir.LAUNCHES >= 2 and sepblur.LAUNCHES > 8
+    want = port.compile_pipeline(meta, configs.history(13), device="cpu",
+                                 forms=configs.forms(13)).output_array(raw)
+    d = np.abs(got - want)
+    assert d.max() <= 1.0 / 255.0 and d.mean() <= 1e-5
+
+
 def test_pipe_on_cuda_matches_cpu(cuda):
     raw, meta, _ = synth_raw(h=144, w=400)
     hist = [port.HistoryItem(o, p) for o, p in CHAINS["config1"]]

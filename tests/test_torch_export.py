@@ -128,10 +128,20 @@ def test_blobs_that_plan_as_no_blend_in_both_packages(config1_blobs, op, bp):
 @pytest.mark.parametrize("bp", [ACTIVE, blend.BlendParams(mask_mode=1)],
                          ids=["blob", "dataclass"])
 def test_an_active_blend_is_refused(bp):
+    """No longer refused since blends were ported: an active blend on a
+    geometry-preserving stage plans as the JAX package plans it, with the
+    blob as its cache key (tests/test_torch_blend.py holds the
+    compositing)."""
     _, meta, _ = synth_raw(h=64, w=128)
     items = [ansel_tpu_torch.HistoryItem("exposure", {}, blend_params=bp)]
-    with pytest.raises(NotImplementedError, match="blending and masks"):
-        ansel_tpu_torch.Pipeline(meta, items, device="cpu")
+    port = ansel_tpu_torch.Pipeline(meta, items, device="cpu")
+    ref_bp = bp if isinstance(bp, bytes) else ref_blend.BlendParams(
+        mask_mode=1)
+    ref = ansel_tpu.Pipeline(meta, [ansel_tpu.HistoryItem(
+        "exposure", {}, blend_params=ref_bp)])
+    assert [s.blend_static for s in port.stages] == [
+        s.blend_static for s in ref.stages]
+    assert sum(s.blend is not None for s in port.stages) == 1
 
 
 # --- export_image and the CLI on config 8 ------------------------------------
@@ -240,13 +250,15 @@ def test_cli_writes_the_16_bit_png_of_export_image(tmp_path, sidecar8,
 @pytest.mark.parametrize("op,params,args,bp,message", [
     ("highlights", {"mode": 1}, ["--width", "100"], INACTIVE,
      "highlights: mode"),
-    ("exposure", {"exposure": 0.5}, [], ACTIVE, "blending and masks"),
+    ("drawlayer", None, [], ACTIVE, "drawlayer"),
 ], ids=["width", "active-blend"])
 def test_cli_refuses_what_is_not_ported(tmp_path, op, params, args, bp,
                                         message):
     """The "width" case refused `--width` until export scaling was
     ported; it now plans the export at that width up to a branch the
-    port has not ported yet (highlights' LCH mode)."""
+    port has not ported yet (highlights' LCH mode).  The "active-blend"
+    case refused an active blend until blends were ported; it now
+    carries one on a module the port has not ported (drawlayer)."""
     xmp = str(tmp_path / "h.xmp")
     write_xmp(xmp, [engine.HistoryItem(op, params, blend_params=bp)])
     out = str(tmp_path / "out.png")

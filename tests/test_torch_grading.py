@@ -33,7 +33,7 @@ from ansel_tpu_torch.kernels import pointwise as pw
 from ansel_tpu_torch.ops import base
 from ansel_tpu_torch.pipeline import engine
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 # the frame; the arrays are its lane-padded (3, 48, 128), as the engines
 # run a stage (the position-reading ops see the padding's columns too)

@@ -224,7 +224,7 @@ def _xtrans(meta):
     ([("lut3d", {})], None, {}),                             # not ported
     ([("denoiseprofile", {})], None, {}),          # automatic noise profile
     ([("diffuse", {"radius": 12})], None, {}),     # 6 wavelet scales
-    ([("retouch", {})], None, {}),                           # not ported
+    ([("drawlayer", {})], None, {}),                         # not ported
     ([("demosaic", {"demosaicing_method": 0x3001})], _xtrans, {}),  # dual
     ([("demosaic", {"color_smoothing": 2})], _xtrans, {}),
     ([("highlights", {"mode": 3})], _xtrans, {}),  # Laplacian on X-Trans
@@ -233,7 +233,7 @@ def _xtrans(meta):
         "bilinear", "green-eq", "smoothing", "filmic-v5",
         "filmic-v1", "filmic-v3", "colorin-icc", "colorout-icc",
         "unported-op", "denoise-auto-profile", "diffuse-6-scales",
-        "retouch", "xtrans-dual", "xtrans-smoothing",
+        "drawlayer", "xtrans-dual", "xtrans-smoothing",
         "xtrans-laplacian", "preview"])
 def test_unported_branches_raise_at_plan_time(items, meta_fn, kw):
     _, meta, _ = synth_raw(h=64, w=128)
@@ -255,17 +255,38 @@ def test_xtrans_raises_at_plan_time():
 
 
 def test_blend_raises_at_plan_time():
-    # an active blend (mask_mode != 0) on a geometry-preserving stage; an
-    # inactive or undecodable blob plans as no blend, as in ansel_tpu
-    # (tests/test_torch_export.py)
+    """No longer raises: the item that the port refused until blends were
+    ported (an active blend, mask_mode != 0, on a geometry-preserving
+    stage) plans as the JAX package plans it, rides the chain as keep and
+    blend records, and renders within the display quantum of the JAX
+    package's interior (its CPU RCD's border differs by design, as in
+    test_slice_matches_cpu_pipe_interior).  An inactive or undecodable
+    blob plans as no blend (tests/test_torch_export.py)."""
+    from ansel_tpu.pipeline import blend as ref_blend
+    from ansel_tpu_torch.kernels import pointwise as pw
     from ansel_tpu_torch.pipeline.blend import MASK_ENABLED, BlendParams
 
-    _, meta, _ = synth_raw(h=64, w=128)
+    raw, meta, _ = synth_raw(h=64, w=128)
     blob = BlendParams.codec.encode(BlendParams(mask_mode=MASK_ENABLED))
     item = ansel_tpu_torch.HistoryItem("exposure", {"exposure": 1.0},
                                        blend_params=blob)
-    with pytest.raises(NotImplementedError):
-        ansel_tpu_torch.Pipeline(meta, [item], device="cpu")
+    pipe = ansel_tpu_torch.compile_pipeline(meta, [item], device="cpu")
+    stage = next(s for s in pipe.pipe.stages if s.name == "exposure")
+    assert stage.blend == BlendParams(mask_mode=MASK_ENABLED)
+    assert stage.blend_static == blob
+    chain = next(a for k, _, _, a in pipe.steps if k == "chain")
+    ops = chain.prog.view(-1, pw.RECORD)[:, 0].tolist()
+    assert ops[:3] == [pw.OP_KEEP, pw.OP_EXPOSURE, pw.OP_BLEND]
+    ref_item = ansel_tpu.HistoryItem("exposure", {"exposure": 1.0},
+                                     blend_params=blob)
+    ref = ansel_tpu.Pipeline(meta, [ref_item])
+    assert [s.blend_static for s in ref.stages] == [
+        s.blend_static for s in pipe.pipe.stages]
+    assert isinstance(ref.stages[4].blend, ref_blend.BlendParams)
+    got = pipe.output_array(raw)
+    want = ansel_tpu.compile_pipeline(meta, [ref_item]).output_array(raw)
+    ring = (slice(None), slice(16, -16), slice(16, -16))
+    assert np.abs(got[ring] - want[ring]).max() <= DISPLAY_QUANTUM
 
 
 def test_cuda_device_is_never_replaced_by_the_cpu():
