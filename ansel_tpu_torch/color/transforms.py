@@ -49,6 +49,14 @@ def srgb_encode(x: torch.Tensor) -> torch.Tensor:
                        (1 + a) * safe ** (1.0 / 2.4) - a)
 
 
+def srgb_decode(x: torch.Tensor) -> torch.Tensor:
+    """sRGB -> linear transfer (IEC 61966-2-1)."""
+    a = 0.055
+    safe = torch.clamp(x, min=1e-9)
+    return torch.where(x <= 0.04045, fdiv(x, 12.92),
+                       fdiv(safe + a, 1 + a) ** 2.4)
+
+
 def gamma_encode(x: torch.Tensor, g: float) -> torch.Tensor:
     return torch.clamp(x, min=1e-9) ** float(np.float32(1.0 / g))
 

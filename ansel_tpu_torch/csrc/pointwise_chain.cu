@@ -1900,6 +1900,9 @@ using Fixed = std::tuple<
     Prog<Stage<OP_CONVERT_LAB_WORK, 0>>,
     Prog<Stage<OP_KEEP, 0>, Stage<OP_COLORZONES, 0>, Stage<OP_BLEND, 49>,
          Stage<OP_CONVERT_LAB_WORK, 75>, Stage<OP_COLOROUT, 87>>,
+    // config 14: channelmixerrgb alone, between colorin's ICC profile and
+    // the LUTs (its exposure and filmicrgb run config 3's and config 12's)
+    Prog<Stage<OP_CHANNELMIXERRGB, 0>>,
     // config 10: exposure, graduatednd, colorin, channelmixerrgb, to Lab;
     // from Lab, colorbalancergb, rgbcurve, filmicrgb, to Lab, tonecurve,
     // colorzones, from Lab, vignette, colorout

@@ -11,6 +11,7 @@ Config 13's items also carry blend parameters and instances
 
 from __future__ import annotations
 
+import contextlib
 import math
 import struct
 
@@ -736,13 +737,243 @@ OPS12 = (
 )
 
 
+# config 14 (a look shared as a style, on config 1's develop): the
+# style's items, in order, as (op, multi_priority); its fixtures are
+# written by `write_fixtures14` and its history built by `history14`
+STYLE14 = (("colorin", 0), ("lut3d", 0), ("lut3d", 1), ("drawlayer", 0),
+           ("colorout", 0))
+CUBE14_LEVEL = 33           # the .cube's levels
+KEYPOINTS14 = 16            # the inline compressed CLUT's keypoints
+LAYER14 = (1000, 1504)      # the painted layer (upsampled onto the frame)
+B2A14_GRID = 9              # the output profile's B2A CLUT grid
+# the layer's name is the absolute path of its .npz less the extension,
+# in drawlayer's 64-byte field (a NUL at the end)
+LAYER14_NAME = "stroke14"
+LAYER14_NAME_MAX = 63
+
+
+def _icc_tagged(tags, pcs=b"XYZ "):
+    """ICC profile bytes from (signature, payload) tags, made as
+    tests/test_icc.py makes them (the card machine has no copy of it)."""
+    header = bytearray(128)
+    header[16:20] = b"RGB "
+    header[20:24] = pcs
+    header[36:40] = b"acsp"
+    table, payloads = b"", b""
+    off = 132 + 12 * len(tags)
+    for sig, payload in tags:
+        table += struct.pack(">4sII", sig, off, len(payload))
+        payloads += payload
+        off += len(payload)
+    prof = header + struct.pack(">I", len(tags)) + table + payloads
+    prof[0:4] = struct.pack(">I", len(prof))
+    return bytes(prof)
+
+
+def _icc_xyz(v):
+    return b"XYZ \0\0\0\0" + struct.pack(
+        ">iii", *(int(round(x * 65536)) for x in v))
+
+
+def icc_matrix_profile(gamma: float = 1.0) -> bytes:
+    """A matrix+TRC profile: sRGB-like primaries in XYZ D50 and a pure
+    gamma TRC (tests/test_icc.py's `make_matrix_icc`)."""
+    curv = b"curv\0\0\0\0" + struct.pack(
+        ">IH", 1, int(round(gamma * 256))) + b"\0\0"
+    return _icc_tagged([
+        (b"wtpt", _icc_xyz((0.9642, 1.0, 0.8249))),
+        (b"rXYZ", _icc_xyz((0.4360, 0.2225, 0.0139))),
+        (b"gXYZ", _icc_xyz((0.3851, 0.7169, 0.0971))),
+        (b"bXYZ", _icc_xyz((0.1431, 0.0606, 0.7139))),
+        (b"rTRC", curv), (b"gTRC", curv), (b"bTRC", curv),
+    ])
+
+
+def icc_b2a_profile(grid: int = B2A14_GRID) -> bytes:
+    """A LUT profile with only an mft2 B2A0: linear curves and a CLUT that
+    decodes PCSXYZ (x2), so the device values are the XYZ input
+    (tests/test_icc.py's `make_b2a_icc`)."""
+    import numpy as np
+
+    head = b"mft2\0\0\0\0" + struct.pack(">BBBB", 3, 3, grid, 0)
+    matrix = struct.pack(">9i", *(int(round(v * 65536)) for v in
+                                  (1, 0, 0, 0, 1, 0, 0, 0, 1)))
+    ent = struct.pack(">HH", 2, 2)
+    curve = struct.pack(">2H", 0, 65535)
+    g1 = np.linspace(0.0, 1.0, grid)
+    rr, gg, bb = np.meshgrid(g1, g1, g1, indexing="ij")
+    clut = np.clip(np.stack([rr, gg, bb], -1) * 2.0, 0.0, 1.0)
+    clut16 = np.round(clut * 65535).astype(">u2").tobytes()
+    payload = head + matrix + ent + curve * 3 + clut16 + curve * 3
+    return _icc_tagged([(b"wtpt", _icc_xyz((0.9642, 1.0, 0.8249))),
+                        (b"B2A0", payload)])
+
+
+def cube14(seed: int, level: int = CUBE14_LEVEL):
+    """A seeded look as a (level, level, level, 3) table in [0, 1],
+    indexed [b][g][r]: the identity bent by a smooth seeded warp (a
+    split tone and a gentle S on each channel)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    g = np.linspace(0.0, 1.0, level)
+    b, gg, r = np.meshgrid(g, g, g, indexing="ij")
+    rgb = np.stack([r, gg, b], -1)
+    amp = rng.uniform(0.02, 0.06, 3)
+    phase = rng.uniform(0.0, 2.0 * math.pi, 3)
+    luma = rgb @ np.array([0.2126, 0.7152, 0.0722])
+    out = rgb + amp * np.sin(2.0 * math.pi * rgb + phase) * 0.5 \
+        + (luma[..., None] - 0.5) * rng.uniform(-0.04, 0.04, 3)
+    return np.clip(out, 0.0, 1.0)
+
+
+def write_cube(path: str, table) -> None:
+    """A (level, level, level, 3) [b][g][r] table as a .cube file (red
+    fastest)."""
+    level = table.shape[0]
+    rows = "\n".join(f"{v[0]:.6f} {v[1]:.6f} {v[2]:.6f}"
+                     for v in table.reshape(-1, 3))
+    with open(path, "w") as f:
+        f.write(f"TITLE \"config 14\"\nLUT_3D_SIZE {level}\n{rows}\n")
+
+
+def keypoints14(seed: int, n: int = KEYPOINTS14):
+    """(n, 6) uint8 compressed-CLUT keypoints: the cube's eight corners
+    kept, the rest seeded positions pushed toward warm highlights and
+    cool shadows."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed + 1)
+    corners = [(r, g, b) for r in (0, 255) for g in (0, 255)
+               for b in (0, 255)]
+    kp = [c + c for c in corners]
+    for pos in rng.integers(24, 232, (n - len(corners), 3)):
+        lum = float(pos.mean()) / 255.0
+        shift = np.array([12.0, 2.0, -12.0]) * (lum - 0.5) * 2.0
+        out = np.clip(pos + shift + rng.normal(0.0, 3.0, 3), 0, 255)
+        kp.append(tuple(int(v) for v in pos) + tuple(int(v) for v in out))
+    return np.asarray(kp, np.uint8)
+
+
+def stroke14(seed: int, shape=LAYER14):
+    """A seeded soft-edged brush stroke as a premultiplied (H, W, 4)
+    float32 RGBA layer: a wavy band across the frame, its alpha a
+    Gaussian falloff from the band's centre line (at most 0.8)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed + 2)
+    h, w = shape
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float64)
+    amp, freq, phase = (rng.uniform(0.08, 0.15) * h,
+                        rng.uniform(1.0, 2.0), rng.uniform(0, 2 * math.pi))
+    centre = 0.55 * h + amp * np.sin(2 * math.pi * freq * xx / w + phase)
+    width = rng.uniform(0.03, 0.05) * h
+    alpha = 0.8 * np.exp(-0.5 * ((yy - centre) / width) ** 2)
+    colour = rng.uniform(0.2, 0.9, 3)
+    rgba = np.concatenate([alpha[..., None] * colour, alpha[..., None]], -1)
+    return rgba.astype(np.float32)
+
+
+def write_fixtures14(directory: str, seed: int = 0) -> dict:
+    """Config 14's files in `directory`, made from `seed`: the input and
+    output ICC profiles, the .cube and the painted layer's .npz.  ->
+    their absolute paths ("layer" without its .npz, as drawlayer names
+    it) and the inline keypoints ("keypoints")."""
+    import os
+
+    import numpy as np
+
+    directory = os.path.abspath(directory)
+    paths = {"icc_in": os.path.join(directory, "in14.icc"),
+             "icc_out": os.path.join(directory, "out14.icc"),
+             "cube": os.path.join(directory, "look14.cube"),
+             "layer": os.path.join(directory, LAYER14_NAME)}
+    if len(paths["layer"].encode()) > LAYER14_NAME_MAX:
+        raise ValueError(f"config 14's layer path {paths['layer']!r} is "
+                         f"longer than drawlayer's {LAYER14_NAME_MAX} "
+                         "bytes: write the fixtures to a shorter directory")
+    with open(paths["icc_in"], "wb") as f:
+        f.write(icc_matrix_profile(1.0))
+    with open(paths["icc_out"], "wb") as f:
+        f.write(icc_b2a_profile())
+    write_cube(paths["cube"], cube14(seed))
+    np.savez_compressed(paths["layer"] + ".npz", rgba=stroke14(seed))
+    return dict(paths, keypoints=keypoints14(seed))
+
+
+def fixture_dir14() -> str:
+    """A new directory for config 14's files whose layer path fits
+    drawlayer's field: under the temporary directory, or else under the
+    checkout's `build/` (the caller removes it)."""
+    import os
+    import tempfile
+
+    root = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__)))), "build")
+    for parent in (tempfile.gettempdir(), root):
+        room = LAYER14_NAME_MAX - len(LAYER14_NAME) - 1 - len("c14_XXXXXXXX")
+        if len(os.path.abspath(parent).encode()) + 1 <= room:
+            os.makedirs(parent, exist_ok=True)
+            return tempfile.mkdtemp(prefix="c14_", dir=parent)
+    raise ValueError("no directory short enough for config 14's layer path")
+
+
+def style14_items(fixtures: dict, item_cls, params_class) -> list:
+    """Config 14's style as `item_cls` items with `params_class(op)`
+    dataclass params (either package's classes): a matrix+TRC input
+    profile, the .cube in sRGB (tetrahedral), the inline keypoints in
+    linear Rec2020 (trilinear), the painted layer and the B2A output
+    profile, every path absolute."""
+    kp = fixtures["keypoints"]
+    params = {
+        ("colorin", 0): dict(type=0, filename=fixtures["icc_in"]),
+        ("lut3d", 0): dict(filepath=fixtures["cube"], colorspace=0,
+                           interpolation=0),
+        ("lut3d", 1): dict(nb_keypoints=int(kp.shape[0]),
+                           c_clut=kp.tobytes(), colorspace=4,
+                           interpolation=1),
+        ("drawlayer", 0): dict(layer_name=fixtures["layer"]),
+        ("colorout", 0): dict(type=0, filename=fixtures["icc_out"]),
+    }
+    out = []
+    for op, mp in STYLE14:
+        cls = params_class(op)
+        out.append(item_cls(op, cls(**params[(op, mp)]),
+                            version=cls.op_version, multi_priority=mp))
+    return out
+
+
+def history14(directory: str, seed: int = 0, item_cls=None,
+              params_class=None, styles=None) -> list:
+    """Config 14's history: the fixtures written to `directory` from
+    `seed`, the style written as a .dtstyle there with `styles`'
+    write_style, read back with its parse_style and merged onto config
+    1's history with its apply_style (the port's `HistoryItem`, params
+    classes and `io/styles` by default; the JAX package's in its
+    tests)."""
+    import os
+
+    if item_cls is None:
+        from ..core.params import params_class
+        from ..pipeline.engine import HistoryItem as item_cls
+        from . import styles
+    fixtures = write_fixtures14(directory, seed)
+    path = os.path.join(os.path.abspath(directory), "config14.dtstyle")
+    styles.write_style(path, styles.Style(
+        name="config 14", description="a look: ICC in and out, two LUTs "
+        "and a painted layer",
+        items=style14_items(fixtures, item_cls, params_class)))
+    return styles.apply_style(history(1, item_cls),
+                              styles.parse_style(path))
+
+
 # each config's frame (height, width)
 FRAMES = {1: (BENCH_H, BENCH_W), 2: (BENCH_H, BENCH_W),
           3: (BENCH3_H, BENCH3_W), 4: (BENCH4_H, BENCH4_W),
           7: (BENCH_H, BENCH_W), 8: (BENCH_H, BENCH_W),
           9: (BENCH_H, BENCH_W), 10: (BENCH_H, BENCH_W),
           11: (BENCH_H, BENCH_W), 12: (BENCH_H, BENCH_W),
-          13: (BENCH_H, BENCH_W)}
+          13: (BENCH_H, BENCH_W), 14: (BENCH_H, BENCH_W)}
 # config 9's DNG: a 14-bit mosaic and a GainMap of 17 x 25 points per
 # RGGB filter
 DNG9_BITS = 14
@@ -773,6 +1004,24 @@ def history(config: int, item_cls=None) -> list:
     if item_cls is None:
         from ..pipeline.engine import HistoryItem as item_cls
     return [item_cls(op, dict(p)) for op, p in HISTORIES[config]]
+
+
+@contextlib.contextmanager
+def history_files(config: int, seed: int = 0):
+    """Config `config`'s port history (`history`) for the length of a
+    `with` block.  Config 14's names files: they are written from `seed`
+    to a new directory (`fixture_dir14`, `history14`) and removed when
+    the block ends, so plan its pipe inside the block."""
+    if config != 14:
+        yield history(config)
+        return
+    import shutil
+
+    directory = fixture_dir14()
+    try:
+        yield history14(directory, seed)
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
 
 
 def forms(config: int) -> dict:

@@ -132,6 +132,9 @@ FIXED = (
     ((OP_CONVERT_LAB_WORK, 0),),
     ((OP_KEEP, 0), (OP_COLORZONES, 0), (OP_BLEND, 49),
      (OP_CONVERT_LAB_WORK, 75), (OP_COLOROUT, 87)),
+    # config 14: channelmixerrgb alone, between colorin's ICC profile and
+    # the LUTs (its exposure and filmicrgb run config 3's and config 12's)
+    ((OP_CHANNELMIXERRGB, 0),),
     # config 10: exposure, graduatednd, colorin, channelmixerrgb, to Lab;
     # from Lab, colorbalancergb, rgbcurve, filmicrgb, to Lab, tonecurve,
     # colorzones, from Lab, vignette, colorout

@@ -2,9 +2,13 @@
 
 Reference: `ansel/src/iop/colorin.c` (params v7, colorin.c:119-129).  The
 matrix path (camera matrix to XYZ, then the working-profile matrix,
-folded into one 3x3 at plan time) is ported; planning is copied from
-`ansel_tpu/ops/colorin.py`.  Custom ICC input profiles
-(DT_COLORSPACE_FILE) raise at plan time.
+folded into one 3x3 at plan time) rides the chain kernel; planning is
+copied from `ansel_tpu/ops/colorin.py`.  DT_COLORSPACE_FILE loads a
+custom ICC profile (matrix+TRC or an A2B LUT, `color/icc.py`) found as
+`_resolve_icc` searches for it: at plan time here, so a missing profile
+fails before any pixel, and its fitted curves and CLUT are the stage's
+coefficients beside the JAX package's identity `M`.  That branch has no
+fused form in the JAX package, so it splits the chain there.
 """
 
 from __future__ import annotations
@@ -18,7 +22,7 @@ from ..color.transforms import apply_matrix
 from ..core.params import cfield, params
 from ..core.types import Colorspace, ImageSpec
 from ..kernels.pointwise import OP_MATRIX
-from .base import Op, OpPlan, PlanContext, PointwiseSpec, not_ported, register
+from .base import Op, OpPlan, PlanContext, PointwiseSpec, register
 
 # dt_colorspaces_color_profile_type_t (src/common/colorspaces.h:90-130)
 CS_FILE = 0
@@ -71,9 +75,20 @@ class Colorin(Op):
     input_colorspace = Colorspace.CAMERA_RGB
     mandatory = True
 
+    def _resolve_icc(self, ctx, p):
+        """DT_COLORSPACE_FILE: load the custom ICC named in params
+        (colorspaces.c:2300-2661 LCMS path)."""
+        from ..color import icc as icc_mod
+
+        name = p.filename
+        if isinstance(name, bytes):
+            name = name.split(b"\0")[0].decode("utf-8", "ignore")
+        name = (name or "").strip("\0")
+        if not name:
+            raise ValueError("colorin: type=FILE but no ICC filename")
+        return icc_mod.find_profile(ctx.meta, name, "in")
+
     def plan(self, ctx: PlanContext, spec_in: ImageSpec, p: ColorinParams) -> OpPlan:
-        if p.type == CS_FILE:
-            raise not_ported(self.name, "a custom ICC input profile")
         work = _WORK_NAMES.get(p.type_work, "rec2020")
         ctx.notes["work_profile"] = work
         fname = p.filename if p.type == CS_FILE else ""
@@ -83,12 +98,16 @@ class Colorin(Op):
             spec_in=spec_in,
             spec_out=spec_in.with_colorspace(Colorspace.WORK_RGB),
             static=(p.type, work, fname.strip("\0")),
+            aux=(self._resolve_icc(ctx, p) if p.type == CS_FILE else None),
         )
 
     def coeffs(self, ctx: PlanContext, plan: OpPlan, p: ColorinParams):
         meta = ctx.meta
         if p.type == CS_FILE:
-            return {"M": np.eye(3, dtype=np.float32)}  # ICC path in apply
+            from ..color import icc as icc_mod
+
+            return {"M": np.eye(3, dtype=np.float32),
+                    **icc_mod.to_xyz_coeffs(plan.aux)}
         if meta.cam_to_xyz is not None and p.type in (
             CS_STANDARD_MATRIX, CS_ENHANCED_MATRIX
         ):
@@ -101,9 +120,17 @@ class Colorin(Op):
         return {"M": M.astype(np.float32)}
 
     def apply(self, x, c, plan: OpPlan, ctx: PlanContext):
+        if plan.static[0] == CS_FILE:
+            from ..color import icc as icc_mod
+
+            to_xyz = icc_mod.profile_to_xyz_fn(plan.aux, c)
+            # ICC PCS is D50; the pipeline XYZ reference is D50 too
+            return apply_matrix(to_xyz(x), cm.WORK_FROM_XYZ.tolist())
         return _colorin(x, c)
 
     def pointwise_spec(self, plan, ctx):
+        if plan.static[0] == CS_FILE:
+            return None  # curves and perhaps a CLUT: not fused
         return PointwiseSpec(fn=_colorin, opcode=OP_MATRIX, consts=("M",))
 
 

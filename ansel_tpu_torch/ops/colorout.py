@@ -2,8 +2,16 @@
 
 Reference: `ansel/src/iop/colorout.c` (params v5, colorout.c:107-112).
 The matrix path with its transfer curve (sRGB, linear or a pure gamma)
-is ported; planning is copied from `ansel_tpu/ops/colorout.py`.  Custom
-ICC output profiles (DT_COLORSPACE_FILE) raise at plan time.
+rides the chain kernel; planning is copied from
+`ansel_tpu/ops/colorout.py`.  DT_COLORSPACE_FILE renders through a custom
+ICC output profile (`_apply_icc`, `ansel_tpu/ops/colorout.py:113-150`):
+a matrix+TRC profile by its inverse matrix and a 40-node monotone Hermite
+inverse of each TRC, a LUT profile through its B2A LUT.  The profile is
+found and every curve fitted at plan time here (the JAX package does it
+inside its traced `apply`, which its jit runs once), and the fits and the
+CLUT are the stage's coefficients beside the JAX package's identity `M`.
+That branch has no fused form in the JAX package, so it splits the chain
+there.
 """
 
 from __future__ import annotations
@@ -18,7 +26,7 @@ from ..color.transforms import apply_matrix, gamma_encode, srgb_encode
 from ..core.params import cfield, params
 from ..core.types import Colorspace, ImageSpec
 from ..kernels.pointwise import OP_COLOROUT, TRC_GAMMA, TRC_LINEAR, TRC_SRGB
-from .base import Op, OpPlan, PlanContext, PointwiseSpec, not_ported, register
+from .base import Op, OpPlan, PlanContext, PointwiseSpec, register
 from .colorin import (CS_ADOBERGB, CS_DISPLAY_P3, CS_LIN_REC709,
                       CS_LIN_REC2020, CS_PROPHOTO, CS_REC709, CS_SRGB,
                       _WORK_NAMES)
@@ -74,7 +82,14 @@ class Colorout(Op):
 
     def plan(self, ctx: PlanContext, spec_in: ImageSpec, p: ColoroutParams) -> OpPlan:
         if p.type == 0:  # DT_COLORSPACE_FILE: custom ICC output profile
-            raise not_ported(self.name, "a custom ICC output profile")
+            fname = p.filename
+            if isinstance(fname, bytes):
+                fname = fname.split(b"\0")[0].decode("utf-8", "ignore")
+            fname = fname.strip("\0")
+            return OpPlan(
+                spec_in=spec_in,
+                spec_out=spec_in.with_colorspace(Colorspace.DISPLAY_RGB),
+                static=("icc", fname), aux=_load_output_icc(ctx, fname))
         trc = _TRC.get(p.type, "srgb")
         dst = _WORK_NAMES.get(p.type, "srgb")
         return OpPlan(
@@ -85,14 +100,23 @@ class Colorout(Op):
 
     def coeffs(self, ctx: PlanContext, plan: OpPlan, p: ColoroutParams):
         dst, _ = plan.static
+        if dst == "icc":
+            from ..color import icc as icc_mod
+
+            return {"M": np.eye(3, dtype=np.float32),
+                    **icc_mod.to_output_coeffs(plan.aux)}
         work = ctx.notes.get("work_profile", cm.WORK_PROFILE)
         M = cm.rgb_to_rgb_matrix(work, dst)
         return {"M": M.astype(np.float32)}
 
     def apply(self, x, c, plan: OpPlan, ctx: PlanContext):
+        if plan.static[0] == "icc":
+            return _apply_icc(x, c, plan.aux)
         return _colorout(x, c, plan.static[1])
 
     def pointwise_spec(self, plan, ctx):
+        if plan.static[0] == "icc":
+            return None  # inverse curves or a B2A LUT: not fused
         trc = plan.static[1]
         if trc == "srgb":
             code, extra = TRC_SRGB, ()
@@ -112,3 +136,29 @@ def _colorout(x, c, trc):
     if trc == "linear":
         return y
     return gamma_encode(y, trc[1])
+
+
+def _load_output_icc(ctx, fname):
+    """The output profile (`icc.find_profile`); a LUT profile must carry
+    a B2A LUT."""
+    from ..color import icc as icc_mod
+
+    prof = icc_mod.find_profile(ctx.meta, fname, "out")
+    if prof.kind != "matrix" and prof.b2a is None:
+        raise ValueError("colorout: LUT output profile has no B2A tag")
+    return prof
+
+
+def _apply_icc(x, c, prof):
+    """Work RGB -> XYZ D50 -> the profile's device values: its inverse
+    matrix and inverse TRCs, or its B2A LUT."""
+    from ..color import icc as icc_mod
+    from ..pixel.curves import eval_curve
+
+    xyz = apply_matrix(x, cm.XYZ_FROM_WORK.tolist())
+    if prof.kind != "matrix":
+        return torch.clamp(icc_mod.xyz_to_device_fn(prof, c)(xyz), 0.0, 1.0)
+    lin = apply_matrix(xyz, np.linalg.inv(prof.to_xyz).tolist())
+    lin = torch.clamp(lin, 0.0, 1.0)
+    return torch.clamp(torch.stack([eval_curve(lin[ch], *c[f"inv{ch}"])
+                                    for ch in range(3)]), 0.0, 1.0)

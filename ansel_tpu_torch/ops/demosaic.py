@@ -4,9 +4,13 @@ Reference: `ansel/src/iop/demosaic.c` (params v4 demosaic.c:266-274,
 method enum demosaic.c:120-141).  Planning is copied from
 `ansel_tpu/ops/demosaic.py`.  Ported: RCD on a Bayer mosaic
 (`kernels/rcd.py`), and on X-Trans Markesteijn 1 and 3 passes
-(`kernels/markesteijn.py`) and the passthrough; each computes what the
-TPU kernel computes.  Every other Bayer method, green equilibration,
-colour smoothing, the dual blend and X-Trans VNG raise at plan time.
+(`kernels/markesteijn.py`), each computing what the TPU kernel computes;
+the passthrough; and the two plain XLA methods of the JAX package in
+torch, PPG (what the PREVIEW and THUMBNAIL pipes plan) and the bilinear
+fallback that every Bayer method the JAX package does not name takes
+(`ansel_tpu/ops/demosaic.py:68-140, 268`).  AMaZE, LMMSE, VNG4, green
+equilibration, colour smoothing, the dual blend and X-Trans VNG raise
+at plan time.
 
 As in the JAX package, an X-Trans mosaic turns any method without the
 X-Trans flag into MARKESTEIJN (1 pass): bench config 4's 1024 | 2 plans
@@ -21,6 +25,7 @@ import torch
 
 from ..core.params import cfield, params
 from ..core.types import CFAPattern, Colorspace, ImageSpec
+from . import _bayer
 from .base import Op, OpPlan, PlanContext, not_ported, register
 
 # method ids (reference demosaic.c:120-141)
@@ -59,6 +64,75 @@ class DemosaicParams:
         return None
 
 
+def _conv2(x: torch.Tensor, k) -> torch.Tensor:
+    """A small 2-D stencil on one plane as shifted adds over an
+    edge-padded view, in the JAX function's tap order."""
+    from ..pixel.shifts import PaddedView
+
+    kk = [[float(v) for v in row] for row in k]
+    r = (len(kk) - 1) // 2
+    pv = PaddedView(x, r)
+    out = None
+    for iy, row in enumerate(kk):
+        for ix, t in enumerate(row):
+            if t == 0.0:
+                continue
+            c = t * pv.at(iy - r, ix - r)
+            out = c if out is None else out + c
+    return out
+
+
+_K_G = [[0, 1, 0], [1, 4, 1], [0, 1, 0]]
+_K_RB = [[1, 2, 1], [2, 4, 2], [1, 2, 1]]
+
+
+def bilinear_demosaic(x: torch.Tensor, cfa: CFAPattern) -> torch.Tensor:
+    """Masked-kernel bilinear: G by its 4-neighbour average, R and B by
+    [1 2 1]/4 x [1 2 1]/4 over their sparse planes."""
+    h, w = x.shape
+    planes = _bayer.color_masks(cfa, h, w, x.device) * x[None]
+    return torch.stack([_conv2(planes[0], _K_RB) / 4.0,
+                        _conv2(planes[1], _K_G) / 4.0,
+                        _conv2(planes[2], _K_RB) / 4.0])
+
+
+def ppg_demosaic(x: torch.Tensor, cfa: CFAPattern) -> torch.Tensor:
+    """Patterned-pixel-grouping as the JAX package computes it: green by
+    a gradient-weighted choice of direction, chroma by interpolating the
+    colour-minus-green differences.  Its shifts wrap round the frame
+    (`jnp.roll`, though its comment says "edge clamp"), and so do these."""
+    h, w = x.shape
+    masks = _bayer.color_masks(cfa, h, w, x.device)
+    is_g = masks[1]
+
+    def sh(a, dy, dx):
+        return torch.roll(a, (-dy, -dx), dims=(0, 1))
+
+    gN, gS = sh(x, -1, 0), sh(x, 1, 0)
+    gW, gE = sh(x, 0, -1), sh(x, 0, 1)
+    cNN, cSS = sh(x, -2, 0), sh(x, 2, 0)
+    cWW, cEE = sh(x, 0, -2), sh(x, 0, 2)
+    grad_v = torch.abs(gN - gS) + torch.abs(x - cNN) + torch.abs(x - cSS)
+    grad_h = torch.abs(gW - gE) + torch.abs(x - cWW) + torch.abs(x - cEE)
+    est_v = (gN + gS) * 0.5 + (2.0 * x - cNN - cSS) * 0.25
+    est_h = (gW + gE) * 0.5 + (2.0 * x - cWW - cEE) * 0.25
+    est_b = (gN + gS + gW + gE) * 0.25 \
+        + (4.0 * x - cNN - cSS - cWW - cEE) * 0.125
+    g_interp = torch.where(
+        grad_v < 0.8 * grad_h, est_v,
+        torch.where(grad_h < 0.8 * grad_v, est_h, est_b))
+    g = torch.where(is_g > 0, x, torch.clamp(g_interp, min=0.0))
+
+    out = []
+    for ci in (0, 2):
+        diff = (x - g) * masks[ci]
+        num = _conv2(diff, _K_RB)
+        den = _conv2(masks[ci], _K_RB)
+        out.append(torch.clamp(g + num / torch.clamp(den, min=1e-6),
+                               min=0.0))
+    return torch.stack([out[0], g, out[1]])
+
+
 @register
 class Demosaic(Op):
     name = "demosaic"
@@ -75,8 +149,9 @@ class Demosaic(Op):
             raise not_ported(self.name, "the dual demosaic blend")
         if is_xtrans and method == XTRANS_FLAG:
             raise not_ported(self.name, "X-Trans VNG")
-        if not is_xtrans and method != RCD:
-            raise not_ported(self.name, f"method {method} (only RCD = {RCD})")
+        if not is_xtrans and method in (AMAZE, VNG4, LMMSE):
+            raise not_ported(self.name, f"method {method} (RCD = {RCD}, "
+                             f"PPG = {PPG} and the bilinear fallback are)")
         if green_eq:
             raise not_ported(self.name, "green_eq")
         if p.color_smoothing:
@@ -108,13 +183,18 @@ class Demosaic(Op):
 
     def apply(self, x, c, plan: OpPlan, ctx: PlanContext):
         method = plan.static[0]
-        if method == XTRANS_FLAG | PASSTHROUGH_MONO:
+        cfa = plan.spec_in.cfa
+        if method in (PASSTHROUGH_MONO, XTRANS_FLAG | PASSTHROUGH_MONO):
             return torch.stack([x, x, x])
-        if plan.spec_in.cfa is CFAPattern.XTRANS:
+        if cfa is CFAPattern.XTRANS:
             from ..kernels.markesteijn import xtrans_markesteijn
 
             return xtrans_markesteijn(x, ctx.meta.xtrans,
                                       3 if method == MARKESTEIJN_3 else 1)
-        from ..kernels.rcd import rcd_demosaic
+        if method == PPG:
+            return ppg_demosaic(x, cfa)
+        if method == RCD:
+            from ..kernels.rcd import rcd_demosaic
 
-        return rcd_demosaic(x, plan.spec_in.cfa, c["scaler"])
+            return rcd_demosaic(x, cfa, c["scaler"])
+        return bilinear_demosaic(x, cfa)

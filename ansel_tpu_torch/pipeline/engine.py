@@ -33,10 +33,21 @@ camera-RGB stage runs at the export size), any other scale but 1
 the JAX package does not register either (a module of a newer darktable)
 is skipped into `Pipeline.unsupported`, as there.
 
-Not ported: PREVIEW/THUMBNAIL pipes (their PPG override), and every op
-of the JAX package's registry (`ops.base.REFERENCE_OPS`) not registered
-in `ansel_tpu_torch.ops`.  Each raises NotImplementedError while
-planning.
+The PREVIEW and THUMBNAIL pipes rewrite a `demosaic` item given as a
+dict or None to PPG (method 0), plan no backward ROI, and let filmicrgb,
+denoiseprofile and nlmeans take their fast branches, as the JAX package
+does (`ansel_tpu/pipeline/engine.py:229-238, 249, 323`).
+
+The JAX engine takes the raw-detail plane at demosaic and keeps each
+raster mask at its source stage's frame; neither follows a later change
+of frame, and a blend that reads one on another frame fails there on a
+broadcast (ROADMAP R14).  The port refuses such a history while planning
+(`_refuse_moved_side_planes`), naming the blended stage and the stage
+that changed the frame.
+
+Not ported: every op of the JAX package's registry
+(`ops.base.REFERENCE_OPS`) not registered in `ansel_tpu_torch.ops`.
+Each raises NotImplementedError while planning.
 """
 
 from __future__ import annotations
@@ -227,7 +238,9 @@ _CONVERTIBLE = {
 
 class PipeType:
     """The reference's four pipe kinds (dev_pixelpipe.h
-    DT_DEV_PIXELPIPE_*).  PREVIEW and THUMBNAIL are not ported."""
+    DT_DEV_PIXELPIPE_*): FULL, PREVIEW (the downscaled navigator),
+    THUMBNAIL (library mipmaps), EXPORT.  PREVIEW and THUMBNAIL trade
+    demosaic quality for speed as in the reference (PPG)."""
 
     FULL = "full"
     PREVIEW = "preview"
@@ -278,9 +291,17 @@ class Pipeline:
                  out_window: Optional[Tuple[int, int, int, int]] = None,
                  roi: bool = True):
         self.device = _check_device(device)
-        if pipe_type in (PipeType.PREVIEW, PipeType.THUMBNAIL):
-            raise not_ported("pipeline", f"the {pipe_type} pipe "
-                             "(its fast-demosaic override)")
+        fast = pipe_type in (PipeType.PREVIEW, PipeType.THUMBNAIL)
+        if fast:
+            # the fast-demosaic override: only an item whose params are a
+            # dict or None; a decoded blob keeps its method
+            history = [
+                (dataclasses.replace(
+                    h, params=dict(h.params or {}, demosaicing_method=0))
+                 if h.op == "demosaic"
+                 and isinstance(h.params, (dict, type(None)))
+                 else h)
+                for h in history]
         self.pipe_type = pipe_type
         self.meta = meta
         self.ctx = PlanContext(meta=meta, scale=scale)
@@ -352,14 +373,72 @@ class Pipeline:
         self.spec_out = spec
 
         # Backward ROI planning (reference modify_roi_in walk,
-        # dev_pixelpipe.c:564-643), then re-plan the windowed suffix.
+        # dev_pixelpipe.c:564-643), then re-plan the windowed suffix; the
+        # fast pipes plan none
         self.windowed = False
-        if roi:
+        if roi and not fast:
             wins = self._backward_windows(out_window)
             if wins is not None:
                 self._replan_windowed(wins)
                 self.windowed = True
                 self.spec_out = self.stages[-1].plan.spec_out
+        self._refuse_moved_side_planes()
+
+    # --- R14: side planes on another frame ----------------------------------
+    def _refuse_moved_side_planes(self):
+        """Raise ValueError where a blend would read the raw-detail plane or
+        a raster mask on another frame than its own (ROADMAP R14): a
+        details-refined blend whose input frame differs from demosaic's
+        output, or a raster consumer whose input frame differs from its
+        source stage's output.  The JAX package fails on both at run time
+        (a broadcast of the two arrays), so the frame is the array's
+        (height, width)."""
+        names = [s.name for s in self.stages]
+        demosaic = names.index("demosaic") if "demosaic" in names else None
+        for k, s in enumerate(self.stages):
+            bp = s.blend
+            if bp is None:
+                continue
+            here = s.plan.spec_in.array_shape[-2:]
+            if abs(bp.details) > 1e-6 and demosaic is not None \
+                    and demosaic < k:
+                ref = self.stages[demosaic].plan.spec_out.array_shape[-2:]
+                if here != ref:
+                    raise ValueError(
+                        f"stage '{s.name}': its details slider reads the "
+                        f"raw-detail plane of demosaic's frame {ref}, but "
+                        f"'{self._frame_changer(demosaic, k, ref)}' changed "
+                        f"the frame to {here} before it; the plane is not "
+                        "carried through a change of frame (R14)")
+            src = (_raster_source_name(bp)
+                   if bp.mask_mode & blend_mod.MASK_RASTER else "")
+            sources = [i for i in range(k) if names[i] == src
+                       and self.stages[i].blend is not None]
+            if not sources:
+                continue  # an empty source fills; a missing one raises later
+            i = next((i for i in sources if self.stages[i].multi_priority
+                      == bp.raster_mask_instance), sources[0])
+            ref = self.stages[i].plan.spec_out.array_shape[-2:]
+            if here != ref:
+                raise ValueError(
+                    f"stage '{s.name}': its raster mask comes from "
+                    f"'{src}' on the frame {ref}, but "
+                    f"'{self._frame_changer(i, k, ref)}' changed the frame "
+                    f"to {here} before it; the mask is not carried through "
+                    "a change of frame (R14)")
+
+    def _frame_changer(self, i, k, ref) -> str:
+        """The first stage strictly between i and k that changes the
+        array's frame, or else the first whose input window differs from
+        `ref`."""
+        between = self.stages[i + 1:k]
+        for t in between:
+            if t.plan.spec_in.array_shape[-2:] \
+                    != t.plan.spec_out.array_shape[-2:]:
+                return t.name
+        return next((t.name for t in between
+                     if t.plan.spec_in.array_shape[-2:] != ref),
+                    "the backward ROI window")
 
     # --- backward ROI -------------------------------------------------------
     def _backward_windows(self, out_window):

@@ -69,7 +69,22 @@ entry points a user calls, at their full frames:
     blur (the IIR), the details slider with a narrow one (sepblur): RCD,
     the chain in four programs, sepblur and the IIR; every blend mode and
     mask class as a blend record on its chain inputs (`[blend-modes]`);
-    its sidecar exported through `python -m ansel_tpu_torch.cli`.
+    its sidecar exported through `python -m ansel_tpu_torch.cli`;
+  * the port's config 14 at 24 MP (4000 x 6016), config 1's develop with
+    a look shared as a style (`[pipe14]`): an ICC input profile, a .cube
+    in sRGB, inline compressed-CLUT keypoints in linear Rec2020, a painted
+    layer upsampled onto the frame and an ICC output profile (a B2A LUT),
+    the fixtures written to a temporary directory from `--seed`, the
+    style written as a .dtstyle, read back and merged, the merged history
+    exported as a sidecar through `python -m ansel_tpu_torch.cli`: RCD and
+    the chain in three programs, the profiles, LUTs and layer in torch;
+  * the fast pipes on config 1's history (`[fastpipe]`): PREVIEW at 24 MP
+    with a `demosaic` item given as a dict (planned PPG) and THUMBNAIL at
+    scale 0.25 with a decoded method-7 blob (planned bilinear): the
+    chain once each, the demosaics in torch;
+  * `[r14]`: config 13's history at orientation 6, at scale 0.5, and with
+    a crop between its raster source and consumer, each refused with
+    ValueError while planning, before anything reaches the card.
 
 Each path runs with the launch counts set to 0 just before it and read
 just after.  Every chain each config builds is also timed on its own
@@ -80,6 +95,7 @@ raises, so the script then exits non-zero without the last line.  It
 needs a CUDA device and imports neither JAX nor `ansel_tpu`.
 """
 
+import argparse
 import contextlib
 import dataclasses
 import json
@@ -108,6 +124,7 @@ from ansel_tpu_torch.kernels import (_build, bgrid, diffuse, eaw, iir,
                                      markesteijn, nlm, rcd, sepblur, warp)
 from ansel_tpu_torch.kernels import pointwise as pw
 from ansel_tpu_torch.ops.base import pad_to
+from ansel_tpu_torch.ops.demosaic import DemosaicParams
 from ansel_tpu_torch.pipeline.blend import BlendParams
 from ansel_tpu_torch.pipeline.export import export_image
 from ansel_tpu_torch.pixel import prng
@@ -192,6 +209,21 @@ KINDS13 = ["stage"] * 3 + ["blend"] + ["stage"] * 3 + ["blend", "chain",
                                                        "blend", "chain",
                                                        "blend", "chain",
                                                        "blend", "chain"]
+# config 14: RCD, the chain three times ([exposure], [channelmixerrgb],
+# [filmicrgb]: programs 2, 17 and 12 of pointwise.FIXED); the ICC
+# profiles, the two LUTs and the painted layer in torch between them
+LAUNCHES14 = dict(NO_LAUNCHES, rcd=1, chain=3)
+PROGRAMS14 = {2: 1, 17: 1, 12: 1}
+STAGES14 = ["rawprepare", "temperature", "highlights", "demosaic",
+            "exposure", "colorin", "channelmixerrgb", "lut3d", "lut3d",
+            "drawlayer", "filmicrgb", "colorout"]
+KINDS14 = ["stage"] * 4 + ["chain", "stage", "chain"] + ["stage"] * 3 \
+    + ["chain", "stage"]
+PIPE14_REPEATS = 5
+# the fast pipes on config 1's history: PPG (PREVIEW) or bilinear
+# (THUMBNAIL at FAST_SCALE) in torch, then config 1's chain (program 0)
+LAUNCHES_FAST = dict(NO_LAUNCHES, chain=1)
+FAST_SCALE = 0.25
 BOX9 = 2048
 NOISE_SIGMA = 200.0  # sensor units of 16383: a high-ISO mosaic
 HOT8 = 1024          # hot photosites of config 8's frame, at the white point
@@ -280,7 +312,12 @@ OPS_CHAIN = {(1, 0): (1095, 57), (2, 0): (847, 42), (3, 0): (6, 0),
              # after its highlight reconstruction, to Lab, from Lab +
              # colorout (config 3's program on config 12's pixels)
              (12, 0): (21, 0), (12, 1): (666, 39), (12, 2): (183, 6),
-             (12, 3): (219, 3)}
+             (12, 3): (219, 3),
+             # config 14: [exposure], [channelmixerrgb], [filmicrgb]
+             (14, 0): (6, 0), (14, 1): (247, 15), (14, 2): (672, 39),
+             # the fast pipes run config 1's program on their PPG and
+             # bilinear pixels: config 1's count, not recounted on them
+             ("preview", 0): (1095, 57), ("thumbnail", 0): (1095, 57)}
 FLOPS_SEPBLUR_PER_TAP = 4        # two passes, a multiply and an add each
 FLOPS_EAW = 25 * 24 + 10         # 25 taps; the divide and the detail
 # the atrous variant per pixel: 25 taps of the three differences and
@@ -2615,8 +2652,8 @@ def check_blend_modes(card, record, pipe, raw_dev):
           f"{CHAIN_MAX_TOL:g}) on {card}", flush=True)
 
 
-def step_times13(pipe, raw_dev):
-    """Device ms of each run step of config 13 (CUDA events, median of 3,
+def step_times(pipe, raw_dev):
+    """Device ms of each run step of a pipe (CUDA events, median of 3,
     the raster side-band and raw-detail plane carried from the steps
     before)."""
     out = []
@@ -2643,6 +2680,20 @@ def step_times13(pipe, raw_dev):
 def write_sidecar13(path):
     write_xmp(path, XMPDocument(history=configs.history(13),
                                 masks=configs.forms(13)))
+
+
+def run_cli(bundle, sidecar, png):
+    """`python -m ansel_tpu_torch.cli` on a raw bundle and a sidecar to a
+    16-bit PNG in a new process; -> its wall seconds."""
+    t = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "ansel_tpu_torch.cli", bundle, sidecar, png,
+         "--bpp", "16", "--no-icc", "-v"],
+        capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t
+    expect(proc.returncode == 0,
+           f"cli exit {proc.returncode}: {proc.stderr[-2000:]}")
+    return wall
 
 
 def run_config13(card, record, raw, raw_dev, meta, phases, tmp):
@@ -2691,7 +2742,7 @@ def run_config13(card, record, raw, raw_dev, meta, phases, tmp):
     with timed(phases, "blend-modes"):
         check_blend_modes(card, record, pipe, raw_dev)
     with timed(phases, "pipe13 timing"):
-        steps = step_times13(pipe, raw_dev)
+        steps = step_times(pipe, raw_dev)
         per_img = time_pipe(pipe, raw_dev, PIPE13_REPEATS)
         peak, held = pipe_peak(pipe, raw_dev)
     print(f"[pipe13] config 13 {H}x{W}: {len(stages)} stages, chains "
@@ -2709,14 +2760,7 @@ def run_config13(card, record, raw, raw_dev, meta, phases, tmp):
     with timed(phases, "pipe13 cli"):
         write_sidecar13(sidecar)
         save_raw(bundle, raw, meta)
-        t = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, "-m", "ansel_tpu_torch.cli", bundle, sidecar,
-             png, "--bpp", "16", "--no-icc", "-v"],
-            capture_output=True, text=True, timeout=600)
-        cli_s = time.perf_counter() - t
-        expect(proc.returncode == 0,
-               f"cli exit {proc.returncode}: {proc.stderr[-2000:]}")
+        cli_s = run_cli(bundle, sidecar, png)
         exported = export_image(raw, meta, xmp_path=sidecar)
         expect(np.array_equal(read_png16(png), to_uint16(exported)),
                "the CLI's PNG differs from the in-process export")
@@ -2730,6 +2774,228 @@ def run_config13(card, record, raw, raw_dev, meta, phases, tmp):
           f"export, which is within {side_err:.3g} of the render (filmicrgb's "
           f"default params in float32) on {card}", flush=True)
     return launches
+
+
+def captured14(pipe, raw_dev):
+    """Run config 14 once on a device-resident raw and keep the arguments
+    of its three chain calls and of its RCD call."""
+    chains, demosaics = [], []
+    real_chain, real_rcd = pw.pointwise_chain, rcd.rcd_demosaic
+
+    def ch(*args):
+        chains.append(args)
+        return real_chain(*args)
+
+    def rc(*args):
+        demosaics.append(args)
+        return real_rcd(*args)
+
+    with swapped([(pw, "pointwise_chain", ch), (rcd, "rcd_demosaic", rc)]):
+        pipe.run_padded(raw_dev)
+    expect(len(chains) == LAUNCHES14["chain"] and len(demosaics) == 1,
+           f"unexpected config-14 calls: {len(chains)} chains, "
+           f"{len(demosaics)} RCD")
+    return chains, demosaics[0]
+
+
+def run_config14(card, record, raw, raw_dev, meta, phases, tmp, seed):
+    """Config 14 at 24 MP, config 1's develop with a look shared as a
+    style (an ICC input profile, a .cube, inline compressed-CLUT keypoints,
+    a painted layer, a B2A output profile), its fixtures written from
+    `seed` (`configs.history_files`), its sidecar and PNG to `tmp`:
+    through the user's entry point with launches counted, against the
+    composed twins; RCD and its three
+    chains on the arguments the pipe hands them; each step's device time,
+    the pipe's rate and peak memory; then the merged history's sidecar
+    through `python -m ansel_tpu_torch.cli` against the in-process
+    export."""
+    with contextlib.ExitStack() as stack:
+        with timed(phases, "pipe14 fixtures"):
+            hist = stack.enter_context(configs.history_files(14, seed))
+            pipe = port.compile_pipeline(meta, hist)
+        stages = [s.name for s in pipe.pipe.stages]
+        expect(stages == STAGES14, f"unexpected config-14 plan {stages}")
+        expect([k for k, *_ in pipe.steps] == KINDS14,
+               f"unexpected config-14 steps {[k for k, *_ in pipe.steps]}")
+        with timed(phases, "pipe14 vs plain"):
+            reset_launches()
+            out = pipe.output_array(raw)
+            launches = read_launches()
+            programs, maps = read_split()
+            expect(launches == LAUNCHES14, f"config-14 launches {launches}")
+            expect(programs == PROGRAMS14 and not maps,
+                   f"config-14 programs {programs}, warp maps {maps}")
+            launches["programs"] = programs
+            expect(out.shape == (3, H, W), f"output shape {out.shape}")
+            expect(bool(np.isfinite(out).all()) and out.min() >= 0.0
+                   and out.max() <= 1.0,
+                   "output not finite or outside [0, 1]")
+            reset_launches()
+            with plain_twins():
+                plain = pipe.output_array(raw)
+            expect(all(v == 0 for v in read_launches().values()),
+                   f"the plain composition launched kernels: "
+                   f"{read_launches()}")
+            pipe_err = float(np.abs(out - plain).max())
+            pipe_mean = float(np.abs(out - plain).mean())
+            expect(pipe_err <= PIPE_TOL,
+                   f"config 14 vs plain: max {pipe_err}")
+            del plain
+        with timed(phases, "chain14"):
+            calls, (mosaic, cfa, scaler) = captured14(pipe, raw_dev)
+            got = rcd.rcd_demosaic(mosaic, cfa, scaler)
+            expect(torch.equal(got, rcd.rcd_demosaic_reference(
+                mosaic, cfa, scaler)), "config 14's RCD: not bit-equal")
+            print(f"[pipe14] RCD on config 14's mosaic "
+                  f"{tuple(mosaic.shape)}: bit-equal to its twin",
+                  flush=True)
+            del got, mosaic
+            for j, row in enumerate(check_chains(14, calls,
+                                                 pipe.fused_groups())):
+                record[f"chain14.{j}"] = row
+            del calls
+        with timed(phases, "pipe14 timing"):
+            steps = step_times(pipe, raw_dev)
+            per_img = time_pipe(pipe, raw_dev, PIPE14_REPEATS)
+            peak, held = pipe_peak(pipe, raw_dev)
+        print(f"[pipe14] config 14 {H}x{W}: {len(stages)} stages, chains "
+              f"{pipe.fused_groups()}, launches {launches}, vs plain max "
+              f"{pipe_err:.3g} mean {pipe_mean:.3g} (tol 1/255), range "
+              f"[{out.min():.3g}, {out.max():.3g}] | {1.0 / per_img:.2f} "
+              f"img/s, {per_img * 1e3:.2f} ms/img (device-resident input, "
+              f"{PIPE14_REPEATS} repeats after 2 warm-ups), peak device "
+              f"memory {peak:.3f} GB ({held:.3f} GB held before) | steps "
+              "(device ms): " + ", ".join(f"{n} {t:.3f}" for n, t in steps)
+              + f" on {card}", flush=True)
+        sidecar = os.path.join(tmp, "config14.xmp")
+        png = os.path.join(tmp, "config14.png")
+        bundle = os.path.join(tmp, "config14.npz")
+        with timed(phases, "pipe14 cli"):
+            write_xmp(sidecar, XMPDocument(history=hist))
+            save_raw(bundle, raw, meta)
+            cli_s = run_cli(bundle, sidecar, png)
+            exported = export_image(raw, meta, xmp_path=sidecar)
+            expect(np.array_equal(read_png16(png), to_uint16(exported)),
+                   "the CLI's PNG differs from the in-process export")
+            side_err = float(np.abs(exported - out).max())
+            expect(side_err <= PIPE_TOL,
+                   f"the sidecar's export vs the render: max {side_err}")
+        print(f"[pipe14] config 14's sidecar (config 1 and the style "
+              f"merged: {len(hist)} items, seed {seed}) through `python -m "
+              f"ansel_tpu_torch.cli` to a 16-bit PNG: {cli_s:.2f} s wall (a "
+              "new process: start, kernels loaded, raw bundle, profiles, "
+              "LUTs and layer read, pipe, PNG), equal to to_uint16 of the "
+              f"in-process export, which is within {side_err:.3g} of the "
+              f"render on {card}", flush=True)
+    return launches
+
+
+def demosaic_blob(method):
+    """A decoded demosaic params blob (version 4) with `method`: the fast
+    pipes' override keeps its method."""
+    cls = DemosaicParams
+    return port.HistoryItem("demosaic", cls.codec.encode(
+        cls(demosaicing_method=method)), version=cls.op_version)
+
+
+def run_fastpipe(card, record, raw, raw_dev, meta, phases):
+    """Config 1's history in the PREVIEW pipe with a `demosaic` item given
+    as a dict (planned PPG) and in the THUMBNAIL pipe at FAST_SCALE with a
+    method-7 blob (planned bilinear): the planned method, launches, the
+    output against the composed twins, the chain against its twin, rate
+    and peak memory.  Returns {pipe type: launches}."""
+    out_launches = {}
+    for pipe_type, item, kw, method in (
+            ("preview", port.HistoryItem("demosaic", {}), {}, 0),
+            ("thumbnail", demosaic_blob(7), {"scale": FAST_SCALE}, 7)):
+        with timed(phases, f"fastpipe {pipe_type}"):
+            pipe = port.compile_pipeline(meta, configs.history(1) + [item],
+                                         pipe_type=pipe_type, **kw)
+            planned = next(s.plan.static[0] for s in pipe.pipe.stages
+                           if s.name == "demosaic")
+            expect(planned == method and not pipe.pipe.windowed,
+                   f"{pipe_type}: planned method {planned}, windowed "
+                   f"{pipe.pipe.windowed}")
+            reset_launches()
+            out = pipe.output_array(raw)
+            launches = read_launches()
+            programs, _ = read_split()
+            expect(launches == LAUNCHES_FAST and programs == {0: 1},
+                   f"{pipe_type} launches {launches}, programs {programs}")
+            launches["programs"] = programs
+            so = pipe.pipe.spec_out
+            expect(out.shape == (3, so.height, so.width)
+                   and bool(np.isfinite(out).all()) and out.min() >= 0.0
+                   and out.max() <= 1.0,
+                   f"{pipe_type} output {out.shape} not finite or outside "
+                   "[0, 1]")
+            with plain_twins():
+                plain = pipe.output_array(raw)
+            pipe_err = float(np.abs(out - plain).max())
+            expect(pipe_err <= PIPE_TOL,
+                   f"{pipe_type} vs plain: max {pipe_err}")
+            calls, real = [], pw.pointwise_chain
+
+            def ch(*args, _calls=calls, _real=real):
+                _calls.append(args)
+                return _real(*args)
+
+            with swapped([(pw, "pointwise_chain", ch)]):
+                pipe.run_padded(raw_dev)
+            (record[f"chain-{pipe_type}"],) = check_chains(
+                pipe_type, calls, pipe.fused_groups())
+            del calls
+            per_img = time_pipe(pipe, raw_dev, REPEATS)
+            peak, held = pipe_peak(pipe, raw_dev)
+        print(f"[fastpipe] {pipe_type} ({kw or 'scale 1'}): demosaic "
+              f"planned {planned} ({'PPG' if planned == 0 else 'bilinear'}),"
+              f" output {out.shape}, launches {launches}, vs plain max "
+              f"{pipe_err:.3g} (tol 1/255) | {1.0 / per_img:.2f} img/s, "
+              f"{per_img * 1e3:.2f} ms/img (device-resident {H}x{W} input, "
+              f"{REPEATS} repeats after 2 warm-ups), peak device memory "
+              f"{peak:.3f} GB ({held:.3f} GB held before) on {card}",
+              flush=True)
+        out_launches[pipe_type] = launches
+    return out_launches
+
+
+def check_r14(meta, phases):
+    """Config 13's history where a blend would read a side plane on
+    another frame (ROADMAP R14): its details-refined vibrance at
+    orientation 6 and at scale 0.5, and colour contrast's raster mask
+    with a crop after its source (the details slider off): each raises
+    ValueError while planning, naming both stages, with nothing uploaded
+    to the card."""
+    with timed(phases, "r14"):
+        no_details = configs.history(13)
+        for h in no_details:
+            if h.blend_params is not None:
+                h.blend_params = dataclasses.replace(h.blend_params,
+                                                     details=0.0)
+        no_details.insert(5, port.HistoryItem(
+            "crop", {"cx": 0.1, "cy": 0.1, "cw": 0.8, "ch": 0.9}))
+        cases = (
+            ("orientation 6", dataclasses.replace(meta, orientation=6),
+             configs.history(13), {}, ("vibrance", "flip")),
+            ("scale 0.5", meta, configs.history(13), {"scale": 0.5},
+             ("vibrance", "initialscale")),
+            ("crop after the raster source", meta, no_details, {},
+             ("colorcontrast", "crop")))
+        for label, m, hist, kw, (stage, changer) in cases:
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            try:
+                port.compile_pipeline(m, hist, forms=configs.forms(13), **kw)
+            except ValueError as e:
+                msg = str(e)
+            else:
+                raise AssertionError(f"r14 {label}: planned")
+            expect(f"'{stage}'" in msg and f"'{changer}'" in msg,
+                   f"r14 {label}: {msg}")
+            expect(torch.cuda.memory_allocated() == before,
+                   f"r14 {label}: memory reached the card before the refusal")
+            print(f"[r14] config 13 at {label}: ValueError while planning, "
+                  f"nothing uploaded: {msg}", flush=True)
 
 
 def run_devtest_and_entry(phases):
@@ -2757,7 +3023,11 @@ def run_devtest_and_entry(phases):
               f"{mx:.3g} mean {mean:.3g} (tol 1/255)", flush=True)
 
 
-def main():
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of config 14's fixtures")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
     t0 = time.perf_counter()
@@ -2798,6 +3068,11 @@ def main():
         with tempfile.TemporaryDirectory() as tmp:
             launches13 = run_config13(card, record, raw, raw_dev, meta,
                                       phases, tmp)
+            launches14 = run_config14(card, record, raw, raw_dev, meta,
+                                      phases, tmp, args.seed)
+        launches_fast = run_fastpipe(card, record, raw, raw_dev, meta,
+                                     phases)
+        check_r14(meta, phases)
         run_devtest_and_entry(phases)
         del raw_dev
         with timed(phases, "mosaic3 wait"):
@@ -2922,6 +3197,24 @@ def main():
                         "source": "ansel_tpu_torch/csrc/pointwise_chain.cu",
                         "replaces": "ansel_tpu/kernels/pointwise.py:30",
                         "launches": launches13["programs"][row["program"]],
+                        **{k: row[k] for k in keys}})
+    # config 14: its three chain programs, each with its launches in
+    # [pipe14]; the fast pipes' chain (config 1's program) in [fastpipe]
+    for j in range(LAUNCHES14["chain"]):
+        row = record[f"chain14.{j}"]
+        kernels.append({"name": f"pointwise_chain[config14.{j}]",
+                        "route": "cuda",
+                        "source": "ansel_tpu_torch/csrc/pointwise_chain.cu",
+                        "replaces": "ansel_tpu/kernels/pointwise.py:30",
+                        "launches": launches14["programs"][row["program"]],
+                        **{k: row[k] for k in keys}})
+    for pipe_type, fl in launches_fast.items():
+        row = record[f"chain-{pipe_type}"]
+        kernels.append({"name": f"pointwise_chain[{pipe_type}.0]",
+                        "route": "cuda",
+                        "source": "ansel_tpu_torch/csrc/pointwise_chain.cu",
+                        "replaces": "ansel_tpu/kernels/pointwise.py:30",
+                        "launches": fl["programs"][row["program"]],
                         **{k: row[k] for k in keys}})
     kernels.append({"name": "eaw_atrous_coarse", "route": "cuda",
                     "source": "ansel_tpu_torch/csrc/eaw.cu",

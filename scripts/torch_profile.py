@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time goes in the PyTorch/CUDA port's pipe, on one GPU.
 
-    python3 scripts/torch_profile.py [--config 1|2|3|4|7|8|9|10|11|12|13]
+    python3 scripts/torch_profile.py [--config 1|2|3|4|7|8|9|10|11|12|13|14]
                                      [--images 3]
 
 Plans bench config 1, 2 (4000 x 6016), 3 (5504 x 8256), 4 (an X-Trans
@@ -14,7 +14,8 @@ look, straightened and retouched: ashift's and liquify's warps, one
 chain of 15 stages, 4000 x 6016) or 12 (the hazy landscape: hazeremoval,
 filmicrgb's highlight reconstruction, grain and dither, 4000 x 6016) or
 13 (local edits: blends, drawn masks, spots and retouch, with its forms,
-4000 x 6016) through
+4000 x 6016) or 14 (a style's look: ICC profiles, two LUTs and a painted
+layer, its files written to a temporary directory, 4000 x 6016) through
 `compile_pipeline`, warms up, then runs `run_padded` on a device-resident raw `--images`
 times without the profiler and `--images` times under torch.profiler.
 Prints one line per group of device kernels (ms per image and launches
@@ -42,8 +43,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import ansel_tpu_torch as port  # noqa: E402
 from ansel_tpu_torch.io.configs import (  # noqa: E402
-    FRAMES, HISTORIES, XTRANS_CONFIGS, forms, gain_map_meta9, history,
-    mosaic9, remosaic_xtrans)
+    FRAMES, XTRANS_CONFIGS, forms, gain_map_meta9, history_files, mosaic9,
+    remosaic_xtrans)
 from ansel_tpu_torch.io.synthetic import synth_raw  # noqa: E402
 from ansel_tpu_torch.kernels import _build  # noqa: E402
 from ansel_tpu_torch.ops.base import pad_to  # noqa: E402
@@ -83,7 +84,7 @@ def group_of(name):
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--config", type=int, choices=sorted(HISTORIES), default=2)
+    ap.add_argument("--config", type=int, choices=sorted(FRAMES), default=2)
     ap.add_argument("--images", type=int, default=3)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -102,8 +103,9 @@ def main():
         raw = mosaic9(raw).astype(np.float32)
         meta = gain_map_meta9(meta)
     t = time.perf_counter()
-    pipe = port.compile_pipeline(meta, history(args.config), device="cuda",
-                                 forms=forms(args.config))
+    with history_files(args.config) as hist:
+        pipe = port.compile_pipeline(meta, hist, device="cuda",
+                                     forms=forms(args.config))
     plan_s = time.perf_counter() - t
     raw_dev = torch.from_numpy(pad_to(raw, pipe.pipe.spec_in)).cuda()
     for _ in range(2):

@@ -1517,3 +1517,45 @@ def test_sepblur_kernel_on_hr_arguments(cuda):
         want = sepblur.sep_blur_reference(x, B3, d)
         torch.cuda.synchronize()
         assert torch.equal(got, want), d
+
+
+def test_config14_on_cuda_matches_cpu(cuda):
+    """Config 14 at 192 x 288 on the card (RCD, its three chains, each its
+    own program; the ICC profiles, LUTs and layer in torch) against the
+    same pipe on the CPU, which runs every twin."""
+    raw, meta, _ = synth_raw(h=192, w=288, kind="gradients")
+    with configs.history_files(14) as hist:
+        on_card = port.compile_pipeline(meta, hist, device=cuda)
+        on_cpu = port.compile_pipeline(meta, hist, device="cpu")
+    rcd.LAUNCHES = pw.LAUNCHES = 0
+    pw.PROGRAM_LAUNCHES.clear()
+    got = on_card.output_array(raw)
+    assert (rcd.LAUNCHES, pw.LAUNCHES) == (1, 3)
+    assert dict(pw.PROGRAM_LAUNCHES) == {2: 1, 17: 1, 12: 1}
+    d = np.abs(got - on_cpu.output_array(raw))
+    assert d.max() <= 1.0 / 255.0 and d.mean() <= 1e-5
+
+
+@pytest.mark.parametrize("pipe_type,method,scale", [
+    ("preview", None, 1.0), ("thumbnail", 7, 0.25)])
+def test_fast_pipes_on_cuda_match_cpu(cuda, pipe_type, method, scale):
+    """Config 1 in the PREVIEW pipe (a demosaic dict: PPG) and the
+    THUMBNAIL pipe at scale 0.25 (a method-7 blob: bilinear): the chain
+    once, in config 1's program, no RCD; against the CPU."""
+    raw, meta, _ = synth_raw(h=192, w=288, kind="gradients")
+    cls = params_class("demosaic")
+    item = (port.HistoryItem("demosaic", {}) if method is None else
+            port.HistoryItem("demosaic", cls.codec.encode(
+                cls(demosaicing_method=method)), version=cls.op_version))
+    hist = configs.history(1) + [item]
+    kw = dict(pipe_type=pipe_type, scale=scale)
+    on_card = port.compile_pipeline(meta, hist, device=cuda, **kw)
+    rcd.LAUNCHES = pw.LAUNCHES = 0
+    pw.PROGRAM_LAUNCHES.clear()
+    got = on_card.output_array(raw)
+    assert (rcd.LAUNCHES, pw.LAUNCHES) == (0, 1)
+    assert dict(pw.PROGRAM_LAUNCHES) == {0: 1}
+    want = port.compile_pipeline(meta, hist, device="cpu",
+                                 **kw).output_array(raw)
+    d = np.abs(got - want)
+    assert d.max() <= 1.0 / 255.0 and d.mean() <= 1e-5

@@ -250,7 +250,7 @@ def test_cli_writes_the_16_bit_png_of_export_image(tmp_path, sidecar8,
 @pytest.mark.parametrize("op,params,args,bp,message", [
     ("highlights", {"mode": 1}, ["--width", "100"], INACTIVE,
      "highlights: mode"),
-    ("drawlayer", None, [], ACTIVE, "drawlayer"),
+    ("relight", None, [], ACTIVE, "relight"),
 ], ids=["width", "active-blend"])
 def test_cli_refuses_what_is_not_ported(tmp_path, op, params, args, bp,
                                         message):
@@ -258,7 +258,8 @@ def test_cli_refuses_what_is_not_ported(tmp_path, op, params, args, bp,
     ported; it now plans the export at that width up to a branch the
     port has not ported yet (highlights' LCH mode).  The "active-blend"
     case refused an active blend until blends were ported; it now
-    carries one on a module the port has not ported (drawlayer)."""
+    carries one on a module the port has not ported (relight; drawlayer
+    until it was ported)."""
     xmp = str(tmp_path / "h.xmp")
     write_xmp(xmp, [engine.HistoryItem(op, params, blend_params=bp)])
     out = str(tmp_path / "out.png")

@@ -12,6 +12,9 @@ F6: the NLM twin at the lattices the card's kernel now takes in chunks
 (K 15 and 20: 961 and 1681 offsets) and at patch radii above the
 kernel's template limit (P 9 and 12), against the JAX package's XLA
 path (`pixel/nlmeans.nlmeans(..., force_xla=True)`).
+F7 (ROADMAP R14): a blend that would read the raw-detail plane or a
+raster mask on another frame than its own is refused while planning,
+where the JAX package fails at run time on the same history.
 
 Tolerances: whole pipes within the display quantum 1/255 of the JAX
 package with its RCD as the TPU runs it (the Pallas kernel in interpret
@@ -160,11 +163,114 @@ def test_an_unknown_op_is_skipped(frame, pallas_rcd, op):
 
 
 def test_an_unported_reference_op_is_still_refused(frame):
+    """relight (lut3d until it was ported)."""
     _, meta, _ = frame
-    with pytest.raises(NotImplementedError, match="lut3d"):
+    with pytest.raises(NotImplementedError, match="relight"):
         ansel_tpu_torch.Pipeline(
-            meta, [ansel_tpu_torch.HistoryItem("lut3d", {})],
+            meta, [ansel_tpu_torch.HistoryItem("relight", {})],
             device="cpu")
+
+
+# --- F7: R14, side planes on another frame ---------------------------------
+
+def _details_item(pkg, bl):
+    """Config 13's vibrance: an L range refined by the details slider."""
+    return [pkg.HistoryItem("vibrance", {"amount": 40.0},
+                            blend_params=bl.BlendParams(
+                                **configs.BLENDS13[11][1]))]
+
+
+def _raster_items(pkg, bl, crop=True):
+    """An exposure instance with a uniform mask, read as colour
+    contrast's raster source (config 13's blend), a crop between them."""
+    items = [pkg.HistoryItem("exposure", {"exposure": 0.7}, multi_priority=1,
+                             blend_params=bl.BlendParams(mask_mode=1,
+                                                         opacity=60.0)),
+             pkg.HistoryItem("colorcontrast", {},
+                             blend_params=bl.BlendParams(
+                                 **configs.BLENDS13[12][1]))]
+    if crop:
+        items.insert(1, pkg.HistoryItem(
+            "crop", {"cx": 0.1, "cy": 0.1, "cw": 0.8, "ch": 0.9}))
+    return items
+
+
+R14_CASES = {
+    "details-orientation-6": (_details_item, {"orientation": 6}, {},
+                              ("vibrance", "flip")),
+    "details-scale-0.5": (_details_item, {}, {"scale": 0.5},
+                          ("vibrance", "initialscale")),
+    "raster-crop": (_raster_items, {}, {}, ("colorcontrast", "crop")),
+}
+
+
+@pytest.fixture(scope="module")
+def frame96():
+    return synth_raw(h=96, w=160, kind="gradients")
+
+
+@pytest.mark.parametrize("case", sorted(R14_CASES))
+def test_r14_refused_at_plan_time_where_the_jax_package_fails(
+        frame96, case, monkeypatch):
+    """A details-refined blend after a change of frame, and a raster
+    consumer on another frame than its source, raise ValueError while
+    the port plans, naming the blended stage and the one that changed
+    the frame; the JAX package fails on the same history while it runs
+    (a broadcast of the plane or mask against the blend's input)."""
+    from ansel_tpu.pipeline import blend as rb
+    from ansel_tpu_torch.pipeline import blend as pb
+    from test_torch_blend import share_rcd
+
+    raw, meta, _ = frame96
+    items, meta_kw, kw, (stage, changer) = R14_CASES[case]
+    meta = dataclasses.replace(meta, **meta_kw)
+    with pytest.raises(ValueError, match=f"stage '{stage}'.*'{changer}' "
+                       "changed the frame"):
+        ansel_tpu_torch.Pipeline(meta, items(ansel_tpu_torch, pb),
+                                 device="cpu", **kw)
+    share_rcd(monkeypatch)
+    with pytest.raises(Exception):
+        ansel_tpu.compile_pipeline(meta, items(ansel_tpu, rb),
+                                   **kw).output_array(raw)
+
+
+def test_r14_config13_refused_at_the_measured_frames(frame96):
+    """Config 13's whole history at orientation 6 and at scale 0.5 (its
+    vibrance reads the details plane), and with a crop after exposure and
+    the details slider off (colour contrast reads exposure's mask): each
+    refused while planning."""
+    _, meta, _ = frame96
+    forms = configs.forms(13)
+    for m, kw in ((dataclasses.replace(meta, orientation=6), {}),
+                  (meta, {"scale": 0.5})):
+        with pytest.raises(ValueError, match="stage 'vibrance'"):
+            ansel_tpu_torch.Pipeline(m, configs.history(13), device="cpu",
+                                     forms=forms, **kw)
+    hist = configs.history(13)
+    for h in hist:
+        if h.blend_params is not None:
+            h.blend_params = dataclasses.replace(h.blend_params, details=0.0)
+    hist.insert(5, ansel_tpu_torch.HistoryItem(
+        "crop", {"cx": 0.1, "cy": 0.1, "cw": 0.8, "ch": 0.9}))
+    with pytest.raises(ValueError, match="stage 'colorcontrast'.*'crop'"):
+        ansel_tpu_torch.Pipeline(meta, hist, device="cpu", forms=forms)
+
+
+def test_r14_same_frames_still_plan_and_run(frame96, monkeypatch):
+    """Without a change of frame both packages run the same histories,
+    and agree within the display quantum."""
+    from ansel_tpu.pipeline import blend as rb
+    from ansel_tpu_torch.pipeline import blend as pb
+    from test_torch_blend import share_rcd
+
+    raw, meta, _ = frame96
+    share_rcd(monkeypatch)
+    for items in (_details_item, lambda p, b: _raster_items(p, b, False)):
+        got = ansel_tpu_torch.compile_pipeline(
+            meta, items(ansel_tpu_torch, pb), device="cpu").output_array(raw)
+        want = np.asarray(ansel_tpu.compile_pipeline(
+            meta, items(ansel_tpu, rb)).output_array(raw))
+        assert np.abs(got - want).max() <= DISPLAY_QUANTUM
 
 
 # --- F6: the lattices and patch radii the planners can emit -----------------

@@ -246,18 +246,27 @@ def _config_chains(config):
     raw, meta, scene = synth_raw(h=48, w=72, kind="gradients")
     if config in configs.XTRANS_CONFIGS:
         raw, meta = configs.remosaic_xtrans(meta, scene)
-    pipe = port.compile_pipeline(meta, configs.history(config), device="cpu")
+    with configs.history_files(config) as hist:
+        pipe = port.compile_pipeline(meta, hist, device="cpu")
     return pipe, [(i, j, c) for kind, i, j, c in pipe.steps
                   if kind == "chain"]
 
 
-@pytest.mark.parametrize("config", [1, 2, 3, 4, 7, 10, 12])
+@pytest.mark.parametrize("config", [1, 2, 3, 4, 7, 10, 12, 14])
 def test_pack_chain_picks_a_specialised_program(config):
     """Every chain the config builds has a kernel of its own: its
     (opcode, const offset) sequence is the chosen entry of FIXED, and the
-    ints and consts that kernel takes by value are the interpreter's."""
-    _, chains = _config_chains(config)
+    ints and consts that kernel takes by value are the interpreter's.
+    Config 14's ICC, LUT and layer stages split its chains into
+    [exposure], [channelmixerrgb] and [filmicrgb]."""
+    pipe, chains = _config_chains(config)
     assert chains
+    if config == 14:
+        assert pipe.fused_groups() == [["exposure"], ["channelmixerrgb"],
+                                       ["filmicrgb"]]
+        assert [pw.FIXED[c.fixed] for _, _, c in chains] == [
+            ((pw.OP_EXPOSURE, 0),), ((pw.OP_CHANNELMIXERRGB, 0),),
+            ((pw.OP_FILMIC_AGX, 0),)]
     for _, _, c in chains:
         recs = c.prog.view(-1, pw.RECORD).tolist()
         assert c.fixed >= 0
@@ -280,8 +289,9 @@ def test_pack_chain_fixed_consts_hold_config10():
 
 def test_pack_chain_interprets_an_unlisted_program():
     """A sequence outside FIXED runs the interpreter.  filmicrgb alone is
-    config 12's program (its stage after highlight reconstruction);
-    channelmixerrgb alone is in no config."""
+    config 12's program (its stage after highlight reconstruction),
+    channelmixerrgb alone config 14's; channelmixerrgb and filmicrgb
+    together are in no config."""
     pipe, ((i, j, c),) = _config_chains(1)
     specs = [pipe.pipe._chain_spec(s) for s in pipe.pipe.stages[i:j]]
     coeffs = [k for _, k, _ in c.stages]
@@ -293,7 +303,10 @@ def test_pack_chain_interprets_an_unlisted_program():
     assert pw.FIXED[pw.pack_chain(specs[agx:agx + 1], coeffs[agx:agx + 1],
                                   "cpu").fixed] == ((pw.OP_FILMIC_AGX, 0),)
     mix = ops.index(pw.OP_CHANNELMIXERRGB)
-    assert pw.pack_chain(specs[mix:mix + 1], coeffs[mix:mix + 1],
+    assert pw.FIXED[pw.pack_chain(specs[mix:mix + 1], coeffs[mix:mix + 1],
+                                  "cpu").fixed] == ((pw.OP_CHANNELMIXERRGB,
+                                                     0),)
+    assert pw.pack_chain(specs[mix:mix + 2], coeffs[mix:mix + 2],
                          "cpu").fixed == -1
 
 

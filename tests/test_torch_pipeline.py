@@ -211,37 +211,69 @@ def _xtrans(meta):
     ([("highlights", {"mode": 2})], None, {}),
     ([("blurs", {})], None, {}),                             # not ported
     ([("highlights", {"mode": 4})], None, {}),
-    ([("demosaic", {"demosaicing_method": 0})], None, {}),   # PPG
+    ([("demosaic", {"demosaicing_method": 6})], None, {}),   # LMMSE
     ([("demosaic", {"demosaicing_method": 1})], None, {}),   # AMaZE
-    ([("demosaic", {"demosaicing_method": 7})], None, {}),   # fallback
+    ([("demosaic", {"demosaicing_method": 2})], None, {}),   # VNG4
     ([("demosaic", {"green_eq": 1})], None, {}),
     ([("demosaic", {"color_smoothing": 2})], None, {}),
     ([("filmicrgb", {"version": 4})], None, {}),             # spline v5
     ([("filmicrgb", {"version": 0})], None, {}),             # spline v1
     ([("filmicrgb", {"version": 2})], None, {}),             # spline v3
-    ([("colorin", {"type": 0})], None, {}),                  # ICC file
-    ([("colorout", {"type": 0})], None, {}),                 # ICC file
-    ([("lut3d", {})], None, {}),                             # not ported
+    ([("channelmixer", {})], None, {}),                      # not ported
+    ([("borders", {})], None, {}),                           # not ported
+    ([("relight", {})], None, {}),                           # not ported
     ([("denoiseprofile", {})], None, {}),          # automatic noise profile
     ([("diffuse", {"radius": 12})], None, {}),     # 6 wavelet scales
-    ([("drawlayer", {})], None, {}),                         # not ported
+    ([("invert", {})], None, {}),                            # not ported
     ([("demosaic", {"demosaicing_method": 0x3001})], _xtrans, {}),  # dual
     ([("demosaic", {"color_smoothing": 2})], _xtrans, {}),
     ([("highlights", {"mode": 3})], _xtrans, {}),  # Laplacian on X-Trans
-    (CONFIG1, None, {"pipe_type": "preview"}),
-], ids=["lch", "inpaint", "blurs", "harmonic", "ppg", "amaze",
-        "bilinear", "green-eq", "smoothing", "filmic-v5",
-        "filmic-v1", "filmic-v3", "colorin-icc", "colorout-icc",
+    (CONFIG1 + [("demosaic", {"green_eq": 1})], None,
+     {"pipe_type": "preview"}),
+], ids=["lch", "inpaint", "blurs", "harmonic", "lmmse", "amaze",
+        "vng4", "green-eq", "smoothing", "filmic-v5",
+        "filmic-v1", "filmic-v3", "channelmixer", "borders",
         "unported-op", "denoise-auto-profile", "diffuse-6-scales",
-        "drawlayer", "xtrans-dual", "xtrans-smoothing",
-        "xtrans-laplacian", "preview"])
+        "invert", "xtrans-dual", "xtrans-smoothing",
+        "xtrans-laplacian", "preview-green-eq"])
 def test_unported_branches_raise_at_plan_time(items, meta_fn, kw):
+    """Each branch the port has not ported raises NotImplementedError
+    while planning.  PPG, the bilinear fallback, the ICC profiles, lut3d,
+    drawlayer and the preview pipe were cases here until they were
+    ported (`test_formerly_refused_branches_plan`)."""
     _, meta, _ = synth_raw(h=64, w=128)
     if meta_fn is not None:
         meta = meta_fn(meta)
     with pytest.raises(NotImplementedError):
         ansel_tpu_torch.Pipeline(meta, _hist(ansel_tpu_torch, items),
                                  device="cpu", **kw)
+
+
+@pytest.mark.parametrize("items,kw,error", [
+    ([("demosaic", {"demosaicing_method": 0})], {}, None),
+    ([("demosaic", {"demosaicing_method": 7})], {}, None),
+    ([("colorin", {"type": 0})], {}, (ValueError, "no ICC filename")),
+    # an empty name joins the search directory into "./", a directory
+    ([("colorout", {"type": 0})], {}, (IsADirectoryError, None)),
+    ([("lut3d", {})], {}, None),
+    ([("drawlayer", {})], {}, None),
+    (CONFIG1, {"pipe_type": "preview"}, None),
+], ids=["ppg", "bilinear", "colorin-icc", "colorout-icc", "lut3d",
+        "drawlayer", "preview"])
+def test_formerly_refused_branches_plan(items, kw, error):
+    """What `test_unported_branches_raise_at_plan_time` refused before it
+    was ported now plans: PPG, the bilinear fallback (method 7), lut3d
+    and drawlayer without a file (the identity and a no-op), the preview
+    pipe; an ICC item without its profile raises what the JAX package
+    raises while it runs the stage."""
+    _, meta, _ = synth_raw(h=64, w=128)
+    hist = _hist(ansel_tpu_torch, items)
+    if error is not None:
+        with pytest.raises(error[0], match=error[1]):
+            ansel_tpu_torch.Pipeline(meta, hist, device="cpu", **kw)
+        return
+    pipe = ansel_tpu_torch.Pipeline(meta, hist, device="cpu", **kw)
+    assert not pipe.unsupported
 
 
 def test_xtrans_raises_at_plan_time():

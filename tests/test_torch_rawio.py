@@ -214,7 +214,21 @@ def test_gainmap_flat_field_equals_the_reference(tmp_path, crop):
 
 # --- a RAF through the port's X-Trans pipe ----------------------------------
 
-def test_raf_through_the_xtrans_pipe(tmp_path):
+@pytest.fixture
+def fresh_xtrans_geometry():
+    """The JAX package caches Markesteijn's per-shape masks in an
+    lru_cache that keeps what its first call made: a tracer where that
+    call ran inside another test file's jitted X-Trans pipe of the same
+    shape in this process, which a later jit cannot use.  Empty it before
+    and after."""
+    from ansel_tpu.kernels import markesteijn as ref_markesteijn
+
+    ref_markesteijn._geometry.cache_clear()
+    yield
+    ref_markesteijn._geometry.cache_clear()
+
+
+def test_raf_through_the_xtrans_pipe(tmp_path, fresh_xtrans_geometry):
     yy, xx = np.mgrid[0:48, 0:60]
     scene = 0.2 + 0.5 * xx / 60 + 0.3 * yy / 48
     sel = XTRANS6[yy % 6, xx % 6]
