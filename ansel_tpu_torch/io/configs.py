@@ -1,5 +1,5 @@
 """The bench configurations the port runs (`bench.py:CONFIGS`), and the
-port's own configs 7-13, defined once for the chip smoke, the profile
+port's own configs 7-15, defined once for the chip smoke, the profile
 script and the tests.
 
 Each history is a tuple of (op, params) pairs, so that a test can build
@@ -967,13 +967,69 @@ def history14(directory: str, seed: int = 0, item_cls=None,
                               styles.parse_style(path))
 
 
+# config 15, the port's own: a back-lit landscape on a low-ISO Bayer body,
+# developed with the reconstruction and the demosaic such a sky calls
+# for.  HARMONIC highlights at the module's defaults (clip 1.0, 8 scales,
+# 30 iterations: the guided Laplacian's 360 blurs, then the dome core);
+# RCD with the dual blend (0x2005, the JAX package's encoding, ROADMAP
+# R1) at dual_thrs 0.20, green equilibration 3 (full and local average)
+# and 2 passes of colour smoothing; then config 1's develop (one chain,
+# program 0 of pointwise.FIXED)
+HISTORY15_DEMOSAIC = {"demosaicing_method": 5 | 0x2000, "dual_thrs": 0.20,
+                      "green_eq": 3, "color_smoothing": 2}
+HISTORIES[15] = (("highlights", {"mode": 4}),
+                 ("demosaic", HISTORY15_DEMOSAIC)) + HISTORIES[1]
+# config 15's exposure: config 1's scene 2 EV brighter, every photosite
+# clipped at the white level.  At 1000 x 1504 it puts 21% of the red, 41%
+# of the green and 22% of the blue photosites at white, and 2.8% of the
+# 2x2 cells have all four there (`clip_shares`; chip_smoke.py prints them
+# at the full frame)
+GAIN15 = 4.0
+
+
+def mosaic15(raw, meta):
+    """Config 15's mosaic from config 1's (`synth_raw(kind="gradients")`,
+    seeded there): the light above black times GAIN15, clipped at the
+    white level as a sensor clips it.  Works on numpy arrays and
+    tensors alike."""
+    import numpy as np
+
+    black = float(meta.black_levels[0])
+    white = float(meta.white_point)
+    lifted = (raw - black) * GAIN15 + black
+    if isinstance(raw, np.ndarray):
+        return np.minimum(lifted, white).astype(np.float32)
+    return lifted.clamp(max=white)
+
+
+def clip_shares(raw, meta) -> dict:
+    """Shares of a Bayer mosaic's photosites at the white level per
+    channel (R, G, B by the CFA's colours) and of its 2x2 cells with all
+    four photosites there: numpy floats."""
+    import numpy as np
+
+    at = np.asarray(raw) >= float(meta.white_point)
+    h, w = at.shape
+    at = at[:h - h % 2, :w - w % 2]
+    sites = {c: [] for c in range(3)}
+    for y in range(2):
+        for x in range(2):
+            sites[meta.cfa.color_at(y, x)].append(at[y::2, x::2])
+    shares = {name: float(np.mean(sites[c])) for c, name in
+              enumerate("RGB")}
+    cells = at[0::2, 0::2] & at[0::2, 1::2] & at[1::2, 0::2] & at[1::2, 1::2]
+    shares["all"] = float(np.mean(cells))
+    return shares
+
+
 # each config's frame (height, width)
 FRAMES = {1: (BENCH_H, BENCH_W), 2: (BENCH_H, BENCH_W),
           3: (BENCH3_H, BENCH3_W), 4: (BENCH4_H, BENCH4_W),
           7: (BENCH_H, BENCH_W), 8: (BENCH_H, BENCH_W),
           9: (BENCH_H, BENCH_W), 10: (BENCH_H, BENCH_W),
           11: (BENCH_H, BENCH_W), 12: (BENCH_H, BENCH_W),
-          13: (BENCH_H, BENCH_W), 14: (BENCH_H, BENCH_W)}
+          13: (BENCH_H, BENCH_W), 14: (BENCH_H, BENCH_W),
+          15: (BENCH_H, BENCH_W)}
 # config 9's DNG: a 14-bit mosaic and a GainMap of 17 x 25 points per
 # RGGB filter
 DNG9_BITS = 14

@@ -99,3 +99,11 @@ def xtrans_color_select(vals_rgb, pattern6, h: int, w: int,
          for i in range(3)]
     period = torch.stack([v[c] for c in pattern6]).reshape(6, 6)
     return tile6(period, h, w)
+
+
+def xtrans_color_masks(pattern6, h: int, w: int,
+                       device=None) -> torch.Tensor:
+    """(3, h, w) float32 one-hot masks of a 6x6 X-Trans pattern (a tuple
+    of 36 colour ids, row-major): which sites carry R / G / B."""
+    color = tile6(xtrans_period(pattern6, device), h, w)
+    return torch.stack([color == c for c in range(3)]).float()

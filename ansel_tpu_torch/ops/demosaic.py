@@ -2,15 +2,17 @@
 
 Reference: `ansel/src/iop/demosaic.c` (params v4 demosaic.c:266-274,
 method enum demosaic.c:120-141).  Planning is copied from
-`ansel_tpu/ops/demosaic.py`.  Ported: RCD on a Bayer mosaic
-(`kernels/rcd.py`), and on X-Trans Markesteijn 1 and 3 passes
-(`kernels/markesteijn.py`), each computing what the TPU kernel computes;
-the passthrough; and the two plain XLA methods of the JAX package in
-torch, PPG (what the PREVIEW and THUMBNAIL pipes plan) and the bilinear
-fallback that every Bayer method the JAX package does not name takes
-(`ansel_tpu/ops/demosaic.py:68-140, 268`).  AMaZE, LMMSE, VNG4, green
-equilibration, colour smoothing, the dual blend and X-Trans VNG raise
-at plan time.
+`ansel_tpu/ops/demosaic.py`, and so is `apply` with its dispatch
+(:180-268).  RCD on a Bayer mosaic (`kernels/rcd.py`) and Markesteijn 1
+and 3 passes on X-Trans (`kernels/markesteijn.py`) compute what the TPU
+kernels compute.  The JAX package's plain XLA methods are plain torch
+here: PPG (what the PREVIEW and THUMBNAIL pipes plan), the bilinear
+fallback that every Bayer method the JAX package does not name takes,
+AMaZE (`kernels/amaze.py`), LMMSE (`kernels/lmmse.py`), VNG4 and X-Trans
+VNG (`kernels/vng.py`), green equilibration before the method and
+colour smoothing after it (`kernels/demosaic_post.py`), and the dual
+blend: VNG4 (X-Trans VNG) smoothed twice as the low band under the
+raw-detail mask of the method's output (`pixel/detail.py`).
 
 As in the JAX package, an X-Trans mosaic turns any method without the
 X-Trans flag into MARKESTEIJN (1 pass): bench config 4's 1024 | 2 plans
@@ -26,7 +28,7 @@ import torch
 from ..core.params import cfield, params
 from ..core.types import CFAPattern, Colorspace, ImageSpec
 from . import _bayer
-from .base import Op, OpPlan, PlanContext, not_ported, register
+from .base import Op, OpPlan, PlanContext, register
 
 # method ids (reference demosaic.c:120-141)
 PPG = 0
@@ -145,17 +147,6 @@ class Demosaic(Op):
         if is_xtrans and not (method & XTRANS_FLAG):
             method = MARKESTEIJN
         green_eq = 0 if is_xtrans else p.green_eq
-        if method & DUAL_FLAG:
-            raise not_ported(self.name, "the dual demosaic blend")
-        if is_xtrans and method == XTRANS_FLAG:
-            raise not_ported(self.name, "X-Trans VNG")
-        if not is_xtrans and method in (AMAZE, VNG4, LMMSE):
-            raise not_ported(self.name, f"method {method} (RCD = {RCD}, "
-                             f"PPG = {PPG} and the bilinear fallback are)")
-        if green_eq:
-            raise not_ported(self.name, "green_eq")
-        if p.color_smoothing:
-            raise not_ported(self.name, "color_smoothing")
         spec_out = spec_in.with_colorspace(Colorspace.CAMERA_RGB)
         return OpPlan(spec_in=spec_in, spec_out=spec_out,
                       static=(method, green_eq,
@@ -182,17 +173,69 @@ class Demosaic(Op):
         return {"scaler": max(ctx.processed_maximum)}
 
     def apply(self, x, c, plan: OpPlan, ctx: PlanContext):
-        method = plan.static[0]
+        (method_full, green_eq, _median_thrs, smooth, lmmse_refine,
+         dual_thrs) = plan.static
+        method = method_full & ~DUAL_FLAG
         cfa = plan.spec_in.cfa
         if method in (PASSTHROUGH_MONO, XTRANS_FLAG | PASSTHROUGH_MONO):
             return torch.stack([x, x, x])
+        if green_eq:
+            from ..kernels import demosaic_post
+
+            # threshold = 0.0001 * ISO (demosaic.c:1001)
+            thr = 0.0001 * float(getattr(ctx.meta, "iso", 100.0) or 100.0)
+            x = demosaic_post.apply_green_eq(x, cfa, green_eq, thr)
+        out = self._demosaic(x, c, method, cfa, ctx, lmmse_refine)
+        if (method_full & DUAL_FLAG) and dual_thrs > 0.0:
+            out = self._dual(x, out, cfa, ctx, dual_thrs)
+        if smooth:
+            from ..kernels import demosaic_post
+
+            out = demosaic_post.color_smoothing(out, smooth)
+        return out
+
+    def _dual(self, x, out, cfa, ctx, dual_thrs):
+        """The dual demosaic (demosaic/dual.c:38-110): VNG4 on Bayer, or
+        3-colour VNG on X-Trans (dual.c:66), smoothed twice as the low
+        band, under the detail mask of the method's output."""
+        from ..kernels import demosaic_post, vng
+        from ..pixel import detail
+
         if cfa is CFAPattern.XTRANS:
+            low = vng.xtrans_vng_demosaic(x, ctx.meta.xtrans)
+        else:
+            low = vng.vng4_demosaic(x, cfa)
+        low = demosaic_post.color_smoothing(low, 2)
+        contrast = 0.005 * dual_thrs ** 1.1  # slider2contrast
+        wb = [max(v, 1e-6) for v in ctx.meta.wb_coeffs[:3]]
+        blend = detail.detail_mask(detail.rawdetail_mask(out, wb), contrast,
+                                   detail=True)
+        return blend[None] * out + (1.0 - blend[None]) * low
+
+    def _demosaic(self, x, c, method, cfa, ctx, lmmse_refine):
+        if cfa is CFAPattern.XTRANS:
+            if method == XTRANS_FLAG:        # DT_IOP_DEMOSAIC_VNG
+                from ..kernels.vng import xtrans_vng_demosaic
+
+                return xtrans_vng_demosaic(x, ctx.meta.xtrans)
             from ..kernels.markesteijn import xtrans_markesteijn
 
             return xtrans_markesteijn(x, ctx.meta.xtrans,
                                       3 if method == MARKESTEIJN_3 else 1)
         if method == PPG:
             return ppg_demosaic(x, cfa)
+        if method == LMMSE:
+            from ..kernels.lmmse import lmmse_demosaic
+
+            return lmmse_demosaic(x, cfa, c["scaler"], refine=lmmse_refine)
+        if method == VNG4:
+            from ..kernels.vng import vng4_demosaic
+
+            return vng4_demosaic(x, cfa)
+        if method == AMAZE:
+            from ..kernels.amaze import amaze_demosaic
+
+            return amaze_demosaic(x, cfa, c["scaler"])
         if method == RCD:
             from ..kernels.rcd import rcd_demosaic
 

@@ -85,6 +85,21 @@ entry points a user calls, at their full frames:
   * `[r14]`: config 13's history at orientation 6, at scale 0.5, and with
     a crop between its raster source and consumer, each refused with
     ValueError while planning, before anything reaches the card.
+  * the port's config 15 at 24 MP (4000 x 6016), a back-lit landscape
+    (`[pipe15]`): config 1's mosaic 2 EV brighter and clipped at the white
+    level (its clipped shares printed), HARMONIC highlights (the guided
+    Laplacian's 360 blurs, then the dome core), RCD under the dual blend
+    (0x2005) with green equilibration 3 and two passes of colour
+    smoothing, config 1's develop: sepblur, RCD and the chain (program
+    0), each held against its twin on the pipe's arguments;
+  * `[demosaic-methods]`: one demosaic step alone at 24 MP for AMaZE,
+    LMMSE (refine 1 and 4), VNG4, green equilibration 3, colour smoothing
+    and the Bayer dual blend on config 1's mosaic, and X-Trans VNG and
+    X-Trans dual (0x3001, the Markesteijn kernel held against its twin) on
+    config 4's, each timed and held on a crop against the CPU;
+  * `[highlight-modes]`: LCH and INPAINT on config 15's mosaic, INPAINT on
+    config 4's clipped the same way, HARMONIC's dome core alone, each
+    timed and held on a crop against the CPU.
 
 Each path runs with the launch counts set to 0 just before it and read
 just after.  Every chain each config builds is also timed on its own
@@ -122,6 +137,8 @@ from ansel_tpu_torch.io.synthetic import synth_raw
 from ansel_tpu_torch.io.xmp import XMPDocument, parse_xmp, write_xmp
 from ansel_tpu_torch.kernels import (_build, bgrid, diffuse, eaw, iir,
                                      markesteijn, nlm, rcd, sepblur, warp)
+from ansel_tpu_torch.kernels import highlights_harmonic as hh
+from ansel_tpu_torch.kernels import highlights_laplacian as hl_lap
 from ansel_tpu_torch.kernels import pointwise as pw
 from ansel_tpu_torch.ops.base import pad_to
 from ansel_tpu_torch.ops.demosaic import DemosaicParams
@@ -224,6 +241,35 @@ PIPE14_REPEATS = 5
 # (THUMBNAIL at FAST_SCALE) in torch, then config 1's chain (program 0)
 LAUNCHES_FAST = dict(NO_LAUNCHES, chain=1)
 FAST_SCALE = 0.25
+# config 15: HARMONIC highlights (the guided Laplacian's 30 iterations x
+# 2 passes x 6 scales of sepblur, then the dome core in torch), RCD under
+# the dual blend (VNG4, the detail mask, green equilibration and colour
+# smoothing in torch), config 1's chain (program 0)
+LAUNCHES15 = dict(NO_LAUNCHES, rcd=1, chain=1, sepblur=360)
+STAGES15 = ["rawprepare", "temperature", "highlights", "demosaic",
+            "exposure", "colorin", "channelmixerrgb", "filmicrgb",
+            "colorout"]
+PIPE15_REPEATS = 5
+# the clipped shares config 15's mosaic must have: every channel's and
+# the all-clip cells' at least CLIP15_MIN (the per-channel domes and the
+# all-clip core both fire), the all-clip cells' under CLIP15_ALL_MAX
+CLIP15_MIN, CLIP15_ALL_MAX = 0.01, 0.40
+# [demosaic-methods] and [highlight-modes]: one step alone at the full
+# frame, then the card against the CPU on a crop (Bayer 256 x 384 at an
+# even corner, X-Trans 240 x 384 at a corner on the 6-pixel period)
+CROP_BAYER = (1800, 2800, 256, 384)
+CROP_XTRANS = (1800, 2796, 240, 384)
+METHOD_REPEATS = 3
+# the card against the CPU on the same crop through the same code: CUDA
+# divides by a Python float as a product with its reciprocal and its exp,
+# log and pow round otherwise than the CPU's by an ulp, so values part by
+# rounding (CROP_MEAN_TOL of the output's magnitude on average); where a
+# method decides by comparing two such values (AMaZE's and LMMSE's
+# direction tests, VNG's threshold, the median networks) an ulp may flip
+# the decision at a pixel, so the largest difference is bounded by
+# CROP_MAX_TOL and the pixels beyond CROP_PART_TOL by CROP_SHARE
+CROP_MEAN_TOL, CROP_MAX_TOL = 1e-6, 5e-2
+CROP_PART_TOL, CROP_SHARE = 1e-4, 1e-3
 BOX9 = 2048
 NOISE_SIGMA = 200.0  # sensor units of 16383: a high-ISO mosaic
 HOT8 = 1024          # hot photosites of config 8's frame, at the white point
@@ -315,6 +361,9 @@ OPS_CHAIN = {(1, 0): (1095, 57), (2, 0): (847, 42), (3, 0): (6, 0),
              (12, 3): (219, 3),
              # config 14: [exposure], [channelmixerrgb], [filmicrgb]
              (14, 0): (6, 0), (14, 1): (247, 15), (14, 2): (672, 39),
+             # config 15: config 1's program on its clipped, reconstructed
+             # frame
+             (15, 0): (1093, 57),
              # the fast pipes run config 1's program on their PPG and
              # bilinear pixels: config 1's count, not recounted on them
              ("preview", 0): (1095, 57), ("thumbnail", 0): (1095, 57)}
@@ -2379,24 +2428,22 @@ def captured12(pipe, raw_dev):
     return calls
 
 
-def check_sepblur_hr(calls, record):
-    """The reconstruction's B3 blurs of (3, 4000, 6016) at dilations 1 to
-    256 (the two-pass form from 256): kernel vs twin bit for bit, device
-    ms of the kernel, the twin and a depthwise F.conv2d of the same
-    dilated 5 x 5 product, and the byte bound; the image's 36 launches
-    summed by their counts."""
-    rows, err, tot = [], 0.0, dict(ms=0.0, plain_ms=0.0, library_ms=0.0,
-                                   bound_ms=0.0)
+def sepblur_per_image(blurs):
+    """Each (x, taps, d, count) blur of an image: kernel vs twin bit for
+    bit, device ms of the kernel, the twin and a depthwise F.conv2d of the
+    same dilated 5 x 5 product, and the byte bound.  -> (rows, largest
+    difference, {ms, plain_ms, library_ms, bound_ms} summed by the counts,
+    bound_by, the last x)."""
+    rows, err = [], 0.0
+    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
     prev = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = False
     try:
-        for (n, d), (x, taps, _) in sorted(calls["sepblur"].items()):
-            if n != 5:
-                continue
+        for x, taps, d, count in blurs:
             got = sepblur.sep_blur(x, taps, d)
             want = sepblur.sep_blur_reference(x, taps, d)
             mx, _ = compare(got, want)
-            expect(torch.equal(got, want), f"sepblur HR d={d}: max {mx}")
+            expect(torch.equal(got, want), f"sepblur d={d}: max {mx}")
             err = max(err, mx)
             del got, want
             k = torch.tensor(taps, device=x.device)
@@ -2411,14 +2458,24 @@ def check_sepblur_hr(calls, record):
             del xp
             b_ms, b_by = bound(2 * nbytes(x),
                                FLOPS_SEPBLUR_PER_TAP * len(taps) * x.numel())
-            count = calls["counts"][(n, d)]
             for key_, v in (("ms", ms), ("plain_ms", plain_ms),
                             ("library_ms", lib_ms), ("bound_ms", b_ms)):
                 tot[key_] += count * v
-            rows.append(f"d={d} x{count} {ms:.4f}/{plain_ms:.2f}/"
+            rows.append(f"d={d} x{count} {ms:.4f}/{plain_ms:.3f}/"
                         f"{lib_ms:.3f}")
     finally:
         torch.backends.cudnn.allow_tf32 = prev
+    return rows, err, tot, b_by, x
+
+
+def check_sepblur_hr(calls, record):
+    """The reconstruction's B3 blurs of (3, 4000, 6016) at dilations 1 to
+    256 (the two-pass form from 256), `sepblur_per_image`; the image's 36
+    launches summed by their counts."""
+    rows, err, tot, b_by, x = sepblur_per_image(
+        (x, taps, d, calls["counts"][(n, d)])
+        for (n, d), (x, taps, _) in sorted(calls["sepblur"].items())
+        if n == 5)
     record["sepblur-hr"] = dict(max_abs_err=err, bound_by=b_by,
                                 per_image=tot, launches=HR_BLURS12,
                                 **{k: v / HR_BLURS12 for k, v in tot.items()})
@@ -2998,6 +3055,392 @@ def check_r14(meta, phases):
                   f"nothing uploaded: {msg}", flush=True)
 
 
+def captured15(pipe, raw_dev):
+    """Run config 15 once on a device-resident raw and keep the arguments
+    of its RCD and chain calls and of its sepblur calls (the first at each
+    dilation, with each dilation's call count)."""
+    calls = {"rcd": [], "chain": [], "sepblur": {}, "counts": {}}
+    real_rcd, real_chain = rcd.rcd_demosaic, pw.pointwise_chain
+    real_sb = sepblur.sep_blur
+
+    def rc(*args):
+        calls["rcd"].append(args)
+        return real_rcd(*args)
+
+    def ch(*args):
+        calls["chain"].append(args)
+        return real_chain(*args)
+
+    def sb(x, taps, d=1):
+        calls["sepblur"].setdefault(d, (x, taps, d))
+        calls["counts"][d] = calls["counts"].get(d, 0) + 1
+        return real_sb(x, taps, d)
+
+    with swapped([(rcd, "rcd_demosaic", rc), (pw, "pointwise_chain", ch),
+                  (sepblur, "sep_blur", sb)]):
+        pipe.run_padded(raw_dev)
+    expect(len(calls["rcd"]) == 1 and len(calls["chain"]) == 1
+           and sorted(calls["counts"]) == [1, 2, 4, 8, 16, 32]
+           and sum(calls["counts"].values()) == LAUNCHES15["sepblur"],
+           f"unexpected config-15 calls: {len(calls['rcd'])} RCD, "
+           f"{len(calls['chain'])} chains, sepblur {calls['counts']}")
+    return calls
+
+
+def check_rcd15(call, record):
+    """RCD on config 15's mosaic, under the dual blend: bit-equal to its
+    twin, device ms of both, the bound of config 1's line."""
+    mosaic, cfa, scaler = call
+    got = rcd.rcd_demosaic(mosaic, cfa, scaler)
+    want = rcd.rcd_demosaic_reference(mosaic, cfa, scaler)
+    mx, _ = compare(got, want)
+    expect(torch.equal(got, want), f"config 15's RCD: max {mx}")
+    ms = median_ms(lambda: rcd.rcd_demosaic(mosaic, cfa, scaler))
+    plain_ms = median_ms(lambda: rcd.rcd_demosaic_reference(
+        mosaic, cfa, scaler), PLAIN_REPEATS)
+    b_ms, b_by = bound(nbytes(mosaic, got),
+                       instructions=FLOPS_RCD * mosaic.numel(),
+                       sfu=MUFU_RCD * mosaic.numel())
+    record["rcd15"] = dict(max_abs_err=mx, ms=ms, plain_ms=plain_ms,
+                           library_ms=None, bound_ms=b_ms, bound_by=b_by)
+    print(f"[pipe15] RCD on config 15's mosaic {tuple(mosaic.shape)}: "
+          f"bit-equal to its twin | kernel {ms:.3f} ms, plain "
+          f"{plain_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by})", flush=True)
+
+
+def check_sepblur15(calls, record):
+    """The guided Laplacian's B3 blurs of the (4, 1000, 1504) stacks at
+    dilations 1 to 32, `sepblur_per_image`; the image's 360 launches
+    summed by their counts."""
+    rows, err, tot, b_by, x = sepblur_per_image(
+        (x, taps, d, calls["counts"][d])
+        for d, (x, taps, _) in sorted(calls["sepblur"].items()))
+    n = LAUNCHES15["sepblur"]
+    record["sepblur15"] = dict(max_abs_err=err, bound_by=b_by,
+                               per_image=tot, launches=n,
+                               **{k: v / n for k, v in tot.items()})
+    print(f"[pipe15] sepblur in the guided Laplacian, {tuple(x.shape)} B3 "
+          f"kernel vs plain: max {err:.3g} (bit-equal) | ms kernel/plain/"
+          f"conv2d: {', '.join(rows)} | per image ({n} launches): kernel "
+          f"{tot['ms']:.3f} ms, plain {tot['plain_ms']:.1f}, conv2d "
+          f"{tot['library_ms']:.3f}, bound {tot['bound_ms']:.3f} ms "
+          f"({b_by})", flush=True)
+
+
+def run_config15(card, record, raw, raw_dev, meta, phases):
+    """Config 15 at 24 MP, a back-lit landscape: config 1's mosaic 2 EV
+    brighter and clipped at the white level (its clipped shares printed
+    and held), HARMONIC highlights, RCD under the dual blend with green
+    equilibration and colour smoothing, config 1's develop.  Through the
+    user's entry point with launches counted, against the composed twins;
+    RCD, sepblur and the chain on the arguments the pipe hands them; each
+    step's device time, the pipe's rate and peak memory.  Returns the
+    launches and the pipe."""
+    raw15 = configs.mosaic15(raw, meta)
+    raw15_dev = configs.mosaic15(raw_dev, meta)
+    shares = configs.clip_shares(raw15, meta)
+    expect(min(shares.values()) >= CLIP15_MIN
+           and shares["all"] < CLIP15_ALL_MAX, f"config-15 shares {shares}")
+    print(f"[pipe15] config 15's mosaic (config 1's x {configs.GAIN15:g}, "
+          "clipped at the white level): photosites at white R "
+          f"{shares['R']:.4f}, G {shares['G']:.4f}, B {shares['B']:.4f}; "
+          f"2x2 cells with all four at white {shares['all']:.4f} (each at "
+          f"least {CLIP15_MIN:g}, the cells under {CLIP15_ALL_MAX:g})",
+          flush=True)
+    pipe = port.compile_pipeline(meta, configs.history(15))
+    stages = [s.name for s in pipe.pipe.stages]
+    expect(stages == STAGES15, f"unexpected config-15 plan {stages}")
+    expect([k for k, *_ in pipe.steps] == ["stage"] * 4 + ["chain"],
+           f"unexpected config-15 steps {[k for k, *_ in pipe.steps]}")
+    statics = [pipe.pipe.stages[i].plan.static for i in (2, 3)]
+    with timed(phases, "pipe15 vs plain"):
+        reset_launches()
+        out = pipe.output_array(raw15)
+        launches = read_launches()
+        programs, _ = read_split()
+        expect(launches == LAUNCHES15 and programs == {0: 1},
+               f"config-15 launches {launches}, programs {programs}")
+        launches["programs"] = programs
+        expect(out.shape == (3, H, W), f"output shape {out.shape}")
+        expect(bool(np.isfinite(out).all()) and out.min() >= 0.0
+               and out.max() <= 1.0, "output not finite or outside [0, 1]")
+        reset_launches()
+        with plain_twins():
+            plain = pipe.output_array(raw15)
+        expect(all(v == 0 for v in read_launches().values()),
+               f"the plain composition launched kernels: {read_launches()}")
+        pipe_err = float(np.abs(out - plain).max())
+        pipe_mean = float(np.abs(out - plain).mean())
+        expect(pipe_err <= PIPE_TOL, f"config 15 vs plain: max {pipe_err}")
+        del plain
+    with timed(phases, "pipe15 kernels"):
+        calls = captured15(pipe, raw15_dev)
+        check_rcd15(calls["rcd"][0], record)
+        check_sepblur15(calls, record)
+        (record["chain15.0"],) = check_chains(15, calls["chain"],
+                                              pipe.fused_groups())
+        del calls
+    with timed(phases, "pipe15 timing"):
+        steps = step_times(pipe, raw15_dev)
+        per_img = time_pipe(pipe, raw15_dev, PIPE15_REPEATS)
+        peak, held = pipe_peak(pipe, raw15_dev)
+    print(f"[pipe15] config 15 {H}x{W}: {len(stages)} stages, highlights "
+          f"{statics[0]}, demosaic 0x{statics[1][0]:x} {statics[1][1:]}, "
+          f"chains {pipe.fused_groups()}, launches {launches}, vs plain max "
+          f"{pipe_err:.3g} mean {pipe_mean:.3g} (tol 1/255), range "
+          f"[{out.min():.3g}, {out.max():.3g}] | {1.0 / per_img:.3f} img/s, "
+          f"{per_img * 1e3:.1f} ms/img (device-resident input, "
+          f"{PIPE15_REPEATS} repeats after 2 warm-ups), peak device memory "
+          f"{peak:.3f} GB ({held:.3f} GB held before) | steps (device ms): "
+          + ", ".join(f"{n} {t:.3f}" for n, t in steps) + f" on {card}",
+          flush=True)
+    return launches, pipe, raw15_dev
+
+
+def stage_alone(meta, raw, params, op="demosaic"):
+    """The stage `op` of a pipe planned on one item (op, params) and its
+    input on the card from the pipe's own stages before it, on the host
+    mosaic `raw`: -> (stage, input, its coeffs, the pipe's context)."""
+    pipe = port.compile_pipeline(meta, [port.HistoryItem(op, dict(params))])
+    i = [s.name for s in pipe.pipe.stages].index(op)
+    raw_dev = torch.from_numpy(pad_to(raw, pipe.pipe.spec_in)).cuda()
+    x = pipe.pipe.trace_fn(0, i)(raw_dev, pipe.coeffs[:i])
+    return pipe.pipe.stages[i], x, pipe.coeffs[i], pipe.pipe.ctx
+
+
+def step_device(fn, repeats):
+    """(mean device ms of `repeats` calls after one warm-up, CUDA events;
+    peak device GB of the timed calls, and what was held before; the last
+    output)."""
+    out = fn()
+    del out
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(repeats):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+    return (float(np.mean(times)), torch.cuda.max_memory_allocated() / 1e9,
+            held / 1e9, out)
+
+
+def crop_vs_cpu(fn, args, box):
+    """`fn` on the card and on the CPU on the same crop of its plane
+    arguments (the last two axes), other arguments moved alike: ->
+    (max, mean, share beyond CROP_PART_TOL), each of the CPU output's
+    magnitude (at least 1), held to the CROP_ tolerances."""
+    y0, x0, h, w = box
+
+    def cut(a):
+        if torch.is_tensor(a) and a.dim() >= 2:
+            return a[..., y0:y0 + h, x0:x0 + w].contiguous()
+        return a
+
+    def to_cpu(a):
+        if torch.is_tensor(a):
+            return a.cpu()
+        if isinstance(a, dict):
+            return {k: to_cpu(v) for k, v in a.items()}
+        return a
+
+    crop = [cut(a) for a in args]
+    got = fn(*crop).cpu()
+    want = fn(*[to_cpu(a) for a in crop])
+    expect(bool(torch.isfinite(got).all()), "crop: non-finite on the card")
+    d = (got - want).abs()
+    scale = max(1.0, want.abs().max().item())
+    mx, mean = d.max().item() / scale, d.mean().item() / scale
+    share = (d > CROP_PART_TOL * scale).float().mean().item()
+    expect(mx <= CROP_MAX_TOL and mean <= CROP_MEAN_TOL
+           and share <= CROP_SHARE,
+           f"crop card vs CPU: max {mx:.3g} mean {mean:.3g} share {share:.3g}"
+           f" (of {scale:.3g})")
+    return mx, mean, share
+
+
+def with_spec(plan, box):
+    """`plan` with its input spec cut to the crop `box` (the stages read
+    the frame's size from it)."""
+    _, _, h, w = box
+    return dataclasses.replace(plan, spec_in=dataclasses.replace(
+        plan.spec_in, width=w, height=h, pad_w=w, pad_h=h))
+
+
+def run_demosaic_methods(card, record, meta, raw, meta4, raw4, phases):
+    """Each demosaic branch the JAX package runs as plain XLA, as one
+    demosaic step alone on config 1's 24 MP mosaic (RCD alone first, the
+    base the post passes and the dual blend add to) and, for X-Trans VNG
+    and X-Trans dual (0x3001), on config 4's: device ms (1 warm-up, then
+    METHOD_REPEATS timed runs; 1 for AMaZE), peak memory, a finite output
+    of the frame's shape, and the card against the CPU on a crop.  X-Trans
+    dual launches the Markesteijn kernel: held against its twin there.
+    Returns the X-Trans dual step's Markesteijn launches."""
+    cases = (("RCD", meta, raw, {"demosaicing_method": 5},
+              CROP_BAYER, METHOD_REPEATS),
+             ("AMaZE", meta, raw, {"demosaicing_method": 1},
+              CROP_BAYER, 1),
+             ("LMMSE refine 1", meta, raw,
+              {"demosaicing_method": 6, "lmmse_refine": 1}, CROP_BAYER,
+              METHOD_REPEATS),
+             ("LMMSE refine 4", meta, raw,
+              {"demosaicing_method": 6, "lmmse_refine": 4}, CROP_BAYER,
+              METHOD_REPEATS),
+             ("VNG4", meta, raw, {"demosaicing_method": 2}, CROP_BAYER,
+              METHOD_REPEATS),
+             ("RCD + green eq 3", meta, raw,
+              {"demosaicing_method": 5, "green_eq": 3}, CROP_BAYER,
+              METHOD_REPEATS),
+             ("RCD + smoothing 2", meta, raw,
+              {"demosaicing_method": 5, "color_smoothing": 2}, CROP_BAYER,
+              METHOD_REPEATS),
+             ("RCD + dual", meta, raw,
+              {"demosaicing_method": 5 | 0x2000}, CROP_BAYER,
+              METHOD_REPEATS),
+             ("X-Trans VNG", meta4, raw4, {"demosaicing_method": 0x1000},
+              CROP_XTRANS, METHOD_REPEATS),
+             ("X-Trans dual", meta4, raw4,
+              {"demosaicing_method": 0x3001}, CROP_XTRANS, METHOD_REPEATS))
+    rows, mark_launches = [], 0
+    for label, m, r, params, box, repeats in cases:
+        with timed(phases, f"demosaic {label}"):
+            st, x, c, ctx = stage_alone(m, r, params)
+
+            def step(x_, c_, plan=st.plan, st=st, ctx=ctx):
+                return st.op.apply(x_, c_, plan, ctx)
+
+            ms, peak, held, out = step_device(lambda: step(x, c), repeats)
+            expect(out.shape == (3,) + tuple(x.shape)
+                   and bool(torch.isfinite(out).all()),
+                   f"{label}: output {tuple(out.shape)} not finite")
+            del out
+            if label == "X-Trans dual":
+                reset_launches()
+                calls, real = [], markesteijn.xtrans_markesteijn
+
+                def mk(*args, _calls=calls, _real=real):
+                    _calls.append(args)
+                    return _real(*args)
+
+                with swapped([(markesteijn, "xtrans_markesteijn", mk)]):
+                    step(x, c)
+                mark_launches = read_launches()["markesteijn"]
+                expect(len(calls) == 1 and calls[0][2] == 1
+                       and mark_launches == 1,
+                       f"X-Trans dual: Markesteijn calls {len(calls)}, "
+                       f"launches {mark_launches}")
+                check_markesteijn_dual(calls[0], record)
+                del calls
+            plan = with_spec(st.plan, box)
+            mx, mean, share = crop_vs_cpu(
+                lambda x_, c_, plan=plan, st=st, ctx=ctx:
+                st.op.apply(x_, c_, plan, ctx), [x, c], box)
+        rows.append(dict(method=label, ms=ms, peak_gb=peak))
+        print(f"[demosaic-methods] {label} {params} on "
+              f"{tuple(x.shape)}: {ms:.1f} ms (device, {repeats} timed run"
+              f"{'s' if repeats > 1 else ''} after 1 warm-up), peak device "
+              f"memory {peak:.3f} GB ({held:.3f} GB held before), finite | "
+              f"card vs CPU on a {box[2]}x{box[3]} crop: max {mx:.3g} mean "
+              f"{mean:.3g}, {share:.3g} of values beyond {CROP_PART_TOL:g} "
+              f"(of the output's magnitude) on {card}", flush=True)
+        del x
+    record["demosaic-methods"] = rows
+    return mark_launches
+
+
+def check_markesteijn_dual(call, record):
+    """Markesteijn, 1 pass, as X-Trans dual runs it on config 4's mosaic:
+    bit-equal to its twin, device ms of both, config 4's bound."""
+    x, pattern6, passes = call
+    got = markesteijn.xtrans_markesteijn(x, pattern6, passes)
+    want = markesteijn.xtrans_markesteijn_reference(x, pattern6, passes)
+    mx, _ = compare(got, want)
+    expect(torch.equal(got, want), f"X-Trans dual's Markesteijn: max {mx}")
+    del got, want
+    ms = median_ms(lambda: markesteijn.xtrans_markesteijn(x, pattern6, 1))
+    plain_ms = median_ms(lambda: markesteijn.xtrans_markesteijn_reference(
+        x, pattern6, 1), 1)
+    b_ms, b_by = bound(4 * nbytes(x),
+                       instructions=FLOPS_MARKESTEIJN[1] * x.numel(),
+                       sfu=mufu_markesteijn(pattern6, 1) * x.numel())
+    record["markesteijn-dual"] = dict(max_abs_err=mx, ms=ms,
+                                      plain_ms=plain_ms, library_ms=None,
+                                      bound_ms=b_ms, bound_by=b_by)
+    print(f"[demosaic-methods] X-Trans dual's Markesteijn (1 pass) on "
+          f"{tuple(x.shape)}: bit-equal to its twin | kernel {ms:.3f} ms, "
+          f"plain {plain_ms:.1f} ms, bound {b_ms:.3f} ms ({b_by})",
+          flush=True)
+
+
+def run_highlight_modes(card, record, meta, raw, meta4, raw4, pipe15,
+                        raw15_dev, phases):
+    """LCH and INPAINT alone on config 15's mosaic, INPAINT on config 4's
+    X-Trans mosaic clipped the same way, and HARMONIC's dome core alone on
+    config 15's highlights input and its Laplacian's output: device ms (1
+    warm-up, METHOD_REPEATS timed runs), peak memory, finite, and the card
+    against the CPU on a crop."""
+    rows = []
+    raw15, raw4_15 = configs.mosaic15(raw, meta), configs.mosaic15(raw4, meta4)
+    for label, m, r, params, box in (
+            ("LCH", meta, raw15, {"mode": 1}, CROP_BAYER),
+            ("INPAINT", meta, raw15, {"mode": 2}, CROP_BAYER),
+            ("X-Trans INPAINT", meta4, raw4_15, {"mode": 2}, CROP_XTRANS)):
+        with timed(phases, f"highlights {label}"):
+            st, x, c, ctx = stage_alone(m, r, params, "highlights")
+            ms, peak, held, out = step_device(
+                lambda: st.op.apply(x, c, st.plan, ctx), METHOD_REPEATS)
+            moved = (out - torch.minimum(x, c["clip"])).abs().max().item()
+            expect(bool(torch.isfinite(out).all()) and moved > 0.0,
+                   f"{label}: not finite, or the clamp ({moved})")
+            del out
+            plan = with_spec(st.plan, box)
+            mx, mean, share = crop_vs_cpu(
+                lambda x_, c_, plan=plan, st=st, ctx=ctx:
+                st.op.apply(x_, c_, plan, ctx), [x, c], box)
+        rows.append(dict(mode=label, ms=ms, peak_gb=peak))
+        print(f"[highlight-modes] {label} on {tuple(x.shape)}: {ms:.1f} ms "
+              f"(device, {METHOD_REPEATS} timed runs after 1 warm-up), peak "
+              f"device memory {peak:.3f} GB ({held:.3f} GB held before), "
+              f"finite, {moved:.3g} from the clamp | card vs CPU on a "
+              f"{box[2]}x{box[3]} crop: max {mx:.3g} mean {mean:.3g}, "
+              f"{share:.3g} of values beyond {CROP_PART_TOL:g} on {card}",
+              flush=True)
+        del x
+    with timed(phases, "highlights HARMONIC core"):
+        stage = pipe15.pipe.stages[2]
+        x = pipe15.pipe.trace_fn(0, 2)(raw15_dev, pipe15.coeffs[:2])
+        clips = pipe15.coeffs[2]["clips"]
+        _, scales, iters, noise, solid = stage.plan.static
+        cfa = stage.plan.spec_in.cfa
+        rec = hl_lap.laplacian_reconstruct(x, clips, cfa, scales, iters,
+                                           noise, solid)
+        ms, peak, held, out = step_device(
+            lambda: hh.harmonic_dome_core(x, rec, clips, cfa),
+            METHOD_REPEATS)
+        moved = (out - rec).abs().max().item()
+        expect(bool(torch.isfinite(out).all()) and moved > 0.0,
+               f"HARMONIC core: not finite, or no dome ({moved})")
+        del out
+        mx, mean, share = crop_vs_cpu(
+            lambda x_, r_, c_: hh.harmonic_dome_core(x_, r_, c_, cfa),
+            [x, rec, clips], CROP_BAYER)
+    rows.append(dict(mode="HARMONIC core", ms=ms, peak_gb=peak))
+    print(f"[highlight-modes] HARMONIC's dome core on {tuple(x.shape)} "
+          f"(the Laplacian's {iters} iterations before it, untimed): "
+          f"{ms:.1f} ms (device, {METHOD_REPEATS} timed runs after 1 "
+          f"warm-up), peak device memory {peak:.3f} GB ({held:.3f} GB held "
+          f"before), finite, {moved:.3g} from the Laplacian's output | card "
+          f"vs CPU on a {CROP_BAYER[2]}x{CROP_BAYER[3]} crop: max {mx:.3g} "
+          f"mean {mean:.3g}, {share:.3g} of values beyond "
+          f"{CROP_PART_TOL:g} on {card}", flush=True)
+    record["highlight-modes"] = rows
+
+
 def run_devtest_and_entry(phases):
     """The CLI's card diagnostic, then entry()'s fn on the card against
     the same fn with every kernel's plain twin."""
@@ -3082,13 +3525,29 @@ def main(argv=None):
         with timed(phases, "mosaic4 wait"):
             raw4, meta4 = synth4.result()
         launches4 = run_config4(card, record, raw4, meta4, phases)
+        # config 15 and the demosaic and highlight branches, config 1's
+        # and config 4's mosaics at 24 MP
+        t15 = time.perf_counter()
+        with timed(phases, "mosaic15 upload"):
+            raw_dev = torch.from_numpy(raw).cuda()
+        launches15, pipe15, raw15_dev = run_config15(card, record, raw,
+                                                     raw_dev, meta, phases)
+        del raw_dev
+        mark_dual = run_demosaic_methods(card, record, meta, raw, meta4, raw4,
+                                         phases)
+        run_highlight_modes(card, record, meta, raw, meta4, raw4, pipe15,
+                            raw15_dev, phases)
+        del pipe15, raw15_dev
+        branches_s = time.perf_counter() - t15
     # launches per image: config 2's for the first five kernels, config
     # 3's for the IIR and diffuse kernels, config 4's for Markesteijn and
     # the warp, config 7's for the grid slice
     launches.update(iir=launches3["iir"], diffuse=launches3["diffuse"],
                     markesteijn=launches4["markesteijn"],
                     warp=launches4["warp"], bgrid=launches7["bgrid"])
-    print(f"[done] total {time.perf_counter() - t0:.1f} s | "
+    print(f"[done] total {time.perf_counter() - t0:.1f} s, of which "
+          f"[pipe15], [demosaic-methods] and [highlight-modes] "
+          f"{branches_s:.1f} s | "
           + ", ".join(f"{k} {v:.1f} s" for k, v in phases.items()),
           flush=True)
 
@@ -3216,6 +3675,34 @@ def main(argv=None):
                         "replaces": "ansel_tpu/kernels/pointwise.py:30",
                         "launches": fl["programs"][row["program"]],
                         **{k: row[k] for k in keys}})
+    # config 15: RCD under the dual blend, sepblur in the guided
+    # Laplacian (its numbers per launch, `per_image` over the 360) and
+    # config 1's chain program, each with its launches in [pipe15]; the
+    # Markesteijn kernel under X-Trans dual, its launches in that step of
+    # [demosaic-methods]
+    for name, src, replaces, key, n in (
+            ("rcd_demosaic[config15]", "rcd.cu",
+             "ansel_tpu/kernels/rcd_pallas.py:189", "rcd15",
+             launches15["rcd"]),
+            ("sep_blur[config15]", "sepblur.cu",
+             "ansel_tpu/kernels/sepblur_pallas.py:189", "sepblur15",
+             launches15["sepblur"]),
+            ("xtrans_markesteijn[xtrans-dual]", "markesteijn.cu",
+             "ansel_tpu/kernels/markesteijn_pallas.py:372",
+             "markesteijn-dual", mark_dual)):
+        entry_ = {"name": name, "route": "cuda",
+                  "source": f"ansel_tpu_torch/csrc/{src}",
+                  "replaces": replaces, "launches": n,
+                  **{k: record[key][k] for k in keys}}
+        if key == "sepblur15":
+            entry_["per_image"] = record[key]["per_image"]
+        kernels.append(entry_)
+    row = record["chain15.0"]
+    kernels.append({"name": "pointwise_chain[config15.0]", "route": "cuda",
+                    "source": "ansel_tpu_torch/csrc/pointwise_chain.cu",
+                    "replaces": "ansel_tpu/kernels/pointwise.py:30",
+                    "launches": launches15["programs"][row["program"]],
+                    **{k: row[k] for k in keys}})
     kernels.append({"name": "eaw_atrous_coarse", "route": "cuda",
                     "source": "ansel_tpu_torch/csrc/eaw.cu",
                     "replaces": "ansel_tpu/kernels/eaw_pallas.py:205",

@@ -3,7 +3,7 @@
 chain of the port's configs needs in the fused colour chain
 (`csrc/pointwise_chain.cu`), counted from its SASS.
 
-    python3 scripts/chain_count.py [--configs 1 2 3 4 7 10 11 12 13 14]
+    python3 scripts/chain_count.py [--configs 1 2 3 4 7 10 11 12 13 14 15]
                                    [--stride 64] [--opcodes]
 
 Three steps, on the machine with the card:
@@ -329,6 +329,8 @@ def captured_chains(n, meta_out=None, groups_out=None):
         meta_out.append(meta)
     if n in configs.XTRANS_CONFIGS:
         raw, meta = configs.remosaic_xtrans(meta, scene)
+    if n == 15:  # 2 EV brighter, clipped at the white level
+        raw = configs.mosaic15(raw, meta)
     with configs.history_files(n) as hist:
         pipe = port.compile_pipeline(meta, hist, forms=configs.forms(n))
     if groups_out is not None:
@@ -367,7 +369,7 @@ def fmt(parts):
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--configs", type=int, nargs="+",
-                    default=[1, 2, 3, 4, 7, 10, 11, 12, 13, 14])
+                    default=[1, 2, 3, 4, 7, 10, 11, 12, 13, 14, 15])
     ap.add_argument("--stride", type=int, default=64)
     ap.add_argument("--opcodes", action="store_true")
     args = ap.parse_args()

@@ -23,6 +23,7 @@ from ansel_tpu_torch.kernels import (bgrid, diffuse, eaw, iir, markesteijn,
 from ansel_tpu_torch.kernels import highlights_laplacian as hl
 from ansel_tpu_torch.kernels import pointwise as pw
 from ansel_tpu_torch.kernels import rcd
+from ansel_tpu_torch.ops.base import pad_to
 from ansel_tpu_torch.pixel.blur import _deriche_coeffs
 from ansel_tpu_torch.pixel.nlmeans import search_offsets
 from ansel_tpu_torch.pipeline import engine
@@ -1559,3 +1560,123 @@ def test_fast_pipes_on_cuda_match_cpu(cuda, pipe_type, method, scale):
                                  **kw).output_array(raw)
     d = np.abs(got - want)
     assert d.max() <= 1.0 / 255.0 and d.mean() <= 1e-5
+
+
+def test_config15_on_cuda_matches_its_twins(cuda, monkeypatch):
+    """Config 15 at 128 x 256 on the card (the guided Laplacian's 360
+    blurs, RCD under the dual blend, config 1's chain program; the dome
+    core, VNG4 and the post passes in torch) against the same pipe on the
+    card with each wrapper's plain twin: the Laplacian's 30 iterations
+    amplify an ulp on this frame (ROADMAP R15), so the CPU's rounding is
+    no yardstick for the whole pipe."""
+    raw, meta, _ = synth_raw(h=128, w=256, kind="gradients")
+    raw = configs.mosaic15(raw, meta)
+    pipe = port.compile_pipeline(meta, configs.history(15), device=cuda)
+    rcd.LAUNCHES = pw.LAUNCHES = sepblur.LAUNCHES = 0
+    pw.PROGRAM_LAUNCHES.clear()
+    got = pipe.output_array(raw)
+    assert (rcd.LAUNCHES, pw.LAUNCHES, sepblur.LAUNCHES) == (1, 1, 360)
+    assert dict(pw.PROGRAM_LAUNCHES) == {0: 1}
+    monkeypatch.setattr(rcd, "rcd_demosaic", rcd.rcd_demosaic_reference)
+    monkeypatch.setattr(sepblur, "sep_blur", sepblur.sep_blur_reference)
+    monkeypatch.setattr(pw, "pointwise_chain", pw.pointwise_chain_reference)
+    want = pipe.output_array(raw)
+    assert np.isfinite(got).all() and got.min() >= 0.0 and got.max() <= 1.0
+    d = np.abs(got - want)
+    assert d.max() <= 1.0 / 255.0 and d.mean() <= 1e-5
+
+
+# the card against the CPU through the same torch code: CUDA divides by a
+# Python float as a product with its reciprocal and rounds exp, log and
+# pow otherwise, so values part by rounding; where a method decides by
+# comparing two such values an ulp may flip the decision at a pixel
+BRANCH_MEAN_TOL, BRANCH_MAX_TOL = 1e-6, 5e-2
+BRANCH_PART_TOL, BRANCH_SHARE = 1e-4, 1e-3
+
+
+def _branch_close(got, want):
+    got, want = got.cpu(), want.cpu()
+    assert torch.isfinite(got).all()
+    d = (got - want).abs()
+    scale = max(1.0, want.abs().max().item())
+    assert d.max().item() <= BRANCH_MAX_TOL * scale
+    assert d.mean().item() <= BRANCH_MEAN_TOL * scale
+    assert (d > BRANCH_PART_TOL * scale).float().mean().item() <= BRANCH_SHARE
+
+
+def _stage_pair(cuda, meta, raw, op, params):
+    """The stage `op` of a pipe on one item, its input and coefficients on
+    the card and on the CPU."""
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        pipe = port.compile_pipeline(meta, [port.HistoryItem(op, params)],
+                                     device=dev)
+        i = [s.name for s in pipe.pipe.stages].index(op)
+        x = torch.from_numpy(pad_to(raw, pipe.pipe.spec_in)).to(dev)
+        x = pipe.pipe.trace_fn(0, i)(x, pipe.coeffs[:i])
+        out.append((pipe.pipe.stages[i], x, pipe.coeffs[i], pipe.pipe.ctx))
+    return out
+
+
+@pytest.mark.parametrize("params,xtrans,launches", [
+    ({"demosaicing_method": 1}, False, (0, 0)),            # AMaZE
+    ({"demosaicing_method": 6, "lmmse_refine": 1}, False, (0, 0)),
+    ({"demosaicing_method": 6, "lmmse_refine": 4}, False, (0, 0)),
+    ({"demosaicing_method": 2}, False, (0, 0)),            # VNG4
+    ({"demosaicing_method": 5, "green_eq": 3}, False, (1, 0)),
+    ({"demosaicing_method": 5, "color_smoothing": 2}, False, (1, 0)),
+    ({"demosaicing_method": 0x2005}, False, (1, 0)),       # RCD | DUAL
+    ({"demosaicing_method": 0x1000}, True, (0, 0)),        # X-Trans VNG
+    ({"demosaicing_method": 0x3001}, True, (0, 1)),        # X-Trans dual
+], ids=["amaze", "lmmse-1", "lmmse-4", "vng4", "green-eq-3",
+        "smoothing-2", "dual", "xtrans-vng", "xtrans-dual"])
+def test_demosaic_branches_on_cuda_match_cpu(cuda, params, xtrans, launches):
+    """One demosaic step alone at 96 x 132 on the card against the CPU;
+    (RCD, Markesteijn) launches of the step."""
+    raw, meta, scene = synth_raw(h=96, w=132, kind="gradients")
+    if xtrans:
+        raw, meta = configs.remosaic_xtrans(meta, scene)
+    (st, x, c, ctx), (st_c, x_c, c_c, ctx_c) = _stage_pair(
+        cuda, meta, raw, "demosaic", params)
+    markesteijn.LAUNCHES = rcd.LAUNCHES = 0
+    got = st.op.apply(x, c, st.plan, ctx)
+    assert (rcd.LAUNCHES, markesteijn.LAUNCHES) == launches
+    _branch_close(got, st_c.op.apply(x_c, c_c, st_c.plan, ctx_c))
+
+
+@pytest.mark.parametrize("mode,xtrans", [(1, False), (2, False), (2, True),
+                                         (4, True)],
+                         ids=["lch", "inpaint", "xtrans-inpaint",
+                              "xtrans-harmonic-clamp"])
+def test_highlight_modes_on_cuda_match_cpu(cuda, mode, xtrans):
+    """One highlights step alone on config 15's mosaic (X-Trans: config
+    4's pattern clipped alike) on the card against the CPU; HARMONIC on
+    X-Trans is the clamp."""
+    raw, meta, scene = synth_raw(h=96, w=132, kind="gradients")
+    if xtrans:
+        raw, meta = configs.remosaic_xtrans(meta, scene)
+    raw = configs.mosaic15(raw, meta)
+    (st, x, c, ctx), (st_c, x_c, c_c, ctx_c) = _stage_pair(
+        cuda, meta, raw, "highlights", {"mode": mode})
+    got = st.op.apply(x, c, st.plan, ctx)
+    _branch_close(got, st_c.op.apply(x_c, c_c, st_c.plan, ctx_c))
+    assert (got - torch.minimum(x, c["clip"])).abs().max().item() > 0.0 \
+        or mode == 4
+
+
+def test_harmonic_dome_core_on_cuda_matches_cpu(cuda):
+    """The dome core alone on config 15's highlights input and the card's
+    Laplacian output, both handed to the CPU."""
+    from ansel_tpu_torch.kernels import highlights_harmonic as hh
+
+    raw, meta, _ = synth_raw(h=128, w=256, kind="gradients")
+    raw = configs.mosaic15(raw, meta)
+    (st, x, c, _), _ = _stage_pair(cuda, meta, raw, "highlights",
+                                   {"mode": 4})
+    rec = hl.laplacian_reconstruct(x, c["clips"], st.plan.spec_in.cfa, 8, 30,
+                                   0.0, 0.5)
+    got = hh.harmonic_dome_core(x, rec, c["clips"], st.plan.spec_in.cfa)
+    want = hh.harmonic_dome_core(x.cpu(), rec.cpu(), c["clips"].cpu(),
+                                 st.plan.spec_in.cfa)
+    _branch_close(got, want)
+    assert (got - rec).abs().max().item() > 0.05

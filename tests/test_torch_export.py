@@ -248,15 +248,16 @@ def test_cli_writes_the_16_bit_png_of_export_image(tmp_path, sidecar8,
 
 
 @pytest.mark.parametrize("op,params,args,bp,message", [
-    ("highlights", {"mode": 1}, ["--width", "100"], INACTIVE,
-     "highlights: mode"),
+    ("filmicrgb", {"version": 4}, ["--width", "100"], INACTIVE,
+     "filmicrgb: colour science"),
     ("relight", None, [], ACTIVE, "relight"),
 ], ids=["width", "active-blend"])
 def test_cli_refuses_what_is_not_ported(tmp_path, op, params, args, bp,
                                         message):
     """The "width" case refused `--width` until export scaling was
     ported; it now plans the export at that width up to a branch the
-    port has not ported yet (highlights' LCH mode).  The "active-blend"
+    port has not ported yet (filmicrgb's v5 colour science; highlights'
+    LCH mode until it was ported).  The "active-blend"
     case refused an active blend until blends were ported; it now
     carries one on a module the port has not ported (relight; drawlayer
     until it was ported)."""

@@ -207,15 +207,7 @@ def _xtrans(meta):
 
 
 @pytest.mark.parametrize("items,meta_fn,kw", [
-    ([("highlights", {"mode": 1})], None, {}),
-    ([("highlights", {"mode": 2})], None, {}),
     ([("blurs", {})], None, {}),                             # not ported
-    ([("highlights", {"mode": 4})], None, {}),
-    ([("demosaic", {"demosaicing_method": 6})], None, {}),   # LMMSE
-    ([("demosaic", {"demosaicing_method": 1})], None, {}),   # AMaZE
-    ([("demosaic", {"demosaicing_method": 2})], None, {}),   # VNG4
-    ([("demosaic", {"green_eq": 1})], None, {}),
-    ([("demosaic", {"color_smoothing": 2})], None, {}),
     ([("filmicrgb", {"version": 4})], None, {}),             # spline v5
     ([("filmicrgb", {"version": 0})], None, {}),             # spline v1
     ([("filmicrgb", {"version": 2})], None, {}),             # spline v3
@@ -225,22 +217,15 @@ def _xtrans(meta):
     ([("denoiseprofile", {})], None, {}),          # automatic noise profile
     ([("diffuse", {"radius": 12})], None, {}),     # 6 wavelet scales
     ([("invert", {})], None, {}),                            # not ported
-    ([("demosaic", {"demosaicing_method": 0x3001})], _xtrans, {}),  # dual
-    ([("demosaic", {"color_smoothing": 2})], _xtrans, {}),
-    ([("highlights", {"mode": 3})], _xtrans, {}),  # Laplacian on X-Trans
-    (CONFIG1 + [("demosaic", {"green_eq": 1})], None,
-     {"pipe_type": "preview"}),
-], ids=["lch", "inpaint", "blurs", "harmonic", "lmmse", "amaze",
-        "vng4", "green-eq", "smoothing", "filmic-v5",
-        "filmic-v1", "filmic-v3", "channelmixer", "borders",
-        "unported-op", "denoise-auto-profile", "diffuse-6-scales",
-        "invert", "xtrans-dual", "xtrans-smoothing",
-        "xtrans-laplacian", "preview-green-eq"])
+], ids=["blurs", "filmic-v5", "filmic-v1", "filmic-v3", "channelmixer",
+        "borders", "unported-op", "denoise-auto-profile", "diffuse-6-scales",
+        "invert"])
 def test_unported_branches_raise_at_plan_time(items, meta_fn, kw):
     """Each branch the port has not ported raises NotImplementedError
     while planning.  PPG, the bilinear fallback, the ICC profiles, lut3d,
-    drawlayer and the preview pipe were cases here until they were
-    ported (`test_formerly_refused_branches_plan`)."""
+    drawlayer, the preview pipe, the demosaic methods and post passes and
+    the highlight modes were cases here until they were ported
+    (`test_formerly_refused_branches_plan`)."""
     _, meta, _ = synth_raw(h=64, w=128)
     if meta_fn is not None:
         meta = meta_fn(meta)
@@ -249,24 +234,45 @@ def test_unported_branches_raise_at_plan_time(items, meta_fn, kw):
                                  device="cpu", **kw)
 
 
-@pytest.mark.parametrize("items,kw,error", [
-    ([("demosaic", {"demosaicing_method": 0})], {}, None),
-    ([("demosaic", {"demosaicing_method": 7})], {}, None),
-    ([("colorin", {"type": 0})], {}, (ValueError, "no ICC filename")),
+@pytest.mark.parametrize("items,meta_fn,kw,error", [
+    ([("demosaic", {"demosaicing_method": 0})], None, {}, None),
+    ([("demosaic", {"demosaicing_method": 7})], None, {}, None),
+    ([("colorin", {"type": 0})], None, {}, (ValueError, "no ICC filename")),
     # an empty name joins the search directory into "./", a directory
-    ([("colorout", {"type": 0})], {}, (IsADirectoryError, None)),
-    ([("lut3d", {})], {}, None),
-    ([("drawlayer", {})], {}, None),
-    (CONFIG1, {"pipe_type": "preview"}, None),
+    ([("colorout", {"type": 0})], None, {}, (IsADirectoryError, None)),
+    ([("lut3d", {})], None, {}, None),
+    ([("drawlayer", {})], None, {}, None),
+    (CONFIG1, None, {"pipe_type": "preview"}, None),
+    ([("highlights", {"mode": 1})], None, {}, None),
+    ([("highlights", {"mode": 2})], None, {}, None),
+    ([("highlights", {"mode": 4})], None, {}, None),
+    ([("demosaic", {"demosaicing_method": 6})], None, {}, None),   # LMMSE
+    ([("demosaic", {"demosaicing_method": 1})], None, {}, None),   # AMaZE
+    ([("demosaic", {"demosaicing_method": 2})], None, {}, None),   # VNG4
+    ([("demosaic", {"green_eq": 1})], None, {}, None),
+    ([("demosaic", {"color_smoothing": 2})], None, {}, None),
+    ([("demosaic", {"demosaicing_method": 0x3001})], _xtrans, {},
+     None),                                                       # dual
+    ([("demosaic", {"color_smoothing": 2})], _xtrans, {}, None),
+    ([("highlights", {"mode": 3})], _xtrans, {}, None),  # the clamp
+    (CONFIG1 + [("demosaic", {"green_eq": 1})], None,
+     {"pipe_type": "preview"}, None),
 ], ids=["ppg", "bilinear", "colorin-icc", "colorout-icc", "lut3d",
-        "drawlayer", "preview"])
-def test_formerly_refused_branches_plan(items, kw, error):
+        "drawlayer", "preview", "lch", "inpaint", "harmonic", "lmmse",
+        "amaze", "vng4", "green-eq", "smoothing", "xtrans-dual",
+        "xtrans-smoothing", "xtrans-laplacian", "preview-green-eq"])
+def test_formerly_refused_branches_plan(items, meta_fn, kw, error):
     """What `test_unported_branches_raise_at_plan_time` refused before it
     was ported now plans: PPG, the bilinear fallback (method 7), lut3d
     and drawlayer without a file (the identity and a no-op), the preview
-    pipe; an ICC item without its profile raises what the JAX package
-    raises while it runs the stage."""
+    pipe, the highlight modes LCH, INPAINT and HARMONIC (LAPLACIAN on
+    X-Trans is the clamp, as in the JAX package), AMaZE, LMMSE, VNG4,
+    green equilibration, colour smoothing and X-Trans dual; an ICC item
+    without its profile raises what the JAX package raises while it runs
+    the stage."""
     _, meta, _ = synth_raw(h=64, w=128)
+    if meta_fn is not None:
+        meta = meta_fn(meta)
     hist = _hist(ansel_tpu_torch, items)
     if error is not None:
         with pytest.raises(error[0], match=error[1]):
@@ -277,13 +283,27 @@ def test_formerly_refused_branches_plan(items, kw, error):
 
 
 def test_xtrans_raises_at_plan_time():
-    """X-Trans plans Markesteijn; its VNG (kernels/vng.py) is not ported."""
-    _, meta, _ = synth_raw(h=60, w=120)
-    meta = _xtrans(meta)
+    """No longer raises: X-Trans plans Markesteijn, and its VNG (method
+    0x1000, `kernels/vng.py`, refused until it was ported) plans and
+    runs, equal to the JAX package's X-Trans VNG on the stage's input."""
+    from ansel_tpu.kernels import vng as ref_vng
+
+    raw, meta, scene = synth_raw(h=60, w=120)
+    raw, meta = configs.remosaic_xtrans(meta, scene)
     ansel_tpu_torch.Pipeline(meta, [], device="cpu")
-    with pytest.raises(NotImplementedError):
-        ansel_tpu_torch.Pipeline(meta, _hist(ansel_tpu_torch, [
-            ("demosaic", {"demosaicing_method": 0x1000})]), device="cpu")
+    port = ansel_tpu_torch.compile_pipeline(meta, _hist(ansel_tpu_torch, [
+        ("demosaic", {"demosaicing_method": 0x1000})]), device="cpu")
+    pipe = port.pipe
+    assert not pipe.unsupported
+    i = [s.name for s in pipe.stages].index("demosaic")
+    assert pipe.stages[i].plan.static[0] == 0x1000
+    x = pipe.trace_fn(0, i)(torch.from_numpy(pad_to(raw, pipe.spec_in)),
+                            port.coeffs[:i])
+    got = pipe.trace_fn(i, i + 1)(x, port.coeffs[i:i + 1]).numpy()
+    want = np.asarray(ref_vng.xtrans_vng_demosaic(jnp.asarray(x.numpy()),
+                                                  configs.XTRANS6))
+    assert got.shape == (3,) + tuple(x.shape) and np.isfinite(got).all()
+    assert np.array_equal(got, want)
 
 
 def test_blend_raises_at_plan_time():
