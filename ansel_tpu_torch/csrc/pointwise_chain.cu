@@ -75,6 +75,7 @@ enum Opcode {
   OP_COLORCHECKER = 30,
   OP_KEEP = 31,
   OP_BLEND = 32,
+  OP_FILMIC_SPLINE = 33,
 };
 enum Trc { TRC_SRGB = 0, TRC_LINEAR = 1, TRC_GAMMA = 2 };
 constexpr int MAX_STAGES = 16;
@@ -427,11 +428,11 @@ __device__ float clip_chroma_black(const float* m, float num, float cos_h, float
   return (den == 0.0f || v < 0.0f) ? INFINITY : v;
 }
 
-// gamut_check_Yrg + gamut_check_RGB (filmicrgb.c:1878-1962)
-__device__ void gamut_map(float Y, float c, float cos_h, float sin_h, const float* k,
+// gamut_check_Yrg + gamut_check_RGB (filmicrgb.c:1878-1962); db, dw the
+// display black and white, folds (S, -0.4275...*S) per output_m row
+__device__ void gamut_map(float Y, float c, float cos_h, float sin_h, const float* input_m,
+                          const float* output_m, const float* folds, float db, float dw,
                           float* out) {
-  const float *input_m = k + 43, *output_m = k + 52, *folds = k + 64;
-  float db = k[22], dw = k[23];
   float r = c * cos_h + K(YRG_RW);
   float g = c * sin_h + K(YRG_GW);
   float safe_cos = fabsf(cos_h) > K(1e-9) ? cos_h : K(1e-9);
@@ -482,7 +483,151 @@ __device__ __forceinline__ void filmic_agx(float* v, const float* k, const int* 
   float ref_cos = norm_mix > K(1e-9) ? r_mix / jmax(norm_mix, K(1e-20)) : cos0;
   float ref_sin = norm_mix > K(1e-9) ? g_mix / jmax(norm_mix, K(1e-20)) : sin0;
   float Y_final = jclip(ychf[0], K(CIE_Y_2006) * k[22], K(CIE_Y_2006) * k[23]);
-  gamut_map(Y_final, chroma_final, ref_cos, ref_sin, k, v);
+  gamut_map(Y_final, chroma_final, ref_cos, ref_sin, k + 43, k + 52, k + 64, k[22], k[23], v);
+}
+
+// ------------------------------------------- filmic rgb v1-v5 (the spline)
+// consts (FilmicRGB._SPLINE_CONSTS, the JAX package's order): M1 0, M2 3,
+// M3 6, M4 9, M5 12, lat_min 15, lat_max 16, y0 17, y4 18,
+// output_power 19, grey_source 20, black_source 21, dynamic_range 22,
+// y_weights 23, sigma_toe 26, sigma_shoulder 27, saturation 28,
+// norm_min 29, norm_max 30, display_black 31, display_white 32; then
+// input_m 33, output_m 42, gamut folds 51.
+// ints: toe curve type, shoulder curve type, colour science (0-4: v1-v5),
+// preserve method.  log_tonemapping(x, k + 3) reads grey, black and the
+// dynamic range at 20-22.
+enum { CSCI_V1 = 0, CSCI_V2, CSCI_V3, CSCI_V4, CSCI_V5 };
+enum {
+  METHOD_NONE = 0,
+  METHOD_MAX_RGB,
+  METHOD_LUMINANCE,
+  METHOD_POWER_NORM,
+  METHOD_EUCLIDEAN_V1,
+  METHOD_EUCLIDEAN_V2
+};
+
+// get_pixel_norm (filmicrgb.c:955-1014), channel sums (r + g) + b
+__device__ float filmic_norm(const float* v, int method, const float* w) {
+  switch (method) {
+    case METHOD_MAX_RGB: return max3(v);
+    case METHOD_POWER_NORM: {
+      float a0 = fabsf(v[0]), a1 = fabsf(v[1]), a2 = fabsf(v[2]);
+      float s0 = a0 * a0, s1 = a1 * a1, s2 = a2 * a2;
+      return (s0 * a0 + s1 * a1 + s2 * a2) / jmax(s0 + s1 + s2, K(1e-12));
+    }
+    case METHOD_EUCLIDEAN_V1: return sqrtf(v[0] * v[0] + v[1] * v[1] + v[2] * v[2]);
+    case METHOD_EUCLIDEAN_V2:
+      return sqrtf(v[0] * v[0] + v[1] * v[1] + v[2] * v[2]) / K(1.7320508075688772);
+    default: return w[0] * v[0] + w[1] * v[1] + w[2] * v[2];  // NONE, LUMINANCE
+  }
+}
+
+// the display curve: the spline clipped to [y0, y4], to the output power
+__device__ __forceinline__ float filmic_curve(float x, const float* k, const int* a) {
+  return powf(jclip(spline_eval(x, k, a[0], a[1]), k[17], k[18]), k[19]);
+}
+
+__device__ float desaturate_v2(float x, const float* k) {
+  float r_shoulder = 1.0f - x;
+  float sat2 = 0.5f / sqrtf(k[28]);
+  float key_toe = expf(-x * x / k[26] * sat2);
+  float key_shoulder = expf(-r_shoulder * r_shoulder / k[27] * sat2);
+  return k[28] - (key_toe + key_shoulder) * k[28];
+}
+
+__device__ float desaturate_v1(float x, const float* k) {
+  float key_toe = expf(K(-0.5) * x * x / k[26]);
+  float one_x = 1.0f - x;
+  float key_shoulder = expf(K(-0.5) * (one_x * one_x) / k[27]);
+  return 1.0f - jclip((key_toe + key_shoulder) / k[28], 0.0f, 1.0f);
+}
+
+// filmic_desaturate_v4 (filmicrgb.c:1757-1793)
+__device__ float desaturate_v4(float Y0, float c0, float Yf, float cf, float saturation) {
+  float chroma_o = c0 * Y0, chroma_f = cf * Yf;
+  float delta = saturation * (chroma_o - chroma_f);
+  float chroma_final;
+  if (Yf > Y0 && chroma_o < chroma_f)
+    chroma_final = K(0.5) * (chroma_o + chroma_f);
+  else if ((saturation > 0.0f && chroma_o > chroma_f) || saturation < 0.0f)
+    chroma_final = chroma_f + delta;
+  else
+    chroma_final = chroma_f;
+  return jmax(chroma_final / jmax(Yf, K(1e-9)), 0.0f);
+}
+
+__device__ __forceinline__ void filmic_spline(float* v, const float* k, const int* a) {
+  const int version = a[2], preserve = a[3];
+  const float* w = k + 23;
+  const float* lk = k + 3;  // log_tonemapping's grey, black, range at 20-22
+  if (version >= CSCI_V4) {
+    // tone map, then the Ych gamut mapping (filmic_chroma_v4,
+    // filmic_split_v4, filmic_v5, gamut_mapping_simd)
+    const float *input_m = k + 33, *output_m = k + 42;
+    float out[3];
+    bool split;
+    float sat;
+    float naive[3];
+    if (version == CSCI_V5 || preserve == METHOD_NONE) {
+      // RGB_tone_mapping_v4 (filmicrgb.c:2113-2128)
+      for (int i = 0; i < 3; ++i)
+        naive[i] = powf(jclip(spline_eval(log_tonemapping(v[i], lk), k, a[0], a[1]), 0.0f, k[18]),
+                        k[19]);
+    }
+    if (version == CSCI_V4 && preserve == METHOD_NONE) {
+      for (int i = 0; i < 3; ++i) out[i] = naive[i];
+    } else {
+      // norm_tone_mapping_v4 (filmicrgb.c:2085-2110)
+      int method = version == CSCI_V5 ? METHOD_MAX_RGB : preserve;
+      float norm = jclip(filmic_norm(v, method, w), k[29], k[30]);
+      float nout = filmic_curve(log_tonemapping(norm, lk), k, a);
+      for (int i = 0; i < 3; ++i) out[i] = (v[i] / norm) * nout;
+    }
+    if (version == CSCI_V4) {
+      split = preserve == METHOD_NONE;
+      sat = k[28];
+    } else {
+      for (int i = 0; i < 3; ++i)
+        out[i] = (K(0.5) + k[28]) * out[i] + (K(0.5) - k[28]) * naive[i];
+      split = true;
+      sat = 0.0f;
+    }
+    float ych0[4], ychf[4];
+    rgb_to_ych(v, input_m, ych0);
+    rgb_to_ych(out, input_m, ychf);
+    float cf = split ? jmin(ych0[1], ychf[1]) : ychf[1];
+    float Yf = jclip(ychf[0], K(CIE_Y_2006) * k[31], K(CIE_Y_2006) * k[32]);
+    cf = desaturate_v4(ych0[0], ych0[1], Yf, cf, sat);
+    gamut_map(Yf, cf, ych0[2], ych0[3], input_m, output_m, k + 51, k[31], k[32], v);
+    return;
+  }
+  if (preserve == METHOD_NONE) {
+    // filmic_split_v2_v3 (filmicrgb.c:1551-1588)
+    float temp[3];
+    for (int i = 0; i < 3; ++i) temp[i] = log_tonemapping(jmax(v[i], NORM_MIN), lk);
+    float lum = w[0] * temp[0] + w[1] * temp[1] + w[2] * temp[2];
+    float desat = version == CSCI_V1 ? desaturate_v1(lum, k) : desaturate_v2(lum, k);
+    for (int i = 0; i < 3; ++i) v[i] = filmic_curve(lum + desat * (temp[i] - lum), k, a);
+    return;
+  }
+  // filmic_chroma_v2_v3 (filmicrgb.c:1649-1705)
+  float norm = jmax(filmic_norm(v, preserve, w), NORM_MIN);
+  float ratios[3];
+  for (int i = 0; i < 3; ++i) ratios[i] = v[i] / norm;
+  float min_r = min3(ratios);
+  if (min_r < 0.0f)
+    for (int i = 0; i < 3; ++i) ratios[i] = ratios[i] - min_r;
+  float nlog = log_tonemapping(norm, lk);
+  float desat = desaturate_v2(nlog, k);
+  float nout = filmic_curve(nlog, k, a);
+  for (int i = 0; i < 3; ++i) ratios[i] = jmax(ratios[i] + (1.0f - ratios[i]) * (1.0f - desat), 0.0f);
+  if (version == CSCI_V3) nout = nout / jmax(filmic_norm(ratios, preserve, w), NORM_MIN);
+  float out[3];
+  for (int i = 0; i < 3; ++i) out[i] = ratios[i] * nout;
+  // gamut penalty (filmicrgb.c:1697-1704)
+  float max_pix = max3(out);
+  for (int i = 0; i < 3; ++i)
+    v[i] = max_pix > 1.0f ? jmax(ratios[i] + (1.0f - max_pix), 0.0f) * nout : out[i];
 }
 
 // --------------------------------------------------------------- colorout
@@ -1651,6 +1796,8 @@ __device__ __forceinline__ void apply(float* v, const float* k, const int* a, fl
     channelmixerrgb(v, k, a);
   } else if constexpr (OP == OP_FILMIC_AGX) {
     filmic_agx(v, k, a);
+  } else if constexpr (OP == OP_FILMIC_SPLINE) {
+    filmic_spline(v, k, a);
   } else if constexpr (OP == OP_COLOROUT) {
     colorout(v, k, a);
   } else if constexpr (OP == OP_CONVERT_WORK_LAB) {
@@ -1771,6 +1918,7 @@ chain(const float* __restrict__ x, float* __restrict__ y, long long n, int w,
         case OP_COLORCHECKER: apply<OP_COLORCHECKER>(v, k, a, yy, xx, kept); break;
         case OP_KEEP: apply<OP_KEEP>(v, k, a, yy, xx, kept); break;
         case OP_BLEND: apply<OP_BLEND>(v, k, a, yy, xx, kept); break;
+        case OP_FILMIC_SPLINE: apply<OP_FILMIC_SPLINE>(v, k, a, yy, xx, kept); break;
         default: break;  // the wrapper admits known opcodes only
       }
     }
@@ -1903,6 +2051,11 @@ using Fixed = std::tuple<
     // config 14: channelmixerrgb alone, between colorin's ICC profile and
     // the LUTs (its exposure and filmicrgb run config 3's and config 12's)
     Prog<Stage<OP_CHANNELMIXERRGB, 0>>,
+    // config 16: filmicrgb's spline route (colour science v5), colorout;
+    // the spline alone after a highlight reconstruction (its exposure
+    // and colorin run config 12's first)
+    Prog<Stage<OP_FILMIC_SPLINE, 0>, Stage<OP_COLOROUT, 57>>,
+    Prog<Stage<OP_FILMIC_SPLINE, 0>>,
     // config 10: exposure, graduatednd, colorin, channelmixerrgb, to Lab;
     // from Lab, colorbalancergb, rgbcurve, filmicrgb, to Lab, tonecurve,
     // colorzones, from Lab, vignette, colorout

@@ -1,5 +1,5 @@
 """The bench configurations the port runs (`bench.py:CONFIGS`), and the
-port's own configs 7-15, defined once for the chip smoke, the profile
+port's own configs 7-16, defined once for the chip smoke, the profile
 script and the tests.
 
 Each history is a tuple of (op, params) pairs, so that a test can build
@@ -1022,6 +1022,154 @@ def clip_shares(raw, meta) -> dict:
     return shares
 
 
+# the port's own: a darktable-4.0-era scene-referred edit of a high-ISO
+# 24 MP raw, exported for the web with a frame and a signature.  Config
+# 1's mosaic with the Poisson-Gaussian noise of a Sony ILCE-7M3 at ISO
+# 3200 (`mosaic16`, the camera's row of data/noiseprofiles.json, which
+# `meta16` names, so denoiseprofile's default params, its automatic
+# profile, find it); denoiseprofile in wavelets mode; exposure; diffuse as
+# local contrast at a combined radius of 64 px (8 wavelet scales at scale
+# 1, one iteration); colour equalizer and colour primaries edits (their
+# CLUTs built on the host); filmic rgb colour science v5 (params version
+# 4); a white border with a frame line, and the ansel.svg signature.  Its
+# floats are float32 values, as its sidecar carries them, the CLUT ops'
+# sigmas included (their defaults are float64 and would build other
+# CLUTs than the sidecar's float32 copies)
+COLOREQUAL16_NODES = 6
+SENSOR16 = ("Sony", "ILCE-7M3", 3200.0)
+NOISE16_SEED = 16
+
+
+def _colorequal_curves16():
+    """colorequal's 3 rings x 3 channels of periodic curves (hue,
+    saturation, brightness), 6 nodes each: warmer, richer mid tones,
+    slightly desaturated darks, brighter light blues."""
+    gains = {  # (ring, channel): per-node offsets of y from 0.5
+        (0, 1): (-0.04, -0.04, -0.03, -0.04, -0.05, -0.04),
+        (1, 0): (0.02, 0.015, 0.0, -0.01, 0.0, 0.01),
+        (1, 1): (0.08, 0.06, 0.03, 0.02, 0.04, 0.06),
+        (2, 2): (0.0, 0.0, 0.02, 0.05, 0.04, 0.0),
+    }
+    curve = [0.0] * (3 * 3 * 20 * 2)
+    counts = [0] * 9
+    for ring in range(3):
+        for ch in range(3):
+            dy = gains.get((ring, ch), (0.0,) * COLOREQUAL16_NODES)
+            base = (ring * 3 + ch) * 20 * 2
+            for k in range(COLOREQUAL16_NODES):
+                curve[base + 2 * k] = k / COLOREQUAL16_NODES
+                curve[base + 2 * k + 1] = 0.5 + dy[k]
+            counts[ring * 3 + ch] = COLOREQUAL16_NODES
+    return tuple(curve), tuple(counts)
+
+
+_CURVE16, _COUNTS16 = _colorequal_curves16()
+HISTORIES[16] = _f32((
+    ("denoiseprofile", {}),
+    ("exposure", {"exposure": 0.7}),
+    ("diffuse", {"iterations": 1, "radius": 48, "radius_center": 16,
+                 "regularization": 1.0, "variance_threshold": 0.25,
+                 "anisotropy_first": 1.0, "anisotropy_third": 1.0,
+                 "first": -0.25, "third": -0.25}),
+    ("colorequal", {"curve": _CURVE16, "curve_num_nodes": _COUNTS16,
+                    "sigma_L": 35.0, "sigma_rho": 1.0, "sigma_theta": 0.4,
+                    "neutral_protection": 0.1}),
+    ("colorprimaries", {"sigma_rho": 0.70710678, "sigma_theta": 0.70710678,
+                        "hue": (4.0, 0.0, -3.0, 0.0, 2.0, 0.0),
+                        "saturation": (8.0, 0.0, 6.0, -4.0, 0.0, 5.0),
+                        "brightness": (0.0, 0.0, -4.0, 0.0, 0.0, 3.0)}),
+    ("filmicrgb", {"version": 4, "white_point_source": 5.0,
+                   "black_point_source": -9.0, "contrast": 1.25,
+                   "saturation": 10.0, "latitude": 15.0}),
+    ("borders", {"color": (0.96, 0.96, 0.95), "size": 0.05,
+                 "frame_size": 0.3, "frame_offset": 0.5,
+                 "frame_color": (0.15, 0.15, 0.15)}),
+    ("watermark", {"filename": "ansel.svg", "scale": 18.0, "alignment": 8,
+                   "opacity": 60.0, "xoffset": -0.01, "yoffset": -0.01}),
+))
+
+
+def meta16(meta):
+    """Config 16's RawMeta: `meta` (either package's) naming the camera
+    and ISO of `SENSOR16`."""
+    import dataclasses
+
+    maker, model, iso = SENSOR16
+    return dataclasses.replace(meta, maker=maker, model=model, iso=iso)
+
+
+def mosaic16(raw, meta, seed: int = NOISE16_SEED):
+    """Config 16's mosaic from config 1's (numpy, sensor units): each
+    photosite gets Gaussian noise of variance a x + b of its CFA colour,
+    x the light above black over the white level's range, (a, b) the
+    ILCE-7M3's ISO 3200 coefficients (the Poisson-Gaussian model of
+    denoiseprofile), from a numpy generator seeded with `seed`; clipped
+    at 0."""
+    import numpy as np
+
+    from . import noiseprofiles
+
+    a, b = noiseprofiles.find(*SENSOR16)
+    black = float(meta.black_levels[0])
+    span = float(meta.white_point) - black
+    h, w = raw.shape
+    color = np.zeros((h, w), np.int64)
+    for y in range(2):
+        for x in range(2):
+            color[y::2, x::2] = meta.cfa.color_at(y, x)
+    x = np.clip((raw - black) / span, 0.0, None)
+    var = np.take(np.asarray(a), color) * x + np.take(np.asarray(b), color)
+    rng = np.random.default_rng(seed)
+    noisy = raw + np.sqrt(var) * span * rng.standard_normal((h, w))
+    return np.maximum(noisy, 0.0).astype(np.float32)
+
+
+# config 16's filmicrgb (colour science v5) as `opcode_chain` params,
+# and each colour science v1-v4 with each of the six preserve methods:
+# the cases `spline_jobs` runs on config 16's second chain input
+FILMIC16 = dict(HISTORIES[16])["filmicrgb"]
+SPLINE_CASES = tuple((v, m) for v in range(4) for m in range(6)) + ((4, 0),)
+# filmicrgb v5 after +1 EV with its highlight reconstruction planned and
+# fired at 24 MP (threshold 2^(5 - 2) x 0.1845, config 12's), so that its
+# tone map runs as the spline's one-stage program
+SPLINE_REC16 = (("exposure", {"exposure": 1.0}),
+                ("filmicrgb", dict(FILMIC16, reconstruct_threshold=-2.0)))
+
+
+def spline_jobs(x):
+    """((16, "filmic-spline", version, method), x, "filmicrgb", params) of
+    each of SPLINE_CASES: for `opcode_chain` on config 16's second chain
+    input x."""
+    return [((16, "filmic-spline", v, m), x, "filmicrgb",
+             dict(FILMIC16, version=v, preserve_color=m))
+            for v, m in SPLINE_CASES]
+
+
+# each op ported beside config 16, alone on a 24 MP frame (chip_smoke.py
+# [ops16]): (label, op, params); invert's X-Trans case on config 4's
+# mosaic
+_H16 = dict(HISTORIES[16])
+OPS16 = (
+    ("filmic", "filmic", {"preserve_color": 1, "saturation": 80.0}),
+    ("channelmixer", "channelmixer",
+     {"red": (0.0, 0.0, 0.0, 0.9, 0.1, 0.05, 0.0),
+      "green": (0.0, 0.0, 0.0, 0.05, 1.1, 0.0, 0.0),
+      "blue": (0.0, 0.0, 0.0, -0.05, 0.1, 0.95, 0.0)}),
+    ("invert", "invert", {"color": (0.9, 1.0, 0.8, 0.95)}),
+    ("invert-xtrans", "invert", {"color": (0.9, 1.0, 0.8, 0.95)}),
+    ("relight", "relight", {"ev": 0.8, "center": 0.3, "width": 6.0}),
+    ("blurs-lens", "blurs", {"type": 0, "radius": 8, "blades": 6,
+                             "concavity": 1.5, "linearity": 0.8}),
+    ("blurs-motion", "blurs", {"type": 1, "radius": 8, "angle": 0.6,
+                               "curvature": 1.5, "offset": 0.2}),
+    ("blurs-gaussian", "blurs", {"type": 2, "radius": 8}),
+    ("colorequal", "colorequal", _H16["colorequal"]),
+    ("colorprimaries", "colorprimaries", _H16["colorprimaries"]),
+    ("borders", "borders", _H16["borders"]),
+    ("watermark", "watermark", _H16["watermark"]),
+)
+
+
 # each config's frame (height, width)
 FRAMES = {1: (BENCH_H, BENCH_W), 2: (BENCH_H, BENCH_W),
           3: (BENCH3_H, BENCH3_W), 4: (BENCH4_H, BENCH4_W),
@@ -1029,7 +1177,7 @@ FRAMES = {1: (BENCH_H, BENCH_W), 2: (BENCH_H, BENCH_W),
           9: (BENCH_H, BENCH_W), 10: (BENCH_H, BENCH_W),
           11: (BENCH_H, BENCH_W), 12: (BENCH_H, BENCH_W),
           13: (BENCH_H, BENCH_W), 14: (BENCH_H, BENCH_W),
-          15: (BENCH_H, BENCH_W)}
+          15: (BENCH_H, BENCH_W), 16: (BENCH_H, BENCH_W)}
 # config 9's DNG: a 14-bit mosaic and a GainMap of 17 x 25 points per
 # RGGB filter
 DNG9_BITS = 14

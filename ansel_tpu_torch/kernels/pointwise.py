@@ -71,7 +71,8 @@ OP_PROFILE_GAMMA = 29
 OP_COLORCHECKER = 30
 OP_KEEP = 31    # holds the pixel before a blended stage
 OP_BLEND = 32   # mixes the stage's output with the held pixel
-_KNOWN_OPS = frozenset(range(OP_EXPOSURE, OP_BLEND + 1))
+OP_FILMIC_SPLINE = 33
+_KNOWN_OPS = frozenset(range(OP_EXPOSURE, OP_FILMIC_SPLINE + 1))
 TRC_SRGB, TRC_LINEAR, TRC_GAMMA = 0, 1, 2
 MAX_STAGES = 16
 STAGE_INTS = 8
@@ -135,6 +136,11 @@ FIXED = (
     # config 14: channelmixerrgb alone, between colorin's ICC profile and
     # the LUTs (its exposure and filmicrgb run config 3's and config 12's)
     ((OP_CHANNELMIXERRGB, 0),),
+    # config 16: filmicrgb's spline route (colour science v5), colorout;
+    # the spline alone after a highlight reconstruction (its exposure and
+    # colorin run config 12's first)
+    ((OP_FILMIC_SPLINE, 0), (OP_COLOROUT, 57)),
+    ((OP_FILMIC_SPLINE, 0),),
     # config 10: exposure, graduatednd, colorin, channelmixerrgb, to Lab;
     # from Lab, colorbalancergb, rgbcurve, filmicrgb, to Lab, tonecurve,
     # colorzones, from Lab, vignette, colorout

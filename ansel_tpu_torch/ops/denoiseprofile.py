@@ -14,9 +14,12 @@ denoiseprofile.c:276-305).  Planning and coefficients are copied from
   * NLM mode (process_nlmeans :1560-1650) through `pixel/nlmeans.py` (the
     NLM kernel on the device).
 
-Not ported, refused while planning: automatic noise profiles (a[1] <= 0
-needs io/noiseprofiles.py and its JSON database) and the row-sharded
-branch (`shard_geom`, the multi-device slice).
+Automatic noise profiles (a[1] <= 0, the module's defaults) look the
+camera up in `io/noiseprofiles.py` by maker, model and ISO, else take
+the generic a = 0.5e-4 with the JAX package's log line.
+
+Not ported, refused while planning: the row-sharded branch
+(`shard_geom`, the multi-device slice).
 """
 
 from __future__ import annotations
@@ -109,9 +112,6 @@ class DenoiseProfile(Op):
     input_colorspace = Colorspace.CAMERA_RGB
 
     def plan(self, ctx: PlanContext, spec_in, p: DenoiseProfileParams) -> OpPlan:
-        if p.a[1] <= 0:
-            raise not_ported(self.name, "automatic noise profiles (a <= 0, "
-                             "the noiseprofiles.json lookup)")
         if ctx.notes.get("shard_geom") is not None:
             raise not_ported(self.name, "the row-sharded pipe")
         # number of visible scales at this zoom (process_wavelets,
@@ -207,7 +207,24 @@ class DenoiseProfile(Op):
         toRGB = toRGB * s
         wb_s = wb * s
 
-        a1, b1 = p.a[1], p.b[1]  # a1 > 0: plan refuses the automatic profile
+        # noise profile: a <= 0 means "auto" -> look up the camera in the
+        # noiseprofiles.json database (iso-interpolated), else a generic
+        # fallback (noiseprofiles.c:dt_noiseprofile_get_matching)
+        a1, b1 = p.a[1], p.b[1]
+        if a1 <= 0:
+            from ..io.noiseprofiles import find as np_find
+
+            hit = np_find(ctx.meta.maker, ctx.meta.model, ctx.meta.iso)
+            if hit is not None:
+                a1, b1 = hit[0][1], hit[1][1]
+            else:
+                from ..core.log import log
+
+                log("always", "denoiseprofile: no noise profile for "
+                    f"'{ctx.meta.maker} {ctx.meta.model}' iso "
+                    f"{ctx.meta.iso} — using GENERIC coefficients "
+                    "(a=0.5e-4); profiled denoise quality degrades")
+                a1 = 0.5e-4
 
         forces = np.stack([_band_forces(p.x, p.y, ch) for ch in range(N_CH)])
         # per-scale adjustment factors (variance_stabilizing_xform)

@@ -243,3 +243,23 @@ def gamut_map(Y, c, cos_h, sin_h, input_m, output_m, display_black,
         max_c = torch.minimum(max_c, _clip_chroma_black(coeffs, cos_h, sin_h))
     out = ych_to_rgb(Y2, max_c, cos_h, sin_h, output_m)
     return torch.clamp(out, torch.zeros_like(display_white), display_white)
+
+
+def desaturate_v4(Y0, c0, Yf, cf, saturation):
+    """filmic_desaturate_v4 (filmicrgb.c:1757-1793): a linear model of
+    chroma against luminance, with the brightening and resaturation
+    guards.  `saturation` is a 0-d tensor, or the Python float 0.0 that
+    colour science v5 passes."""
+    chroma_o = c0 * Y0
+    chroma_f = cf * Yf
+    delta = saturation * (chroma_o - chroma_f)
+    brightens = Yf > Y0
+    resat = chroma_o < chroma_f
+    desat = chroma_o > chroma_f
+    user_resat = saturation > 0.0
+    user_desat = saturation < 0.0
+    chroma_final = torch.where(
+        brightens & resat, 0.5 * (chroma_o + chroma_f),
+        torch.where((user_resat & desat) | user_desat,
+                    chroma_f + delta, chroma_f))
+    return torch.clamp(chroma_final / torch.clamp(Yf, min=1e-9), min=0.0)

@@ -3,14 +3,17 @@
 Reference: `ansel/src/iop/filmicrgb.c` (params v5 filmicrgb.c:229-259).
 The host half (spline solve `dt_iop_filmic_rgb_compute_spline`
 filmicrgb.c:3614-3932, commit-time coefficients) is copied from
-`ansel_tpu/ops/filmicrgb.py`.  The per-pixel half is ported for the AgX
-route only (filmic_agx, filmicrgb.c:2436-2520: `_agx_pixel`, with the log
-tone map filmicrgb.c:1025-1029 and the spline eval filmicrgb.c:1042-1140),
-in torch here and as the FILMIC_AGX stage of the chain kernel, and the
-highlight reconstruction before it (filmicrgb.c:1408-1509, 2680-2780:
-noise inpainting and a-trous wavelet passes on the sepblur kernel), after
-which the tone map runs as a one-stage chain.  Colour sciences v1-v5
-raise at plan time.
+`ansel_tpu/ops/filmicrgb.py`.  The per-pixel half, in torch here and as
+a stage of the chain kernel: the AgX route (filmic_agx,
+filmicrgb.c:2436-2520: `_agx_pixel`, the FILMIC_AGX opcode) and the
+spline route of colour sciences v1-v5 (`_tonemap_pixel`: the v2/v3
+split and chroma loops filmicrgb.c:1551-1705 with desaturate_v1/v2, the
+v4/v5 norm and per-channel tone maps with the Ych gamut mapping
+filmicrgb.c:2085-2283; the FILMIC_SPLINE opcode), both with the log tone
+map filmicrgb.c:1025-1029 and the spline eval filmicrgb.c:1042-1140.
+The highlight reconstruction before them (filmicrgb.c:1408-1509,
+2680-2780: noise inpainting and a-trous wavelet passes on the sepblur
+kernel) is followed by the tone map as a one-stage chain.
 """
 
 from __future__ import annotations
@@ -24,11 +27,11 @@ import torch
 from ..core.params import cfield, params
 from ..core.types import Colorspace, ImageSpec
 from ..kernels import pointwise
-from ..kernels.pointwise import OP_FILMIC_AGX
+from ..kernels.pointwise import OP_FILMIC_AGX, OP_FILMIC_SPLINE
 from ..pixel import prng
 from ..pixel.wavelets import bspline_blur
 from .base import (Op, OpPlan, PlanContext, PointwiseSpec, channel_mean,
-                   not_ported, register)
+                   register)
 
 NORM_MIN = 1.52587890625e-05  # 2^-16 (reference src/math/math.h:37)
 SAFETY_MARGIN = 0.01          # reference filmicrgb.c spline geometry
@@ -453,6 +456,49 @@ def _spline_eval(x, types, c):
                        torch.where(x > lat_max, shoulder, lat))
 
 
+def _desaturate_v2(x, sigma_toe, sigma_shoulder, saturation):
+    r_toe = x
+    r_shoulder = 1.0 - x
+    sat2 = 0.5 / torch.sqrt(saturation)
+    key_toe = torch.exp(-r_toe * r_toe / sigma_toe * sat2)
+    key_shoulder = torch.exp(-r_shoulder * r_shoulder / sigma_shoulder * sat2)
+    return saturation - (key_toe + key_shoulder) * saturation
+
+
+def _desaturate_v1(x, sigma_toe, sigma_shoulder, saturation):
+    key_toe = torch.exp(-0.5 * x * x / sigma_toe)
+    one_x = 1.0 - x
+    key_shoulder = torch.exp(-0.5 * (one_x * one_x) / sigma_shoulder)
+    return 1.0 - torch.clamp((key_toe + key_shoulder) / saturation, 0.0, 1.0)
+
+
+_SQRT3 = math.sqrt(3.0)
+
+
+def _pixel_norm(rgb, variant: int, w):
+    """(3, H, W) -> (H, W); get_pixel_norm (filmicrgb.c:955-1014).  The
+    sums over the channels run (r + g) + b, as XLA reduces three values
+    and the chain kernel adds them."""
+    if variant == METHOD_MAX_RGB:
+        return torch.amax(rgb, dim=0)
+    if variant == METHOD_LUMINANCE or variant == METHOD_NONE:
+        return w[0] * rgb[0] + w[1] * rgb[1] + w[2] * rgb[2]
+    if variant == METHOD_POWER_NORM:
+        a = torch.abs(rgb)
+        sq = a * a
+        cube = sq * a
+        return (cube[0] + cube[1] + cube[2]) \
+            / torch.clamp(sq[0] + sq[1] + sq[2], min=1e-12)
+    sq = rgb * rgb
+    norm = torch.sqrt(sq[0] + sq[1] + sq[2])
+    if variant == METHOD_EUCLIDEAN_V1:
+        return norm
+    # METHOD_EUCLIDEAN_V2: a 0-d divisor, so that torch on CUDA divides
+    # as the kernel does (by a Python float it multiplies by the
+    # reciprocal)
+    return norm / torch.full((), _SQRT3, device=rgb.device)
+
+
 @register
 class FilmicRGB(Op):
     name = "filmicrgb"
@@ -495,9 +541,6 @@ class FilmicRGB(Op):
             rec = (scales, max(int(p.high_quality_reconstruction), 0))
         static = (version_class, preserve, p.shadows, p.highlights,
                   p.version, rec)
-        if version_class != CSCI_AGX_FIRST:
-            raise not_ported(self.name, f"colour science v{version + 1} "
-                             "(the spline route)")
         return OpPlan(spec_in=spec_in, spec_out=spec_in, static=static)
 
     def coeffs(self, ctx: PlanContext, plan: OpPlan, p: FilmicParams):
@@ -563,26 +606,26 @@ class FilmicRGB(Op):
         }
 
     def apply(self, x, c, plan: OpPlan, ctx: PlanContext):
-        """Highlight reconstruction when planned, then the AgX tone map
-        through the chain kernel as a program of its own (the JAX
-        package's `_apply_agx` runs it through `pallas_pointwise`)."""
+        """Highlight reconstruction when planned, then the tone map (AgX
+        or the spline route) through the chain kernel as a program of its
+        own (the JAX package fuses it, or runs `_apply_agx` through
+        `pallas_pointwise`)."""
         rec = plan.static[5]
         if rec is not None:
             x = self._reconstruct_highlights(x, c, rec)
         return pointwise.pointwise_chain(x.contiguous(),
-                                         self._agx_chain(x, c, plan))
+                                         self._tonemap_chain(x, c, plan))
 
-    def _agx_chain(self, x, c, plan):
-        """The one-stage AgX chain for these device coefficients, packed
-        once (packing reads the coefficients back to the host)."""
-        hit = _AGX_CHAINS.get(id(c))
+    def _tonemap_chain(self, x, c, plan):
+        """The one-stage tone-map chain for these device coefficients,
+        packed once (packing reads the coefficients back to the host)."""
+        hit = _TONEMAP_CHAINS.get(id(c))
         if hit is None or hit[0] is not c \
                 or hit[1].prog.device != x.device:
-            chain = pointwise.pack_chain([self._agx_spec(plan)], [c],
-                                         x.device)
-            _AGX_CHAINS[id(c)] = hit = (c, chain)
-            while len(_AGX_CHAINS) > 8:
-                del _AGX_CHAINS[next(iter(_AGX_CHAINS))]
+            chain = pointwise.pack_chain([self._spec(plan)], [c], x.device)
+            _TONEMAP_CHAINS[id(c)] = hit = (c, chain)
+            while len(_TONEMAP_CHAINS) > 8:
+                del _TONEMAP_CHAINS[next(iter(_TONEMAP_CHAINS))]
         return hit[1]
 
     # consts the chain kernel reads, in order (25 floats)
@@ -596,7 +639,12 @@ class FilmicRGB(Op):
         planned (a spatial wavelet pass): then the stage runs alone."""
         if plan.static[5] is not None:
             return None
-        return self._agx_spec(plan)
+        return self._spec(plan)
+
+    def _spec(self, plan):
+        if plan.static[0] == CSCI_AGX_FIRST:
+            return self._agx_spec(plan)
+        return self._spline_spec(plan)
 
     def _agx_spec(self, plan):
         from . import filmic_agx as agx
@@ -612,6 +660,119 @@ class FilmicRGB(Op):
             fn=lambda x, c: self._agx(x, c, plan.static),
             opcode=OP_FILMIC_AGX, consts=self._AGX_CONSTS,
             ints=tuple(plan.static[2:4]), extra=tuple(extra))
+
+    # consts of the spline route, in the JAX package's order (33 floats;
+    # every colour science v1-v5 reads a subset)
+    _SPLINE_CONSTS = ("M1", "M2", "M3", "M4", "M5", "lat_min", "lat_max",
+                      "y0", "y4", "output_power", "grey_source",
+                      "black_source", "dynamic_range", "y_weights",
+                      "sigma_toe", "sigma_shoulder", "saturation",
+                      "norm_min", "norm_max", "display_black",
+                      "display_white")
+
+    def _spline_spec(self, plan):
+        """Colour sciences v1-v5: the kernel's ints are the curve types,
+        the colour science and the preserve method; after the consts come
+        the Ych matrices and the gamut folds v4 and v5 read."""
+        from . import filmic_agx as agx
+
+        input_m, output_m = (m.tolist() for m in agx.agx_matrices())
+        extra = [float(v) for m in (input_m, output_m) for row in m
+                 for v in row]
+        for row in output_m:
+            extra.extend(agx.gamut_fold([float(v) for v in row]))
+        return PointwiseSpec(
+            fn=lambda x, c: self._tonemap_pixel(x, c, plan.static),
+            opcode=OP_FILMIC_SPLINE, consts=self._SPLINE_CONSTS,
+            ints=tuple(plan.static[2:4]) + tuple(plan.static[0:2]),
+            extra=tuple(extra))
+
+    def _tonemap_pixel(self, x, c, static):
+        """Per-pixel tone mapping of colour sciences v1-v5 (the JAX
+        package's `_tonemap_pixel`, in its operand order)."""
+        from . import filmic_agx as agx
+
+        version, preserve = static[0], static[1]
+        types = static[2:4]
+        gs, bs, dr = c["grey_source"], c["black_source"], c["dynamic_range"]
+
+        def curve(v):
+            mapped = _spline_eval(v, types, c)
+            return torch.clamp(mapped, c["y0"], c["y4"]) ** c["output_power"]
+
+        if version >= CSCI_V4:
+            # tone map, then the Ych gamut mapping (filmic_chroma_v4,
+            # filmic_split_v4 :2131-2224, filmic_v5 :2227-2283,
+            # gamut_mapping_simd :1965-2010)
+            input_m, output_m = (m.tolist() for m in agx.agx_matrices())
+
+            def rgb_tone_map(v):
+                # RGB_tone_mapping_v4 (filmicrgb.c:2113-2128)
+                sp_ = _spline_eval(_log_tonemapping(v, gs, bs, dr), types, c)
+                return torch.clamp(sp_, torch.zeros_like(c["y4"]),
+                                   c["y4"]) ** c["output_power"]
+
+            def norm_tone_map(v, method):
+                # norm_tone_mapping_v4 (filmicrgb.c:2085-2110): the norm
+                # clamped first, so clipped highlights keep a sane chroma
+                norm = torch.clamp(_pixel_norm(v, method, c["y_weights"]),
+                                   c["norm_min"], c["norm_max"])
+                nout = curve(_log_tonemapping(norm, gs, bs, dr))
+                return (v / norm[None]) * nout[None]
+
+            if version == CSCI_V4:
+                split = preserve == METHOD_NONE
+                out = rgb_tone_map(x) if split \
+                    else norm_tone_map(x, preserve)
+                sat = c["saturation"]
+            else:  # CSCI_V5: the max-RGB norm blended with the channels
+                naive = rgb_tone_map(x)
+                mx = norm_tone_map(x, METHOD_MAX_RGB)
+                out = (0.5 + c["saturation"]) * mx \
+                    + (0.5 - c["saturation"]) * naive
+                split = True
+                sat = 0.0
+            Y0, c0, cos0, sin0 = agx.rgb_to_ych(x, input_m)
+            Yf, cf, _, _ = agx.rgb_to_ych(out, input_m)
+            if split:
+                cf = torch.minimum(c0, cf)
+            Yf = torch.clamp(Yf, agx.CIE_Y_2006 * c["display_black"],
+                             agx.CIE_Y_2006 * c["display_white"])
+            cf = agx.desaturate_v4(Y0, c0, Yf, cf, sat)
+            return agx.gamut_map(Yf, cf, cos0, sin0, input_m, output_m,
+                                 c["display_black"], c["display_white"])
+
+        w = c["y_weights"]
+        if preserve == METHOD_NONE:
+            # filmic_split_v2_v3 (filmicrgb.c:1551-1588)
+            temp = _log_tonemapping(torch.clamp(x, min=NORM_MIN), gs, bs, dr)
+            lum = w[0] * temp[0] + w[1] * temp[1] + w[2] * temp[2]
+            desaturate = _desaturate_v1 if version == CSCI_V1 \
+                else _desaturate_v2
+            desat = desaturate(lum, c["sigma_toe"], c["sigma_shoulder"],
+                               c["saturation"])
+            sat_in = lum[None] + desat[None] * (temp - lum[None])
+            return curve(sat_in)
+
+        # filmic_chroma_v2_v3 (filmicrgb.c:1649-1705)
+        norm = torch.clamp(_pixel_norm(x, preserve, w), min=NORM_MIN)
+        ratios = x / norm[None]
+        min_r = torch.amin(ratios, dim=0, keepdim=True)
+        ratios = torch.where(min_r < 0.0, ratios - min_r, ratios)
+        nlog = _log_tonemapping(norm, gs, bs, dr)
+        desat = _desaturate_v2(nlog, c["sigma_toe"], c["sigma_shoulder"],
+                               c["saturation"])
+        nout = curve(nlog)
+        ratios = torch.clamp(ratios + (1.0 - ratios) * (1.0 - desat[None]),
+                             min=0.0)
+        if version == CSCI_V3:
+            nout = nout / torch.clamp(_pixel_norm(ratios, preserve, w),
+                                      min=NORM_MIN)
+        out = ratios * nout[None]
+        # gamut penalty (filmicrgb.c:1697-1704)
+        max_pix = torch.amax(out, dim=0, keepdim=True)
+        pen_ratios = torch.clamp(ratios + (1.0 - max_pix), min=0.0)
+        return torch.where(max_pix > 1.0, pen_ratios * nout[None], out)
 
     @staticmethod
     def _agx_matrices(raw_version):
@@ -741,6 +902,6 @@ class FilmicRGB(Op):
         return recon
 
 
-# one-stage AgX chains packed by FilmicRGB.apply, by id of their device
-# coefficients (each entry holds the dict, so the id stays its own)
-_AGX_CHAINS = {}
+# one-stage tone-map chains packed by FilmicRGB.apply, by id of their
+# device coefficients (each entry holds the dict, so the id stays its own)
+_TONEMAP_CHAINS = {}

@@ -99,7 +99,21 @@ entry points a user calls, at their full frames:
     config 4's, each timed and held on a crop against the CPU;
   * `[highlight-modes]`: LCH and INPAINT on config 15's mosaic, INPAINT on
     config 4's clipped the same way, HARMONIC's dome core alone, each
-    timed and held on a crop against the CPU.
+    timed and held on a crop against the CPU;
+  * the port's config 16 at 24 MP (4000 x 6016 -> 4444 x 6684 with its
+    border), a high-ISO web export (`[pipe16]`): config 1's mosaic with
+    an ILCE-7M3's ISO 3200 noise, denoiseprofile's automatic profile
+    (the noise-profile database), exposure, diffuse at 8 scales (the
+    XLA form in torch on the sepblur kernel), colorequal, colorprimaries
+    (host CLUTs, built on a host thread while nvcc runs), filmicrgb
+    colour science v5 on the chain's spline opcode (33), a border with a
+    frame line and the ansel.svg signature: RCD, EAW, sepblur and two
+    chain programs against their twins; its sidecar through `python -m
+    ansel_tpu_torch.cli`; `[diffuse-wide]` the decompose's 8 blurs and
+    the step; `[opcode] filmic-spline` opcode 33 alone for colour
+    sciences v1-v4 with each preserve method, v5, and v5 after a
+    highlight reconstruction, each with the interpreter's time;
+    `[ops16]` each new torch op alone at 24 MP.
 
 Each path runs with the launch counts set to 0 just before it and read
 just after.  Every chain each config builds is also timed on its own
@@ -134,6 +148,7 @@ from ansel_tpu_torch.io import configs
 from ansel_tpu_torch.io.encode import read_png16, to_uint16, write_image
 from ansel_tpu_torch.io.rawfile import load_raw, save_raw
 from ansel_tpu_torch.io.synthetic import synth_raw
+from ansel_tpu_torch.core.types import RawMeta
 from ansel_tpu_torch.io.xmp import XMPDocument, parse_xmp, write_xmp
 from ansel_tpu_torch.kernels import (_build, bgrid, diffuse, eaw, iir,
                                      markesteijn, nlm, rcd, sepblur, warp)
@@ -254,6 +269,24 @@ PIPE15_REPEATS = 5
 # the all-clip cells' at least CLIP15_MIN (the per-channel domes and the
 # all-clip core both fire), the all-clip cells' under CLIP15_ALL_MAX
 CLIP15_MIN, CLIP15_ALL_MAX = 0.01, 0.40
+# config 16: denoiseprofile's wavelets with its automatic profile (the
+# EAW kernel, 7 scales), [exposure, colorin] (program 11), diffuse at 8
+# scales (the XLA form in torch: sepblur at dilations 1-128), colorequal
+# and colorprimaries (host CLUTs, torch), [filmicrgb v5, colorout] (the
+# spline opcode's program), borders and watermark in torch
+LAUNCHES16 = dict(NO_LAUNCHES, rcd=1, chain=2, eaw=7, sepblur=8)
+PROGRAMS16 = {pw.FIXED.index(((pw.OP_EXPOSURE, 0), (pw.OP_MATRIX, 2))): 1,
+              pw.FIXED.index(((pw.OP_FILMIC_SPLINE, 0),
+                              (pw.OP_COLOROUT, 57))): 1}
+SPLINE_ALONE = pw.FIXED.index(((pw.OP_FILMIC_SPLINE, 0),))
+STAGES16 = ["rawprepare", "temperature", "highlights", "demosaic",
+            "denoiseprofile", "exposure", "colorin", "diffuse",
+            "colorprimaries", "colorequal", "filmicrgb", "colorout",
+            "borders", "watermark"]
+KINDS16 = ["stage"] * 5 + ["chain"] + ["stage"] * 3 + ["chain"] \
+    + ["stage"] * 2
+PIPE16_REPEATS = 5
+OPS16_REPEATS = 2
 # [demosaic-methods] and [highlight-modes]: one step alone at the full
 # frame, then the card against the CPU on a crop (Bayer 256 x 384 at an
 # even corner, X-Trans 240 x 384 at a corner on the 6-pixel period)
@@ -337,7 +370,7 @@ OPS_CHAIN = {(1, 0): (1095, 57), (2, 0): (847, 42), (3, 0): (6, 0),
              # each grading opcode alone on config 10's chain inputs
              # (`--opcodes`), colorbalancergb in dt UCS (1) and JzAzBz (0)
              (10, "colorbalancergb", 1): (1927, 72),
-             (10, "colorbalancergb", 0): (1960, 59),
+             (10, "colorbalancergb", 0): (1961, 59),
              (10, "rgbcurve"): (156, 5), (10, "rgblevels"): (74, 4),
              (10, "basecurve"): (140, 5), (10, "tonecurve"): (140, 5),
              (10, "levels"): (62, 3), (10, "basicadj"): (321, 10),
@@ -350,8 +383,8 @@ OPS_CHAIN = {(1, 0): (1095, 57), (2, 0): (847, 42), (3, 0): (6, 0),
              (11, "colisa"): (79, 3), (11, "splittoning"): (147, 0),
              (11, "colorize"): (4, 0), (11, "colorbalance"): (330, 12),
              (11, "splittoningrgb"): (118, 3), (11, "lowlight"): (407, 14),
-             (11, "profile_gamma", 0): (174, 8),
-             (11, "profile_gamma", 1): (231, 5),
+             (11, "profile_gamma", 0): (216, 9),
+             (11, "profile_gamma", 1): (273, 6),
              (11, "profile_gamma", 2): (135, 3),
              (11, "colorchecker"): (390, 0),
              # config 12: [exposure, colorin], filmicrgb's AgX alone
@@ -366,7 +399,37 @@ OPS_CHAIN = {(1, 0): (1095, 57), (2, 0): (847, 42), (3, 0): (6, 0),
              (15, 0): (1093, 57),
              # the fast pipes run config 1's program on their PPG and
              # bilinear pixels: config 1's count, not recounted on them
-             ("preview", 0): (1095, 57), ("thumbnail", 0): (1095, 57)}
+             ("preview", 0): (1095, 57), ("thumbnail", 0): (1095, 57),
+             # config 16: [exposure, colorin], [filmicrgb v5, colorout];
+             # opcode 33 alone on the second chain's input per colour
+             # science and preserve method, and after a reconstruction
+             (16, 0): (21, 0), (16, 1): (995, 49),
+             (16, "filmic-spline", 0, 0): (299, 16),
+             (16, "filmic-spline", 0, 1): (232, 15),
+             (16, "filmic-spline", 0, 2): (234, 15),
+             (16, "filmic-spline", 0, 3): (259, 17),
+             (16, "filmic-spline", 0, 4): (247, 17),
+             (16, "filmic-spline", 0, 5): (254, 17),
+             (16, "filmic-spline", 1, 0): (293, 16),
+             (16, "filmic-spline", 1, 1): (232, 15),
+             (16, "filmic-spline", 1, 2): (234, 15),
+             (16, "filmic-spline", 1, 3): (259, 17),
+             (16, "filmic-spline", 1, 4): (247, 17),
+             (16, "filmic-spline", 1, 5): (254, 17),
+             (16, "filmic-spline", 2, 0): (293, 16),
+             (16, "filmic-spline", 2, 1): (232, 15),
+             (16, "filmic-spline", 2, 2): (234, 15),
+             (16, "filmic-spline", 2, 3): (259, 17),
+             (16, "filmic-spline", 2, 4): (247, 17),
+             (16, "filmic-spline", 2, 5): (254, 17),
+             (16, "filmic-spline", 3, 0): (617, 36),
+             (16, "filmic-spline", 3, 1): (671, 40),
+             (16, "filmic-spline", 3, 2): (674, 40),
+             (16, "filmic-spline", 3, 3): (686, 42),
+             (16, "filmic-spline", 3, 4): (678, 41),
+             (16, "filmic-spline", 3, 5): (684, 42),
+             (16, "filmic-spline", 4, 0): (839, 46),
+             (16, "filmic-spline-rec"): (738, 42)}
 FLOPS_SEPBLUR_PER_TAP = 4        # two passes, a multiply and an add each
 FLOPS_EAW = 25 * 24 + 10         # 25 taps; the divide and the detail
 # the atrous variant per pixel: 25 taps of the three differences and
@@ -3441,6 +3504,317 @@ def run_highlight_modes(card, record, meta, raw, meta4, raw4, pipe15,
     record["highlight-modes"] = rows
 
 
+def warm_cluts16():
+    """Config 16's two 64^3 CLUTs into this process's cache (a host build
+    of ~18 s, overlapped with the kernels' build)."""
+    meta = configs.meta16(RawMeta(width=W, height=H))
+    port.Pipeline(meta, configs.history(16), device="cpu").coeffs()
+
+
+def captured16(pipe, raw_dev):
+    """Run config 16 once on a device-resident raw and keep the arguments
+    of its RCD, EAW, sepblur (by dilation) and chain calls."""
+    calls = {"rcd": [], "eaw": [], "sepblur": {}, "chain": []}
+    real_rcd, real_eaw = rcd.rcd_demosaic, eaw.eaw_dn_coarse
+    real_sb, real_chain = sepblur.sep_blur, pw.pointwise_chain
+
+    def keep(name, real):
+        return lambda *a: calls[name].append(a) or real(*a)
+
+    def sb(x, taps, d=1):
+        calls["sepblur"][d] = (x, taps, d)
+        return real_sb(x, taps, d)
+
+    with swapped([(rcd, "rcd_demosaic", keep("rcd", real_rcd)),
+                  (eaw, "eaw_dn_coarse", keep("eaw", real_eaw)),
+                  (sepblur, "sep_blur", sb),
+                  (pw, "pointwise_chain", keep("chain", real_chain))]):
+        pipe.run_padded(raw_dev)
+    expect(len(calls["rcd"]) == 1 and len(calls["eaw"]) == LAUNCHES16["eaw"]
+           and sorted(calls["sepblur"]) == [1 << s for s in range(8)]
+           and len(calls["chain"]) == LAUNCHES16["chain"],
+           f"unexpected config-16 calls: "
+           f"{[(k, len(v)) for k, v in calls.items()]}")
+    return calls
+
+
+def check_kernels16(calls, record):
+    """RCD (bit-equal), the seven EAW scales of the automatic profile's
+    wavelets (STENCIL_TOL), each against its twin with device ms."""
+    mosaic, cfa, scaler = calls["rcd"][0]
+    got = rcd.rcd_demosaic(mosaic, cfa, scaler)
+    want = rcd.rcd_demosaic_reference(mosaic, cfa, scaler)
+    mx, _ = compare(got, want)
+    expect(torch.equal(got, want), f"config 16's RCD: max {mx}")
+    b_ms, b_by = bound(nbytes(mosaic, got),
+                       instructions=FLOPS_RCD * mosaic.numel(),
+                       sfu=MUFU_RCD * mosaic.numel())
+    del got, want
+    ms = median_ms(lambda: rcd.rcd_demosaic(mosaic, cfa, scaler))
+    plain_ms = median_ms(lambda: rcd.rcd_demosaic_reference(
+        mosaic, cfa, scaler), PLAIN_REPEATS)
+    record["rcd16"] = dict(max_abs_err=mx, ms=ms, plain_ms=plain_ms,
+                           library_ms=None, bound_ms=b_ms, bound_by=b_by)
+    print(f"[pipe16] RCD on config 16's noisy mosaic {tuple(mosaic.shape)}: "
+          f"bit-equal to its twin | kernel {ms:.3f} ms, plain "
+          f"{plain_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by})", flush=True)
+    err, rows, ms_, plain_ = 0.0, [], [], []
+    for x, scale, inv_sigma2 in calls["eaw"]:
+        got = eaw.eaw_dn_coarse(x, scale, inv_sigma2)
+        want = eaw.eaw_coarse_reference(x, scale, inv_sigma2, eaw.DN)
+        for g, w_ in zip(got, want):
+            mx, _ = compare(g, w_)
+            expect(mx <= STENCIL_TOL, f"eaw config 16 s={scale}: max {mx}")
+            err = max(err, mx)
+        del got, want
+        ms_.append(median_ms(lambda: eaw.eaw_dn_coarse(x, scale,
+                                                       inv_sigma2)))
+        plain_.append(median_ms(lambda: eaw.eaw_coarse_reference(
+            x, scale, inv_sigma2, eaw.DN), PLAIN_REPEATS))
+        rows.append(f"s{scale} {ms_[-1]:.3f}/{plain_[-1]:.1f}")
+    x = calls["eaw"][0][0]
+    b_ms, b_by = bound(3 * nbytes(x), FLOPS_EAW * x[0].numel())
+    record["eaw16"] = dict(max_abs_err=err, ms=float(np.mean(ms_)),
+                           plain_ms=float(np.mean(plain_)), library_ms=None,
+                           bound_ms=b_ms, bound_by=b_by)
+    print(f"[pipe16] EAW on the automatic profile's wavelets "
+          f"{tuple(x.shape)}, scales 0-{len(rows) - 1}, kernel vs plain: max "
+          f"{err:.3g} (tol {STENCIL_TOL:g}) | ms kernel/plain: "
+          f"{', '.join(rows)} | bound {b_ms:.3f} ms per scale ({b_by})",
+          flush=True)
+
+
+def check_diffuse_wide(card, pipe, calls, raw_dev, record):
+    """`[diffuse-wide]`: each sepblur launch of config 16's 8-scale
+    decompose against its twin (bit-equal) with device ms, the conv2d
+    yardstick and the bound; then the diffuse step's device ms and peak
+    memory."""
+    rows, err, tot, b_by, x = sepblur_per_image(
+        (x, taps, d, 1) for d, (x, taps, _) in sorted(
+            calls["sepblur"].items()))
+    n = LAUNCHES16["sepblur"]
+    record["sepblur16"] = dict(max_abs_err=err, bound_by=b_by,
+                               per_image=tot, launches=n,
+                               **{k: v / n for k, v in tot.items()})
+    i = STAGES16.index("diffuse")
+    y = pipe.pipe.trace_fn(0, i)(raw_dev, pipe.coeffs[:i])
+    st, c, ctx = pipe.pipe.stages[i], pipe.coeffs[i], pipe.pipe.ctx
+    ms, peak, held, out = step_device(
+        lambda: st.op.apply(y, c, st.plan, ctx), METHOD_REPEATS)
+    expect(bool(torch.isfinite(out).all()), "diffuse-wide: not finite")
+    del out, y
+    print(f"[diffuse-wide] config 16's diffuse at {st.plan.static[0]} "
+          f"scales, {tuple(x.shape)} B3 decompose kernel vs plain: max "
+          f"{err:.3g} (bit-equal) | ms kernel/plain/conv2d: "
+          f"{', '.join(rows)} | per image ({n} launches): kernel "
+          f"{tot['ms']:.3f} ms, plain {tot['plain_ms']:.1f}, conv2d "
+          f"{tot['library_ms']:.3f}, bound {tot['bound_ms']:.3f} ms ({b_by}) "
+          f"| the step: {ms:.1f} ms (device, {METHOD_REPEATS} timed runs "
+          f"after 1 warm-up), peak device memory {peak:.3f} GB ({held:.3f} "
+          f"GB held before) on {card}", flush=True)
+
+
+def spline_rec_call(meta, raw_dev):
+    """(x, chain) of filmicrgb v5's one-stage program after its highlight
+    reconstruction (`configs.SPLINE_REC16`) on config 1's frame."""
+    pipe = port.compile_pipeline(meta, [port.HistoryItem(op, dict(p))
+                                        for op, p in configs.SPLINE_REC16])
+    calls, real = [], pw.pointwise_chain
+    with swapped([(pw, "pointwise_chain",
+                   lambda x, c: calls.append((x, c)) or real(x, c))]):
+        pipe.run_padded(raw_dev)
+    rec = [(x, c) for x, c in calls if c.fixed == SPLINE_ALONE]
+    expect(len(rec) == 1, "the reconstruction's spline program did not run")
+    return rec[0]
+
+
+def check_spline_opcode(card, meta, x, rec_call, record):
+    """`[opcode] filmic-spline`: opcode 33 alone on config 16's second
+    chain input for v1-v4 with each preserve method and v5, then v5's
+    one-stage program after a reconstruction: the kernel (the spline's
+    specialised program) bit-equal to the interpreter and against the
+    twin, device ms of both and of the twin, the OPS_CHAIN bound."""
+    jobs = [(key, x_, configs.opcode_chain(meta, name, prm, x_.shape,
+                                           x_.device))
+            for key, x_, name, prm in configs.spline_jobs(x)]
+    jobs.append(((16, "filmic-spline-rec"),) + rec_call)
+    rows, worst = [], 0.0
+    for key, x_, chain in jobs:
+        expect(chain.fixed == SPLINE_ALONE, f"{key}: program {chain.fixed}")
+        interpreted = dataclasses.replace(chain, fixed=-1)
+        got = pw.pointwise_chain(x_, chain)
+        expect(torch.equal(got, pw.pointwise_chain(x_, interpreted)),
+               f"{key}: the program differs from the interpreter")
+        want = pw.pointwise_chain_reference(x_, chain)
+        mx, mean = compare(got, want)
+        scale = max(1.0, want.abs().max().item())
+        del got, want
+        expect(mx <= CHAIN_MAX_TOL * scale and mean <= CHAIN_MEAN_TOL * scale,
+               f"opcode {key}: max {mx}, mean {mean}")
+        worst = max(worst, mx)
+        ms = median_ms(lambda: pw.pointwise_chain(x_, chain))
+        interp_ms = median_ms(lambda: pw.pointwise_chain(x_, interpreted))
+        plain_ms = median_ms(lambda: pw.pointwise_chain_reference(x_, chain),
+                             PLAIN_REPEATS)
+        fp32, mufu = OPS_CHAIN[key]
+        px = x_[0].numel()
+        b_ms, b_by = bound(2 * nbytes(x_), instructions=(fp32 + mufu) * px,
+                           sfu=mufu * px)
+        label = "/".join(str(k) for k in key[1:])
+        rows.append(dict(op=label, max_abs_err=mx, ms=ms,
+                         interpreter_ms=interp_ms, plain_ms=plain_ms,
+                         bound_ms=b_ms, bound_by=b_by))
+        print(f"[opcode] {label} on {tuple(x_.shape)}: program "
+              f"{chain.fixed}, equal to the interpreter; vs plain "
+              + ("bit-equal" if mx == 0.0 else f"max {mx:.3g} mean "
+                 f"{mean:.3g}") + f" | kernel {ms:.4f} ms, interpreter "
+              f"{interp_ms:.4f} ms, plain {plain_ms:.1f} ms, bound "
+              f"{b_ms:.4f} ms ({b_by}; {fp32} float32 + {mufu} MUFU a "
+              f"pixel) on {card}", flush=True)
+    record["opcodes16"] = rows
+    return worst
+
+
+def run_config16(card, record, raw, meta, phases, tmp):
+    """Config 16 at 24 MP, a high-ISO web export: config 1's mosaic with
+    the ILCE-7M3's ISO 3200 noise (`configs.mosaic16`, the camera named
+    by `configs.meta16`), denoiseprofile's automatic profile, exposure,
+    diffuse at 8 scales, colorequal, colorprimaries, filmicrgb v5, a
+    border and the ansel.svg signature.  Through the user's entry point
+    with launches counted, against the composed twins; its kernels on the
+    arguments the pipe hands them (`[diffuse-wide]`, `[opcode]
+    filmic-spline`); each step's device time, the pipe's rate and peak
+    memory; then its sidecar through `python -m ansel_tpu_torch.cli`
+    against the in-process export of the same bundle."""
+    with timed(phases, "pipe16 mosaic"):
+        raw16 = configs.mosaic16(raw, meta)
+        meta16 = configs.meta16(meta)
+        pipe = port.compile_pipeline(meta16, configs.history(16))
+        raw16_dev = torch.from_numpy(pad_to(raw16, pipe.pipe.spec_in)).cuda()
+    stages = [s.name for s in pipe.pipe.stages]
+    expect(stages == STAGES16, f"unexpected config-16 plan {stages}")
+    expect([k for k, *_ in pipe.steps] == KINDS16,
+           f"unexpected config-16 steps {[k for k, *_ in pipe.steps]}")
+    so = pipe.pipe.spec_out
+    statics = {n: pipe.pipe.stages[STAGES16.index(n)].plan.static
+               for n in ("denoiseprofile", "diffuse", "filmicrgb")}
+    with timed(phases, "pipe16 vs plain"):
+        reset_launches()
+        out = pipe.output_array(raw16)
+        launches = read_launches()
+        programs, _ = read_split()
+        expect(launches == LAUNCHES16 and programs == PROGRAMS16,
+               f"config-16 launches {launches}, programs {programs}")
+        launches["programs"] = programs
+        expect(out.shape == (3, so.height, so.width)
+               and so.width > W and so.height > H,
+               f"output shape {out.shape}")
+        expect(bool(np.isfinite(out).all()) and out.min() >= 0.0
+               and out.max() <= 1.0, "output not finite or outside [0, 1]")
+        reset_launches()
+        with plain_twins():
+            plain = pipe.output_array(raw16)
+        expect(all(v == 0 for v in read_launches().values()),
+               f"the plain composition launched kernels: {read_launches()}")
+        pipe_err = float(np.abs(out - plain).max())
+        pipe_mean = float(np.abs(out - plain).mean())
+        expect(pipe_err <= PIPE_TOL, f"config 16 vs plain: max {pipe_err}")
+        del plain
+    with timed(phases, "pipe16 kernels"):
+        calls = captured16(pipe, raw16_dev)
+        check_kernels16(calls, record)
+        for j, row in enumerate(check_chains(16, calls["chain"],
+                                             pipe.fused_groups())):
+            record[f"chain16.{j}"] = row
+    with timed(phases, "diffuse-wide"):
+        check_diffuse_wide(card, pipe, calls, raw16_dev, record)
+    with timed(phases, "opcode filmic-spline"):
+        raw_dev = torch.from_numpy(raw).cuda()
+        worst = check_spline_opcode(card, meta, calls["chain"][1][0],
+                                    spline_rec_call(meta, raw_dev), record)
+        del calls, raw_dev
+    print(f"[opcode] filmic-spline: {len(record['opcodes16'])} cases, "
+          f"largest difference from the twin {worst:.3g}", flush=True)
+    with timed(phases, "pipe16 timing"):
+        steps = step_times(pipe, raw16_dev)
+        per_img = time_pipe(pipe, raw16_dev, PIPE16_REPEATS)
+        peak, held = pipe_peak(pipe, raw16_dev)
+    print(f"[pipe16] config 16 {H}x{W} -> {so.height}x{so.width}: "
+          f"{len(stages)} stages, denoiseprofile {statics['denoiseprofile']}"
+          f", diffuse {statics['diffuse']}, filmicrgb "
+          f"{statics['filmicrgb']}, chains {pipe.fused_groups()}, launches "
+          f"{launches}, vs plain max {pipe_err:.3g} mean {pipe_mean:.3g} "
+          f"(tol 1/255), range [{out.min():.3g}, {out.max():.3g}] | "
+          f"{1.0 / per_img:.3f} img/s, {per_img * 1e3:.1f} ms/img "
+          f"(device-resident input, {PIPE16_REPEATS} repeats after 2 "
+          f"warm-ups), peak device memory {peak:.3f} GB ({held:.3f} GB held "
+          "before) | steps (device ms): "
+          + ", ".join(f"{n} {t:.3f}" for n, t in steps) + f" on {card}",
+          flush=True)
+    del raw16_dev
+    sidecar = os.path.join(tmp, "config16.xmp")
+    png = os.path.join(tmp, "config16.png")
+    bundle = os.path.join(tmp, "config16.npz")
+    with timed(phases, "pipe16 cli"):
+        write_xmp(sidecar, XMPDocument(history=configs.history(16)))
+        save_raw(bundle, raw16, meta16)
+        cli_s = run_cli(bundle, sidecar, png)
+        braw, bmeta = load_raw(bundle)[:2]
+        exported = export_image(braw, bmeta, xmp_path=sidecar)
+        expect(np.array_equal(read_png16(png), to_uint16(exported)),
+               "the CLI's PNG differs from the in-process export")
+        side_err = float(np.abs(exported - out).max())
+        expect(side_err <= PIPE_TOL,
+               f"the sidecar's export vs the render: max {side_err}")
+    print(f"[pipe16] config 16's sidecar through `python -m "
+          f"ansel_tpu_torch.cli` to a 16-bit PNG: {cli_s:.2f} s wall (a new "
+          "process: start, kernels loaded, raw bundle, the two CLUTs built, "
+          "pipe, PNG), equal to to_uint16 of the in-process export of the "
+          f"bundle, which is within {side_err:.3g} of the render on {card}",
+          flush=True)
+    return launches
+
+
+def run_ops16(card, record, meta, raw, meta4, raw4, phases):
+    """`[ops16]`: each op of configs.OPS16 alone on a 24 MP frame (config
+    1's mosaic after +0.7 EV; invert's X-Trans case on config 4's): its
+    stage's device ms (OPS16_REPEATS after 1 warm-up) and peak memory,
+    finite and changed."""
+    rows = []
+    for label, name, params in configs.OPS16:
+        m, r = (meta4, raw4) if label == "invert-xtrans" else (meta, raw)
+        with timed(phases, f"ops16 {label}"):
+            hist = [port.HistoryItem("exposure", {"exposure": 0.7}),
+                    port.HistoryItem(name, dict(params))]
+            pipe = port.compile_pipeline(m, hist)
+            i = [s.name for s in pipe.pipe.stages].index(name)
+            raw_dev = torch.from_numpy(pad_to(r, pipe.pipe.spec_in)).cuda()
+            x = pipe.pipe.trace_fn(0, i)(raw_dev, pipe.coeffs[:i])
+            del raw_dev
+            st, c, ctx = pipe.pipe.stages[i], pipe.coeffs[i], pipe.pipe.ctx
+            reset_launches()
+            ms, peak, held, out = step_device(
+                lambda: st.op.apply(x, c, st.plan, ctx), OPS16_REPEATS)
+            launches = {k: v for k, v in read_launches().items() if v}
+            expect(not launches, f"ops16 {label}: launched {launches}")
+            expect(bool(torch.isfinite(out).all()),
+                   f"ops16 {label}: not finite")
+            if out.shape == x.shape:
+                changed = (out - x).abs().max().item()
+            else:
+                changed = float(out.shape[-1] - x.shape[-1])
+            expect(changed > 1e-3, f"ops16 {label}: output equals input")
+            shape = tuple(out.shape)
+            del out
+        rows.append(dict(op=label, ms=ms, peak_gb=peak))
+        print(f"[ops16] {label} alone on {tuple(x.shape)} -> {shape}: "
+              f"{ms:.2f} ms (device, {OPS16_REPEATS} timed runs after 1 "
+              f"warm-up), peak device memory {peak:.3f} GB ({held:.3f} GB "
+              f"held before), finite, changed on {card}", flush=True)
+        del pipe, x
+    record["ops16"] = rows
+
+
 def run_devtest_and_entry(phases):
     """The CLI's card diagnostic, then entry()'s fn on the card against
     the same fn with every kernel's plain twin."""
@@ -3488,6 +3862,7 @@ def main(argv=None):
             synth = pool.submit(synth_raw, h=H, w=W, kind="gradients")
             synth3 = pool.submit(synth_raw, h=H3, w=W3, kind="gradients")
             synth4 = pool.submit(xtrans_raw, H4, W4)
+            cluts16 = pool.submit(warm_cluts16)
             build_s = _build.build_all()
             print(f"[build] nvcc built and loaded "
                   f"{', '.join(_build.KERNELS)} in {build_s:.1f} s",
@@ -3539,6 +3914,15 @@ def main(argv=None):
                             raw15_dev, phases)
         del pipe15, raw15_dev
         branches_s = time.perf_counter() - t15
+        # config 16, its kernels at their new arguments and the new ops
+        # alone, on config 1's and config 4's mosaics at 24 MP
+        t16 = time.perf_counter()
+        with timed(phases, "cluts16 wait"):
+            cluts16.result()
+        with tempfile.TemporaryDirectory() as tmp:
+            launches16 = run_config16(card, record, raw, meta, phases, tmp)
+        run_ops16(card, record, meta, raw, meta4, raw4, phases)
+        slice16_s = time.perf_counter() - t16
     # launches per image: config 2's for the first five kernels, config
     # 3's for the IIR and diffuse kernels, config 4's for Markesteijn and
     # the warp, config 7's for the grid slice
@@ -3547,7 +3931,8 @@ def main(argv=None):
                     warp=launches4["warp"], bgrid=launches7["bgrid"])
     print(f"[done] total {time.perf_counter() - t0:.1f} s, of which "
           f"[pipe15], [demosaic-methods] and [highlight-modes] "
-          f"{branches_s:.1f} s | "
+          f"{branches_s:.1f} s, [pipe16], [diffuse-wide], [opcode] "
+          f"filmic-spline and [ops16] {slice16_s:.1f} s | "
           + ", ".join(f"{k} {v:.1f} s" for k, v in phases.items()),
           flush=True)
 
@@ -3601,7 +3986,8 @@ def main(argv=None):
             # the grading and legacy opcodes, each alone on config 10's
             # and config 11's arguments; every blend mode and mask class
             # as a blend record on config 13's chain inputs
-            entry_["opcodes"] = record["opcodes10"] + record["opcodes11"]
+            entry_["opcodes"] = (record["opcodes10"] + record["opcodes11"]
+                                 + record["opcodes16"])
             entry_["blend_records"] = record["blend-modes"]
         if key == "sepblur":
             # filmicrgb's reconstruction in config 12: per launch, and
@@ -3703,6 +4089,35 @@ def main(argv=None):
                     "replaces": "ansel_tpu/kernels/pointwise.py:30",
                     "launches": launches15["programs"][row["program"]],
                     **{k: row[k] for k in keys}})
+    # config 16: RCD on its noisy mosaic, EAW on the automatic profile's
+    # wavelets, sepblur in the 8-scale decompose of diffuse (its numbers
+    # per launch, `per_image` over the 8) and its two chain programs,
+    # each with its launches in [pipe16]
+    for name, src, replaces, key, n in (
+            ("rcd_demosaic[config16]", "rcd.cu",
+             "ansel_tpu/kernels/rcd_pallas.py:189", "rcd16",
+             launches16["rcd"]),
+            ("eaw_dn_coarse[config16]", "eaw.cu",
+             "ansel_tpu/kernels/eaw_pallas.py:199", "eaw16",
+             launches16["eaw"]),
+            ("sep_blur[config16]", "sepblur.cu",
+             "ansel_tpu/kernels/sepblur_pallas.py:189", "sepblur16",
+             launches16["sepblur"])):
+        entry_ = {"name": name, "route": "cuda",
+                  "source": f"ansel_tpu_torch/csrc/{src}",
+                  "replaces": replaces, "launches": n,
+                  **{k: record[key][k] for k in keys}}
+        if key == "sepblur16":
+            entry_["per_image"] = record[key]["per_image"]
+        kernels.append(entry_)
+    for j in range(LAUNCHES16["chain"]):
+        row = record[f"chain16.{j}"]
+        kernels.append({"name": f"pointwise_chain[config16.{j}]",
+                        "route": "cuda",
+                        "source": "ansel_tpu_torch/csrc/pointwise_chain.cu",
+                        "replaces": "ansel_tpu/kernels/pointwise.py:30",
+                        "launches": launches16["programs"][row["program"]],
+                        **{k: row[k] for k in keys}})
     kernels.append({"name": "eaw_atrous_coarse", "route": "cuda",
                     "source": "ansel_tpu_torch/csrc/eaw.cu",
                     "replaces": "ansel_tpu/kernels/eaw_pallas.py:205",

@@ -3,7 +3,7 @@
 chain of the port's configs needs in the fused colour chain
 (`csrc/pointwise_chain.cu`), counted from its SASS.
 
-    python3 scripts/chain_count.py [--configs 1 2 3 4 7 10 11 12 13 14 15]
+    python3 scripts/chain_count.py [--configs 1 2 3 4 7 10 11 12 13 14 15 16]
                                    [--stride 64] [--opcodes]
 
 Three steps, on the machine with the card:
@@ -21,9 +21,12 @@ Three steps, on the machine with the card:
    parameter set, both saturation formulas of colorbalancergb) as a
    one-stage chain on config 10's chain inputs, as `chip_smoke.py`
    launches them: the RGB ops on the demosaiced image, the Lab ops on the
-   second chain's input; and each op of `configs.LEGACY_CASES` (its
+   second chain's input; each op of `configs.LEGACY_CASES` (its
    first set, profile_gamma's three) on the input of the stage of config
-   11's chain that `configs.legacy_jobs` picks.
+   11's chain that `configs.legacy_jobs` picks; and filmicrgb's spline
+   route, colour sciences v1-v4 with each preserve method and v5
+   (`configs.spline_jobs`), on config 16's second chain input, and v5's
+   one-stage program after a highlight reconstruction.
 3. Each SASS basic block of the interpreter kernel (`chain`) is weighted
    by the runs per pixel of its lines: a line of the kernel itself by its
    count over the pixels; a line of a device function without a loop by
@@ -331,6 +334,8 @@ def captured_chains(n, meta_out=None, groups_out=None):
         raw, meta = configs.remosaic_xtrans(meta, scene)
     if n == 15:  # 2 EV brighter, clipped at the white level
         raw = configs.mosaic15(raw, meta)
+    if n == 16:  # the ILCE-7M3's noise at ISO 3200, the camera named
+        raw, meta = configs.mosaic16(raw, meta), configs.meta16(meta)
     with configs.history_files(n) as hist:
         pipe = port.compile_pipeline(meta, hist, forms=configs.forms(n))
     if groups_out is not None:
@@ -346,19 +351,42 @@ def captured_chains(n, meta_out=None, groups_out=None):
     return calls
 
 
+def spline_rec_chain():
+    """(x, chain) of filmicrgb v5's one-stage program after its highlight
+    reconstruction (`configs.SPLINE_REC16` on config 1's 24 MP frame)."""
+    raw, meta, _ = synth_raw(h=configs.BENCH_H, w=configs.BENCH_W,
+                             kind="gradients")
+    pipe = port.compile_pipeline(meta, [port.HistoryItem(op, dict(p))
+                                        for op, p in configs.SPLINE_REC16])
+    raw_dev = torch.from_numpy(pad_to(raw, pipe.pipe.spec_in)).cuda()
+    calls, real = [], pw.pointwise_chain
+    pw.pointwise_chain = lambda x, c: calls.append((x, c)) or real(x, c)
+    try:
+        pipe.run_padded(raw_dev)
+    finally:
+        pw.pointwise_chain = real
+    return next((x, c) for x, c in calls
+                if pw.FIXED[c.fixed] == ((pw.OP_FILMIC_SPLINE, 0),))
+
+
 def opcode_jobs():
     """((10, op[, formula]), x, chain) of each op of configs.GRADING_CASES
-    as a one-stage chain on config 10's chain inputs, and ((11, op[, i]),
-    x, chain) of each op of configs.LEGACY_CASES on config 11's, as
+    as a one-stage chain on config 10's chain inputs, ((11, op[, i]), x,
+    chain) of each op of configs.LEGACY_CASES on config 11's, ((16,
+    "filmic-spline", version, method), x, chain) of each colour science
+    of filmicrgb's spline route on config 16's second chain input, and
+    (16, "filmic-spline-rec") after a highlight reconstruction, as
     chip_smoke.py launches them."""
     meta, groups = [], []
     calls = captured_chains(10, meta)
     jobs = configs.grading_jobs([x for x, _ in calls])
     (x, chain), = captured_chains(11, groups_out=groups)
     jobs += configs.legacy_jobs(x, chain, groups[0])
-    return [(key, x, configs.opcode_chain(meta[0], name, prm, x.shape,
-                                          x.device))
-            for key, x, name, prm in jobs]
+    jobs += configs.spline_jobs(captured_chains(16)[1][0])
+    out = [(key, x, configs.opcode_chain(meta[0], name, prm, x.shape,
+                                         x.device))
+           for key, x, name, prm in jobs]
+    return out + [((16, "filmic-spline-rec"),) + spline_rec_chain()]
 
 
 def fmt(parts):
@@ -369,7 +397,7 @@ def fmt(parts):
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--configs", type=int, nargs="+",
-                    default=[1, 2, 3, 4, 7, 10, 11, 12, 13, 14, 15])
+                    default=[1, 2, 3, 4, 7, 10, 11, 12, 13, 14, 15, 16])
     ap.add_argument("--stride", type=int, default=64)
     ap.add_argument("--opcodes", action="store_true")
     args = ap.parse_args()

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time goes in the PyTorch/CUDA port's pipe, on one GPU.
 
-    python3 scripts/torch_profile.py [--config 1|2|3|4|7|8|9|10|11|12|13|14|15]
+    python3 scripts/torch_profile.py [--config 1|2|3|4|7|8|...|15|16]
                                      [--images 3]
 
 Plans bench config 1, 2 (4000 x 6016), 3 (5504 x 8256), 4 (an X-Trans
@@ -18,7 +18,10 @@ filmicrgb's highlight reconstruction, grain and dither, 4000 x 6016) or
 layer, its files written to a temporary directory, 4000 x 6016) or 15
 (the back-lit landscape: HARMONIC highlights on config 1's mosaic 2 EV
 brighter and clipped, RCD under the dual blend with green equilibration
-and colour smoothing, 4000 x 6016) through
+and colour smoothing, 4000 x 6016) or 16 (the high-ISO web export:
+config 1's mosaic with an ILCE-7M3's ISO 3200 noise, denoiseprofile's
+automatic profile, diffuse at 8 scales, colorequal, colorprimaries,
+filmicrgb v5, borders, watermark, 4000 x 6016) through
 `compile_pipeline`, warms up, then runs `run_padded` on a device-resident raw `--images`
 times without the profiler and `--images` times under torch.profiler.
 Prints one line per group of device kernels (ms per image and launches
@@ -47,7 +50,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import ansel_tpu_torch as port  # noqa: E402
 from ansel_tpu_torch.io.configs import (  # noqa: E402
     FRAMES, XTRANS_CONFIGS, forms, gain_map_meta9, history_files, mosaic9,
-    mosaic15, remosaic_xtrans)
+    meta16, mosaic15, mosaic16, remosaic_xtrans)
 from ansel_tpu_torch.io.synthetic import synth_raw  # noqa: E402
 from ansel_tpu_torch.kernels import _build  # noqa: E402
 from ansel_tpu_torch.ops.base import pad_to  # noqa: E402
@@ -107,6 +110,8 @@ def main():
         meta = gain_map_meta9(meta)
     if args.config == 15:  # 2 EV brighter, clipped at the white level
         raw = mosaic15(raw, meta)
+    if args.config == 16:  # the ILCE-7M3's noise at ISO 3200, the camera
+        raw, meta = mosaic16(raw, meta), meta16(meta)
     t = time.perf_counter()
     with history_files(args.config) as hist:
         pipe = port.compile_pipeline(meta, hist, device="cuda",

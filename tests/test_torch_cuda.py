@@ -1680,3 +1680,91 @@ def test_harmonic_dome_core_on_cuda_matches_cpu(cuda):
                                  st.plan.spec_in.cfa)
     _branch_close(got, want)
     assert (got - rec).abs().max().item() > 0.05
+
+
+def _spline_input(cuda, hw, seed):
+    """A log-normal scene from deep shadow to ~10x over white, with
+    negative, zero and grey pixels (tests/test_torch_filmic_versions.py's)."""
+    rng = np.random.default_rng(seed)
+    x = np.exp(rng.normal(-1.8, 1.7, (3,) + hw)).astype(np.float32)
+    x[:, 0, : hw[1] // 4] = -0.02
+    if hw[0] > 2:
+        x[:, 1, : hw[1] // 4] = 0.0
+        x[:, 2, : hw[1] // 4] = x[0, 2, : hw[1] // 4]
+    return torch.from_numpy(x).to(cuda)
+
+
+@pytest.mark.parametrize("version,method", configs.SPLINE_CASES,
+                         ids=[f"v{v + 1}-{m}" for v, m in
+                              configs.SPLINE_CASES])
+def test_filmic_spline_opcode_matches_plain(cuda, version, method):
+    """Opcode 33 (filmicrgb's spline route) as a one-stage chain, through
+    its specialised program and the interpreter (equal bit for bit),
+    against its plain twin on a frame of whole blocks and an odd one."""
+    meta = synth_raw(h=16, w=16)[1]
+    params = dict(configs.FILMIC16, version=version, preserve_color=method)
+    for hw in [(64, 256), (5, 7)]:
+        x = _spline_input(cuda, hw, version * 6 + method)
+        chain = configs.opcode_chain(meta, "filmicrgb", params, x.shape,
+                                     cuda)
+        assert pw.FIXED[chain.fixed] == ((pw.OP_FILMIC_SPLINE, 0),)
+        got = pw.pointwise_chain(x, chain)
+        interp = pw.pointwise_chain(x, dataclasses.replace(chain, fixed=-1))
+        want = pw.pointwise_chain_reference(x, chain)
+        torch.cuda.synchronize()
+        assert torch.equal(got, interp)
+        assert torch.isfinite(got).all() and torch.isfinite(want).all()
+        d = (got - want).abs()
+        assert d.max().item() <= CHAIN_MAX_TOL
+        assert d.mean().item() <= CHAIN_MEAN_TOL
+
+
+def test_filmic_spline_after_a_reconstruction_on_cuda(cuda):
+    """filmicrgb v5 with its highlight reconstruction planned and fired:
+    the spline's one-stage program after it, against the stage with the
+    twins."""
+    raw, meta, _ = synth_raw(h=144, w=400, kind="gradients")
+    hist = [port.HistoryItem(op, dict(p)) for op, p in configs.SPLINE_REC16]
+    pipe = port.compile_pipeline(meta, hist, device=cuda)
+    pw.PROGRAM_LAUNCHES.clear()
+    got = pipe.output_array(raw)
+    spline = pw.FIXED.index(((pw.OP_FILMIC_SPLINE, 0),))
+    assert pw.PROGRAM_LAUNCHES[spline] == 1
+    real = (sepblur.sep_blur, pw.pointwise_chain)
+    sepblur.sep_blur = sepblur.sep_blur_reference
+    pw.pointwise_chain = pw.pointwise_chain_reference
+    try:
+        want = pipe.output_array(raw)
+    finally:
+        sepblur.sep_blur, pw.pointwise_chain = real
+    assert np.isfinite(got).all()
+    assert np.abs(got - want).max() <= 1.0 / 255.0
+
+
+def test_config16_on_cuda_matches_its_twins(cuda, monkeypatch):
+    """Config 16 at 144 x 400 on the card (RCD, the EAW decompose of the
+    automatic profile's wavelets, the first chain, diffuse's 8-scale
+    decompose on sepblur, the spline chain; the rest in torch) against the
+    same pipe on the card with each wrapper's plain twin, and against the
+    CPU."""
+    raw, meta, _ = synth_raw(h=144, w=400, kind="gradients")
+    raw, meta = configs.mosaic16(raw, meta), configs.meta16(meta)
+    pipe = port.compile_pipeline(meta, configs.history(16), device=cuda)
+    rcd.LAUNCHES = pw.LAUNCHES = sepblur.LAUNCHES = eaw.LAUNCHES = 0
+    diffuse.LAUNCHES = 0
+    got = pipe.output_array(raw)
+    scales = pipe.pipe.stages[4].plan.static[0]
+    assert (rcd.LAUNCHES, eaw.LAUNCHES, pw.LAUNCHES, sepblur.LAUNCHES,
+            diffuse.LAUNCHES) == (1, scales, 2, 8, 0)
+    cpu = port.compile_pipeline(meta, configs.history(16),
+                                device="cpu").output_array(raw)
+    monkeypatch.setattr(rcd, "rcd_demosaic", rcd.rcd_demosaic_reference)
+    monkeypatch.setattr(sepblur, "sep_blur", sepblur.sep_blur_reference)
+    monkeypatch.setattr(pw, "pointwise_chain", pw.pointwise_chain_reference)
+    monkeypatch.setattr(eaw, "eaw_dn_coarse", lambda x, s, c:
+                        eaw.eaw_coarse_reference(x, s, c, eaw.DN))
+    want = pipe.output_array(raw)
+    assert np.isfinite(got).all() and got.min() >= 0.0 and got.max() <= 1.0
+    for other in (want, cpu):
+        d = np.abs(got - other)
+        assert d.max() <= 1.0 / 255.0 and d.mean() <= 1e-5

@@ -3,7 +3,9 @@ plain twin against the Pallas kernel in interpret mode over the full
 frame (1-5 scales, the three isotropy modes mixed across the four
 kernels, frames smaller than the halo), the op against the JAX CPU op in
 the interior and against the scalar mirror of diffuse.c, and plan and
-coefficients bit for bit.  Inputs come from numpy seeds and go to both
+coefficients bit for bit; past five scales, the op's XLA form (6, 7 and
+8 scales) against the JAX CPU op on the whole frame and its PDE step at
+dilations 32-128 against the mirror.  Inputs come from numpy seeds and go to both
 packages as the same float32 arrays."""
 
 import jax.numpy as jnp
@@ -108,7 +110,20 @@ OP_CASES = {
                           threshold=0.5),
     "config3": dict(iterations=4, first=0.2, second=0.2, third=0.2,
                     fourth=0.2, radius=8),
+    # past MAX_SCALES: the JAX package's XLA form in torch (6, 7, 8 scales)
+    "wide-6": dict(iterations=1, radius=12, first=0.1, second=-0.05,
+                   third=0.1, fourth=0.05, regularization=1.0,
+                   sharpness=0.2),
+    "wide-7": dict(iterations=2, radius=24, radius_center=4, first=-0.2,
+                   third=-0.2, regularization=1.0, variance_threshold=0.25,
+                   anisotropy_first=1.0, anisotropy_second=-1.0,
+                   anisotropy_third=2.0),
+    "wide-8": dict(iterations=1, radius=48, radius_center=16, first=-0.25,
+                   third=-0.25, regularization=1.0, variance_threshold=0.25,
+                   anisotropy_first=1.0, anisotropy_third=1.0,
+                   threshold=0.4),
 }
+WIDE = {"wide-6": 6, "wide-7": 7, "wide-8": 8}
 
 
 @pytest.mark.parametrize("name", sorted(OP_CASES))
@@ -158,8 +173,67 @@ def test_diffuse_one_scale_matches_reference_mirror(modes):
 
 
 def test_diffuse_refuses_more_than_five_scales():
-    with pytest.raises(NotImplementedError):
-        _pair(dict(radius=12))
+    """Planning refused more than MAX_SCALES (5) scales until the JAX
+    package's XLA form was ported; at radius 12 (6 scales) the op now
+    plans as the JAX op does and matches it on the whole frame."""
+    (rop, rctx, rplan, rc), (pop, pctx, pplan, pc) = _pair(dict(radius=12))
+    assert pplan.static == rplan.static and pplan.static[0] == 6
+    rng = np.random.default_rng(12)
+    x = rng.uniform(0.05, 0.9, (3, 96, 256)).astype(np.float32)
+    want = np.asarray(rop.apply(jnp.asarray(x), rc, rplan, rctx))
+    c = engine.coeffs_to_device([pc], "cpu")[0]
+    got = pop.apply(torch.from_numpy(x), c, pplan, pctx).numpy()
+    assert np.abs(got - want).max() <= XLA_TOL
+
+
+@pytest.mark.parametrize("name", sorted(WIDE))
+def test_diffuse_wide_matches_jax_cpu_op_whole_frame(name, monkeypatch):
+    """Past five scales both packages run the XLA form (re-padded at every
+    blur and PDE step), so the whole frame agrees; the decompose goes
+    through the sepblur wrapper at dilations 1 .. 2^(S-1), once a scale
+    an iteration, and the diffuse kernel's wrapper is not called."""
+    (rop, rctx, rplan, rc), (pop, pctx, pplan, pc) = _pair(OP_CASES[name])
+    scales, iterations = pplan.static[0], pplan.static[1]
+    assert scales == WIDE[name]
+    rng = np.random.default_rng(scales)
+    x = rng.uniform(0.05, 0.9, (3, 96, 256)).astype(np.float32)
+    want = np.asarray(rop.apply(jnp.asarray(x), rc, rplan, rctx))
+    c = engine.coeffs_to_device([pc], "cpu")[0]
+    calls = []
+    real = sepblur.sep_blur
+
+    def spy(x, taps, dilation):
+        calls.append(dilation)
+        return real(x, taps, dilation)
+
+    monkeypatch.setattr(sepblur, "sep_blur", spy)
+    monkeypatch.setattr(diffuse, "diffuse_iteration", None)
+    got = pop.apply(torch.from_numpy(x), c, pplan, pctx).numpy()
+    assert calls == [1 << s for s in range(scales)] * iterations
+    assert np.abs(got - x).max() > 1e-3   # it diffused
+    assert np.abs(got - want).max() <= XLA_TOL
+
+
+@pytest.mark.parametrize("scale,modes", [(5, (1, 0, 2, 1)),
+                                         (6, (0, 0, 0, 0)),
+                                         (7, (2, 2, 1, 0))])
+def test_diffuse_wide_pde_step_matches_reference_mirror(scale, modes):
+    """The XLA form's PDE step at dilations 32, 64 and 128 (scales 5-7)
+    against the scalar float64 transcription of diffuse.c's
+    heat_PDE_diffusion, which clamps its stencil at the edge as the step
+    edge-pads: the whole frame."""
+    rng = np.random.default_rng(scale)
+    hf = rng.normal(0.0, 0.05, (3, 20, 28)).astype(np.float32)
+    lf = rng.uniform(0.05, 1.0, (3, 20, 28)).astype(np.float32)
+    c = _coeffs(scale + 1, 7)
+    got = port_diffuse._pde_step(torch.from_numpy(hf), torch.from_numpy(lf),
+                                 _tensors(c), scale, modes).numpy()
+    want = heat_pde_diffusion(
+        hf.astype(np.float64), lf.astype(np.float64), c["aniso"], modes,
+        float(c["variance_threshold"]), 1 << scale,
+        float(c["norm_reg"][scale]), c["ABCD"][scale],
+        float(c["strength"][scale]))
+    assert np.abs(got - want).max() <= MIRROR_TOL
 
 
 def test_diffuse_legacy_v1_decodes_like_reference():

@@ -248,19 +248,19 @@ def test_cli_writes_the_16_bit_png_of_export_image(tmp_path, sidecar8,
 
 
 @pytest.mark.parametrize("op,params,args,bp,message", [
-    ("filmicrgb", {"version": 4}, ["--width", "100"], INACTIVE,
-     "filmicrgb: colour science"),
-    ("relight", None, [], ACTIVE, "relight"),
+    ("rawdenoiseai", None, ["--width", "100"], INACTIVE,
+     "rawdenoiseai: this module"),
+    ("rawdenoiseai", None, [], ACTIVE, "rawdenoiseai"),
 ], ids=["width", "active-blend"])
 def test_cli_refuses_what_is_not_ported(tmp_path, op, params, args, bp,
                                         message):
     """The "width" case refused `--width` until export scaling was
-    ported; it now plans the export at that width up to a branch the
-    port has not ported yet (filmicrgb's v5 colour science; highlights'
-    LCH mode until it was ported).  The "active-blend"
+    ported; it now plans the export at that width up to a module the
+    port has not ported yet (rawdenoiseai; filmicrgb's v5 colour science
+    and highlights' LCH mode until they were ported).  The "active-blend"
     case refused an active blend until blends were ported; it now
-    carries one on a module the port has not ported (relight; drawlayer
-    until it was ported)."""
+    carries one on a module the port has not ported (rawdenoiseai;
+    relight and drawlayer until they were ported)."""
     xmp = str(tmp_path / "h.xmp")
     write_xmp(xmp, [engine.HistoryItem(op, params, blend_params=bp)])
     out = str(tmp_path / "out.png")

@@ -163,11 +163,11 @@ def test_an_unknown_op_is_skipped(frame, pallas_rcd, op):
 
 
 def test_an_unported_reference_op_is_still_refused(frame):
-    """relight (lut3d until it was ported)."""
+    """rawdenoiseai (lut3d and relight until they were ported)."""
     _, meta, _ = frame
-    with pytest.raises(NotImplementedError, match="relight"):
+    with pytest.raises(NotImplementedError, match="rawdenoiseai"):
         ansel_tpu_torch.Pipeline(
-            meta, [ansel_tpu_torch.HistoryItem("relight", {})],
+            meta, [ansel_tpu_torch.HistoryItem("rawdenoiseai", {})],
             device="cpu")
 
 

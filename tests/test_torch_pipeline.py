@@ -207,25 +207,17 @@ def _xtrans(meta):
 
 
 @pytest.mark.parametrize("items,meta_fn,kw", [
-    ([("blurs", {})], None, {}),                             # not ported
-    ([("filmicrgb", {"version": 4})], None, {}),             # spline v5
-    ([("filmicrgb", {"version": 0})], None, {}),             # spline v1
-    ([("filmicrgb", {"version": 2})], None, {}),             # spline v3
-    ([("channelmixer", {})], None, {}),                      # not ported
-    ([("borders", {})], None, {}),                           # not ported
-    ([("relight", {})], None, {}),                           # not ported
-    ([("denoiseprofile", {})], None, {}),          # automatic noise profile
-    ([("diffuse", {"radius": 12})], None, {}),     # 6 wavelet scales
-    ([("invert", {})], None, {}),                            # not ported
-], ids=["blurs", "filmic-v5", "filmic-v1", "filmic-v3", "channelmixer",
-        "borders", "unported-op", "denoise-auto-profile", "diffuse-6-scales",
-        "invert"])
+    ([("rawdenoiseai", {})], None, {}),                      # not ported
+], ids=["rawdenoiseai"])
 def test_unported_branches_raise_at_plan_time(items, meta_fn, kw):
     """Each branch the port has not ported raises NotImplementedError
     while planning.  PPG, the bilinear fallback, the ICC profiles, lut3d,
-    drawlayer, the preview pipe, the demosaic methods and post passes and
-    the highlight modes were cases here until they were ported
-    (`test_formerly_refused_branches_plan`)."""
+    drawlayer, the preview pipe, the demosaic methods and post passes, the
+    highlight modes, blurs, filmic rgb's colour sciences v1-v5,
+    channelmixer, borders, relight, invert, denoiseprofile's automatic
+    profile and diffuse past five scales were cases here until they were
+    ported (`test_formerly_refused_branches_plan`); rawdenoiseai is the
+    one op left."""
     _, meta, _ = synth_raw(h=64, w=128)
     if meta_fn is not None:
         meta = meta_fn(meta)
@@ -257,19 +249,33 @@ def test_unported_branches_raise_at_plan_time(items, meta_fn, kw):
     ([("highlights", {"mode": 3})], _xtrans, {}, None),  # the clamp
     (CONFIG1 + [("demosaic", {"green_eq": 1})], None,
      {"pipe_type": "preview"}, None),
+    ([("blurs", {})], None, {}, None),
+    ([("filmicrgb", {"version": 4})], None, {}, None),          # spline v5
+    ([("filmicrgb", {"version": 0})], None, {}, None),          # spline v1
+    ([("filmicrgb", {"version": 2})], None, {}, None),          # spline v3
+    ([("channelmixer", {})], None, {}, None),
+    ([("borders", {})], None, {}, None),
+    ([("relight", {})], None, {}, None),
+    ([("denoiseprofile", {})], None, {}, None),   # automatic noise profile
+    ([("diffuse", {"radius": 12})], None, {}, None),    # 6 wavelet scales
+    ([("invert", {})], None, {}, None),
 ], ids=["ppg", "bilinear", "colorin-icc", "colorout-icc", "lut3d",
         "drawlayer", "preview", "lch", "inpaint", "harmonic", "lmmse",
         "amaze", "vng4", "green-eq", "smoothing", "xtrans-dual",
-        "xtrans-smoothing", "xtrans-laplacian", "preview-green-eq"])
+        "xtrans-smoothing", "xtrans-laplacian", "preview-green-eq", "blurs",
+        "filmic-v5", "filmic-v1", "filmic-v3", "channelmixer", "borders",
+        "relight", "denoise-auto-profile", "diffuse-6-scales", "invert"])
 def test_formerly_refused_branches_plan(items, meta_fn, kw, error):
     """What `test_unported_branches_raise_at_plan_time` refused before it
     was ported now plans: PPG, the bilinear fallback (method 7), lut3d
     and drawlayer without a file (the identity and a no-op), the preview
     pipe, the highlight modes LCH, INPAINT and HARMONIC (LAPLACIAN on
     X-Trans is the clamp, as in the JAX package), AMaZE, LMMSE, VNG4,
-    green equilibration, colour smoothing and X-Trans dual; an ICC item
-    without its profile raises what the JAX package raises while it runs
-    the stage."""
+    green equilibration, colour smoothing and X-Trans dual, blurs,
+    filmic rgb's colour sciences v1-v5, channelmixer, borders, relight,
+    invert, denoiseprofile's automatic profile and diffuse at six scales;
+    an ICC item without its profile raises what the JAX package raises
+    while it runs the stage."""
     _, meta, _ = synth_raw(h=64, w=128)
     if meta_fn is not None:
         meta = meta_fn(meta)
