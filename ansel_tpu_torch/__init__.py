@@ -6,24 +6,22 @@ Pallas kernels become hand-written CUDA kernels under `csrc/`, built by
 nvcc at first use (`kernels/_build.py`).  It imports neither JAX nor
 `ansel_tpu`.
 
-Ported so far: 50 of the reference's 88 ops, on the paths of bench
-configs 1-4 (a default develop; the high-ISO denoise stack; diffuse,
-toneequal and the local Laplacian at 45 MP; X-Trans Markesteijn and
-lens) and the port's configs 7 (the bilateral-grid modules), 8 (hot
-pixels, raw denoise, CA correction, NLM, defringe, bloom), 9 (a camera
-DNG's flat field, flip and clipping) and 10 (a graded look: colour
-balance rgb, the curves, colour zones, the contrast equaliser, a
-vignette and a graduated ND); the camera raw loader, the XMP
-sidecar reader and writer (`io/xmp.py`), the headless export
-(`pipeline/export.py`) and its CLI:
+Ported: all 88 of the reference's ops, on the paths of bench configs
+1-5 (a default develop; the high-ISO denoise stack; diffuse, toneequal
+and the local Laplacian at 45 MP; X-Trans Markesteijn and lens; the
+library's batch export) and the port's configs 7-17; the camera raw
+loader, the XMP sidecar reader and writer (`io/xmp.py`), the headless
+export (`pipeline/export.py`) and its CLI, the library (`library/`) with
+its scheduler (`control/`), and the scopes (`pipeline/histogram.py`):
 
     python -m ansel_tpu_torch.cli raw.npz shot.xmp out.png --bpp 16 --no-icc
     python -m ansel_tpu_torch.cli synth:6016x4000 shot.xmp out.png \
         --bpp 16 --no-icc --device cpu
+    python -m ansel_tpu_torch.cli --generate-cache --library library.db
 
-Anything else raises NotImplementedError while the pipe is planned (an
-active blend among them).  The entry points run on the CUDA card unless
-the caller passes device="cpu" (`--device cpu` on the CLI).
+A branch not ported yet raises NotImplementedError while the pipe is
+planned.  The entry points run on the CUDA card unless the caller passes
+device="cpu" (`--device cpu` on the CLI).
 """
 
 __version__ = "0.1.0"

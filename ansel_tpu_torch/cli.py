@@ -15,8 +15,13 @@ Usage:
       [--bpp 8|16] [--no-icc] [--quality Q] [--device cuda|cpu]
       [-d perf|nan|supervisor] [-v]
   python -m ansel_tpu_torch.cli --devtest
+  python -m ansel_tpu_torch.cli --generate-cache --library library.db
+      [--min-mip 0] [--max-mip 2] [--min-imgid N] [--max-imgid N]
+      [--cache-dir DIR] [--device cuda|cpu]
+  python -m ansel_tpu_torch.cli --ingest-lensfun <dir-or-tarball> [dest]
 
-Not ported: `--generate-cache` (the library) and `--ingest-lensfun`.  An
+`--generate-cache` renders thumbnails on the card unless `--device cpu`
+is given; `--ingest-lensfun` only reads and copies XML on the host.  An
 8-bit JPEG/PNG needs PIL, and so does an embedded ICC profile (`--no-icc`
 writes a 16-bit PNG or TIFF, or a PDF, without it).
 """
@@ -24,8 +29,70 @@ writes a 16-bit PNG or TIFF, or a PDF, without it).
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 import time
+
+
+def _generate_cache(argv):
+    """`ansel-generate-cache` analog (reference
+    src/apps/ansel-generate-cache/main.c:61-140; `ansel_tpu/cli.py:21-65`):
+    pre-render mipmap levels for a library's images into the
+    disk-backed thumbnail store, through the THUMBNAIL pipe on `--device`
+    (the CUDA card by default)."""
+    ap = argparse.ArgumentParser(prog="ansel-tpu-torch-cli --generate-cache")
+    ap.add_argument("--library", required=True)
+    ap.add_argument("--min-mip", type=int, default=0)
+    ap.add_argument("--max-mip", type=int, default=2)
+    ap.add_argument("--min-imgid", type=int, default=0)
+    ap.add_argument("--max-imgid", type=int, default=1 << 31)
+    ap.add_argument("--cache-dir", default=None)
+    ap.add_argument("--device", default="cuda",
+                    help="torch device of the renders (default: the card)")
+    args = ap.parse_args(argv)
+
+    from .library.db import Library
+    from .library.mipmap import LEVEL_SIZES, MipmapCache
+
+    lib = Library(args.library)
+    mc = MipmapCache(cache_dir=args.cache_dir, device=args.device)
+    lo = max(0, args.min_mip)
+    hi = min(args.max_mip, len(LEVEL_SIZES) - 1)
+    n = 0
+    for imgid in lib.images():
+        if not (args.min_imgid <= imgid <= args.max_imgid):
+            continue
+        path = lib.image_path(imgid)
+        xmp = lib.xmp_path(imgid)
+        if not os.path.exists(path):
+            print(f"image {imgid}: missing file {path}, skipped",
+                  file=sys.stderr)
+            continue
+        # large-to-small like the reference (:116)
+        for level in range(hi, lo - 1, -1):
+            mc.get(path, level,
+                   xmp_path=xmp if os.path.exists(xmp) else None)
+            n += 1
+        print(f"image {imgid}: levels {lo}..{hi} cached")
+    print(f"generated {n} thumbnails "
+          f"(hits {mc.hits}, misses {mc.misses})")
+    return 0
+
+
+def _ingest_lensfun(argv):
+    """Maintenance mode: install a full upstream lensfun database so lens
+    correction uses measured calibrations instead of the bundled
+    approximate snapshot (`io/lensfun.ingest_db`)."""
+    from .io.lensfun import ingest_db
+
+    src = argv[0] if argv else ""
+    if not src:
+        print("usage: ansel-tpu-torch-cli --ingest-lensfun "
+              "<dir-or-tarball> [dest]", file=sys.stderr)
+        return 2
+    ncam, nlens = ingest_db(src, argv[1] if len(argv) > 1 else None)
+    print(f"ingested lensfun db: {ncam} cameras, {nlens} lenses")
+    return 0
 
 
 def _devtest():
@@ -67,14 +134,12 @@ def _devtest():
 
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else list(argv)
-    from .ops.base import not_ported
-
     if argv and argv[0] == "--generate-cache":
-        raise not_ported("cli", "--generate-cache (the library)")
+        return _generate_cache(argv[1:])
     if argv and argv[0] == "--devtest":
         return _devtest()
     if argv and argv[0] == "--ingest-lensfun":
-        raise not_ported("cli", "--ingest-lensfun")
+        return _ingest_lensfun(argv[1:])
 
     ap = argparse.ArgumentParser(prog="ansel-tpu-torch-cli")
     ap.add_argument("input")

@@ -1,6 +1,6 @@
-"""The bench configurations the port runs (`bench.py:CONFIGS`), and the
-port's own configs 7-16, defined once for the chip smoke, the profile
-script and the tests.
+"""The bench configurations the port runs (`bench.py:CONFIGS`: configs 1-5),
+and the port's own configs 7-17, defined once for the chip smoke, the
+profile script and the tests.
 
 Each history is a tuple of (op, params) pairs, so that a test can build
 the JAX package's `HistoryItem`s from the same pairs as the port's.
@@ -1170,6 +1170,100 @@ OPS16 = (
 )
 
 
+# config 17: config 16's noisy mosaic (an ILCE-7M3 at ISO 3200) through
+# rawdenoiseai's multi-scale net with its low-band anchor, then config 1's
+# develop.  No published weights are in the repo: the model is
+# `random_unet_ms` at the repo's widths (base 8, depth 2) from a seed,
+# written to MODEL17 in a directory on the op's search path (`model17`)
+MODEL17 = "config17.anselnn"
+HISTORIES[17] = (("rawdenoiseai", {"custom_model": MODEL17}),) \
+    + HISTORIES[1]
+
+
+@contextlib.contextmanager
+def model17(seed: int = 0, ops=None):
+    """Config 17's model for the length of a `with` block:
+    `random_unet_ms(seed=seed)` written as MODEL17 to a new temporary
+    directory, which goes first on the rawdenoiseai module's
+    MODEL_SEARCH_PATH (`ops`, the port's by default; a test passes the
+    JAX package's).  The module's registry entry of MODEL17 is dropped at
+    both ends of the block, so the file is read (once) inside it.  ->
+    the model's path."""
+    import os
+    import shutil
+    import tempfile
+
+    from .anselnn import random_unet_ms, save_anselnn
+
+    if ops is None:
+        from ..ops import rawdenoiseai as ops
+    directory = tempfile.mkdtemp(prefix="ansel_model17_")
+    path = os.path.join(directory, MODEL17)
+    m = random_unet_ms(base=8, depth=2, seed=seed)
+    save_anselnn(path, m.cfg, m.tensors)
+    ops.MODEL_REGISTRY.pop(MODEL17, None)
+    ops.MODEL_SEARCH_PATH.insert(0, directory)
+    try:
+        yield path
+    finally:
+        ops.MODEL_SEARCH_PATH.remove(directory)
+        ops.MODEL_REGISTRY.pop(MODEL17, None)
+        shutil.rmtree(directory, ignore_errors=True)
+
+
+# bench config 5 (`bench.py:60-62, 98-158`): a film roll of LIBRARY5
+# images, even ones Bayer (BENCH_H x BENCH_W), odd ones X-Trans
+# (BENCH4_H x BENCH4_W, `remosaic_xtrans`), each `synth_raw` of seed i
+# saved with `save_raw` beside a sidecar holding config 1's history;
+# imported, queried through a Collection on the folder and batch-exported
+# to JPEG
+LIBRARY5 = 24
+
+
+def catalog5_frame(i: int, h: int = BENCH_H, w: int = BENCH_W,
+                   hx: int = BENCH4_H, wx: int = BENCH4_W):
+    """Image `i` of config 5's roll: -> (mosaic, meta), Bayer at (h, w)
+    for even i, X-Trans at (hx, wx) for odd i."""
+    from .synthetic import synth_raw
+
+    if i % 2 == 0:
+        raw, meta, _ = synth_raw(h=h, w=w, kind="gradients", seed=i)
+        return raw, meta
+    _, meta, scene = synth_raw(h=hx, w=wx, kind="gradients", seed=i)
+    return remosaic_xtrans(meta, scene)
+
+
+def catalog5_pixels(n: int = LIBRARY5) -> int:
+    """Photosites of config 5's roll of `n` full-size images."""
+    return ((n + 1) // 2) * BENCH_H * BENCH_W + (n // 2) * BENCH4_H * BENCH4_W
+
+
+def write_catalog5(folder: str, n: int = LIBRARY5, **frames) -> list:
+    """Config 5's roll of `n` images in `folder`, each img{i:03d}.npz
+    (`save_raw`) with a sidecar of config 1's history; -> their paths.
+    The gradients scene does not depend on `synth_raw`'s seed, so image i
+    equals image i - 2: images 0 and 1 are made and saved, the others are
+    copies of their files."""
+    import os
+    import shutil
+
+    from .rawfile import save_raw
+    from .xmp import write_xmp
+
+    os.makedirs(folder, exist_ok=True)
+    paths = []
+    for i in range(n):
+        path = os.path.join(folder, f"img{i:03d}.npz")
+        if i < 2:
+            save_raw(path, *catalog5_frame(i, **frames))
+            write_xmp(path + ".xmp", history(1))
+        else:
+            shutil.copyfile(paths[i % 2], path)
+            shutil.copyfile(paths[i % 2] + ".xmp", path + ".xmp")
+        paths.append(path)
+    return paths
+
+
 # each config's frame (height, width)
 FRAMES = {1: (BENCH_H, BENCH_W), 2: (BENCH_H, BENCH_W),
           3: (BENCH3_H, BENCH3_W), 4: (BENCH4_H, BENCH4_W),
@@ -1177,7 +1271,8 @@ FRAMES = {1: (BENCH_H, BENCH_W), 2: (BENCH_H, BENCH_W),
           9: (BENCH_H, BENCH_W), 10: (BENCH_H, BENCH_W),
           11: (BENCH_H, BENCH_W), 12: (BENCH_H, BENCH_W),
           13: (BENCH_H, BENCH_W), 14: (BENCH_H, BENCH_W),
-          15: (BENCH_H, BENCH_W), 16: (BENCH_H, BENCH_W)}
+          15: (BENCH_H, BENCH_W), 16: (BENCH_H, BENCH_W),
+          17: (BENCH_H, BENCH_W)}
 # config 9's DNG: a 14-bit mosaic and a GainMap of 17 x 25 points per
 # RGGB filter
 DNG9_BITS = 14
@@ -1215,7 +1310,12 @@ def history_files(config: int, seed: int = 0):
     """Config `config`'s port history (`history`) for the length of a
     `with` block.  Config 14's names files: they are written from `seed`
     to a new directory (`fixture_dir14`, `history14`) and removed when
-    the block ends, so plan its pipe inside the block."""
+    the block ends, so plan its pipe inside the block.  Config 17's names
+    its model, written from `seed` for the block (`model17`)."""
+    if config == 17:
+        with model17(seed):
+            yield history(17)
+        return
     if config != 14:
         yield history(config)
         return

@@ -17,6 +17,7 @@ profile and carry EXIF over via exiv2).  Here:
 
 from __future__ import annotations
 
+import functools
 import struct
 import zlib
 from typing import Optional
@@ -24,8 +25,11 @@ from typing import Optional
 import numpy as np
 
 
+@functools.lru_cache(maxsize=1)
 def srgb_icc_bytes() -> bytes:
-    """Standard sRGB ICC profile (LCMS-built, like colorout's default)."""
+    """Standard sRGB ICC profile (LCMS-built, like colorout's default),
+    built once a process: LCMS stamps a profile with the time it was
+    made, so that every file a process writes carries the same bytes."""
     from PIL import ImageCms
 
     return ImageCms.ImageCmsProfile(ImageCms.createProfile("sRGB")).tobytes()

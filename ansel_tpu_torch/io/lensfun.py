@@ -1,8 +1,9 @@
 """lensfun database bridge — (camera, lens, focal, aperture, distance) ->
 distortion / TCA / vignetting model coefficients.
 
-Copied from `ansel_tpu/io/lensfun.py` (it imports no JAX), without its
-`ingest_db`; the bundled snapshot is `ansel_tpu_torch/data/lensfun/`.
+Copied from `ansel_tpu/io/lensfun.py` (it imports no JAX), with its
+`ingest_db` (the CLI's `--ingest-lensfun`); the bundled snapshot is
+`ansel_tpu_torch/data/lensfun/`.
 
 Reference: `src/iop/lens.cc` (lensfun bridge): at commit
 time the reference calls `lf_db_find_cameras_ext` / `lf_db_find_lenses_hd`
@@ -165,6 +166,87 @@ def parse_file(path: str, cameras: List[Camera], lenses: List[LensEntry]):
         for lst in (entry.distortion, entry.tca, entry.vignetting):
             lst.sort(key=lambda r: r["focal"])
         lenses.append(entry)
+
+
+def ingest_db(src: str, dest: Optional[str] = None) -> Tuple[int, int]:
+    """Ingest a full upstream lensfun database for calibrated correction.
+
+    The bundled snapshot's coefficients are authored approximations (see
+    data/lensfun/README.md) — this is the supported path to REAL
+    measured calibrations.  `src` is either a directory containing
+    lensfun ``*.xml`` files (e.g. a checkout's ``data/db/``, or the
+    checkout root — ``data/db`` is searched too) or a ``.tar.*`` archive
+    of one.  Each XML is validated (parses, contributes at least one
+    camera or lens) and copied to `dest` (default
+    ``~/.config/ansel_tpu/lensfun``); the conf key ``lensfun/dbpath``
+    is pointed there so subsequent `resolve()` calls use it.
+
+    Returns (n_cameras, n_lenses) parsed from the ingested set."""
+    import shutil
+    import tarfile
+    import tempfile
+
+    tmpdir = None
+    try:
+        if os.path.isfile(src) and ".tar" in os.path.basename(src):
+            tmpdir = tempfile.mkdtemp(prefix="lensfun_ingest_")
+            with tarfile.open(src) as tf:
+                tf.extractall(tmpdir, filter="data")
+            src = tmpdir
+        candidates = [src, os.path.join(src, "data", "db"),
+                      os.path.join(src, "db")]
+        xmls: List[str] = []
+        for d in candidates:
+            if os.path.isdir(d):
+                found = sorted(glob.glob(os.path.join(d, "*.xml")))
+                if found:
+                    xmls = found
+                    break
+            # archives may nest one level (lensfun-<ver>/data/db)
+            if os.path.isdir(src):
+                for sub in sorted(os.listdir(src)):
+                    dd = os.path.join(src, sub, "data", "db")
+                    if os.path.isdir(dd):
+                        xmls = sorted(glob.glob(os.path.join(dd, "*.xml")))
+                        break
+            if xmls:
+                break
+        if not xmls:
+            raise FileNotFoundError(
+                f"no lensfun *.xml found under '{src}' (looked in ., "
+                "data/db, db)")
+
+        if dest is None:
+            dest = os.path.expanduser("~/.config/ansel_tpu/lensfun")
+        os.makedirs(dest, exist_ok=True)
+        cameras: List[Camera] = []
+        lenses: List[LensEntry] = []
+        n_copied = 0
+        for path in xmls:
+            before = (len(cameras), len(lenses))
+            try:
+                parse_file(path, cameras, lenses)
+            except ET.ParseError as e:
+                log.log("always",
+                        f"lensfun ingest: skipping malformed {path}: {e}")
+                continue
+            if (len(cameras), len(lenses)) == before:
+                continue  # parsed but contributed nothing
+            shutil.copy2(path, dest)
+            n_copied += 1
+        if n_copied == 0:
+            raise ValueError(f"no usable lensfun XML in '{src}'")
+        from ..core import conf
+        conf.set("lensfun/dbpath", dest)
+        load_db.cache_clear()
+        log.log("always",
+                f"lensfun ingest: {n_copied} files, {len(cameras)} "
+                f"cameras, {len(lenses)} lenses -> {dest} "
+                "(conf lensfun/dbpath updated)")
+        return len(cameras), len(lenses)
+    finally:
+        if tmpdir is not None:
+            shutil.rmtree(tmpdir, ignore_errors=True)
 
 
 @functools.lru_cache(maxsize=4)

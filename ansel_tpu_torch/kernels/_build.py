@@ -7,6 +7,8 @@ flag change rebuilds and an unchanged tree reuses the library.  No
 PyTorch header is included, which keeps a build to seconds.
 
 Nothing here falls back: a missing `nvcc` or a failed build raises.
+`load` holds a lock, so a kernel's first use may come from any thread
+(the scheduler's device worker, `control/jobs.py`).
 """
 
 from __future__ import annotations
@@ -58,7 +60,10 @@ def build(name: str) -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+    # one temporary file per process and thread: a device worker's first
+    # load may build beside `build_all` on the main thread
+    tmp = out.with_name(
+        f"{out.stem}.{os.getpid()}.{threading.get_ident()}.tmp.so")
     cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp),
            str(CSRC / f"{name}.cu")]
     proc = subprocess.run(cmd, capture_output=True, text=True)

@@ -259,7 +259,7 @@ def _check_device(device) -> torch.device:
 
 def coeffs_to_device(coeffs, device) -> List[Optional[dict]]:
     """Host coefficients (per stage: None or a dict of numpy arrays,
-    Python floats and lists) -> float32 tensors on `device`."""
+    Python floats, lists and dicts) -> float32 tensors on `device`."""
     dev = _check_device(device)
     out = []
     for c in coeffs:
@@ -272,7 +272,10 @@ def coeffs_to_device(coeffs, device) -> List[Optional[dict]]:
 
 def _to_device(v, dev):
     """One coefficient as a float32 tensor; a list of arrays of unlike
-    shapes (crystgrain's kernel banks) as a list of them."""
+    shapes (crystgrain's kernel banks) as a list of them, a dict of named
+    arrays (rawdenoiseai's weights) as a dict of them."""
+    if isinstance(v, dict):
+        return {k: _to_device(e, dev) for k, e in v.items()}
     try:
         host = np.asarray(v, dtype=np.float32)
     except ValueError:
@@ -775,7 +778,9 @@ def _fingerprint(coeffs) -> Tuple:
 
 def _host_print(v):
     """(shape, float32 bytes) of one coefficient, or a tuple of them for
-    a list of arrays of unlike shapes."""
+    a list of arrays of unlike shapes or a dict of named arrays."""
+    if isinstance(v, dict):
+        return tuple((k, _host_print(v[k])) for k in sorted(v))
     try:
         host = np.asarray(v, dtype=np.float32)
     except ValueError:

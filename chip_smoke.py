@@ -113,7 +113,28 @@ entry points a user calls, at their full frames:
     the step; `[opcode] filmic-spline` opcode 33 alone for colour
     sciences v1-v4 with each preserve method, v5, and v5 after a
     highlight reconstruction, each with the interpreter's time;
-    `[ops16]` each new torch op alone at 24 MP.
+    `[ops16]` each new torch op alone at 24 MP;
+  * `[nn]`: rawdenoiseai alone at 24 MP with a single-scale U-Net and a
+    multi-scale one with its low-band anchor on config 1's mosaic and the
+    multi-scale one on config 4's X-Trans mosaic (models from `--seed`),
+    each timed with its peak memory and held against the CPU on a crop
+    handed to the op as the whole frame, with cuDNN's TF32 off (the
+    setting printed, and how far TF32 would have moved the crop);
+  * the port's config 17 at 24 MP (`[pipe17]`): config 16's noisy mosaic
+    through rawdenoiseai's multi-scale net (written to an .anselnn in a
+    temporary directory on the op's search path) and config 1's develop:
+    RCD and the chain against their twins;
+  * `[scopes]`: the histogram, waveform, vectorscope and statistics of
+    config 1's output on the card, each equal to the CPU's;
+  * bench config 5 (`[pipe5]`): the library's batch export of a roll of
+    24 images, Bayer 4000 x 6016 and X-Trans 4000 x 6000, each saved
+    with a sidecar of config 1's history (written on a host thread from
+    the start), imported, queried through a collection and exported to
+    JPEG on the serialized export queue's device jobs, a warm-up pass and
+    a timed one (img/s, MP/s, where the wall time goes, peak memory): RCD,
+    Markesteijn and the chain, the pipe cache hit on every image;
+    `[generate-cache]` the CLI's thumbnail cache on its library in a new
+    process.
 
 Each path runs with the launch counts set to 0 just before it and read
 just after.  Every chain each config builds is also timed on its own
@@ -144,7 +165,8 @@ import torch.nn.functional as F
 import ansel_tpu_torch as port
 from ansel_tpu_torch import cli
 from ansel_tpu_torch.entry import entry
-from ansel_tpu_torch.io import configs
+from ansel_tpu_torch.io import anselnn, configs, encode, rawfile
+from ansel_tpu_torch.io import xmp as xmp_mod
 from ansel_tpu_torch.io.encode import read_png16, to_uint16, write_image
 from ansel_tpu_torch.io.rawfile import load_raw, save_raw
 from ansel_tpu_torch.io.synthetic import synth_raw
@@ -155,10 +177,19 @@ from ansel_tpu_torch.kernels import (_build, bgrid, diffuse, eaw, iir,
 from ansel_tpu_torch.kernels import highlights_harmonic as hh
 from ansel_tpu_torch.kernels import highlights_laplacian as hl_lap
 from ansel_tpu_torch.kernels import pointwise as pw
+from ansel_tpu_torch.kernels import unet
+from ansel_tpu_torch.library.collections import Collection
+from ansel_tpu_torch.library.db import Library
+from ansel_tpu_torch.library.export import batch_export
+from ansel_tpu_torch.library.mipmap import MipmapCache
+from ansel_tpu_torch.ops import rawdenoiseai as ai
 from ansel_tpu_torch.ops.base import pad_to
 from ansel_tpu_torch.ops.demosaic import DemosaicParams
 from ansel_tpu_torch.pipeline.blend import BlendParams
-from ansel_tpu_torch.pipeline.export import export_image
+from ansel_tpu_torch.pipeline import engine
+from ansel_tpu_torch.pipeline import export as export_mod
+from ansel_tpu_torch.pipeline import histogram as scopes
+from ansel_tpu_torch.pipeline.export import ExportSettings, export_image
 from ansel_tpu_torch.pixel import prng
 from ansel_tpu_torch.pixel.nlmeans import search_offsets
 
@@ -287,6 +318,41 @@ KINDS16 = ["stage"] * 5 + ["chain"] + ["stage"] * 3 + ["chain"] \
     + ["stage"] * 2
 PIPE16_REPEATS = 5
 OPS16_REPEATS = 2
+# [nn]: rawdenoiseai alone at 24 MP, (label, architecture, X-Trans): the
+# single-scale net and the multi-scale net with its anchor (bins of 4) on
+# config 1's Bayer mosaic, the multi-scale net (bins of 6) on config 4's
+# X-Trans mosaic; then the card against the CPU on a crop of NN_CROP at
+# CROP_BAYER's or CROP_XTRANS's corner, handed to the op as the whole frame
+NN_CASES = (("unet", "unet", False), ("unet-ms", "unet-ms", False),
+            ("unet-ms-xtrans", "unet-ms", True))
+NN_CROP = (512, 768)
+NN_REPEATS = 3
+# the card (cuDNN in IEEE float32) against the CPU (oneDNN) on the mosaic
+# in [0, 1]: float32 convolutions summed in other orders, the anchor's
+# block sums; a few ulps of the mosaic.  It does not separate TF32, which
+# moves the crop by less (~6e-7): the spy on cuDNN's setting
+# (`conv_precisions`) and UNET_REL_TOL on the net alone hold the precision
+NN_TOL = 1e-6
+# the U-Net's output alone on the card against the CPU, relative to its
+# largest value: float32 sums in other orders (TF32's 10-bit mantissa
+# would part them by ~1e-3)
+UNET_REL_TOL = 1e-5
+# a net that resolved moves the mosaic by more than this (random weights
+# of scale 0.05 move it by ~1e-4)
+NN_MOVED = 1e-6
+# config 17: config 16's noisy mosaic, rawdenoiseai (its multi-scale net),
+# config 1's develop (RCD, program 0)
+LAUNCHES17 = dict(NO_LAUNCHES, rcd=1, chain=1)
+STAGES17 = ["rawprepare", "rawdenoiseai", "temperature", "highlights",
+            "demosaic", "exposure", "colorin", "channelmixerrgb",
+            "filmicrgb", "colorout"]
+PIPE17_REPEATS = 5
+# [scopes]: stats' means on the card against the CPU's (float32 sums of
+# 24 M values in other orders)
+SCOPE_MEAN_TOL = 1e-5
+SCOPE_REPEATS = 5
+# [generate-cache]: images 1-4 of config 5's library, levels 0-2
+GENERATE_CACHE_IMGS = 4
 # [demosaic-methods] and [highlight-modes]: one step alone at the full
 # frame, then the card against the CPU on a crop (Bayer 256 x 384 at an
 # even corner, X-Trans 240 x 384 at a corner on the 6-pixel period)
@@ -429,7 +495,11 @@ OPS_CHAIN = {(1, 0): (1095, 57), (2, 0): (847, 42), (3, 0): (6, 0),
              (16, "filmic-spline", 3, 4): (678, 41),
              (16, "filmic-spline", 3, 5): (684, 42),
              (16, "filmic-spline", 4, 0): (839, 46),
-             (16, "filmic-spline-rec"): (738, 42)}
+             (16, "filmic-spline-rec"): (738, 42),
+             # config 17: config 1's program on its denoised frame;
+             # config 5: config 1's program on its roll's X-Trans image,
+             # then on its Bayer image
+             (17, 0): (1095, 57), (5, 0): (1093, 57), (5, 1): (1095, 57)}
 FLOPS_SEPBLUR_PER_TAP = 4        # two passes, a multiply and an add each
 FLOPS_EAW = 25 * 24 + 10         # 25 taps; the divide and the detail
 # the atrous variant per pixel: 25 taps of the three differences and
@@ -2427,26 +2497,36 @@ def run_config11(card, record, raw, raw_dev, meta, phases):
     return launches
 
 
-def check_prng(card):
-    """JAX's generator on the card against the same calls on the CPU at
-    config 12's shapes: the keys and splits, the bits of each uniform and
-    randint draw, the normal draws within NORMAL_TOL; each draw's device
-    ms."""
-    key = prng.PRNGKey(0x5EED)
-    expect(prng.split(key, 30, device="cuda") == prng.split(key, 30),
-           "split on the card differs from the host's")
-    draws = [
+def prng_draws():
+    """Config 12's draws at its shapes: [(label, draw, its arguments)]."""
+    return [
         ("dither uniform", prng.uniform, (prng.PRNGKey(353), (3, H, W))),
         ("grain normal", prng.normal, (prng.PRNGKey(773), (H, W))),
         ("HR normal", prng.normal, (prng.PRNGKey(0), (3, H, W))),
         ("censorize uniform", prng.uniform,
          (prng.PRNGKey(1259), (3, H, W), -0.5, 0.5)),
-        ("crystgrain randint", prng.randint, (key, (H, W), 0, 4)),
+        ("crystgrain randint", prng.randint,
+         (prng.PRNGKey(0x5EED), (H, W), 0, 4)),
     ]
+
+
+def prng_on_cpu():
+    """prng_draws() on the CPU (~30 s: a host thread makes them while the
+    card runs the earlier phases)."""
+    return [fn(*args) for _, fn, args in prng_draws()]
+
+
+def check_prng(card, cpu):
+    """JAX's generator on the card against the same calls on the CPU
+    (`cpu`: prng_on_cpu()'s future) at config 12's shapes: the keys and
+    splits, the bits of each uniform and randint draw, the normal draws
+    within NORMAL_TOL; each draw's device ms."""
+    key = prng.PRNGKey(0x5EED)
+    expect(prng.split(key, 30, device="cuda") == prng.split(key, 30),
+           "split on the card differs from the host's")
     rows = []
-    for label, fn, args in draws:
+    for (label, fn, args), want in zip(prng_draws(), cpu.result()):
         got = fn(*args, device="cuda").cpu()
-        want = fn(*args)
         if fn is prng.normal:
             mx = (got - want).abs().max().item()
             same = (got == want).float().mean().item()
@@ -3151,24 +3231,30 @@ def captured15(pipe, raw_dev):
 
 
 def check_rcd15(call, record):
-    """RCD on config 15's mosaic, under the dual blend: bit-equal to its
-    twin, device ms of both, the bound of config 1's line."""
+    """RCD on config 15's mosaic, under the dual blend."""
+    check_rcd_call(call, record, "rcd15",
+                   "[pipe15] RCD on config 15's mosaic")
+
+
+def check_rcd_call(call, record, key, tag):
+    """RCD on a pipe's (mosaic, cfa, scaler): bit-equal to its twin,
+    device ms of both, the bound of config 1's line, into record[key]."""
     mosaic, cfa, scaler = call
     got = rcd.rcd_demosaic(mosaic, cfa, scaler)
     want = rcd.rcd_demosaic_reference(mosaic, cfa, scaler)
     mx, _ = compare(got, want)
-    expect(torch.equal(got, want), f"config 15's RCD: max {mx}")
+    expect(torch.equal(got, want), f"{tag}: max {mx}")
     ms = median_ms(lambda: rcd.rcd_demosaic(mosaic, cfa, scaler))
     plain_ms = median_ms(lambda: rcd.rcd_demosaic_reference(
         mosaic, cfa, scaler), PLAIN_REPEATS)
     b_ms, b_by = bound(nbytes(mosaic, got),
                        instructions=FLOPS_RCD * mosaic.numel(),
                        sfu=MUFU_RCD * mosaic.numel())
-    record["rcd15"] = dict(max_abs_err=mx, ms=ms, plain_ms=plain_ms,
-                           library_ms=None, bound_ms=b_ms, bound_by=b_by)
-    print(f"[pipe15] RCD on config 15's mosaic {tuple(mosaic.shape)}: "
-          f"bit-equal to its twin | kernel {ms:.3f} ms, plain "
-          f"{plain_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by})", flush=True)
+    record[key] = dict(max_abs_err=mx, ms=ms, plain_ms=plain_ms,
+                       library_ms=None, bound_ms=b_ms, bound_by=b_by)
+    print(f"{tag} {tuple(mosaic.shape)}: bit-equal to its twin | kernel "
+          f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound {b_ms:.3f} ms "
+          f"({b_by})", flush=True)
 
 
 def check_sepblur15(calls, record):
@@ -3260,13 +3346,15 @@ def run_config15(card, record, raw, raw_dev, meta, phases):
     return launches, pipe, raw15_dev
 
 
-def stage_alone(meta, raw, params, op="demosaic"):
+def stage_alone(meta, raw, params, op="demosaic", device="cuda"):
     """The stage `op` of a pipe planned on one item (op, params) and its
-    input on the card from the pipe's own stages before it, on the host
-    mosaic `raw`: -> (stage, input, its coeffs, the pipe's context)."""
-    pipe = port.compile_pipeline(meta, [port.HistoryItem(op, dict(params))])
+    input on `device` (the card) from the pipe's own stages before it, on
+    the host mosaic `raw`: -> (stage, input, its coeffs, the pipe's
+    context)."""
+    pipe = port.compile_pipeline(meta, [port.HistoryItem(op, dict(params))],
+                                 device=device)
     i = [s.name for s in pipe.pipe.stages].index(op)
-    raw_dev = torch.from_numpy(pad_to(raw, pipe.pipe.spec_in)).cuda()
+    raw_dev = torch.from_numpy(pad_to(raw, pipe.pipe.spec_in)).to(device)
     x = pipe.pipe.trace_fn(0, i)(raw_dev, pipe.coeffs[:i])
     return pipe.pipe.stages[i], x, pipe.coeffs[i], pipe.pipe.ctx
 
@@ -3417,13 +3505,21 @@ def run_demosaic_methods(card, record, meta, raw, meta4, raw4, phases):
 
 
 def check_markesteijn_dual(call, record):
-    """Markesteijn, 1 pass, as X-Trans dual runs it on config 4's mosaic:
-    bit-equal to its twin, device ms of both, config 4's bound."""
+    """Markesteijn, 1 pass, as X-Trans dual runs it on config 4's mosaic."""
+    check_markesteijn_call(call, record, "markesteijn-dual",
+                           "[demosaic-methods] X-Trans dual's Markesteijn "
+                           "(1 pass) on")
+
+
+def check_markesteijn_call(call, record, key, tag):
+    """Markesteijn on a pipe's (mosaic, pattern, passes): bit-equal to its
+    twin, device ms of both at 1 pass, config 4's bound, into
+    record[key]."""
     x, pattern6, passes = call
     got = markesteijn.xtrans_markesteijn(x, pattern6, passes)
     want = markesteijn.xtrans_markesteijn_reference(x, pattern6, passes)
     mx, _ = compare(got, want)
-    expect(torch.equal(got, want), f"X-Trans dual's Markesteijn: max {mx}")
+    expect(torch.equal(got, want), f"{tag}: max {mx}")
     del got, want
     ms = median_ms(lambda: markesteijn.xtrans_markesteijn(x, pattern6, 1))
     plain_ms = median_ms(lambda: markesteijn.xtrans_markesteijn_reference(
@@ -3431,13 +3527,11 @@ def check_markesteijn_dual(call, record):
     b_ms, b_by = bound(4 * nbytes(x),
                        instructions=FLOPS_MARKESTEIJN[1] * x.numel(),
                        sfu=mufu_markesteijn(pattern6, 1) * x.numel())
-    record["markesteijn-dual"] = dict(max_abs_err=mx, ms=ms,
-                                      plain_ms=plain_ms, library_ms=None,
-                                      bound_ms=b_ms, bound_by=b_by)
-    print(f"[demosaic-methods] X-Trans dual's Markesteijn (1 pass) on "
-          f"{tuple(x.shape)}: bit-equal to its twin | kernel {ms:.3f} ms, "
-          f"plain {plain_ms:.1f} ms, bound {b_ms:.3f} ms ({b_by})",
-          flush=True)
+    record[key] = dict(max_abs_err=mx, ms=ms, plain_ms=plain_ms,
+                       library_ms=None, bound_ms=b_ms, bound_by=b_by)
+    print(f"{tag} {tuple(x.shape)}: bit-equal to its twin | kernel "
+          f"{ms:.3f} ms, plain {plain_ms:.1f} ms, bound {b_ms:.3f} ms "
+          f"({b_by})", flush=True)
 
 
 def run_highlight_modes(card, record, meta, raw, meta4, raw4, pipe15,
@@ -3815,6 +3909,490 @@ def run_ops16(card, record, meta, raw, meta4, raw4, phases):
     record["ops16"] = rows
 
 
+# --- rawdenoiseai's U-Net, config 17, the scopes, config 5 ---------------
+
+def tf32_convolutions():
+    """The U-Net's convolutions in TF32 (cuDNN's default) for the block:
+    what the net would compute without its switch to IEEE float32."""
+    return swapped([(unet, "CONV_FP32", "tf32")])
+
+
+def conv_precisions(fn):
+    """fn() with F.conv2d watched: -> (its output, the set of cuDNN's
+    float32 convolution settings the calls ran under)."""
+    seen = set()
+    real = F.conv2d
+
+    def spy(*args, **kw):
+        seen.add(torch.backends.cudnn.conv.fp32_precision)
+        return real(*args, **kw)
+
+    with swapped([(F, "conv2d", spy)]):
+        out = fn()
+    return out, seen
+
+
+def nn_crop(m, r, params, box):
+    """rawdenoiseai on the NN_CROP crop of mosaic `r` at `box`, handed to
+    the op as the whole frame, on the card (IEEE float32, then TF32) and
+    on the CPU: -> (card, card in TF32, CPU outputs, its input on the
+    CPU, the settings the card's convolutions ran under)."""
+    (y0, x0), (ch, cw) = box, NN_CROP
+    crop = np.ascontiguousarray(r[y0:y0 + ch, x0:x0 + cw])
+    cmeta = dataclasses.replace(m, width=cw, height=ch)
+    st, x, c, ctx = stage_alone(cmeta, crop, params, "rawdenoiseai")
+    card, seen = conv_precisions(lambda: st.op.apply(x, c, st.plan, ctx))
+    with tf32_convolutions():
+        card_tf32 = st.op.apply(x, c, st.plan, ctx)
+    st_c, x_c, c_c, ctx_c = stage_alone(cmeta, crop, params, "rawdenoiseai",
+                                        device="cpu")
+    cpu = st_c.op.apply(x_c, c_c, st_c.plan, ctx_c)
+    return card.cpu(), card_tf32.cpu(), cpu, x_c, seen
+
+
+def unet_vs_cpu(model, seed):
+    """The fine net alone on uniform planes of NN_CROP on the card (IEEE
+    float32, then TF32) and on the CPU: -> (the card's largest difference
+    from the CPU, and TF32's, each relative to the CPU output's largest
+    magnitude)."""
+    fine = model.stage("fine")
+    planes = torch.from_numpy(np.random.default_rng(seed).uniform(
+        0.0, 1.0, (fine.in_channels,) + NN_CROP).astype(np.float32))
+    want = unet.unet_forward(fine, planes)
+    got = unet.unet_forward(fine, planes.cuda()).cpu()
+    with tf32_convolutions():
+        got_tf32 = unet.unet_forward(fine, planes.cuda()).cpu()
+    scale = want.abs().max().item()
+    return ((got - want).abs().max().item() / scale,
+            (got_tf32 - want).abs().max().item() / scale)
+
+
+def run_nn(card, record, meta, raw, meta4, raw4, phases, seed):
+    """`[nn]`: rawdenoiseai alone at 24 MP for each of NN_CASES (its
+    models from `seed` in the op's registry): the step's device ms and
+    peak memory, its plan keyed to the model and its output changed; on
+    an NN_CROP crop handed to the op as the whole frame, the card against
+    the CPU (NN_TOL), the cuDNN setting its convolutions ran under, and
+    how far TF32 would have moved the crop."""
+    models = {"unet": anselnn.random_unet(seed=seed),
+              "unet-ms": anselnn.random_unet_ms(seed=seed)}
+    rows = []
+    for label, arch, xtrans in NN_CASES:
+        name = f"nn-{arch}"
+        ai.MODEL_REGISTRY[name] = models[arch]
+        m, r, box = ((meta4, raw4, CROP_XTRANS[:2]) if xtrans
+                     else (meta, raw, CROP_BAYER[:2]))
+        params = {"custom_model": name}
+        with timed(phases, f"nn {label}"):
+            st, x, c, ctx = stage_alone(m, r, params, "rawdenoiseai")
+            expect(st.plan.static == name,
+                   f"[nn] {label}: the model did not resolve")
+            reset_launches()
+            ms, peak, held, out = step_device(
+                lambda: st.op.apply(x, c, st.plan, ctx), NN_REPEATS)
+            launches = {k: v for k, v in read_launches().items() if v}
+            expect(not launches, f"[nn] {label}: launched {launches}")
+            expect(bool(torch.isfinite(out).all()), f"[nn] {label}: not "
+                   "finite")
+            moved = (out - x).abs().max().item()
+            expect(moved > NN_MOVED, f"[nn] {label}: output equals input")
+            shape = tuple(x.shape)
+            del out, x, c
+            got, got_tf32, want, x_c, seen = nn_crop(m, r, params, box)
+            err = (got - want).abs().max().item()
+            tf32 = (got_tf32 - got).abs().max().item()
+            residual = (want - x_c).abs().max().item()
+            expect(seen == {"ieee"}, f"[nn] {label}: convolutions ran "
+                   f"under {seen}")
+            expect(err <= NN_TOL, f"[nn] {label}: card vs CPU max {err}")
+            net_rel, net_rel_tf32 = unet_vs_cpu(models[arch], seed)
+            expect(net_rel <= UNET_REL_TOL, f"[nn] {label}: the U-Net on "
+                   f"the card vs the CPU, relative {net_rel}")
+        rows.append(dict(case=label, ms=ms, peak_gb=peak, max_abs_err=err,
+                         tf32=tf32, unet_rel=net_rel,
+                         unet_rel_tf32=net_rel_tf32))
+        print(f"[nn] rawdenoiseai {label} ({models[arch].cfg['arch']}, "
+              f"base {models[arch].stage('fine').base}, depth "
+              f"{models[arch].stage('fine').depth}, anchor "
+              f"{models[arch].anchor}, bin "
+              f"{models[arch].bin_for(xtrans)}) alone on {shape}: {ms:.2f} "
+              f"ms (device, {NN_REPEATS} timed runs after 1 warm-up), peak "
+              f"device memory {peak:.3f} GB ({held:.3f} GB held before), "
+              f"moved the mosaic by up to {moved:.3g} | on a "
+              f"{NN_CROP[0]}x{NN_CROP[1]} crop at {box}: card vs CPU max "
+              f"{err:.3g} (tol {NN_TOL:g}; the nets' residual up to "
+              f"{residual:.3g}); cuDNN float32 convolutions in "
+              f"unet_forward: {'/'.join(sorted(seen))} (outside it: "
+              f"{torch.backends.cudnn.conv.fp32_precision}); TF32 would have moved the crop by "
+              f"{tf32:.3g} | the fine U-Net alone on uniform planes of the "
+              f"crop's size, card vs CPU relative {net_rel:.3g} (tol "
+              f"{UNET_REL_TOL:g}), in TF32 {net_rel_tf32:.3g} on {card}",
+              flush=True)
+    record["nn"] = rows
+
+
+def captured17(pipe, raw_dev):
+    """Run config 17 once on a device-resident raw and keep the arguments
+    of its RCD and chain calls."""
+    calls = {"rcd": [], "chain": []}
+    real_rcd, real_chain = rcd.rcd_demosaic, pw.pointwise_chain
+
+    def rc(*args):
+        calls["rcd"].append(args)
+        return real_rcd(*args)
+
+    def ch(*args):
+        calls["chain"].append(args)
+        return real_chain(*args)
+
+    with swapped([(rcd, "rcd_demosaic", rc), (pw, "pointwise_chain", ch)]):
+        pipe.run_padded(raw_dev)
+    expect(len(calls["rcd"]) == 1 and len(calls["chain"]) == 1,
+           f"unexpected config-17 calls: {len(calls['rcd'])} RCD, "
+           f"{len(calls['chain'])} chains")
+    return calls
+
+
+def run_config17(card, record, raw, meta, phases, seed):
+    """Config 17 at 24 MP: config 16's noisy mosaic through rawdenoiseai's
+    multi-scale net with its anchor (`random_unet_ms(seed)` written to an
+    .anselnn in a temporary directory on the op's search path, read by
+    the planner), then config 1's develop.  Through the user's entry
+    point with launches counted, against the composed twins; RCD and the
+    chain on the arguments the pipe hands them; the net's step changes
+    the mosaic; each step's device time, the pipe's rate and peak
+    memory."""
+    with timed(phases, "pipe17 mosaic"):
+        raw17 = configs.mosaic16(raw, meta)
+        meta17 = configs.meta16(meta)
+        with configs.model17(seed) as model_path:
+            pipe = port.compile_pipeline(meta17, configs.history(17))
+        raw17_dev = torch.from_numpy(pad_to(raw17, pipe.pipe.spec_in)).cuda()
+    stages = [s.name for s in pipe.pipe.stages]
+    expect(stages == STAGES17, f"unexpected config-17 plan {stages}")
+    expect([k for k, *_ in pipe.steps] == ["stage"] * 5 + ["chain"],
+           f"unexpected config-17 steps {[k for k, *_ in pipe.steps]}")
+    model = pipe.pipe.stages[1].plan.aux
+    expect(pipe.pipe.stages[1].plan.static == configs.MODEL17
+           and model.arch == "unet-ms" and model.anchor > 0,
+           "config 17's model did not resolve")
+    with timed(phases, "pipe17 vs plain"):
+        reset_launches()
+        out = pipe.output_array(raw17)
+        launches = read_launches()
+        programs, _ = read_split()
+        expect(launches == LAUNCHES17 and programs == {0: 1},
+               f"config-17 launches {launches}, programs {programs}")
+        launches["programs"] = programs
+        expect(out.shape == (3, H, W), f"output shape {out.shape}")
+        expect(bool(np.isfinite(out).all()) and out.min() >= 0.0
+               and out.max() <= 1.0, "output not finite or outside [0, 1]")
+        reset_launches()
+        with plain_twins():
+            plain = pipe.output_array(raw17)
+        expect(all(v == 0 for v in read_launches().values()),
+               f"the plain composition launched kernels: {read_launches()}")
+        pipe_err = float(np.abs(out - plain).max())
+        pipe_mean = float(np.abs(out - plain).mean())
+        expect(pipe_err <= PIPE_TOL, f"config 17 vs plain: max {pipe_err}")
+        del plain
+        x = pipe.pipe.trace_fn(0, 1)(raw17_dev, pipe.coeffs[:1])
+        moved = (pipe.pipe.trace_fn(1, 2)(x, pipe.coeffs[1:2]) - x).abs() \
+            .max().item()
+        expect(moved > NN_MOVED, "config 17's net left the mosaic as it was")
+        del x
+    with timed(phases, "pipe17 kernels"):
+        calls = captured17(pipe, raw17_dev)
+        check_rcd_call(calls["rcd"][0], record, "rcd17",
+                       "[pipe17] RCD on config 17's denoised mosaic")
+        (record["chain17.0"],) = check_chains(17, calls["chain"],
+                                              pipe.fused_groups())
+        del calls
+    with timed(phases, "pipe17 timing"):
+        steps = step_times(pipe, raw17_dev)
+        per_img = time_pipe(pipe, raw17_dev, PIPE17_REPEATS)
+        peak, held = pipe_peak(pipe, raw17_dev)
+    print(f"[pipe17] config 17 {H}x{W}: {len(stages)} stages, model "
+          f"{os.path.basename(model_path)} ({model.arch}, anchor "
+          f"{model.anchor}, bin {model.bin_for(False)}), chains "
+          f"{pipe.fused_groups()}, launches {launches}, the net moved the "
+          f"mosaic by up to {moved:.3g}, vs plain max {pipe_err:.3g} mean "
+          f"{pipe_mean:.3g} (tol 1/255), range [{out.min():.3g}, "
+          f"{out.max():.3g}] | {1.0 / per_img:.3f} img/s, "
+          f"{H * W / per_img / 1e6:.1f} MP/s ({per_img * 1e3:.1f} ms/img, "
+          f"device-resident input, {PIPE17_REPEATS} repeats after 2 "
+          f"warm-ups), peak device memory {peak:.3f} GB ({held:.3f} GB held "
+          "before) | steps (device ms): "
+          + ", ".join(f"{n} {t:.3f}" for n, t in steps) + f" on {card}",
+          flush=True)
+    return launches
+
+
+def run_scopes(card, record, raw_dev, meta, phases):
+    """`[scopes]`: histogram, waveform, vectorscope and stats of config
+    1's output on the card, each equal to the same function of that
+    tensor on the CPU (counts for count; stats' min and max exactly, its
+    means within SCOPE_MEAN_TOL), and the device ms of each."""
+    with timed(phases, "scopes"):
+        pipe = port.compile_pipeline(meta, configs.history(1))
+        img = pipe.run_padded(raw_dev)[:, :H, :W].contiguous()
+        img_cpu = img.cpu()
+        rows = []
+        for name, fn in (("histogram", scopes.histogram_rgb),
+                         ("waveform", scopes.waveform),
+                         ("vectorscope", scopes.vectorscope),
+                         ("stats", scopes.stats)):
+            got, want = fn(img), fn(img_cpu)
+            if name == "stats":
+                for k in ("min", "max"):
+                    expect(torch.equal(got[k].cpu(), want[k]),
+                           f"[scopes] stats {k}")
+                for k in ("mean", "clipped"):
+                    d = (got[k].cpu() - want[k]).abs().max().item()
+                    expect(d <= SCOPE_MEAN_TOL, f"[scopes] stats {k}: {d}")
+                shape = "4 x (3,)"
+            else:
+                expect(got.device.type == "cuda"
+                       and torch.equal(got.cpu(), want),
+                       f"[scopes] {name}: the card's counts differ")
+                # a count a pixel of each channel; the waveform's a pixel of
+                # each pooled column
+                px = {"histogram": 3 * H * W, "vectorscope": H * W,
+                      "waveform": 3 * H * want.shape[-1]}[name]
+                expect(want.sum().item() == px,
+                       f"[scopes] {name}: counts do not add up")
+                shape = str(tuple(got.shape))
+            ms = median_ms(lambda: fn(img), SCOPE_REPEATS)
+            rows.append(dict(scope=name, ms=ms))
+            print(f"[scopes] {name} of config 1's output {tuple(img.shape)} "
+                  f"-> {shape}: equal to the CPU's | {ms:.3f} ms (device, "
+                  f"median of {SCOPE_REPEATS}) on {card}", flush=True)
+    record["scopes"] = rows
+
+
+def by_mosaic(calls, chains):
+    """Swaps that follow config 5's jobs (one at a time on the device
+    worker) by the mosaic they demosaic: the first RCD, Markesteijn and
+    chain call of each kind kept in `calls` (unless None), the chains by
+    the mosaic they follow, and each chain call's launches (the wrapper's
+    own count) added to `chains["bayer"]` or `chains["xtrans"]`."""
+    real = {"rcd": rcd.rcd_demosaic, "mark": markesteijn.xtrans_markesteijn,
+            "chain": pw.pointwise_chain}
+    state = {"last": None}
+
+    def keep(key, args):
+        if calls is not None:
+            calls.setdefault(key, args)
+
+    def rc(*args):
+        keep("rcd", args)
+        state["last"] = "bayer"
+        return real["rcd"](*args)
+
+    def mk(*args):
+        keep("mark", args)
+        state["last"] = "xtrans"
+        return real["mark"](*args)
+
+    def ch(*args):
+        keep(f"chain-{state['last']}", args)
+        before = pw.LAUNCHES
+        out = real["chain"](*args)
+        chains[state["last"]] = (chains.get(state["last"], 0)
+                                 + pw.LAUNCHES - before)
+        return out
+
+    return swapped([(rcd, "rcd_demosaic", rc),
+                    (markesteijn, "xtrans_markesteijn", mk),
+                    (pw, "pointwise_chain", ch)])
+
+
+@contextlib.contextmanager
+def export_parts():
+    """The seconds of each part of batch_export's jobs over the block,
+    from spies on what a job calls: "decode" (`load_raw` and the
+    sidecar's `parse_xmp`), "export" (`export_image`), and inside it
+    "render" (`CompiledPipe.output_array`: the run and its copy to the
+    host) and "encode" (`encode.write_image`); "plan" is the rest of
+    `export_image` (planning and the pipe's build)."""
+    parts = dict.fromkeys(("decode", "export", "render", "encode"), 0.0)
+
+    def spy(key, real):
+        def timed_call(*args, **kw):
+            t = time.perf_counter()
+            try:
+                return real(*args, **kw)
+            finally:
+                parts[key] += time.perf_counter() - t
+        return timed_call
+
+    with swapped([(rawfile, "load_raw", spy("decode", rawfile.load_raw)),
+                  (xmp_mod, "parse_xmp", spy("decode", xmp_mod.parse_xmp)),
+                  (export_mod, "export_image",
+                   spy("export", export_mod.export_image)),
+                  (engine.CompiledPipe, "output_array",
+                   spy("render", engine.CompiledPipe.output_array)),
+                  (encode, "write_image",
+                   spy("encode", encode.write_image))]):
+        yield parts
+    parts["plan"] = parts.pop("export") - parts["render"] - parts["encode"]
+
+
+def run_config5(card, record, phases, root, catalog, n):
+    """Config 5, bench.py's library path on the port: the roll of `n`
+    images (`configs.write_catalog5`, written on a host thread) imported
+    into a library, queried through a Collection on its folder and
+    batch-exported to JPEG (one device job an image on the serialized
+    export queue: decode, render, encode); the first pass warms up, the
+    second is timed with the launch counts set to 0 before it.  img/s,
+    MP/s, the share of the wall time in each part of the jobs, peak
+    memory; the pipe cache hit on every image of the timed pass; two
+    JPEGs equal to `write_image` of `export_image`'s array, each array
+    within 1/255 of the composed twins; RCD, Markesteijn and the chain on
+    the arguments the warm-up pass handed them."""
+    folder = os.path.join(root, "film")
+    with timed(phases, "pipe5 catalog wait"):
+        paths = catalog.result()
+    with timed(phases, "pipe5 import"):
+        lib = Library(os.path.join(root, "library.db"))
+        ids = lib.import_film_roll(folder)
+        coll = Collection(film_folder=folder)
+        expect(len(ids) == n and coll.run(lib) == ids,
+               f"config 5 imported {len(ids)} of {n}")
+    calls = {}
+    with timed(phases, "pipe5 warm-up"), by_mosaic(calls, {}):
+        batch_export(lib, coll, os.path.join(root, "warm"))
+    uploads = []
+    real_upload = engine.coeffs_to_device
+
+    def upload(*args):
+        uploads.append(1)
+        return real_upload(*args)
+
+    chains = {}
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    with timed(phases, "pipe5 timed"), swapped(
+            [(engine, "coeffs_to_device", upload)]), \
+            by_mosaic(None, chains), export_parts() as parts:
+        reset_launches()
+        t = time.perf_counter()
+        written = batch_export(lib, coll, os.path.join(root, "out"))
+        wall = time.perf_counter() - t
+        launches = read_launches()
+        programs, _ = read_split()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    want = dict(NO_LAUNCHES, rcd=(n + 1) // 2, markesteijn=n // 2, chain=n)
+    expect(launches == want and programs == {0: n}
+           and chains == {"bayer": (n + 1) // 2, "xtrans": n // 2},
+           f"config-5 launches {launches}, programs {programs}, chains by "
+           f"mosaic {chains}")
+    launches["programs"] = programs
+    launches["chains"] = chains
+    expect(not uploads, f"the timed pass built {len(uploads)} pipes' "
+           "coefficients: the pipe cache missed")
+    expect(len(written) == n and all(os.path.getsize(p) > 1000
+                                     for p in written),
+           "config 5 wrote too few or empty files")
+    with timed(phases, "pipe5 check"):
+        errs = []
+        for i in (0, 1):
+            raw, m = load_raw(paths[i])
+            arr = export_image(raw, m, xmp_path=paths[i] + ".xmp")
+            again = os.path.join(root, f"again{i}.jpg")
+            s = ExportSettings()
+            write_image(again, arr, quality=s.quality, bpp=s.bpp,
+                        icc=b"srgb", meta=m)
+            with open(again, "rb") as a, open(written[i], "rb") as b:
+                expect(a.read() == b.read(), f"config 5's JPEG {i} differs "
+                       "from write_image of export_image's array")
+            expect(arr.shape == (3, m.height, m.width)
+                   and bool(np.isfinite(arr).all()) and arr.min() >= 0.0
+                   and arr.max() <= 1.0, f"config 5 image {i}: bad output")
+            with plain_twins():
+                plain = export_image(raw, m, xmp_path=paths[i] + ".xmp")
+            errs.append(float(np.abs(arr - plain).max()))
+            expect(errs[-1] <= PIPE_TOL, f"config 5 image {i} vs plain: "
+                   f"max {errs[-1]}")
+            del raw, arr, plain
+    with timed(phases, "pipe5 kernels"):
+        check_rcd_call(calls["rcd"], record, "rcd5",
+                       "[pipe5] RCD on config 5's Bayer mosaic")
+        check_markesteijn_call(calls["mark"], record, "markesteijn5",
+                               "[pipe5] Markesteijn on config 5's X-Trans "
+                               "mosaic")
+        stages = ["exposure", "colorin", "channelmixerrgb", "filmicrgb",
+                  "colorout"]
+        record["chain5.0"], record["chain5.1"] = check_chains(
+            5, [calls["chain-xtrans"], calls["chain-bayer"]],
+            [stages, stages])
+        del calls
+    mp = configs.catalog5_pixels(n) / 1e6
+    share = ", ".join(
+        f"{k} {100 * v / wall:.1f}%" for k, v in
+        (("decode", parts["decode"]), ("plan", parts["plan"]),
+         ("render", parts["render"]), ("encode", parts["encode"]),
+         ("the rest", wall - sum(parts.values()))))
+    record["pipe5"] = dict(images=n, wall=wall, img_s=n / wall,
+                           mp_s=mp / wall, peak_gb=peak,
+                           render_share=parts["render"] / wall)
+    print(f"[pipe5] config 5, the library's batch export of {n} images "
+          f"(Bayer {H}x{W} and X-Trans {H4}x{W4}, {mp:.1f} MP): imported, "
+          f"queried, exported to JPEG through the USER_EXPORT queue's device "
+          f"jobs; launches {launches} in the timed pass, the pipe cache hit "
+          f"on every image, two JPEGs equal to write_image of export_image's "
+          f"array, each within {max(errs):.3g} of the composed twins (tol "
+          f"1/255) | timed pass {wall:.2f} s: {n / wall:.3f} img/s, "
+          f"{mp / wall:.1f} MP/s; wall time in the jobs' parts: {share} "
+          f"(render = the pipe's run and its copy to the host); peak device "
+          f"memory {peak:.3f} GB ({held:.3f} GB held before) on {card}",
+          flush=True)
+    return launches, lib
+
+
+def run_generate_cache(card, root, phases):
+    """`[generate-cache]`: `python -m ansel_tpu_torch.cli --generate-cache`
+    on config 5's library for images 1-GENERATE_CACHE_IMGS in a new process
+    (levels 0-2 on the card); the thumbnails it stored equal the same
+    levels rendered in this process."""
+    db = os.path.join(root, "library.db")
+    cache = os.path.join(root, "mipmaps")
+    with timed(phases, "generate-cache"):
+        t = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "ansel_tpu_torch.cli", "--generate-cache",
+             "--library", db, "--max-imgid", str(GENERATE_CACHE_IMGS),
+             "--cache-dir", cache],
+            capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t
+        expect(proc.returncode == 0,
+               f"--generate-cache exit {proc.returncode}: "
+               f"{proc.stderr[-2000:]}")
+        lines = [ln for ln in proc.stdout.splitlines() if ln]
+        expect(lines[-1].startswith(f"generated {3 * GENERATE_CACHE_IMGS} "
+                                    "thumbnails"),
+               f"--generate-cache said {lines[-1:]}")
+        lib = Library(db)
+        mc = MipmapCache(cache_dir=os.path.join(root, "again"))
+        stored = MipmapCache(cache_dir=cache)
+        for imgid in (1, 2):
+            path = lib.image_path(imgid)
+            for level in (0, 2):
+                got = stored.get(path, level)
+                want = mc.get(path, level, xmp_path=path + ".xmp")
+                expect(stored.misses == 0 and np.array_equal(got, want),
+                       f"--generate-cache's image {imgid} level {level} "
+                       "differs from this process's")
+        lib.close()
+    print(f"[generate-cache] python -m ansel_tpu_torch.cli --generate-cache "
+          f"--max-imgid {GENERATE_CACHE_IMGS}: {' | '.join(lines)} | "
+          f"{wall:.2f} s wall (a new process: start, kernels loaded, "
+          f"{GENERATE_CACHE_IMGS} raws read at each level, THUMBNAIL pipes on "
+          f"the card); images 1-2 at levels 0 and 2 equal this process's "
+          f"renders on {card}", flush=True)
+
+
 def run_devtest_and_entry(phases):
     """The CLI's card diagnostic, then entry()'s fn on the card against
     the same fn with every kernel's plain twin."""
@@ -3843,7 +4421,8 @@ def run_devtest_and_entry(phases):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0,
-                    help="seed of config 14's fixtures")
+                    help="seed of config 14's fixtures and of the models of "
+                         "[nn] and config 17")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
@@ -3855,18 +4434,24 @@ def main(argv=None):
     print(f"[card] torch {torch.__version__} cuda {torch.version.cuda} | "
           f"{card}", flush=True)
     record = {}
-    with ThreadPoolExecutor(max_workers=4) as pool:
+    with tempfile.TemporaryDirectory(prefix="ansel_smoke5_") as root5, \
+            ThreadPoolExecutor(max_workers=4) as pool:
         # the mosaics are made on host threads, the 24 MP one while nvcc
-        # builds, the 45 MP and X-Trans ones while configs 1 and 2 run
+        # builds, the 45 MP and X-Trans ones while configs 1 and 2 run;
+        # config 5's roll is written beside them, and [prng]'s CPU draws
+        # after the build
         with timed(phases, "build + mosaic"):
             synth = pool.submit(synth_raw, h=H, w=W, kind="gradients")
             synth3 = pool.submit(synth_raw, h=H3, w=W3, kind="gradients")
             synth4 = pool.submit(xtrans_raw, H4, W4)
             cluts16 = pool.submit(warm_cluts16)
+            catalog5 = pool.submit(configs.write_catalog5,
+                                   os.path.join(root5, "film"))
             build_s = _build.build_all()
             print(f"[build] nvcc built and loaded "
                   f"{', '.join(_build.KERNELS)} in {build_s:.1f} s",
                   flush=True)
+            prng_cpu = pool.submit(prng_on_cpu)
             raw, meta, _ = synth.result()
             raw_dev = torch.from_numpy(raw).cuda()
         with timed(phases, "config 1"):
@@ -3880,7 +4465,7 @@ def main(argv=None):
         launches10 = run_config10(card, record, raw, raw_dev, meta, phases)
         launches11 = run_config11(card, record, raw, raw_dev, meta, phases)
         with timed(phases, "prng"):
-            check_prng(card)
+            check_prng(card, prng_cpu)
         launches12 = run_config12(card, record, raw, raw_dev, meta, phases)
         run_ops12(card, record, meta, raw_dev, phases)
         with tempfile.TemporaryDirectory() as tmp:
@@ -3923,6 +4508,21 @@ def main(argv=None):
             launches16 = run_config16(card, record, raw, meta, phases, tmp)
         run_ops16(card, record, meta, raw, meta4, raw4, phases)
         slice16_s = time.perf_counter() - t16
+        # rawdenoiseai alone and config 17, the scopes, config 5 (the
+        # library's batch export) and --generate-cache
+        t19 = time.perf_counter()
+        run_nn(card, record, meta, raw, meta4, raw4, phases, args.seed)
+        launches17 = run_config17(card, record, raw, meta, phases,
+                                  args.seed)
+        with timed(phases, "scopes upload"):
+            raw_dev = torch.from_numpy(raw).cuda()
+        run_scopes(card, record, raw_dev, meta, phases)
+        del raw_dev
+        launches5, lib5 = run_config5(card, record, phases, root5, catalog5,
+                                      configs.LIBRARY5)
+        run_generate_cache(card, root5, phases)
+        lib5.close()
+        slice19_s = time.perf_counter() - t19
     # launches per image: config 2's for the first five kernels, config
     # 3's for the IIR and diffuse kernels, config 4's for Markesteijn and
     # the warp, config 7's for the grid slice
@@ -3932,7 +4532,8 @@ def main(argv=None):
     print(f"[done] total {time.perf_counter() - t0:.1f} s, of which "
           f"[pipe15], [demosaic-methods] and [highlight-modes] "
           f"{branches_s:.1f} s, [pipe16], [diffuse-wide], [opcode] "
-          f"filmic-spline and [ops16] {slice16_s:.1f} s | "
+          f"filmic-spline and [ops16] {slice16_s:.1f} s, [nn], [pipe17], "
+          f"[scopes], [pipe5] and [generate-cache] {slice19_s:.1f} s | "
           + ", ".join(f"{k} {v:.1f} s" for k, v in phases.items()),
           flush=True)
 
@@ -4118,6 +4719,33 @@ def main(argv=None):
                         "replaces": "ansel_tpu/kernels/pointwise.py:30",
                         "launches": launches16["programs"][row["program"]],
                         **{k: row[k] for k in keys}})
+    # config 17: RCD on its denoised mosaic and config 1's program, each
+    # with its launches in [pipe17]; config 5: RCD on its Bayer images,
+    # Markesteijn on its X-Trans images and config 1's program on each
+    # kind of image, each with its launches in [pipe5]'s timed pass
+    for name, src, replaces, key, n in (
+            ("rcd_demosaic[config17]", "rcd.cu",
+             "ansel_tpu/kernels/rcd_pallas.py:189", "rcd17",
+             launches17["rcd"]),
+            ("pointwise_chain[config17.0]", "pointwise_chain.cu",
+             "ansel_tpu/kernels/pointwise.py:30", "chain17.0",
+             launches17["programs"][record["chain17.0"]["program"]]),
+            ("rcd_demosaic[config5]", "rcd.cu",
+             "ansel_tpu/kernels/rcd_pallas.py:189", "rcd5",
+             launches5["rcd"]),
+            ("xtrans_markesteijn[config5]", "markesteijn.cu",
+             "ansel_tpu/kernels/markesteijn_pallas.py:372", "markesteijn5",
+             launches5["markesteijn"]),
+            ("pointwise_chain[config5.bayer]", "pointwise_chain.cu",
+             "ansel_tpu/kernels/pointwise.py:30", "chain5.1",
+             launches5["chains"]["bayer"]),
+            ("pointwise_chain[config5.xtrans]", "pointwise_chain.cu",
+             "ansel_tpu/kernels/pointwise.py:30", "chain5.0",
+             launches5["chains"]["xtrans"])):
+        kernels.append({"name": name, "route": "cuda",
+                        "source": f"ansel_tpu_torch/csrc/{src}",
+                        "replaces": replaces, "launches": n,
+                        **{k: record[key][k] for k in keys}})
     kernels.append({"name": "eaw_atrous_coarse", "route": "cuda",
                     "source": "ansel_tpu_torch/csrc/eaw.cu",
                     "replaces": "ansel_tpu/kernels/eaw_pallas.py:205",

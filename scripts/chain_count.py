@@ -3,7 +3,8 @@
 chain of the port's configs needs in the fused colour chain
 (`csrc/pointwise_chain.cu`), counted from its SASS.
 
-    python3 scripts/chain_count.py [--configs 1 2 3 4 7 10 11 12 13 14 15 16]
+    python3 scripts/chain_count.py [--configs 1 2 3 4 5 7 10 11 12 13 14 15
+                                              16 17]
                                    [--stride 64] [--opcodes]
 
 Three steps, on the machine with the card:
@@ -325,28 +326,34 @@ def weigh(blocks, counts, funcs, pixels, src_lines):
 
 def captured_chains(n, meta_out=None, groups_out=None):
     """(x, chain) of each chain call of config n's pipe at its frame (the
-    chains' stage names appended to `groups_out`)."""
-    h, w = configs.FRAMES[n]
-    raw, meta, scene = synth_raw(h=h, w=w, kind="gradients")
-    if meta_out is not None:
-        meta_out.append(meta)
-    if n in configs.XTRANS_CONFIGS:
-        raw, meta = configs.remosaic_xtrans(meta, scene)
-    if n == 15:  # 2 EV brighter, clipped at the white level
-        raw = configs.mosaic15(raw, meta)
-    if n == 16:  # the ILCE-7M3's noise at ISO 3200, the camera named
-        raw, meta = configs.mosaic16(raw, meta), configs.meta16(meta)
-    with configs.history_files(n) as hist:
-        pipe = port.compile_pipeline(meta, hist, forms=configs.forms(n))
-    if groups_out is not None:
-        groups_out.extend(pipe.fused_groups())
-    raw_dev = torch.from_numpy(pad_to(raw, pipe.pipe.spec_in)).cuda()
+    chains' stage names appended to `groups_out`).  Config 5 runs config
+    1's history on its roll's X-Trans image, then on its Bayer image."""
+    if n == 5:
+        frames = [configs.catalog5_frame(1), configs.catalog5_frame(0)]
+    else:
+        h, w = configs.FRAMES[n]
+        raw, meta, scene = synth_raw(h=h, w=w, kind="gradients")
+        if n in configs.XTRANS_CONFIGS:
+            raw, meta = configs.remosaic_xtrans(meta, scene)
+        if n == 15:  # 2 EV brighter, clipped at the white level
+            raw = configs.mosaic15(raw, meta)
+        if n in (16, 17):  # the ILCE-7M3's noise at ISO 3200, the camera
+            raw, meta = configs.mosaic16(raw, meta), configs.meta16(meta)
+        frames = [(raw, meta)]
     calls, real = [], pw.pointwise_chain
-    pw.pointwise_chain = lambda x, c: calls.append((x, c)) or real(x, c)
-    try:
-        pipe.run_padded(raw_dev)
-    finally:
-        pw.pointwise_chain = real
+    for raw, meta in frames:
+        if meta_out is not None:
+            meta_out.append(meta)
+        with configs.history_files(1 if n == 5 else n) as hist:
+            pipe = port.compile_pipeline(meta, hist, forms=configs.forms(n))
+        if groups_out is not None:
+            groups_out.extend(pipe.fused_groups())
+        raw_dev = torch.from_numpy(pad_to(raw, pipe.pipe.spec_in)).cuda()
+        pw.pointwise_chain = lambda x, c: calls.append((x, c)) or real(x, c)
+        try:
+            pipe.run_padded(raw_dev)
+        finally:
+            pw.pointwise_chain = real
     torch.cuda.synchronize()
     return calls
 
@@ -397,7 +404,8 @@ def fmt(parts):
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--configs", type=int, nargs="+",
-                    default=[1, 2, 3, 4, 7, 10, 11, 12, 13, 14, 15, 16])
+                    default=[1, 2, 3, 4, 5, 7, 10, 11, 12, 13, 14, 15,
+                             16, 17])
     ap.add_argument("--stride", type=int, default=64)
     ap.add_argument("--opcodes", action="store_true")
     args = ap.parse_args()

@@ -1768,3 +1768,106 @@ def test_config16_on_cuda_matches_its_twins(cuda, monkeypatch):
     for other in (want, cpu):
         d = np.abs(got - other)
         assert d.max() <= 1.0 / 255.0 and d.mean() <= 1e-5
+
+
+# --- rawdenoiseai's U-Net, the scopes and config 17 ----------------------------
+
+# the U-Net on the card (cuDNN, TF32 off) against oneDNN on the CPU: float32
+# sums in other orders; relative to the largest output
+UNET_REL_TOL = 1e-5
+# the op on a mosaic in [0, 1]: the U-Net's residual and the anchor's sums.
+# TF32 would move the mosaic by less than this (~6e-7 at 24 MP), so the
+# precision is held by the test above: the spy on cuDNN's setting and
+# UNET_REL_TOL on the net alone
+NN_TOL = 1e-5
+
+
+def test_unet_on_cuda_in_ieee_float32_matches_cpu(cuda, monkeypatch):
+    """`unet_forward` runs its convolutions with cuDNN's TF32 off and
+    puts the setting back after them."""
+    from ansel_tpu_torch.io.anselnn import random_unet_ms
+    from ansel_tpu_torch.kernels import unet
+
+    seen = []
+    real = torch.nn.functional.conv2d
+
+    def spy(*a, **kw):
+        seen.append(torch.backends.cudnn.conv.fp32_precision)
+        return real(*a, **kw)
+
+    monkeypatch.setattr(torch.nn.functional, "conv2d", spy)
+    m = random_unet_ms(base=8, depth=2, seed=1).stage("fine")
+    x = np.random.default_rng(1).uniform(0, 1, (8, 250, 374)).astype(
+        np.float32)
+    before = torch.backends.cudnn.conv.fp32_precision
+    got = unet.unet_forward(m, torch.from_numpy(x).to(cuda)).cpu()
+    assert torch.backends.cudnn.conv.fp32_precision == before
+    assert seen and set(seen) == {"ieee"}
+    want = unet.unet_forward(m, torch.from_numpy(x))
+    scale = want.abs().max().item()
+    assert (got - want).abs().max().item() <= UNET_REL_TOL * scale
+
+
+@pytest.mark.parametrize("xtrans", [False, True], ids=["bayer", "xtrans"])
+@pytest.mark.parametrize("arch", ["unet", "unet-ms"])
+def test_rawdenoiseai_on_cuda_matches_cpu(cuda, arch, xtrans):
+    from ansel_tpu_torch.io import anselnn
+    from ansel_tpu_torch.ops import rawdenoiseai as ai
+
+    name = f"card-{arch}"
+    ai.MODEL_REGISTRY[name] = (anselnn.random_unet_ms(seed=2)
+                               if arch == "unet-ms"
+                               else anselnn.random_unet(seed=2))
+    raw, meta, scene = synth_raw(h=120, w=192, kind="gradients")
+    if xtrans:
+        raw, meta = configs.remosaic_xtrans(meta, scene)
+    (st, x, c, ctx), (st_c, x_c, c_c, ctx_c) = _stage_pair(
+        cuda, meta, raw, "rawdenoiseai", {"custom_model": name,
+                                          "strength": 1.0})
+    got = st.op.apply(x, c, st.plan, ctx).cpu()
+    want = st_c.op.apply(x_c, c_c, st_c.plan, ctx_c)
+    assert torch.isfinite(got).all()
+    assert (got - x.cpu()).abs().max().item() > 1e-5
+    assert (got - want).abs().max().item() <= NN_TOL
+
+
+def test_scopes_on_cuda_equal_the_cpu(cuda):
+    """The four scopes of config 1's output on the card, count for count
+    against the same tensor on the CPU."""
+    from ansel_tpu_torch.pipeline import histogram as scopes
+
+    raw, meta, _ = synth_raw(h=200, w=720, kind="gradients")
+    img = torch.from_numpy(port.compile_pipeline(
+        meta, configs.history(1), device=cuda).output_array(raw)).to(cuda)
+    for fn, kw in ((scopes.histogram_rgb, {}), (scopes.waveform, {}),
+                   (scopes.waveform, {"out_cols": 70}),
+                   (scopes.vectorscope, {})):
+        got, want = fn(img, **kw), fn(img.cpu(), **kw)
+        assert got.device.type == "cuda"
+        assert torch.equal(got.cpu(), want), fn.__name__
+    s, s_cpu = scopes.stats(img), scopes.stats(img.cpu())
+    for k in ("min", "max"):
+        assert torch.equal(s[k].cpu(), s_cpu[k])
+
+
+def test_config17_on_cuda_matches_its_twins(cuda, monkeypatch):
+    """Config 17 at 144 x 400 on the card (rawdenoiseai's nets in cuDNN,
+    RCD, config 1's chain) against the same pipe with each wrapper's
+    plain twin, and against the CPU."""
+    raw, meta, _ = synth_raw(h=144, w=400, kind="gradients")
+    raw, meta = configs.mosaic16(raw, meta), configs.meta16(meta)
+    with configs.model17(seed=0):
+        pipe = port.compile_pipeline(meta, configs.history(17), device=cuda)
+        cpu = port.compile_pipeline(meta, configs.history(17),
+                                    device="cpu").output_array(raw)
+    assert pipe.pipe.stages[1].plan.static == configs.MODEL17
+    rcd.LAUNCHES = pw.LAUNCHES = 0
+    got = pipe.output_array(raw)
+    assert (rcd.LAUNCHES, pw.LAUNCHES) == (1, 1)
+    monkeypatch.setattr(rcd, "rcd_demosaic", rcd.rcd_demosaic_reference)
+    monkeypatch.setattr(pw, "pointwise_chain", pw.pointwise_chain_reference)
+    want = pipe.output_array(raw)
+    assert np.isfinite(got).all() and got.min() >= 0.0 and got.max() <= 1.0
+    for other in (want, cpu):
+        d = np.abs(got - other)
+        assert d.max() <= 1.0 / 255.0 and d.mean() <= 1e-5

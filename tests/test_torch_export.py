@@ -248,19 +248,25 @@ def test_cli_writes_the_16_bit_png_of_export_image(tmp_path, sidecar8,
 
 
 @pytest.mark.parametrize("op,params,args,bp,message", [
-    ("rawdenoiseai", None, ["--width", "100"], INACTIVE,
-     "rawdenoiseai: this module"),
-    ("rawdenoiseai", None, [], ACTIVE, "rawdenoiseai"),
+    ("lut3d", {"filepath": "hald16.png"}, ["--width", "100"], INACTIVE,
+     "lut3d_file.read_png8: a PNG of bit depth 16"),
+    ("lut3d", {"filepath": "hald.tif"}, [], ACTIVE,
+     "lut3d: a Hald CLUT image other than"),
 ], ids=["width", "active-blend"])
 def test_cli_refuses_what_is_not_ported(tmp_path, op, params, args, bp,
                                         message):
     """The "width" case refused `--width` until export scaling was
-    ported; it now plans the export at that width up to a module the
-    port has not ported yet (rawdenoiseai; filmicrgb's v5 colour science
-    and highlights' LCH mode until they were ported).  The "active-blend"
-    case refused an active blend until blends were ported; it now
-    carries one on a module the port has not ported (rawdenoiseai;
-    relight and drawlayer until they were ported)."""
+    ported; it now plans the export at that width up to a branch the
+    port has not ported yet (lut3d's 16-bit Hald PNG; rawdenoiseai,
+    filmicrgb's v5 colour science and highlights' LCH mode until they
+    were ported).  The "active-blend" case refused an active blend until
+    blends were ported; it now carries one on a branch the port has not
+    ported (lut3d's TIFF Hald CLUT; rawdenoiseai, relight and drawlayer
+    until they were ported)."""
+    from test_torch_pipeline import write_hald_forms
+
+    write_hald_forms(str(tmp_path))
+    params = {k: str(tmp_path / v) for k, v in params.items()}
     xmp = str(tmp_path / "h.xmp")
     write_xmp(xmp, [engine.HistoryItem(op, params, blend_params=bp)])
     out = str(tmp_path / "out.png")
@@ -339,11 +345,25 @@ def test_cli_devtest_without_a_card_fails():
 
 
 @pytest.mark.parametrize("mode", ["--generate-cache", "--ingest-lensfun"])
-def test_cli_library_modes_are_not_ported(mode):
+def test_cli_library_modes_are_not_ported(mode, tmp_path, capsys):
+    """Both modes were refused with NotImplementedError until the library
+    was ported; each now runs as the JAX package's CLI runs it, and on
+    the same bad argument fails as it fails: `--generate-cache` without
+    `--library` at argparse (exit 2), `--ingest-lensfun` on a folder
+    without lensfun XML with FileNotFoundError
+    (tests/test_torch_library.py runs both modes on a library and a
+    lensfun checkout)."""
+    from ansel_tpu import cli as ref_cli
     from ansel_tpu_torch import cli
 
-    with pytest.raises(NotImplementedError):
-        cli.main([mode, "x"])
+    errors = []
+    for main in (ref_cli.main, cli.main):
+        with pytest.raises((SystemExit, FileNotFoundError)) as err:
+            main([mode, str(tmp_path)])
+        errors.append((type(err.value), getattr(err.value, "code", None)))
+    assert errors[0] == errors[1]
+    assert errors[1] == ((SystemExit, 2) if mode == "--generate-cache"
+                         else (FileNotFoundError, None))
 
 
 # --- entry() ----------------------------------------------------------------

@@ -162,13 +162,22 @@ def test_an_unknown_op_is_skipped(frame, pallas_rcd, op):
     assert np.array_equal(got, plain)
 
 
-def test_an_unported_reference_op_is_still_refused(frame):
-    """rawdenoiseai (lut3d and relight until they were ported)."""
+def test_an_unported_reference_op_is_still_refused(frame, monkeypatch):
+    """Every op of the JAX package is ported (rawdenoiseai the last;
+    lut3d and relight before it), so the refusal of a reference op the
+    port does not register is held with one taken out of the registry:
+    the planner raises rather than skip it into `unsupported`.  With the
+    registry whole the same item plans."""
+    from ansel_tpu_torch.ops import base as ops_base
+
     _, meta, _ = frame
+    items = [ansel_tpu_torch.HistoryItem("rawdenoiseai", {})]
+    pipe = ansel_tpu_torch.Pipeline(meta, items, device="cpu")
+    assert "rawdenoiseai" in [s.name for s in pipe.stages]
+    assert not pipe.unsupported
+    monkeypatch.delitem(ops_base._OPS, "rawdenoiseai")
     with pytest.raises(NotImplementedError, match="rawdenoiseai"):
-        ansel_tpu_torch.Pipeline(
-            meta, [ansel_tpu_torch.HistoryItem("rawdenoiseai", {})],
-            device="cpu")
+        ansel_tpu_torch.Pipeline(meta, items, device="cpu")
 
 
 # --- F7: R14, side planes on another frame ---------------------------------

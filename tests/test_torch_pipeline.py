@@ -206,22 +206,52 @@ def _xtrans(meta):
     return dataclasses.replace(meta, xtrans=configs.XTRANS6)
 
 
+def write_hald_forms(directory):
+    """Hald CLUT files of the forms the port's reader refuses (ROADMAP
+    Queue 1 item 7), each 8 x 8 (level 4) in `directory`: a 16-bit PNG,
+    an interlaced 8-bit PNG and a TIFF."""
+    import struct
+    import zlib
+
+    def chunk(tag, body):
+        return (struct.pack(">I", len(body)) + tag + body
+                + struct.pack(">I", zlib.crc32(tag + body)))
+
+    for name, depth, interlace in (("hald16.png", 16, 0),
+                                   ("hald-interlaced.png", 8, 1)):
+        rows = (b"\0" + b"\x80" * (8 * 3 * depth // 8)) * 8
+        data = (b"\x89PNG\r\n\x1a\n"
+                + chunk(b"IHDR", struct.pack(">IIBBBBB", 8, 8, depth, 2, 0,
+                                             0, interlace))
+                + chunk(b"IDAT", zlib.compress(rows)) + chunk(b"IEND", b""))
+        with open(os.path.join(directory, name), "wb") as f:
+            f.write(data)
+    with open(os.path.join(directory, "hald.tif"), "wb") as f:
+        f.write(b"II*\0")
+
+
 @pytest.mark.parametrize("items,meta_fn,kw", [
-    ([("rawdenoiseai", {})], None, {}),                      # not ported
-], ids=["rawdenoiseai"])
-def test_unported_branches_raise_at_plan_time(items, meta_fn, kw):
+    ([("lut3d", {"filepath": "hald16.png"})], None, {}),
+    ([("lut3d", {"filepath": "hald-interlaced.png"})], None, {}),
+    ([("lut3d", {"filepath": "hald.tif"})], None, {}),
+], ids=["lut3d-16-bit-png", "lut3d-interlaced-png", "lut3d-tiff"])
+def test_unported_branches_raise_at_plan_time(items, meta_fn, kw, tmp_path):
     """Each branch the port has not ported raises NotImplementedError
-    while planning.  PPG, the bilinear fallback, the ICC profiles, lut3d,
-    drawlayer, the preview pipe, the demosaic methods and post passes, the
-    highlight modes, blurs, filmic rgb's colour sciences v1-v5,
-    channelmixer, borders, relight, invert, denoiseprofile's automatic
-    profile and diffuse past five scales were cases here until they were
-    ported (`test_formerly_refused_branches_plan`); rawdenoiseai is the
-    one op left."""
+    while planning: lut3d's Hald CLUT in any form but an 8-bit RGB or RGBA,
+    non-interlaced PNG (the JAX package reads them through PIL).  PPG, the
+    bilinear fallback, the ICC profiles, lut3d, drawlayer, the preview
+    pipe, the demosaic methods and post passes, the highlight modes,
+    blurs, filmic rgb's colour sciences v1-v5, channelmixer, borders,
+    relight, invert, denoiseprofile's automatic profile, diffuse past five
+    scales and rawdenoiseai were cases here until they were ported
+    (`test_formerly_refused_branches_plan`)."""
+    write_hald_forms(str(tmp_path))
+    items = [(op, {k: os.path.join(str(tmp_path), v)
+                   for k, v in p.items()}) for op, p in items]
     _, meta, _ = synth_raw(h=64, w=128)
     if meta_fn is not None:
         meta = meta_fn(meta)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="lut3d"):
         ansel_tpu_torch.Pipeline(meta, _hist(ansel_tpu_torch, items),
                                  device="cpu", **kw)
 
@@ -259,12 +289,14 @@ def test_unported_branches_raise_at_plan_time(items, meta_fn, kw):
     ([("denoiseprofile", {})], None, {}, None),   # automatic noise profile
     ([("diffuse", {"radius": 12})], None, {}, None),    # 6 wavelet scales
     ([("invert", {})], None, {}, None),
+    ([("rawdenoiseai", {})], None, {}, None),    # no model: the identity
 ], ids=["ppg", "bilinear", "colorin-icc", "colorout-icc", "lut3d",
         "drawlayer", "preview", "lch", "inpaint", "harmonic", "lmmse",
         "amaze", "vng4", "green-eq", "smoothing", "xtrans-dual",
         "xtrans-smoothing", "xtrans-laplacian", "preview-green-eq", "blurs",
         "filmic-v5", "filmic-v1", "filmic-v3", "channelmixer", "borders",
-        "relight", "denoise-auto-profile", "diffuse-6-scales", "invert"])
+        "relight", "denoise-auto-profile", "diffuse-6-scales", "invert",
+        "rawdenoiseai"])
 def test_formerly_refused_branches_plan(items, meta_fn, kw, error):
     """What `test_unported_branches_raise_at_plan_time` refused before it
     was ported now plans: PPG, the bilinear fallback (method 7), lut3d
@@ -273,8 +305,9 @@ def test_formerly_refused_branches_plan(items, meta_fn, kw, error):
     X-Trans is the clamp, as in the JAX package), AMaZE, LMMSE, VNG4,
     green equilibration, colour smoothing and X-Trans dual, blurs,
     filmic rgb's colour sciences v1-v5, channelmixer, borders, relight,
-    invert, denoiseprofile's automatic profile and diffuse at six scales;
-    an ICC item without its profile raises what the JAX package raises
+    invert, denoiseprofile's automatic profile, diffuse at six scales and
+    rawdenoiseai (without a model it plans the identity, as in the JAX
+    package; tests/test_torch_nn.py runs its nets); an ICC item without its profile raises what the JAX package raises
     while it runs the stage."""
     _, meta, _ = synth_raw(h=64, w=128)
     if meta_fn is not None:
