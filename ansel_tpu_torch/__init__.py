@@ -9,10 +9,13 @@ nvcc at first use (`kernels/_build.py`).  It imports neither JAX nor
 Ported: all 88 of the reference's ops, on the paths of bench configs
 1-5 (a default develop; the high-ISO denoise stack; diffuse, toneequal
 and the local Laplacian at 45 MP; X-Trans Markesteijn and lens; the
-library's batch export) and the port's configs 7-17; the camera raw
-loader, the XMP sidecar reader and writer (`io/xmp.py`), the headless
-export (`pipeline/export.py`) and its CLI, the library (`library/`) with
-its scheduler (`control/`), and the scopes (`pipeline/histogram.py`):
+library's batch export) and the port's configs 7-19; the camera raw
+loader, the XMP sidecar reader and writer (`io/xmp.py`), the Lightroom
+importer (`io/lightroom.py`), the headless export (`pipeline/export.py`)
+and its CLI, the library (`library/`) with its scheduler (`control/`)
+and the Piwigo exporter, the scopes (`pipeline/histogram.py`), and the
+multi-device paths (`parallel/`: batch and row sharding on a mesh of
+devices in one process):
 
     python -m ansel_tpu_torch.cli raw.npz shot.xmp out.png --bpp 16 --no-icc
     python -m ansel_tpu_torch.cli synth:6016x4000 shot.xmp out.png \

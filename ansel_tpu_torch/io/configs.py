@@ -1264,6 +1264,100 @@ def write_catalog5(folder: str, n: int = LIBRARY5, **frames) -> list:
     return paths
 
 
+# config 18, the multi-device paths at 24 MP (`parallel/`): (a) a batch
+# of BATCH18 images of config 1's mosaic at the gains GAINS18 over a dp
+# axis of DP18, (b) HISTORIES[18] (tests/test_spatial_shard.py's denoise
+# stack: highlights clip, denoiseprofile wavelets, nlmeans with its
+# luma and chroma weights at 50, which extrapolate the denoised delta
+# 50-fold, exposure, filmicrgb) row-sharded over SP18 shards with one halo
+# exchange, (c) config 1's history row-sharded over a (dp 2, sp 2) mesh.
+# Config 2's own history is refused by the shifted-window scheme: its
+# guided-Laplacian highlights demand the full frame
+HISTORIES[18] = (
+    ("highlights", {"mode": 0, "clip": 1.0}),
+    ("denoiseprofile", {"a": (4e-4,) * 3, "b": (1e-5,) * 3,
+                        "strength": 2.0}),
+    ("nlmeans", {"strength": 50.0, "luma": 50.0, "chroma": 50.0}),
+    ("exposure", {"exposure": 0.5}),
+    ("filmicrgb", {}),
+)
+DP18, SP18 = 2, 4
+BATCH18 = 4
+GAINS18 = (1.00, 1.01, 1.02, 1.03)
+
+# config 19, a Lightroom roll: config 5's images 0 (Bayer) and 1
+# (X-Trans), each beside the Lightroom sidecar LIGHTROOM19
+# (tests/test_lightroom.py's), imported into a library and crawled (the
+# crawler imports the Lightroom histories, ratings and tags), exported
+# with `batch_export` and uploaded with `store_piwigo`
+LIGHTROOM19 = """<?xml version="1.0" encoding="UTF-8"?>
+<x:xmpmeta xmlns:x="adobe:ns:meta/">
+ <rdf:RDF xmlns:rdf="http://www.w3.org/1999/02/22-rdf-syntax-ns#">
+  <rdf:Description rdf:about=""
+    xmlns:crs="http://ns.adobe.com/camera-raw-settings/1.0/"
+    xmlns:xmp="http://ns.adobe.com/xap/1.0/"
+    xmlns:dc="http://purl.org/dc/elements/1.1/"
+    xmp:Rating="4"
+    xmp:Label="Red"
+    crs:Exposure2012="+0.85"
+    crs:Blacks2012="-50"
+    crs:HasCrop="True"
+    crs:CropTop="0.1" crs:CropLeft="0.05" crs:CropBottom="0.9"
+    crs:CropRight="0.95" crs:CropAngle="2.5"
+    crs:ImageWidth="6000" crs:ImageLength="4000"
+    crs:Orientation="6"
+    crs:GrainAmount="30"
+    crs:GrainFrequency="60"
+    crs:PostCropVignetteAmount="-40"
+    crs:PostCropVignetteMidpoint="30"
+    crs:PostCropVignetteStyle="1"
+    crs:SaturationAdjustmentRed="25"
+    crs:LuminanceAdjustmentBlue="-30"
+    crs:SplitToningShadowHue="220"
+    crs:SplitToningShadowSaturation="30"
+    crs:SplitToningHighlightHue="40"
+    crs:SplitToningHighlightSaturation="20"
+    crs:SplitToningBalance="-25"
+    crs:ParametricShadows="20"
+    crs:ToneCurveName2012="Medium Contrast">
+   <dc:subject><rdf:Bag><rdf:li>alps</rdf:li><rdf:li>ski</rdf:li></rdf:Bag></dc:subject>
+   <crs:ToneCurvePV2012><rdf:Seq>
+     <rdf:li>0, 0</rdf:li><rdf:li>128, 140</rdf:li><rdf:li>255, 255</rdf:li>
+   </rdf:Seq></crs:ToneCurvePV2012>
+  </rdf:Description>
+ </rdf:RDF>
+</x:xmpmeta>
+"""
+ROLL19 = 2
+# how much older than the import the Lightroom sidecars are (seconds):
+# the crawl after the import sees them newer than the library's record,
+# and a second crawl with write-back sees the imported history newer
+SIDECAR_AGE19 = 3600
+
+
+def write_roll19(folder: str, **frames) -> list:
+    """Config 19's roll in `folder`: images 0 and 1 of config 5's roll
+    (`catalog5_frame`, Bayer and X-Trans) saved as img{i:03d}.npz, each
+    with the Lightroom sidecar LIGHTROOM19 written SIDECAR_AGE19 seconds
+    in the past; -> their paths."""
+    import os
+    import time
+
+    from .rawfile import save_raw
+
+    os.makedirs(folder, exist_ok=True)
+    paths = []
+    then = time.time() - SIDECAR_AGE19
+    for i in range(ROLL19):
+        path = os.path.join(folder, f"img{i:03d}.npz")
+        save_raw(path, *catalog5_frame(i, **frames))
+        with open(path + ".xmp", "w", encoding="utf-8") as f:
+            f.write(LIGHTROOM19)
+        os.utime(path + ".xmp", (then, then))
+        paths.append(path)
+    return paths
+
+
 # each config's frame (height, width)
 FRAMES = {1: (BENCH_H, BENCH_W), 2: (BENCH_H, BENCH_W),
           3: (BENCH3_H, BENCH3_W), 4: (BENCH4_H, BENCH4_W),
@@ -1272,7 +1366,7 @@ FRAMES = {1: (BENCH_H, BENCH_W), 2: (BENCH_H, BENCH_W),
           11: (BENCH_H, BENCH_W), 12: (BENCH_H, BENCH_W),
           13: (BENCH_H, BENCH_W), 14: (BENCH_H, BENCH_W),
           15: (BENCH_H, BENCH_W), 16: (BENCH_H, BENCH_W),
-          17: (BENCH_H, BENCH_W)}
+          17: (BENCH_H, BENCH_W), 18: (BENCH_H, BENCH_W)}
 # config 9's DNG: a 14-bit mosaic and a GainMap of 17 x 25 points per
 # RGGB filter
 DNG9_BITS = 14

@@ -35,6 +35,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _LIBS = {}
 _LOCK = threading.Lock()
+# the wrappers add to their launch counts under this lock: the shards of
+# a mesh (parallel/mesh.py) launch kernels from threads side by side
+COUNT_LOCK = threading.Lock()
 
 
 def nvcc() -> str:

@@ -32,6 +32,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ._build import COUNT_LOCK
+
 # launches of the CUDA kernel since the count was last set to 0
 LAUNCHES = 0
 
@@ -226,5 +228,6 @@ def slice_grid(base_grid: torch.Tensor, z: torch.Tensor,
                              plan.slab_cols, plan.plane_stride, stream)
     if rc != 0:
         raise RuntimeError(f"slice_grid: CUDA launch failed ({rc})")
-    LAUNCHES += 1
+    with COUNT_LOCK:
+        LAUNCHES += 1
     return out

@@ -25,6 +25,7 @@ import ctypes
 import torch
 
 from ..pixel.shifts import pad2d
+from ._build import COUNT_LOCK
 
 B3 = (1.0 / 16.0, 4.0 / 16.0, 6.0 / 16.0, 4.0 / 16.0, 1.0 / 16.0)
 MAX_SCALES = 5
@@ -288,5 +289,6 @@ def diffuse_iteration(x: torch.Tensor, c, scales: int, modes) -> torch.Tensor:
             scales, m, stream)
     if rc != 0:
         raise RuntimeError(f"diffuse: CUDA launch failed ({rc})")
-    LAUNCHES += 1
+    with COUNT_LOCK:
+        LAUNCHES += 1
     return out

@@ -29,6 +29,7 @@ import torch
 
 from ..pixel.fastmath import dt_fast_expf, fast_mexp2f
 from ..pixel.shifts import PaddedView
+from ._build import COUNT_LOCK
 
 B3 = (1.0 / 16.0, 4.0 / 16.0, 6.0 / 16.0, 4.0 / 16.0, 1.0 / 16.0)
 DN, ATROUS = 0, 1
@@ -128,7 +129,8 @@ def _coarse(x: torch.Tensor, scale: int, const, variant: int):
                             float(const), variant, smem, stream)
     if rc != 0:
         raise RuntimeError(f"eaw: CUDA launch failed ({rc})")
-    LAUNCHES += 1
+    with COUNT_LOCK:
+        LAUNCHES += 1
     return coarse, detail
 
 

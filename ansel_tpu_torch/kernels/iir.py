@@ -29,6 +29,8 @@ import ctypes
 import numpy as np
 import torch
 
+from ._build import COUNT_LOCK
+
 RB = 8  # the Pallas kernel's row block: the backward start is padded to it
 
 # launches of the CUDA kernel since the count was last set to 0
@@ -185,5 +187,6 @@ def gaussian_iir(x: torch.Tensor, coef, vmin=None, vmax=None) -> torch.Tensor:
                               n, h, w, host_coef, lo, hi, int(clamp), stream)
     if rc != 0:
         raise RuntimeError(f"gaussian_iir: CUDA launch failed ({rc})")
-    LAUNCHES += 1
+    with COUNT_LOCK:
+        LAUNCHES += 1
     return out

@@ -37,6 +37,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops._bayer import tile6, xtrans_period
+from ._build import COUNT_LOCK
 
 PAD = 24
 
@@ -687,5 +688,6 @@ def xtrans_markesteijn(x: torch.Tensor, pattern6,
                              host_table, _plan_table(plan), stream)
     if rc != 0:
         raise RuntimeError(f"markesteijn: CUDA launch failed ({rc})")
-    LAUNCHES += 1
+    with COUNT_LOCK:
+        LAUNCHES += 1
     return out

@@ -36,6 +36,7 @@ import torch
 
 from ..pixel.fastmath import dt_fast_mexp2f
 from ..pixel.shifts import pad2d
+from ._build import COUNT_LOCK
 
 MAX_P = 8           # keep in step with csrc/nlm.cu, which checks them
 MAX_OFFSETS = 900
@@ -207,5 +208,6 @@ def nlm(img: torch.Tensor, offsets, P: int, norm, sharpness, cp_norm: float,
                 launches += 1
     if rc != 0:
         raise RuntimeError(f"nlm: CUDA launch failed ({rc})")
-    LAUNCHES += launches
+    with COUNT_LOCK:
+        LAUNCHES += launches
     return out

@@ -38,6 +38,8 @@ from typing import Any, Tuple
 
 import torch
 
+from ._build import COUNT_LOCK
+
 # opcodes and record layout: keep in step with csrc/pointwise_chain.cu
 OP_EXPOSURE = 1
 OP_MATRIX = 2
@@ -358,6 +360,7 @@ def pointwise_chain(x: torch.Tensor, chain: Chain) -> torch.Tensor:
                                      stream)
     if rc != 0:
         raise RuntimeError(f"pointwise_chain: CUDA launch failed ({rc})")
-    LAUNCHES += 1
-    PROGRAM_LAUNCHES[chain.fixed] += 1
+    with COUNT_LOCK:
+        LAUNCHES += 1
+        PROGRAM_LAUNCHES[chain.fixed] += 1
     return y

@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from ..core.types import CFAPattern
+from ._build import COUNT_LOCK
 
 EPS = 1e-5
 EPSSQ = 1e-10
@@ -257,5 +258,6 @@ def rcd_demosaic(x: torch.Tensor, cfa: CFAPattern, scaler=1.0) -> torch.Tensor:
                               s.data_ptr(), smem, stream)
     if rc != 0:
         raise RuntimeError(f"rcd_demosaic: CUDA launch failed ({rc})")
-    LAUNCHES += 1
+    with COUNT_LOCK:
+        LAUNCHES += 1
     return out

@@ -20,6 +20,7 @@ from typing import NamedTuple
 import torch
 
 from ..pixel.shifts import PaddedView
+from ._build import COUNT_LOCK
 
 MAX_TAPS = 513    # keep in step with csrc/sepblur.cu, which checks them
 # threads of a block, its output rows (at most), the dilation from which
@@ -156,5 +157,6 @@ def sep_blur(x: torch.Tensor, taps, dilation: int = 1) -> torch.Tensor:
                           stream)
     if rc != 0:
         raise RuntimeError(f"sep_blur: CUDA launch failed ({rc})")
-    LAUNCHES += 1
+    with COUNT_LOCK:
+        LAUNCHES += 1
     return out

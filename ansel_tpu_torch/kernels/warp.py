@@ -41,6 +41,8 @@ import ctypes
 
 import torch
 
+from ._build import COUNT_LOCK
+
 DIST_NONE = 0
 DIST_POLY3 = 1
 DIST_PTLENS = 2
@@ -317,8 +319,9 @@ def clip_warp(x: torch.Tensor, k: torch.Tensor, k_apply: int, oh: int,
                            k.data_ptr(), int(bool(k_apply)), stream)
     if rc != 0:
         raise RuntimeError(f"warp: CUDA launch failed ({rc})")
-    LAUNCHES += 1
-    MAP_LAUNCHES["clip"] += 1
+    with COUNT_LOCK:
+        LAUNCHES += 1
+        MAP_LAUNCHES["clip"] += 1
     return out
 
 
@@ -346,8 +349,9 @@ def homography_warp(x: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
                                  w, k.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"warp: CUDA launch failed ({rc})")
-    LAUNCHES += 1
-    MAP_LAUNCHES["homography"] += 1
+    with COUNT_LOCK:
+        LAUNCHES += 1
+        MAP_LAUNCHES["homography"] += 1
     return out
 
 
@@ -383,8 +387,9 @@ def liquify_warp(x: torch.Tensor, stamps: torch.Tensor,
                               stamps.shape[0], stream)
     if rc != 0:
         raise RuntimeError(f"warp: CUDA launch failed ({rc})")
-    LAUNCHES += 1
-    MAP_LAUNCHES["liquify"] += 1
+    with COUNT_LOCK:
+        LAUNCHES += 1
+        MAP_LAUNCHES["liquify"] += 1
     return out
 
 
@@ -418,6 +423,7 @@ def lens_warp(x: torch.Tensor, k: torch.Tensor, model: int, flags: int,
                            int(model), int(flags), cy, cx, rnorm, stream)
     if rc != 0:
         raise RuntimeError(f"warp: CUDA launch failed ({rc})")
-    LAUNCHES += 1
-    MAP_LAUNCHES["lens"] += 1
+    with COUNT_LOCK:
+        LAUNCHES += 1
+        MAP_LAUNCHES["lens"] += 1
     return out

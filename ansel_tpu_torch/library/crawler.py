@@ -6,9 +6,8 @@ comparing each image's DB change timestamp vs its sidecar mtime; newer
 sidecars re-import history into the DB, run at dt_init
 darktable.c:1341-1345).  The sidecar stays authoritative (SURVEY §2.4):
 DB-newer images can be flushed back out with `write_back=True`.  A
-Lightroom-authored sidecar, which the JAX package imports through
-`io/lightroom.py`, is refused with NotImplementedError until that reader
-is ported.
+Lightroom-authored sidecar is imported through `io/lightroom.py`: its
+history, rating and tags go to the library.
 """
 
 from __future__ import annotations
@@ -25,12 +24,6 @@ class CrawlReport:
     reimported: List[int] = dataclasses.field(default_factory=list)
     written_back: List[int] = dataclasses.field(default_factory=list)
     missing_files: List[int] = dataclasses.field(default_factory=list)
-
-
-def is_lightroom_xmp(text: str) -> bool:
-    """A sidecar Lightroom wrote (`ansel_tpu/io/lightroom.py:93`)."""
-    return "camera-raw-settings" in text and \
-        "darktable:history" not in text
 
 
 def crawl(lib: Library, write_back: bool = False) -> CrawlReport:
@@ -58,14 +51,20 @@ def crawl(lib: Library, write_back: bool = False) -> CrawlReport:
                 with open(xmp, "r", encoding="utf-8",
                           errors="replace") as fh:
                     text = fh.read()
+                from ..io.lightroom import (is_lightroom_xmp,
+                                            parse_lightroom_xmp)
+
                 if is_lightroom_xmp(text):
                     # LR-authored sidecar (develop/lightroom.c import)
-                    from ..ops.base import not_ported
-
-                    raise not_ported("crawler", "a Lightroom sidecar "
-                                     f"({xmp})")
-                doc = parse_xmp(xmp)
-                lib.write_history(imgid, doc.history)
+                    imp = parse_lightroom_xmp(text)
+                    lib.write_history(imgid, imp.history)
+                    if imp.rating is not None:
+                        lib.set_rating(imgid, imp.rating)
+                    for tag in imp.tags:
+                        lib.attach_tag(imgid, tag)
+                else:
+                    doc = parse_xmp(xmp)
+                    lib.write_history(imgid, doc.history)
                 lib.con.execute(
                     "UPDATE images SET xmp_timestamp=? WHERE id=?",
                     (mtime, imgid))

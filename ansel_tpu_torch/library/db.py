@@ -259,20 +259,24 @@ class Library:
         for num, it in enumerate(history):
             from ..core.params import params_class
 
+            version = it.version or 0
             if isinstance(it.params, bytes):
                 blob = it.params
             else:
+                # the row names the version of the class that encoded the
+                # blob, where the JAX package stores 0 (ROADMAP R19)
                 cls = params_class(it.op, it.version)
                 obj = it.params if not isinstance(it.params, dict) \
                     else cls(**it.params)
                 blob = cls.codec.encode(obj)
+                version = version or cls.op_version
             blend = it.blend_params if isinstance(it.blend_params, bytes) \
                 else None
             self.con.execute(
                 "INSERT INTO history (imgid, num, operation, op_params, "
                 "module, enabled, blendop_params, multi_priority, "
                 "iop_order) VALUES (?,?,?,?,?,?,?,?,?)",
-                (imgid, num, it.op, blob, it.version or 0,
+                (imgid, num, it.op, blob, version,
                  int(it.enabled), blend, it.multi_priority,
                  it.iop_order))
         self.con.execute(

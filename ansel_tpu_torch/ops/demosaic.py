@@ -166,6 +166,15 @@ class Demosaic(Op):
         x0 = max(0, win[1] - halo) // 6 * 6
         y1 = min(si.height, win[0] + win[2] + halo)
         x1 = min(si.width, win[1] + win[3] + halo)
+        if (plan.static[0] & ~DUAL_FLAG) == PPG:
+            # PPG's shifts wrap round the array (ROADMAP R18): a window
+            # that reaches one edge of the frame but not the other would
+            # wrap round its own far edge where the whole pipe wraps
+            # round the frame's, so it spans that axis instead
+            if (y0 == 0) != (y1 == si.height):
+                y0, y1 = 0, si.height
+            if (x0 == 0) != (x1 == si.width):
+                x0, x1 = 0, si.width
         return (y0, x0, y1 - y0, x1 - x0)
 
     def coeffs(self, ctx: PlanContext, plan: OpPlan, p: DemosaicParams):

@@ -18,8 +18,11 @@ Automatic noise profiles (a[1] <= 0, the module's defaults) look the
 camera up in `io/noiseprofiles.py` by maker, model and ISO, else take
 the generic a = 0.5e-4 with the JAX package's log line.
 
-Not ported, refused while planning: the row-sharded branch
-(`shard_geom`, the multi-device slice).
+On a row-sharded pipe (`parallel/spatial.py`, which publishes
+`shard_geom` in the plan's notes) the per-scale detail variance, a
+whole-frame statistic, is each shard's sum of detail^2 over the rows it
+owns, added over the mesh axis (`parallel/mesh.psum`), as the JAX
+package rebuilds it (`ansel_tpu/ops/denoiseprofile.py:294-326`).
 """
 
 from __future__ import annotations
@@ -35,7 +38,7 @@ from ..core.types import Colorspace
 from ..pixel.nlmeans import nlmeans
 from ..pixel.wavelets import eaw_dn_decompose, eaw_synthesize
 from . import base as base_mod
-from .base import Op, OpPlan, PlanContext, not_ported, register
+from .base import Op, OpPlan, PlanContext, register
 
 BANDS = 7
 P_FULCRUM = 0.05
@@ -112,8 +115,6 @@ class DenoiseProfile(Op):
     input_colorspace = Colorspace.CAMERA_RGB
 
     def plan(self, ctx: PlanContext, spec_in, p: DenoiseProfileParams) -> OpPlan:
-        if ctx.notes.get("shard_geom") is not None:
-            raise not_ported(self.name, "the row-sharded pipe")
         # number of visible scales at this zoom (process_wavelets,
         # denoiseprofile.c:1300-1316: largest filter support <= 20% of
         # the input buffer dimension, adjusted by the roi scale)
@@ -264,8 +265,6 @@ class DenoiseProfile(Op):
         }
 
     def apply(self, x, c, plan: OpPlan, ctx: PlanContext):
-        if ctx.notes.get("shard_geom") is not None:
-            raise not_ported(self.name, "the row-sharded pipe")
         (max_scale, color_mode, use_new_vst, nlm, P, K,
          center_weight, scattering, decimate) = plan.static
         wb = c["wb"].reshape(3, 1, 1)
@@ -290,7 +289,24 @@ class DenoiseProfile(Op):
                           decimate=decimate)
             return wb * (_inverse_vst(out, c, pexp, c["bias"]) - b)
 
+        # a row-sharded pipe: each shard sums the rows it owns (its window
+        # starts at clip(i*Hs - halo, 0, H - Hw)) and the axis's psum
+        # gives the whole frame's statistic (eaw.c's sum_sq), so every
+        # shard denoises as the single pipe does
+        shard = ctx.notes.get("shard_geom")
+        rowmask = None
         npix = x.shape[1] * x.shape[2]
+        if shard is not None:
+            from ..parallel import mesh as mesh_mod
+
+            Hs, hh = shard["Hs"], shard["halo"]
+            Hf, Hw = shard["H"], shard["Hw"]
+            i = mesh_mod.axis_index(shard["axis"])
+            s_i = min(max(i * Hs - hh, 0), Hf - Hw)
+            rows = torch.arange(x.shape[1], device=x.device) + s_i
+            own = (rows >= i * Hs) & (rows < (i + 1) * Hs)
+            rowmask = own.to(x.dtype)[None, :, None]
+            npix = Hf * x.shape[2]
         out = torch.zeros_like(buf)
         cur = buf
         varf = math.sqrt(2.0 + 2.0 * 16.0 + 36.0) / 16.0
@@ -298,6 +314,11 @@ class DenoiseProfile(Op):
             sigma_band = varf**scale
             coarse, detail, sum_sq = eaw_dn_decompose(
                 cur, scale, 1.0 / (sigma_band * sigma_band))
+            if rowmask is not None:
+                # from the detail, not the kernel's sum over the window
+                sum_sq = mesh_mod.psum(
+                    torch.sum(detail * detail * rowmask, dim=(1, 2)),
+                    shard["axis"])
             sb2 = sigma_band * sigma_band
             var_y = sum_sq / (npix - 1.0)
             std_x = torch.sqrt(torch.clamp(var_y - sb2, min=1e-6))

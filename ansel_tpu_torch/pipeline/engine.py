@@ -38,6 +38,11 @@ dict or None to PPG (method 0), plan no backward ROI, and let filmicrgb,
 denoiseprofile and nlmeans take their fast branches, as the JAX package
 does (`ansel_tpu/pipeline/engine.py:229-238, 249, 323`).
 
+The multi-device pipes (`parallel/`) plan a window of a larger frame
+(`spec_in`, as the JAX package does), or a band of the output rows whose
+stage windows start on a multiple of `row_align` rows, and run it from
+the rows of its input window alone (`run_steps(x_spec=)`).
+
 The JAX engine takes the raw-detail plane at demosaic and keeps each
 raster mask at its source stage's frame; neither follows a later change
 of frame, and a blend that reads one on another frame fails there on a
@@ -292,8 +297,10 @@ class Pipeline:
                  device="cuda", scale: float = 1.0, forms=None,
                  order_version=None, pipe_type: str = PipeType.EXPORT,
                  out_window: Optional[Tuple[int, int, int, int]] = None,
-                 roi: bool = True):
+                 roi: bool = True, spec_in: Optional[ImageSpec] = None,
+                 row_align: int = 1):
         self.device = _check_device(device)
+        self.row_align = row_align
         fast = pipe_type in (PipeType.PREVIEW, PipeType.THUMBNAIL)
         if fast:
             # the fast-demosaic override: only an item whose params are a
@@ -314,7 +321,11 @@ class Pipeline:
         self.ctx.notes["forms"] = self.forms  # spots and retouch read them
         self.ctx.notes["pipe_type"] = pipe_type
 
-        spec = ImageSpec(
+        # spec_in override: a window of a larger frame (org and full dims
+        # set), which the row-sharded pipe (parallel/spatial.py) plans for
+        # each shard, so size-adaptive planning (wavelet scale counts)
+        # matches the full frame's
+        spec = spec_in if spec_in is not None else ImageSpec(
             width=meta.width, height=meta.height, colorspace=Colorspace.RAW,
             channels=1,
             cfa=CFAPattern.XTRANS if meta.xtrans else meta.cfa,
@@ -446,7 +457,12 @@ class Pipeline:
     # --- backward ROI -------------------------------------------------------
     def _backward_windows(self, out_window):
         """Per-stage (win_in, win_out) windows, walking the planned pipe
-        backward; None if every window is the full frame (no-op)."""
+        backward; None if every window is the full frame (no-op).  Each
+        input window's first row is rounded down to a multiple of
+        `row_align` (1 by default; the row-sharded pipe's 24, a multiple
+        of the 8-row padding and the CFA periods, makes a window that
+        reaches the frame's last row hold the whole-frame pipe's own pad
+        rows, so it computes what that pipe computes there)."""
         n = len(self.stages)
         if n == 0:
             return None
@@ -469,6 +485,9 @@ class Pipeline:
                 wins[i] = (full_in, full_out)
                 win = full_in
             else:
+                a = self.row_align
+                if a > 1 and r[0] % a:
+                    r = (r[0] // a * a, r[1], r[2] + r[0] % a, r[3])
                 if tuple(r) != full_in:
                     any_proper = True
                 wins[i] = (tuple(r), use_out)
@@ -648,12 +667,15 @@ class Pipeline:
             i = j
         return steps
 
-    def run_steps(self, x: torch.Tensor, steps, carry=None) -> torch.Tensor:
+    def run_steps(self, x: torch.Tensor, steps, carry=None,
+                  x_spec: Optional[ImageSpec] = None) -> torch.Tensor:
         """Run a schedule on `x`, the input of its first stage.  `carry`
         (a dict, filled in place) holds what later stages of the same run
         read: the raster side-band ("masks", keyed by (name,
         multi_priority) and (name, None)) and the demosaic stage's
-        raw-detail plane ("rawdetail")."""
+        raw-detail plane ("rawdetail").  `x_spec` is the window `x` holds
+        where it is not the first stage's producer's (a row-sharded pipe
+        hands each device the rows of its input window only)."""
         if not steps:
             return x
         carry = {} if carry is None else carry
@@ -661,8 +683,8 @@ class Pipeline:
         needs_detail = any(s.blend is not None and abs(s.blend.details) > 1e-6
                            for s in self.stages)
         start = steps[0][1]
-        cur_spec = (self.stages[start - 1].plan.spec_out if start > 0
-                    else self.spec_in)
+        cur_spec = x_spec or (self.stages[start - 1].plan.spec_out
+                              if start > 0 else self.spec_in)
         for kind, i, j, arg in steps:
             s = self.stages[i]
             x = _rewindow(x, cur_spec, s.plan.spec_in)

@@ -134,7 +134,28 @@ entry points a user calls, at their full frames:
     a timed one (img/s, MP/s, where the wall time goes, peak memory): RCD,
     Markesteijn and the chain, the pipe cache hit on every image;
     `[generate-cache]` the CLI's thumbnail cache on its library in a new
-    process.
+    process;
+  * the port's config 18 at 24 MP (`[pipe18]`), the multi-device paths
+    on the machine's cards or, where it has fewer than a path's shards,
+    on an explicit virtual mesh that it names: (a) `BatchPipeline` over
+    dp 2, four images of config 1's mosaic at gains 1.00-1.03, each equal
+    to the single pipe's bit for bit; (b) `SpatialPipeline` over sp 4,
+    config 18's denoise stack on config 2's noisy mosaic (one halo
+    exchange, denoiseprofile's statistic summed over the shards) within
+    1/255 of the single pipe; (c) `spatial_sharded_pipe` over (dp 2, sp
+    2), config 1's history within 1e-5; each with img/s beside the single
+    pipe's, peak memory and launches, and RCD, EAW, NLM and the chains
+    held against their twins on a shard's arguments (sp shard 1's
+    window, whose origin is row 708); then `dryrun_multichip(4)`
+    (`[dryrun]`);
+  * the port's config 19 (`[pipe19]`), a Lightroom roll: config 5's
+    Bayer and X-Trans images beside Lightroom sidecars (written on a
+    host thread from the start), imported, crawled (the histories,
+    ratings and tags), written back, exported to JPEG by `batch_export`
+    and uploaded by `store_piwigo` to a mock ws.php this script serves on
+    127.0.0.1, each render within 1/255 of a single pipe of the parsed
+    history: RCD, Markesteijn, the warp on clipping's map, grain's blurs
+    and two interpreted chains against their twins.
 
 Each path runs with the launch counts set to 0 just before it and read
 just after.  Every chain each config builds is also timed on its own
@@ -148,13 +169,16 @@ needs a CUDA device and imports neither JAX nor `ansel_tpu`.
 import argparse
 import contextlib
 import dataclasses
+import http.server
 import json
 import os
 import struct
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import urllib.parse
 import zlib
 from concurrent.futures import ThreadPoolExecutor
 
@@ -164,7 +188,7 @@ import torch.nn.functional as F
 
 import ansel_tpu_torch as port
 from ansel_tpu_torch import cli
-from ansel_tpu_torch.entry import entry
+from ansel_tpu_torch.entry import dryrun_multichip, entry
 from ansel_tpu_torch.io import anselnn, configs, encode, rawfile
 from ansel_tpu_torch.io import xmp as xmp_mod
 from ansel_tpu_torch.io.encode import read_png16, to_uint16, write_image
@@ -178,10 +202,13 @@ from ansel_tpu_torch.kernels import highlights_harmonic as hh
 from ansel_tpu_torch.kernels import highlights_laplacian as hl_lap
 from ansel_tpu_torch.kernels import pointwise as pw
 from ansel_tpu_torch.kernels import unet
+from ansel_tpu_torch.io import lightroom
 from ansel_tpu_torch.library.collections import Collection
+from ansel_tpu_torch.library.crawler import crawl
 from ansel_tpu_torch.library.db import Library
 from ansel_tpu_torch.library.export import batch_export
 from ansel_tpu_torch.library.mipmap import MipmapCache
+from ansel_tpu_torch.library.piwigo import PiwigoClient, store_piwigo
 from ansel_tpu_torch.ops import rawdenoiseai as ai
 from ansel_tpu_torch.ops.base import pad_to
 from ansel_tpu_torch.ops.demosaic import DemosaicParams
@@ -189,6 +216,10 @@ from ansel_tpu_torch.pipeline.blend import BlendParams
 from ansel_tpu_torch.pipeline import engine
 from ansel_tpu_torch.pipeline import export as export_mod
 from ansel_tpu_torch.pipeline import histogram as scopes
+from ansel_tpu_torch.parallel import mesh as mesh_mod
+from ansel_tpu_torch.parallel.batch import (BatchPipeline, make_mesh,
+                                            spatial_sharded_pipe)
+from ansel_tpu_torch.parallel.spatial import SpatialPipeline
 from ansel_tpu_torch.pipeline.export import ExportSettings, export_image
 from ansel_tpu_torch.pixel import prng
 from ansel_tpu_torch.pixel.nlmeans import search_offsets
@@ -343,6 +374,20 @@ NN_MOVED = 1e-6
 # config 17: config 16's noisy mosaic, rawdenoiseai (its multi-scale net),
 # config 1's develop (RCD, program 0)
 LAUNCHES17 = dict(NO_LAUNCHES, rcd=1, chain=1)
+# config 18 (the multi-device paths): (a) RCD and config 1's chain once an
+# image; (b) and (c) each kernel of the single pipe once a shard
+LAUNCHES18A = dict(NO_LAUNCHES, rcd=configs.BATCH18, chain=configs.BATCH18)
+SPATIAL18_TOL = 1.0 / 255.0
+SHARDED18_TOL = 1e-5     # the JAX package's own gate for spatial sharding
+# config 19, the Lightroom roll: on each image its demosaic, clipping's
+# map, two interpreted chains ([exposure .. colorzones], [_convert ..
+# colorout]) and grain's three blurs between them
+LAUNCHES19 = dict(NO_LAUNCHES, rcd=1, markesteijn=1, warp=2, chain=4,
+                  sepblur=6)
+PIWIGO19 = ["pwg.session.login", "pwg.session.getStatus",
+            "pwg.categories.getList", "pwg.categories.add",
+            "pwg.images.addSimple", "pwg.images.uploadCompleted",
+            "pwg.images.addSimple", "pwg.images.uploadCompleted"]
 STAGES17 = ["rawprepare", "rawdenoiseai", "temperature", "highlights",
             "demosaic", "exposure", "colorin", "channelmixerrgb",
             "filmicrgb", "colorout"]
@@ -429,6 +474,10 @@ OPS_CHAIN = {(1, 0): (1095, 57), (2, 0): (847, 42), (3, 0): (6, 0),
              # config 9 runs config 4's program (1) on its clipped frame;
              # config 4's count, not recounted on config 9's pixels
              (9, 0): (846, 42),
+             # config 18's first chain on a shard's window runs config 7's
+             # first program (6); config 7's count, not recounted on
+             # config 18's pixels (its second chain runs the interpreter)
+             (18, 0): (183, 6),
              (10, 0): (491, 28), (10, 1): (4028, 152), (11, 0): (2231, 88),
              # config 13's chains, their blend records inside
              (13, 0): (4045, 163), (13, 1): (63, 0), (13, 2): (183, 6),
@@ -1982,11 +2031,11 @@ def captured9(pipe, raw_dev):
     return calls
 
 
-def check_warp_clip(calls, record):
+def check_warp_clip(calls, record, key="warp-clip", tag="[warp-clip]"):
     """clipping's map on the (3, 6016, 4000) flipped RGB config 9's pipe
     hands the warp (a window of it, as the ROI walk cuts it), against the
     twin bit for bit, and grid_sample on the same source coordinates as
-    the yardstick."""
+    the yardstick; into record[key]."""
     (x, k, k_apply, oh, ow), = calls
     got = warp.clip_warp(x, k, k_apply, oh, ow)
     want = warp.clip_warp_reference(x, k, k_apply, oh, ow)
@@ -2014,10 +2063,9 @@ def check_warp_clip(calls, record):
     px = oh * ow
     b_ms, b_by = bound(nbytes(x) + 3 * 4 * px,
                        (FLOPS_CLIP_MAP + 3 * FLOPS_CLIP_CHANNEL) * px)
-    record["warp-clip"] = dict(max_abs_err=mx, ms=ms, plain_ms=plain_ms,
-                               library_ms=lib_ms, bound_ms=b_ms,
-                               bound_by=b_by)
-    print(f"[warp-clip] {tuple(x.shape)} -> (3, {oh}, {ow}) clipping's map "
+    record[key] = dict(max_abs_err=mx, ms=ms, plain_ms=plain_ms,
+                       library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+    print(f"{tag} {tuple(x.shape)} -> (3, {oh}, {ow}) clipping's map "
           f"(keystone {bool(k_apply)}), kernel vs plain: max {mx:.3g} mean "
           f"{mean:.3g} (bit-equal); grid_sample vs plain max {lx:.3g} | "
           f"kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, grid_sample "
@@ -2572,11 +2620,11 @@ def captured12(pipe, raw_dev):
 
 
 def sepblur_per_image(blurs):
-    """Each (x, taps, d, count) blur of an image: kernel vs twin bit for
-    bit, device ms of the kernel, the twin and a depthwise F.conv2d of the
-    same dilated 5 x 5 product, and the byte bound.  -> (rows, largest
-    difference, {ms, plain_ms, library_ms, bound_ms} summed by the counts,
-    bound_by, the last x)."""
+    """Each (x, taps, d, count) blur of an image ((C, H, W) or (H, W), any
+    odd tap count): kernel vs twin bit for bit, device ms of the kernel,
+    the twin and a depthwise F.conv2d of the taps' dilated outer product,
+    and the byte bound.  -> (rows, largest difference, {ms, plain_ms,
+    library_ms, bound_ms} summed by the counts, bound_by, the last x)."""
     rows, err = [], 0.0
     tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
     prev = torch.backends.cudnn.allow_tf32
@@ -2589,15 +2637,16 @@ def sepblur_per_image(blurs):
             expect(torch.equal(got, want), f"sepblur d={d}: max {mx}")
             err = max(err, mx)
             del got, want
-            k = torch.tensor(taps, device=x.device)
-            weight = torch.outer(k, k).expand(x.shape[0], 1, 5, 5)
-            weight = weight.contiguous()
-            xp = F.pad(x[None], (2 * d,) * 4, mode="replicate")
+            planes = x[None] if x.dim() == 3 else x[None, None]
+            n, c = len(taps), planes.shape[1]
+            k = torch.tensor(taps, device=x.device, dtype=torch.float32)
+            weight = torch.outer(k, k).expand(c, 1, n, n).contiguous()
+            xp = F.pad(planes, ((n // 2) * d,) * 4, mode="replicate")
             ms = median_ms(lambda: sepblur.sep_blur(x, taps, d))
             plain_ms = median_ms(
                 lambda: sepblur.sep_blur_reference(x, taps, d), PLAIN_REPEATS)
             lib_ms = median_ms(lambda: F.conv2d(xp, weight, dilation=d,
-                                                groups=x.shape[0]))
+                                                groups=c))
             del xp
             b_ms, b_by = bound(2 * nbytes(x),
                                FLOPS_SEPBLUR_PER_TAP * len(taps) * x.numel())
@@ -3635,47 +3684,10 @@ def captured16(pipe, raw_dev):
 def check_kernels16(calls, record):
     """RCD (bit-equal), the seven EAW scales of the automatic profile's
     wavelets (STENCIL_TOL), each against its twin with device ms."""
-    mosaic, cfa, scaler = calls["rcd"][0]
-    got = rcd.rcd_demosaic(mosaic, cfa, scaler)
-    want = rcd.rcd_demosaic_reference(mosaic, cfa, scaler)
-    mx, _ = compare(got, want)
-    expect(torch.equal(got, want), f"config 16's RCD: max {mx}")
-    b_ms, b_by = bound(nbytes(mosaic, got),
-                       instructions=FLOPS_RCD * mosaic.numel(),
-                       sfu=MUFU_RCD * mosaic.numel())
-    del got, want
-    ms = median_ms(lambda: rcd.rcd_demosaic(mosaic, cfa, scaler))
-    plain_ms = median_ms(lambda: rcd.rcd_demosaic_reference(
-        mosaic, cfa, scaler), PLAIN_REPEATS)
-    record["rcd16"] = dict(max_abs_err=mx, ms=ms, plain_ms=plain_ms,
-                           library_ms=None, bound_ms=b_ms, bound_by=b_by)
-    print(f"[pipe16] RCD on config 16's noisy mosaic {tuple(mosaic.shape)}: "
-          f"bit-equal to its twin | kernel {ms:.3f} ms, plain "
-          f"{plain_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by})", flush=True)
-    err, rows, ms_, plain_ = 0.0, [], [], []
-    for x, scale, inv_sigma2 in calls["eaw"]:
-        got = eaw.eaw_dn_coarse(x, scale, inv_sigma2)
-        want = eaw.eaw_coarse_reference(x, scale, inv_sigma2, eaw.DN)
-        for g, w_ in zip(got, want):
-            mx, _ = compare(g, w_)
-            expect(mx <= STENCIL_TOL, f"eaw config 16 s={scale}: max {mx}")
-            err = max(err, mx)
-        del got, want
-        ms_.append(median_ms(lambda: eaw.eaw_dn_coarse(x, scale,
-                                                       inv_sigma2)))
-        plain_.append(median_ms(lambda: eaw.eaw_coarse_reference(
-            x, scale, inv_sigma2, eaw.DN), PLAIN_REPEATS))
-        rows.append(f"s{scale} {ms_[-1]:.3f}/{plain_[-1]:.1f}")
-    x = calls["eaw"][0][0]
-    b_ms, b_by = bound(3 * nbytes(x), FLOPS_EAW * x[0].numel())
-    record["eaw16"] = dict(max_abs_err=err, ms=float(np.mean(ms_)),
-                           plain_ms=float(np.mean(plain_)), library_ms=None,
-                           bound_ms=b_ms, bound_by=b_by)
-    print(f"[pipe16] EAW on the automatic profile's wavelets "
-          f"{tuple(x.shape)}, scales 0-{len(rows) - 1}, kernel vs plain: max "
-          f"{err:.3g} (tol {STENCIL_TOL:g}) | ms kernel/plain: "
-          f"{', '.join(rows)} | bound {b_ms:.3f} ms per scale ({b_by})",
-          flush=True)
+    check_rcd_call(calls["rcd"][0], record, "rcd16",
+                   "[pipe16] RCD on config 16's noisy mosaic")
+    check_eaw_calls(calls["eaw"], record, "eaw16",
+                    "[pipe16] EAW on the automatic profile's wavelets")
 
 
 def check_diffuse_wide(card, pipe, calls, raw_dev, record):
@@ -4393,6 +4405,485 @@ def run_generate_cache(card, root, phases):
           f"renders on {card}", flush=True)
 
 
+# --- config 18: the multi-device paths ------------------------------------------
+def card_mesh(n, spatial=1):
+    """A mesh of n shards in rows of `spatial`: the machine's cards where
+    it has n of them, else an explicit virtual mesh (the cards in turn,
+    `parallel/mesh.virtual_devices`); -> (mesh, how it was built)."""
+    cards = torch.cuda.device_count()
+    if cards >= n:
+        return make_mesh(n, spatial=spatial), f"{n} cards"
+    mesh = make_mesh(n, spatial=spatial,
+                     devices=mesh_mod.virtual_devices(n, "cuda"))
+    return mesh, (f"a virtual mesh of {n} shards on {cards} card(s) "
+                  f"({', '.join(str(d) for d in mesh.devices.flat)})")
+
+
+@contextlib.contextmanager
+def shard_calls(axis, index, names):
+    """Spies that keep the arguments of each call that shard `index` of
+    `axis` makes to the kernel entries in `names` ("rcd", "eaw", "nlm",
+    "chain", "warp", "mark"): -> {name: [args, ...]}."""
+    entries = {"rcd": (rcd, "rcd_demosaic"), "eaw": (eaw, "eaw_dn_coarse"),
+               "nlm": (nlm, "nlm"), "chain": (pw, "pointwise_chain")}
+    calls = {name: [] for name in names}
+
+    def spy(name, real):
+        def call(*args):
+            if mesh_mod.in_shard(axis) and mesh_mod.axis_index(axis) == index:
+                calls[name].append(args)
+            return real(*args)
+        return call
+
+    with swapped([(mod, attr, spy(name, getattr(mod, attr)))
+                  for name, (mod, attr) in entries.items()
+                  if name in names]):
+        yield calls
+
+
+def mesh_rate(fn, images, repeats=3):
+    """(img/s, peak GB, held GB) of `fn` running `images` images, device
+    time included: one warm-up, then `repeats` calls timed between two
+    synchronisations; the peak over one call."""
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(repeats):
+        fn()
+    torch.cuda.synchronize()
+    rate = images * repeats / (time.perf_counter() - t)
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return rate, torch.cuda.max_memory_allocated() / 1e9, held / 1e9
+
+
+def check_eaw_calls(calls, record, key, tag):
+    """EAW on a pipe's scales (x, scale, inv_sigma2): each against its
+    twin (STENCIL_TOL), device ms of both, the bound per scale."""
+    err, rows, ms_, plain_ = 0.0, [], [], []
+    for x, scale, inv_sigma2 in calls:
+        got = eaw.eaw_dn_coarse(x, scale, inv_sigma2)
+        want = eaw.eaw_coarse_reference(x, scale, inv_sigma2, eaw.DN)
+        for g, w_ in zip(got, want):
+            mx, _ = compare(g, w_)
+            expect(mx <= STENCIL_TOL, f"{tag} s={scale}: max {mx}")
+            err = max(err, mx)
+        del got, want
+        ms_.append(median_ms(lambda: eaw.eaw_dn_coarse(x, scale,
+                                                       inv_sigma2)))
+        plain_.append(median_ms(lambda: eaw.eaw_coarse_reference(
+            x, scale, inv_sigma2, eaw.DN), PLAIN_REPEATS))
+        rows.append(f"s{scale} {ms_[-1]:.3f}/{plain_[-1]:.1f}")
+    x = calls[0][0]
+    b_ms, b_by = bound(3 * nbytes(x), FLOPS_EAW * x[0].numel())
+    record[key] = dict(max_abs_err=err, ms=float(np.mean(ms_)),
+                       plain_ms=float(np.mean(plain_)), library_ms=None,
+                       bound_ms=b_ms, bound_by=b_by)
+    print(f"{tag} {tuple(x.shape)}, scales 0-{len(rows) - 1}, kernel vs "
+          f"plain: max {err:.3g} (tol {STENCIL_TOL:g}) | ms kernel/plain: "
+          f"{', '.join(rows)} | bound {b_ms:.3f} ms per scale ({b_by})",
+          flush=True)
+
+
+def check_nlm_call(call, record, key, tag):
+    """NLM on a pipe's arguments against its twin (STENCIL_TOL), device
+    ms of both and the bound."""
+    v, offs = call[0], call[1]
+    got, want = nlm.nlm(*call), nlm.nlm_reference(*call)
+    mx, _ = compare(got, want)
+    expect(mx <= STENCIL_TOL, f"{tag}: max {mx}")
+    del got, want
+    ms = median_ms(lambda: nlm.nlm(*call))
+    plain_ms = median_ms(lambda: nlm.nlm_reference(*call), PLAIN_REPEATS)
+    b_ms, b_by = bound(2 * nbytes(v),
+                       FLOPS_NLM_PER_OFFSET * len(offs) * v[0].numel())
+    record[key] = dict(max_abs_err=mx, ms=ms, plain_ms=plain_ms,
+                       library_ms=None, bound_ms=b_ms, bound_by=b_by)
+    print(f"{tag} {tuple(v.shape)} {len(offs)} offsets P={call[2]}: kernel "
+          f"vs plain max {mx:.3g} (tol {STENCIL_TOL:g}) | kernel {ms:.3f} ms, "
+          f"plain {plain_ms:.1f} ms, bound {b_ms:.3f} ms ({b_by})",
+          flush=True)
+
+
+def check_chain_interpreted(call, names, record, key, tag):
+    """A chain the interpreter runs (its sequence has no program of its
+    own in pointwise.FIXED): against the plain stages (the chain's
+    tolerances, scaled by the output's magnitude), device ms, and the
+    bound of its bytes (its operations are not counted by opcode)."""
+    x, chain = call
+    expect(chain.fixed == -1, f"{tag}: program {chain.fixed}, not the "
+           "interpreter")
+    got = pw.pointwise_chain(x, chain)
+    want = pw.pointwise_chain_reference(x, chain)
+    mx, mean = compare(got, want)
+    scale = max(1.0, want.abs().max().item())
+    del got, want
+    expect(mx <= CHAIN_MAX_TOL * scale and mean <= CHAIN_MEAN_TOL * scale,
+           f"{tag}: max {mx}, mean {mean} (x {scale:.3g})")
+    ms = median_ms(lambda: pw.pointwise_chain(x, chain))
+    plain_ms = median_ms(lambda: pw.pointwise_chain_reference(x, chain),
+                         PLAIN_REPEATS)
+    b_ms, b_by = bound(2 * nbytes(x))
+    record[key] = dict(max_abs_err=mx, ms=ms, plain_ms=plain_ms,
+                       library_ms=None, bound_ms=b_ms, bound_by=b_by)
+    print(f"{tag} {'+'.join(names)} on {tuple(x.shape)}: interpreter vs "
+          f"plain max {mx:.3g} mean {mean:.3g} (tol {CHAIN_MAX_TOL:g} / "
+          f"{CHAIN_MEAN_TOL:g} x {scale:.3g}) | kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.1f} ms, bound {b_ms:.4f} ms ({b_by}; not counted "
+          "by opcode)", flush=True)
+
+
+def run_config18(card, record, raw_dev, meta, phases):
+    """Config 18, the multi-device paths at 24 MP on the machine's cards,
+    or on an explicit virtual mesh where it has fewer cards than shards:
+    (a) `BatchPipeline` over dp 2 of config 1's mosaic at four gains, each
+    image bit-equal to the single pipe's; (b) `SpatialPipeline` over sp 4
+    of config 18's denoise stack on config 2's noisy mosaic (one halo
+    exchange, denoiseprofile's statistic summed over the shards) within
+    1/255 of the single pipe, RCD, EAW and NLM held against their twins
+    on the interior shard 1's window; (c) `spatial_sharded_pipe` over (dp
+    2, sp 2) of config 1's history within 1e-5 of the single pipe.  Each
+    with img/s beside the single pipe's on the same card, peak memory and
+    launches (4 x the single pipe's for (b) and (c)); the kernels of (a)
+    on shard 1's arguments, of (c) on band 1's."""
+    launches = {}
+    # -- (a) the batch over dp
+    with timed(phases, "pipe18 batch"):
+        mesh, how = card_mesh(configs.DP18)
+        hist1 = configs.history(1)
+        bp = BatchPipeline(meta, hist1, mesh)
+        batch = torch.stack([raw_dev * g for g in configs.GAINS18])
+        single = port.compile_pipeline(meta, hist1)
+        with shard_calls("dp", 1, ("rcd", "chain")) as calls_a:
+            reset_launches()
+            out = bp(batch)
+            torch.cuda.synchronize()
+            launches["a"] = read_launches()
+        expect(launches["a"] == LAUNCHES18A, f"[pipe18] (a) launches "
+               f"{launches['a']}")
+        for i in range(configs.BATCH18):
+            expect(torch.equal(out[i], single.run_padded(batch[i])),
+                   f"[pipe18] (a) image {i} differs from the single pipe")
+        del out
+        rate, peak, held = mesh_rate(lambda: bp(batch), configs.BATCH18)
+        one = 1.0 / time_pipe(single, raw_dev, REPEATS)
+        print(f"[pipe18] (a) BatchPipeline, config 1's history over dp "
+              f"{configs.DP18} on {how}: {configs.BATCH18} images of "
+              f"{H}x{W} at gains {configs.GAINS18}, launches "
+              f"{launches['a']}, each image equal to the single pipe's bit "
+              f"for bit | {rate:.2f} img/s (the single pipe "
+              f"{one:.2f} img/s), peak device memory {peak:.3f} GB "
+              f"({held:.3f} GB held before) on {card}", flush=True)
+        check_rcd_call(calls_a["rcd"][0], record, "rcd18a",
+                       "[pipe18] (a) RCD on dp shard 1's mosaic")
+        stages = [s.name for s in single.pipe.stages[4:]]
+        (record["chain18a"],) = check_chains(
+            1, [calls_a["chain"][0]], [stages])
+        del batch, bp, calls_a
+    # -- (b) the shifted-window scheme over sp
+    with timed(phases, "pipe18 spatial"):
+        mesh, how = card_mesh(configs.SP18, spatial=configs.SP18)
+        hist = configs.history(18)
+        noisy = noisy_like(raw_dev, NOISE_SIGMA)
+        sp = SpatialPipeline(meta, hist, mesh, axis="sp")
+        single = port.compile_pipeline(meta, hist)
+        reset_launches()
+        want = single.run_padded(noisy)
+        torch.cuda.synchronize()
+        one_launches = read_launches()
+        with shard_calls("sp", 1, ("rcd", "eaw", "nlm", "chain")) as calls_b:
+            reset_launches()
+            got = sp(noisy)
+            torch.cuda.synchronize()
+            launches["b"] = read_launches()
+            launches["b programs"], _ = read_split()
+        expect(launches["b"] == {k: configs.SP18 * v
+                                 for k, v in one_launches.items()},
+               f"[pipe18] (b) launches {launches['b']}, the single pipe's "
+               f"{one_launches}")
+        so = single.pipe.spec_out
+        err_b = (got - want[:, :so.height, :so.width]).abs().max().item()
+        expect(bool(torch.isfinite(got).all()) and err_b < SPATIAL18_TOL,
+               f"[pipe18] (b) vs the single pipe: max {err_b}")
+        del got, want
+        rate, peak, held = mesh_rate(lambda: sp(noisy), 1)
+        one = 1.0 / time_pipe(single, noisy, 3, warmups=1)
+        org = sp.shard_h - sp.halo
+        window = sp.pipe.spec_in
+        print(f"[pipe18] (b) SpatialPipeline, config 18's denoise stack "
+              f"over sp {configs.SP18} on {how}: shard_h {sp.shard_h}, halo "
+              f"{sp.halo} rows (windows of {sp.shard_h + 2 * sp.halo} rows, "
+              f"shard 1's from row {org}), launches {launches['b']} "
+              f"({configs.SP18} x the single pipe's), vs the single pipe "
+              f"max {err_b:.3g} (tol 1/255) | {rate:.2f} img/s (the single "
+              f"pipe {one:.2f} img/s), peak device memory {peak:.3f} GB "
+              f"({held:.3f} GB held before) on {card}", flush=True)
+        mosaic = calls_b["rcd"][0][0]
+        expect(mosaic.shape == window.array_shape, "shard 1's RCD input")
+        check_rcd_call(calls_b["rcd"][0], record, "rcd18b",
+                       f"[pipe18] (b) RCD on shard 1's window (origin row "
+                       f"{org}, CFA {calls_b['rcd'][0][1].name} at its "
+                       f"origin, as at the frame's: origins stay congruent "
+                       f"mod 2)")
+        check_eaw_calls(calls_b["eaw"], record, "eaw18b",
+                        "[pipe18] (b) EAW on shard 1's window")
+        check_nlm_call(calls_b["nlm"][0], record, "nlm18b",
+                       "[pipe18] (b) NLM on shard 1's window")
+        names = [[s.name for s in sp.pipe.stages[i:j]]
+                 for kind, i, j, _ in sp.compiled[str(mesh.devices[0, 0])].steps
+                 if kind == "chain"]
+        expect(len(calls_b["chain"]) == len(names) == 2
+               and launches["b programs"] == {
+                   calls_b["chain"][0][1].fixed: configs.SP18,
+                   -1: configs.SP18},
+               f"[pipe18] (b) chains {names}, programs "
+               f"{launches['b programs']}")
+        (record["chain18b.0"],) = check_chains(18, calls_b["chain"][:1],
+                                               names[:1])
+        check_chain_interpreted(calls_b["chain"][1], names[1], record,
+                                "chain18b.1", "[pipe18] (b) chain 1 on "
+                                "shard 1's window")
+        record["pipe18b"] = dict(max_abs_err=err_b, img_s=rate, single=one,
+                                 peak_gb=peak, halo=sp.halo)
+        del noisy, sp, calls_b, mosaic
+    # -- (c) each device its band of the output rows
+    with timed(phases, "pipe18 sharded"):
+        mesh, how = card_mesh(4, spatial=2)
+        call, pipe = spatial_sharded_pipe(meta, hist1, mesh)
+        single = engine.CompiledPipe(pipe)
+        want = single.run_padded(raw_dev)[:, :H, :W]
+        with shard_calls(mesh_mod.AXES, 1, ("rcd", "chain")) as calls_c:
+            reset_launches()
+            got = call(raw_dev)
+            torch.cuda.synchronize()
+            launches["c"] = read_launches()
+        expect(launches["c"] == dict(NO_LAUNCHES, rcd=4, chain=4),
+               f"[pipe18] (c) launches {launches['c']}")
+        err_c = (got - want).abs().max().item()
+        expect(err_c <= SHARDED18_TOL, f"[pipe18] (c) vs the single pipe: "
+               f"max {err_c}")
+        del got, want
+        rate, peak, held = mesh_rate(lambda: call(raw_dev), 1)
+        one = 1.0 / time_pipe(single, raw_dev, REPEATS)
+        print(f"[pipe18] (c) spatial_sharded_pipe, config 1's history over "
+              f"(dp 2, sp 2) on {how}: launches {launches['c']}, vs the "
+              f"single pipe max {err_c:.3g} (tol {SHARDED18_TOL:g}) | "
+              f"{rate:.2f} img/s (the single pipe {one:.2f} img/s), peak "
+              f"device memory {peak:.3f} GB ({held:.3f} GB held before) on "
+              f"{card}", flush=True)
+        check_rcd_call(calls_c["rcd"][0], record, "rcd18c",
+                       "[pipe18] (c) RCD on band 1's input window")
+        record["chain18c"] = check_chains(
+            1, [calls_c["chain"][0]], [[s.name for s in pipe.stages[4:]]])[0]
+        del call, pipe, calls_c
+    return launches
+
+
+def run_dryrun(phases):
+    """`dryrun_multichip(4)` on the card (a virtual mesh where it has
+    fewer than four cards): its four phases, each checked inside."""
+    with timed(phases, "dryrun"):
+        t = time.perf_counter()
+        dryrun_multichip(4)
+        print(f"[dryrun] dryrun_multichip(4) on the card: batch, sharded "
+              f"bands, shifted windows, config 13's history over dp, all "
+              f"held | {time.perf_counter() - t:.1f} s", flush=True)
+
+
+# --- config 19: a Lightroom roll ------------------------------------------------
+class MockWsPhp(http.server.BaseHTTPRequestHandler):
+    """A Piwigo server's ws.php on the loopback interface: the login, its
+    token, one album, new albums, uploads; every call logged."""
+
+    calls = []
+
+    def log_message(self, *args):
+        pass
+
+    def do_POST(self):
+        body = self.rfile.read(int(self.headers.get("Content-Length", 0)))
+        ctype = self.headers.get("Content-Type", "")
+        fields = {}
+        if ctype.startswith("multipart/form-data"):
+            boundary = ctype.split("boundary=")[1].encode()
+            for part in body.split(b"--" + boundary):
+                head, _, val = part.partition(b"\r\n\r\n")
+                if b'name="image"' in head:
+                    fields["image"] = len(val.rstrip(b"\r\n"))
+                elif b'name="' in head:
+                    name = head.split(b'name="')[1].split(b'"')[0].decode()
+                    fields[name] = val.rstrip(b"\r\n").decode()
+        else:
+            fields = {k: v[0] for k, v in
+                      urllib.parse.parse_qs(body.decode()).items()}
+        method = fields.get("method", "")
+        MockWsPhp.calls.append((method, fields))
+        result = {"pwg.session.getStatus": {"pwg_token": "token19"},
+                  "pwg.categories.getList": {"categories": [
+                      {"id": 7, "name": "Travel", "fullname": "Travel"}]},
+                  "pwg.categories.add": {"id": 42},
+                  "pwg.images.addSimple": {"image_id": 1000 + len(
+                      MockWsPhp.calls)}}.get(method, {})
+        payload = json.dumps({"stat": "ok", "result": result}).encode()
+        self.send_response(200)
+        self.send_header("Content-Type", "application/json")
+        self.send_header("Content-Length", str(len(payload)))
+        self.end_headers()
+        self.wfile.write(payload)
+
+
+def lightroom_calls(calls):
+    """Spies that keep config 19's kernel arguments from the device
+    worker: the first RCD, Markesteijn, clipping-map and blur call, and
+    the first call of each chain (its opcode sequence), with the number
+    of calls of each chain in `calls["chain calls"]`, in the order the
+    chains first ran (one chain call launches one kernel)."""
+    real = {"rcd": rcd.rcd_demosaic, "mark": markesteijn.xtrans_markesteijn,
+            "clip": warp.clip_warp, "chain": pw.pointwise_chain,
+            "sepblur": sepblur.sep_blur}
+
+    def keep(key):
+        def call(*args):
+            if key == "chain":
+                ops = tuple(args[1].prog.tolist()[::pw.RECORD])
+                count = calls.setdefault("chain calls", {})
+                if ops not in count:
+                    calls.setdefault("chain", []).append(args)
+                count[ops] = count.get(ops, 0) + 1
+            else:
+                calls.setdefault(key, [args])
+            return real[key](*args)
+        return call
+
+    return swapped([(rcd, "rcd_demosaic", keep("rcd")),
+                    (markesteijn, "xtrans_markesteijn", keep("mark")),
+                    (warp, "clip_warp", keep("clip")),
+                    (pw, "pointwise_chain", keep("chain")),
+                    (sepblur, "sep_blur", keep("sepblur"))])
+
+
+def run_config19(card, record, phases, root, roll):
+    """Config 19, a Lightroom roll at 24 MP: config 5's Bayer and X-Trans
+    images beside `configs.LIGHTROOM19` sidecars (written on a host
+    thread), imported into a library and crawled (the Lightroom
+    histories, ratings and tags imported, then written back as darktable
+    sidecars by a second crawl), exported to JPEG by `batch_export` and
+    uploaded by `store_piwigo` to a mock ws.php on 127.0.0.1; the wall
+    time of each part; each image's render within 1/255 of a single
+    CompiledPipe of the parsed Lightroom history; RCD, Markesteijn,
+    clipping's map and the two interpreted chains on their arguments."""
+    folder = os.path.join(root, "film")
+    parts = {}
+    with timed(phases, "pipe19 roll wait"):
+        paths = roll.result()
+    with timed(phases, "pipe19"):
+        t = time.perf_counter()
+        lib = Library(os.path.join(root, "library.db"))
+        ids = lib.import_film_roll(folder)
+        first, again = crawl(lib), crawl(lib, write_back=True)
+        expect(first.reimported == ids and again.written_back == ids,
+               f"config 19's crawls: {first}, {again}")
+        for i in ids:
+            expect(lib.rating(i) == 4 and lib.image_tags(i) == ["alps", "ski"]
+                   and len(lib.read_history(i)) == 8,
+                   f"config 19 image {i}: rating {lib.rating(i)}, tags "
+                   f"{lib.image_tags(i)}")
+        parts["import and crawl"] = time.perf_counter() - t
+        calls = {}
+        t = time.perf_counter()
+        with lightroom_calls(calls):
+            reset_launches()
+            written = batch_export(lib, Collection(film_folder=folder),
+                                   os.path.join(root, "out"))
+            launches = read_launches()
+            programs, maps = read_split()
+        parts["batch_export"] = time.perf_counter() - t
+        chain_calls = list(calls["chain calls"].values())
+        expect(launches == LAUNCHES19 and programs == {-1: 4}
+               and maps == {"clip": 2} and len(chain_calls) == 2
+               and sum(chain_calls) == launches["chain"],
+               f"config 19 launches {launches}, programs {programs}, maps "
+               f"{maps}, calls of each chain {chain_calls}")
+        expect(len(written) == 2 and all(os.path.getsize(p) > 1000
+                                         for p in written),
+               "config 19 wrote too few or empty JPEGs")
+        MockWsPhp.calls = []
+        server = http.server.HTTPServer(("127.0.0.1", 0), MockWsPhp)
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        try:
+            t = time.perf_counter()
+            client = PiwigoClient(
+                server=f"http://127.0.0.1:{server.server_port}",
+                username="photographer", password="roll19")
+            os.makedirs(os.path.join(root, "piwigo"))
+            uploaded = store_piwigo(lib, ids, client, "Lightroom roll",
+                                    tmp_dir=os.path.join(root, "piwigo"))
+            parts["store_piwigo"] = time.perf_counter() - t
+        finally:
+            server.shutdown()
+            server.server_close()
+            thread.join()
+        methods = [m for m, _ in MockWsPhp.calls]
+        adds = [f for m, f in MockWsPhp.calls
+                if m == "pwg.images.addSimple"]
+        expect(methods == PIWIGO19 and len(uploaded) == 2
+               and [f["name"] for f in adds] == ["img000", "img001"]
+               and all(f["category"] == "42" and f["image"] > 1000
+                       for f in adds),
+               f"the mock's log: {methods}, {adds}")
+        lib.close()
+        t = time.perf_counter()
+        history = lightroom.parse_lightroom_xmp(configs.LIGHTROOM19).history
+        errs = []
+        for path in paths:
+            raw, m = load_raw(path)
+            got = export_image(raw, m, xmp_path=path + ".xmp")
+            want = engine.CompiledPipe(engine.Pipeline(
+                m, history)).output_array(raw)
+            expect(got.shape == want.shape and bool(np.isfinite(got).all()),
+                   f"config 19's {path}: {got.shape} vs {want.shape}")
+            errs.append(float(np.abs(got - want).max()))
+            expect(errs[-1] <= PIPE_TOL, f"config 19 vs the parsed "
+                   f"history: max {errs[-1]}")
+        parts["check"] = time.perf_counter() - t
+    print(f"[pipe19] config 19, a Lightroom roll (Bayer {H}x{W} and X-Trans "
+          f"{H4}x{W4}): imported, crawled (histories, rating 4 and tags "
+          f"alps, ski from the Lightroom sidecars, then written back), "
+          f"exported to JPEG, uploaded to a mock ws.php ({', '.join(methods)});"
+          f" launches {launches} (chain 0 {chain_calls[0]}, chain 1 "
+          f"{chain_calls[1]}), chain programs {programs}, maps {maps}; "
+          f"each render vs a single pipe of the parsed history max "
+          f"{max(errs):.3g} (tol 1/255) | wall s: "
+          + ", ".join(f"{k} {v:.2f}" for k, v in parts.items())
+          + f" on {card}", flush=True)
+    with timed(phases, "pipe19 kernels"):
+        check_rcd_call(calls["rcd"][0], record, "rcd19",
+                       "[pipe19] RCD on config 19's Bayer mosaic")
+        check_markesteijn_call(calls["mark"][0], record, "markesteijn19",
+                               "[pipe19] Markesteijn on config 19's X-Trans "
+                               "mosaic")
+        check_warp_clip(calls["clip"], record, "warp19",
+                        "[pipe19] the warp on clipping's map")
+        rows, err, tot, b_by, x = sepblur_per_image(
+            [calls["sepblur"][0] + (1,)])
+        record["sepblur19"] = dict(max_abs_err=err, bound_by=b_by, **tot)
+        print(f"[pipe19] sepblur, grain's first blur {tuple(x.shape)}: "
+              f"bit-equal to its twin | ms kernel/plain/conv2d: {rows[0]} | "
+              f"bound {tot['bound_ms']:.4f} ms ({b_by})", flush=True)
+        for j, names in enumerate((
+                ["exposure", "colorin", "_convert", "tonecurve",
+                 "colorzones"],
+                ["_convert", "splittoning", "vignette", "colorout"])):
+            check_chain_interpreted(calls["chain"][j], names, record,
+                                    f"chain19.{j}",
+                                    f"[pipe19] chain {j}")
+    record["pipe19"] = dict(parts=parts, max_abs_err=max(errs))
+    return dict(launches, chains=chain_calls)
+
+
 def run_devtest_and_entry(phases):
     """The CLI's card diagnostic, then entry()'s fn on the card against
     the same fn with every kernel's plain twin."""
@@ -4435,6 +4926,7 @@ def main(argv=None):
           f"{card}", flush=True)
     record = {}
     with tempfile.TemporaryDirectory(prefix="ansel_smoke5_") as root5, \
+            tempfile.TemporaryDirectory(prefix="ansel_smoke19_") as root19, \
             ThreadPoolExecutor(max_workers=4) as pool:
         # the mosaics are made on host threads, the 24 MP one while nvcc
         # builds, the 45 MP and X-Trans ones while configs 1 and 2 run;
@@ -4447,6 +4939,8 @@ def main(argv=None):
             cluts16 = pool.submit(warm_cluts16)
             catalog5 = pool.submit(configs.write_catalog5,
                                    os.path.join(root5, "film"))
+            roll19 = pool.submit(configs.write_roll19,
+                                 os.path.join(root19, "film"))
             build_s = _build.build_all()
             print(f"[build] nvcc built and loaded "
                   f"{', '.join(_build.KERNELS)} in {build_s:.1f} s",
@@ -4523,6 +5017,16 @@ def main(argv=None):
         run_generate_cache(card, root5, phases)
         lib5.close()
         slice19_s = time.perf_counter() - t19
+        # the multi-device paths (config 18), dryrun_multichip and the
+        # Lightroom roll (config 19)
+        t20 = time.perf_counter()
+        with timed(phases, "mosaic18 upload"):
+            raw_dev = torch.from_numpy(raw).cuda()
+        launches18 = run_config18(card, record, raw_dev, meta, phases)
+        del raw_dev
+        run_dryrun(phases)
+        launches19 = run_config19(card, record, phases, root19, roll19)
+        slice20_s = time.perf_counter() - t20
     # launches per image: config 2's for the first five kernels, config
     # 3's for the IIR and diffuse kernels, config 4's for Markesteijn and
     # the warp, config 7's for the grid slice
@@ -4533,7 +5037,8 @@ def main(argv=None):
           f"[pipe15], [demosaic-methods] and [highlight-modes] "
           f"{branches_s:.1f} s, [pipe16], [diffuse-wide], [opcode] "
           f"filmic-spline and [ops16] {slice16_s:.1f} s, [nn], [pipe17], "
-          f"[scopes], [pipe5] and [generate-cache] {slice19_s:.1f} s | "
+          f"[scopes], [pipe5] and [generate-cache] {slice19_s:.1f} s, "
+          f"[pipe18], [dryrun] and [pipe19] {slice20_s:.1f} s | "
           + ", ".join(f"{k} {v:.1f} s" for k, v in phases.items()),
           flush=True)
 
@@ -4742,6 +5247,62 @@ def main(argv=None):
             ("pointwise_chain[config5.xtrans]", "pointwise_chain.cu",
              "ansel_tpu/kernels/pointwise.py:30", "chain5.0",
              launches5["chains"]["xtrans"])):
+        kernels.append({"name": name, "route": "cuda",
+                        "source": f"ansel_tpu_torch/csrc/{src}",
+                        "replaces": replaces, "launches": n,
+                        **{k: record[key][k] for k in keys}})
+    # config 18: each kernel of the multi-device paths on a shard's
+    # arguments ((a) dp shard 1's image, (b) sp shard 1's window, (c) band
+    # 1's input window), each with its launches over all shards of that
+    # path's run; config 19: the Lightroom roll's demosaics, clipping's map
+    # and its two interpreted chains, with their launches in [pipe19]'s
+    # batch_export
+    for name, src, replaces, key, n in (
+            ("rcd_demosaic[batch18]", "rcd.cu",
+             "ansel_tpu/kernels/rcd_pallas.py:189", "rcd18a",
+             launches18["a"]["rcd"]),
+            ("pointwise_chain[batch18.0]", "pointwise_chain.cu",
+             "ansel_tpu/kernels/pointwise.py:30", "chain18a",
+             launches18["a"]["chain"]),
+            ("rcd_demosaic[spatial18]", "rcd.cu",
+             "ansel_tpu/kernels/rcd_pallas.py:189", "rcd18b",
+             launches18["b"]["rcd"]),
+            ("eaw_dn_coarse[spatial18]", "eaw.cu",
+             "ansel_tpu/kernels/eaw_pallas.py:199", "eaw18b",
+             launches18["b"]["eaw"]),
+            ("nlm[spatial18]", "nlm.cu",
+             "ansel_tpu/kernels/nlm_pallas.py:186", "nlm18b",
+             launches18["b"]["nlm"]),
+            ("pointwise_chain[spatial18.0]", "pointwise_chain.cu",
+             "ansel_tpu/kernels/pointwise.py:30", "chain18b.0",
+             launches18["b programs"][record["chain18b.0"]["program"]]),
+            ("pointwise_chain[spatial18.1]", "pointwise_chain.cu",
+             "ansel_tpu/kernels/pointwise.py:30", "chain18b.1",
+             launches18["b programs"][-1]),
+            ("rcd_demosaic[sharded18]", "rcd.cu",
+             "ansel_tpu/kernels/rcd_pallas.py:189", "rcd18c",
+             launches18["c"]["rcd"]),
+            ("pointwise_chain[sharded18.0]", "pointwise_chain.cu",
+             "ansel_tpu/kernels/pointwise.py:30", "chain18c",
+             launches18["c"]["chain"]),
+            ("rcd_demosaic[config19]", "rcd.cu",
+             "ansel_tpu/kernels/rcd_pallas.py:189", "rcd19",
+             launches19["rcd"]),
+            ("xtrans_markesteijn[config19]", "markesteijn.cu",
+             "ansel_tpu/kernels/markesteijn_pallas.py:372", "markesteijn19",
+             launches19["markesteijn"]),
+            ("clip_warp[config19]", "warp.cu",
+             "ansel_tpu/kernels/warp_pallas.py:121", "warp19",
+             launches19["warp"]),
+            ("sep_blur[config19]", "sepblur.cu",
+             "ansel_tpu/kernels/sepblur_pallas.py:189", "sepblur19",
+             launches19["sepblur"]),
+            ("pointwise_chain[config19.0]", "pointwise_chain.cu",
+             "ansel_tpu/kernels/pointwise.py:30", "chain19.0",
+             launches19["chains"][0]),
+            ("pointwise_chain[config19.1]", "pointwise_chain.cu",
+             "ansel_tpu/kernels/pointwise.py:30", "chain19.1",
+             launches19["chains"][1])):
         kernels.append({"name": name, "route": "cuda",
                         "source": f"ansel_tpu_torch/csrc/{src}",
                         "replaces": replaces, "launches": n,

@@ -1871,3 +1871,62 @@ def test_config17_on_cuda_matches_its_twins(cuda, monkeypatch):
     for other in (want, cpu):
         d = np.abs(got - other)
         assert d.max() <= 1.0 / 255.0 and d.mean() <= 1e-5
+
+
+def _virtual(n):
+    return [torch.device("cuda", 0)] * n
+
+
+def test_batch_pipeline_on_a_virtual_card_mesh(cuda):
+    """Config 18 (a) at 128 x 256: four images over dp 2 on cuda:0, each
+    equal to the single pipe's run, the kernels' launches counted from
+    both shards' threads."""
+    from ansel_tpu_torch.parallel.batch import BatchPipeline, make_mesh
+
+    raw, meta, _ = synth_raw(h=128, w=256, kind="gradients")
+    bp = BatchPipeline(meta, configs.history(1),
+                       make_mesh(2, devices=_virtual(2)))
+    batch = np.stack([raw * g for g in configs.GAINS18])
+    rcd.LAUNCHES = pw.LAUNCHES = 0
+    out = bp(batch)
+    assert (rcd.LAUNCHES, pw.LAUNCHES) == (4, 4)
+    one = port.compile_pipeline(meta, configs.history(1), device=cuda)
+    for i in range(4):
+        assert torch.equal(out[i], one(batch[i])), i
+
+
+def test_spatial_pipeline_on_a_virtual_card_mesh(cuda):
+    """Config 18 (b) at 768 x 256 over sp 2 on cuda:0: the denoise stack
+    with its halo exchange and the sharded statistic, within 1/255 of the
+    single pipe; RCD, EAW and NLM launched by both shards."""
+    from ansel_tpu_torch.parallel.batch import make_mesh
+    from ansel_tpu_torch.parallel.spatial import SpatialPipeline
+
+    raw, meta, _ = synth_raw(h=768, w=256, kind="gradients")
+    hist = configs.history(18)
+    sp = SpatialPipeline(meta, hist, make_mesh(spatial=2,
+                                               devices=_virtual(2)))
+    rcd.LAUNCHES = eaw.LAUNCHES = nlm.LAUNCHES = 0
+    got = sp(raw).cpu().numpy()
+    assert rcd.LAUNCHES == 2 and nlm.LAUNCHES == 2
+    assert eaw.LAUNCHES == 2 * sp.pipe.stages[[
+        s.name for s in sp.pipe.stages].index("denoiseprofile")].plan.static[0]
+    want = port.compile_pipeline(meta, hist, device=cuda).output_array(raw)
+    assert np.isfinite(got).all()
+    assert np.abs(got - want).max() < 1.0 / 255.0
+
+
+def test_spatial_sharded_pipe_on_a_virtual_card_mesh(cuda):
+    """Config 18 (c) at 256 x 384 over (dp 2, sp 2) on cuda:0, config 1's
+    history: within 1e-5 of the single pipe."""
+    from ansel_tpu_torch.parallel.batch import make_mesh, spatial_sharded_pipe
+
+    raw, meta, _ = synth_raw(h=256, w=384, kind="gradients")
+    call, pipe = spatial_sharded_pipe(
+        meta, configs.history(1), make_mesh(4, spatial=2,
+                                            devices=_virtual(4)))
+    rcd.LAUNCHES = 0
+    got = call(raw)
+    assert rcd.LAUNCHES == 4
+    want = port.CompiledPipe(pipe)(raw)[:, :256, :384]
+    assert (got - want).abs().max().item() <= 1e-5

@@ -236,11 +236,49 @@ def test_denoiseprofile_apply_matches_reference(dp_outputs, mode):
     assert np.abs(got - want).max() <= DP_TOL
 
 
-def test_denoiseprofile_refuses_a_row_sharded_plan():
+def test_denoiseprofile_refuses_a_row_sharded_plan(dp_outputs, monkeypatch):
+    """A row-sharded plan (`shard_geom`), which denoiseprofile refused
+    until the multi-device layer was ported, now plans and runs: with two
+    shards of 32 rows and a 16-row halo (each window the whole frame)
+    each shard sums detail^2 over the rows it owns and the axis's psum
+    adds them: per scale, the whole frame's statistic within relative
+    1e-5, and each shard's owned rows the unsharded op's output within
+    DP_TOL."""
+    from ansel_tpu_torch.ops import denoiseprofile as dp_mod
+    from ansel_tpu_torch.parallel import mesh as mesh_mod
+
+    x = dp_outputs["wavelets-y0u0v0"][0]
     _, port, i = _pipes(DP_MODES["wavelets-y0u0v0"])
     s = port.stages[i]
-    port.ctx.notes["shard_geom"] = {"axis": "rows", "Hs": 32, "halo": 8}
-    with pytest.raises(NotImplementedError):
-        s.op.plan(port.ctx, s.plan.spec_in, s.params)
-    with pytest.raises(NotImplementedError):
-        s.op.apply(torch.zeros((3, 64, 200)), None, s.plan, port.ctx)
+    c = engine.coeffs_to_device([port.coeffs()[i]], "cpu")[0]
+    frame_sums, shard_sums = [], {}
+    real_dec, real_psum = dp_mod.eaw_dn_decompose, mesh_mod.psum
+
+    def dec(*args):
+        out = real_dec(*args)
+        if not mesh_mod.in_shard("sp"):
+            frame_sums.append(out[2])
+        return out
+
+    def psum(v, axis):
+        out = real_psum(v, axis)
+        shard_sums.setdefault(mesh_mod.axis_index(axis), []).append(out)
+        return out
+
+    monkeypatch.setattr(dp_mod, "eaw_dn_decompose", dec)
+    monkeypatch.setattr(mesh_mod, "psum", psum)
+    whole = s.op.apply(torch.from_numpy(x), c, s.plan, port.ctx)
+    port.ctx.notes["shard_geom"] = dict(axis="sp", n=2, Hs=32, halo=16,
+                                        H=64, Hw=64)
+    mesh = mesh_mod.make_mesh(2, spatial=2,
+                              devices=[torch.device("cpu")] * 2)
+    outs = mesh_mod.run_shards(
+        mesh, "sp", lambda xs: s.op.apply(xs, c, s.plan, port.ctx),
+        [(torch.from_numpy(x),)] * 2)
+    assert len(frame_sums) == s.plan.static[0] >= 4
+    for k in (0, 1):
+        assert len(shard_sums[k]) == len(frame_sums)
+        for got, want in zip(shard_sums[k], frame_sums):
+            assert torch.allclose(got, want, rtol=1e-5, atol=0)
+        rows = slice(32 * k, 32 * (k + 1))
+        assert (outs[k][:, rows] - whole[:, rows]).abs().max() <= DP_TOL
