@@ -1284,6 +1284,14 @@ HISTORIES[18] = (
 DP18, SP18 = 2, 4
 BATCH18 = 4
 GAINS18 = (1.00, 1.01, 1.02, 1.03)
+# (c)'s second history: config 1's develop behind the two stages that
+# read a statistic of the whole frame, denoiseprofile's wavelets (a
+# detail variance over the frame a scale, config 18's params) and
+# demosaic's full green equilibration (one green ratio over the frame), so
+# that each band of `spatial_sharded_pipe` computes the whole frame up to
+# demosaic and its own rows after it
+HISTORY18_FRAME = (HISTORIES[18][1],
+                   ("demosaic", {"green_eq": 2})) + HISTORIES[1]
 
 # config 19, a Lightroom roll: config 5's images 0 (Bayer) and 1
 # (X-Trans), each beside the Lightroom sidecar LIGHTROOM19

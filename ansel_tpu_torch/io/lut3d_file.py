@@ -5,13 +5,14 @@ Reference: `ansel/src/iop/lut3d.c` lut file parsing (parse_cube,
 parse_3dl, the png haldclut path).  The loaders are host numpy; the
 (level^3, 3) table goes to the device once as the op's coefficient.
 
-The JAX package reads a Hald image through PIL, which the card machine
-lacks.  Here a Hald `.png` is decoded by `read_png8` (zlib, no PIL): 8-bit
-RGB or RGBA, not interlaced, filter types 0-4, scaled by 1/255 as PIL's
-`convert("RGB")` gives it (alpha dropped).  Any other Hald form (a JPEG,
-a TIFF, a 16-bit, palette, grey or interlaced PNG) raises
-NotImplementedError, which the lut3d op does not catch, so it never
-turns into the identity.
+A Hald image is read as the JAX package reads it, through PIL
+(`Image.open(path).convert("RGB")`, scaled by 1/255): any form PIL
+opens.  Where PIL is not installed, a Hald `.png` is decoded by
+`read_png8` (zlib alone): 8-bit RGB or RGBA, not interlaced, filter
+types 0-4, scaled by 1/255 as PIL's `convert("RGB")` gives it (alpha
+dropped); any other form (a JPEG, a TIFF, a 16-bit, palette, grey or
+interlaced PNG) then raises NotImplementedError, which the lut3d op does
+not catch, so it never turns into the identity.
 """
 
 from __future__ import annotations
@@ -180,13 +181,26 @@ def read_png8(path: str) -> np.ndarray:
     return _unfilter(raw, h, w, bpp).reshape(h, w, bpp)
 
 
+def pil_image():
+    """PIL's `Image` module, or None where PIL is not installed."""
+    try:
+        from PIL import Image
+    except ImportError:
+        return None
+    return Image
+
+
 def load_hald(path: str) -> np.ndarray:
     """Hald CLUT image: an NxN image where N = level^1.5 (level = k^2)."""
-    if os.path.splitext(path)[1].lower() != ".png":
+    Image = pil_image()
+    if Image is not None:
+        img = np.asarray(Image.open(path).convert("RGB"), np.float32) / 255.0
+    elif os.path.splitext(path)[1].lower() != ".png":
         os.stat(path)  # a missing file is an OSError, as PIL's open gives
         raise not_ported("lut3d", "a Hald CLUT image other than an 8-bit "
-                         "RGB or RGBA PNG")
-    img = np.asarray(read_png8(path)[..., :3], np.float32) / 255.0
+                         "RGB or RGBA PNG without PIL")
+    else:
+        img = np.asarray(read_png8(path)[..., :3], np.float32) / 255.0
     n = img.shape[0]
     level = int(round(n ** (2.0 / 3.0)))
     if level ** 3 != n * n or img.shape[1] != n:

@@ -62,6 +62,21 @@ GAUSSGRAD = tuple(NYQTHRESH * g for g in (
 GAUSSEVEN = (0.13719494435797422, 0.05640252782101291)
 GQUINC = (0.169917, 0.108947, 0.069855, 0.0287182)
 
+# How far below an output pixel the mosaic decides it (and, the code being
+# symmetric, how far right), along the longest chain of reads: vcd 4 rows
+# (stage 2's d0.at(2, 0) of dirwts0, itself 2), 6 after stage 3's
+# look-ahead to line i + 2, 8 and 10 after the Nyquist test's cd.at(2, .)
+# and its consensus, 16 after the 7x7 area sums' n2.at(6, .), 17 after
+# the hvwt escalation's row r + 1, 18 and 20 after the curvature test's
+# g.at(1, 0) and gquinc_sum's 2, 23 after `fancy`'s d.at(3, .), 24 after
+# R/B at G sites.  Rows above reach without bound: stage 3 (vcd down the
+# rows, hcd along them) and the hvwt and pmwt escalations carry each
+# line's result to the next, and the escalations spread it a column a
+# row.  So a window computes the frame's values on its rows only when it
+# starts at the frame's first row, spans its columns and ends REACH rows
+# below them (`ops/demosaic.Demosaic.roi_in` under `exact_window`).
+REACH = 24
+
 
 def _ulim(x, y, z):
     """dt's ULIM: clamp x into [min(y, z), max(y, z)]."""

@@ -22,6 +22,10 @@ from ..pixel.shifts import PaddedView
 GREEN_EQ_LOCAL = 1
 GREEN_EQ_FULL = 2
 GREEN_EQ_BOTH = 3
+# how far from a pixel each pass reads: the local equilibration's o2
+# ring, and one 3x3 median a colour-smoothing pass
+LAVG_REACH = 2
+SMOOTH_REACH = 1
 
 
 def _site_mask(h: int, w: int, py: int, px: int, device) -> torch.Tensor:

@@ -25,6 +25,16 @@ from ..ops import _bayer
 from ..pixel.shifts import PaddedView
 
 
+def reach(refine: int) -> int:
+    """How far from an output pixel the mosaic decides it: 2 for the
+    directional estimates, 4 for the low-pass, 4 for the LMMSE taps, 1
+    and 1 for the bilinear R/B at G and at the opposite sites, then 1 a
+    median pass and 6 an EECI step (2 for G at R/B, 2 for R/B at G, 2 for
+    R at B and B at R)."""
+    medians = refine if refine < 2 else 3
+    return 12 + medians + 6 * max(0, refine - 2)
+
+
 def _gamma_in(x):
     """(x <= 0.001867) ? 17 x : 1.044445 x^(1/2.4) - 0.044445."""
     xp = torch.clamp(x, min=1e-12)

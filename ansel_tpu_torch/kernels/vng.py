@@ -69,6 +69,11 @@ _TERMS = [
 _CHOOD = [(-1, -1), (-1, 0), (-1, 1), (0, 1),
           (1, 1), (1, 0), (1, -1), (0, -1)]
 
+# how far from an output pixel the mosaic decides it, Bayer and X-Trans
+# alike: 1 for the bilinear fill, 2 for the terms' and the neighbour
+# average's offsets
+REACH = 3
+
 # dcraw filters words, by the Bayer pattern's name
 _FILTERS = {"RGGB": 0x94949494, "BGGR": 0x16161616, "GRBG": 0x61616161,
             "GBRG": 0x49494949}

@@ -188,6 +188,15 @@ def all_ops() -> Dict[str, Op]:
     return dict(_OPS)
 
 
+def exact_window(ctx: PlanContext) -> bool:
+    """The pipe plans with `Pipeline(exact_window=True)`: each stage's
+    window must compute on its output window what the whole frame
+    computes there (`spatial_sharded_pipe`'s bands), so a stage that reads
+    a whole-frame statistic demands the frame, and a stencil's window
+    covers its whole reach."""
+    return bool(ctx.notes.get("exact_window"))
+
+
 def full_dims(spec: ImageSpec):
     """(full_h, full_w) of the frame this spec belongs to: size-adaptive
     planning (wavelet scale counts) uses the whole frame's dims, so a

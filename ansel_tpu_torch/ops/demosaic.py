@@ -27,7 +27,9 @@ import torch
 
 from ..core.params import cfield, params
 from ..core.types import CFAPattern, Colorspace, ImageSpec
+from ..kernels.demosaic_post import GREEN_EQ_BOTH, GREEN_EQ_FULL
 from . import _bayer
+from . import base as base_mod
 from .base import Op, OpPlan, PlanContext, register
 
 # method ids (reference demosaic.c:120-141)
@@ -157,15 +159,25 @@ class Demosaic(Op):
 
     def roi_in(self, plan: OpPlan, ctx: PlanContext, win):
         """Windowed demosaic: grow by the interpolation support and snap
-        the origin to the 6-row/col CFA super-period."""
+        the origin to the 6-row/col CFA super-period.  The JAX package's
+        windowed pipe grows every method by 18 px; under `exact_window`
+        the growth is each pass's own reach (`reach`), full green
+        equilibration (a ratio over the frame) demands the frame, and
+        AMaZE's window starts at the frame's first row and spans its
+        columns (`kernels/amaze.REACH`)."""
         si, so = plan.spec_in, plan.spec_out
         if tuple(win) == (0, 0, so.height, so.width):
             return (0, 0, si.height, si.width)
-        halo = 18
+        exact = base_mod.exact_window(ctx)
+        if exact and plan.static[1] in (GREEN_EQ_FULL, GREEN_EQ_BOTH):
+            return None
+        halo = self.reach(plan, ctx) if exact else 18
         y0 = max(0, win[0] - halo) // 6 * 6
         x0 = max(0, win[1] - halo) // 6 * 6
         y1 = min(si.height, win[0] + win[2] + halo)
         x1 = min(si.width, win[1] + win[3] + halo)
+        if exact and self._method(plan) == AMAZE:
+            y0, x0, x1 = 0, 0, si.width
         if (plan.static[0] & ~DUAL_FLAG) == PPG:
             # PPG's shifts wrap round the array (ROADMAP R18): a window
             # that reaches one edge of the frame but not the other would
@@ -176,6 +188,47 @@ class Demosaic(Op):
             if (x0 == 0) != (x1 == si.width):
                 x0, x1 = 0, si.width
         return (y0, x0, y1 - y0, x1 - x0)
+
+    @staticmethod
+    def _method(plan: OpPlan) -> int:
+        """The method `_demosaic` runs: Bayer methods it does not name
+        run the bilinear fallback."""
+        method = plan.static[0] & ~DUAL_FLAG
+        if plan.spec_in.cfa is CFAPattern.XTRANS:
+            return method if method == XTRANS_FLAG else MARKESTEIJN
+        return method if method in (PPG, LMMSE, VNG4, AMAZE, RCD) else -1
+
+    def reach(self, plan: OpPlan, ctx: PlanContext) -> int:
+        """How far from an output pixel the mosaic decides it, summed
+        over the passes `apply` runs: the local green equilibration, the
+        method, the dual blend (its detail mask of the method's output,
+        its smoothed VNG) and the colour-smoothing passes."""
+        from ..kernels import amaze, demosaic_post, lmmse, markesteijn, rcd
+        from ..kernels import vng
+        from ..pixel import detail
+
+        (method_full, green_eq, _median_thrs, smooth, lmmse_refine,
+         dual_thrs) = plan.static
+        if method_full & ~DUAL_FLAG in (PASSTHROUGH_MONO,
+                                        XTRANS_FLAG | PASSTHROUGH_MONO):
+            return 0
+        method = self._method(plan)
+        if method == MARKESTEIJN:
+            passes = 3 if method_full & ~DUAL_FLAG == MARKESTEIJN_3 else 1
+            r = markesteijn.kernel_plan(
+                tuple(int(v) for v in ctx.meta.xtrans), passes).halo
+        else:
+            r = {PPG: 3, AMAZE: amaze.REACH, LMMSE: lmmse.reach(lmmse_refine),
+                 VNG4: vng.REACH, XTRANS_FLAG: vng.REACH,
+                 RCD: rcd.HALO}.get(method, 1)
+        eq = demosaic_post.LAVG_REACH if green_eq else 0
+        r += eq
+        if (method_full & DUAL_FLAG) and dual_thrs > 0.0:
+            # the detail mask of the method's output, beside VNG smoothed
+            # twice
+            r = max(r + detail.MASK_REACH,
+                    eq + vng.REACH + 2 * demosaic_post.SMOOTH_REACH)
+        return r + smooth * demosaic_post.SMOOTH_REACH
 
     def coeffs(self, ctx: PlanContext, plan: OpPlan, p: DemosaicParams):
         # rcd normalizes by max processed_maximum (rcd.c:283-284)

@@ -146,12 +146,17 @@ class DenoiseProfile(Op):
 
     def roi_in(self, plan: OpPlan, ctx: PlanContext, win):
         """Finite stencil support: a-trous B3 at spacing 2^s compounds to
-        2*(2^S - 1); NLM mode to patch + max scattered search offset."""
+        2*(2^S - 1); NLM mode to patch + max scattered search offset.
+        Under `exact_window` the wavelet mode demands the whole frame:
+        its per-scale thresholds come from the detail variance over the
+        frame, which a window would take over its own pixels."""
         si, so = plan.spec_in, plan.spec_out
         if tuple(win) == (0, 0, so.height, so.width):
             return (0, 0, si.height, si.width)
         (max_scale, _cm, _vst, nlm, P, K, _cpw, scattering,
          _dec) = plan.static
+        if not nlm and base_mod.exact_window(ctx):
+            return None
         if nlm:
             from ..pixel.nlmeans import _scatter
 

@@ -11,12 +11,14 @@ source-over in work RGB.  A named layer that cannot be found raises
 ValueError at plan time, as in the JAX package (whose planner catches
 nothing around `plan`).
 
-Where the JAX package reads any other image file through PIL, the port
-reads an 8-bit RGB or RGBA PNG (`io/lut3d_file.read_png8`), premultiplied
-as there; a file that is no PNG gives None, as a file PIL cannot read
-does there.  A layer of another size is resized with `jax.image.resize`'s
-bilinear weights (`pixel/resample.resize_bilinear`: antialiased when it
-shrinks).  The op has no fused form.
+Any other image file is read through PIL as `convert("RGBA")`,
+premultiplied, as the JAX package reads it; a file PIL cannot read is a
+missing layer there and here.  Where PIL is not installed, the port
+reads an 8-bit RGB or RGBA PNG (`io/lut3d_file.read_png8`) and takes any
+other file for a missing layer.  A layer of another size is resized
+with `jax.image.resize`'s bilinear weights
+(`pixel/resample.resize_bilinear`: antialiased when it shrinks).  The op
+has no fused form.
 """
 
 from __future__ import annotations
@@ -55,15 +57,24 @@ def _load_layer(name: str, search_dir: str):
             if rgba.shape[-1] == 4:
                 rgba = rgba.transpose(2, 0, 1)
             return rgba
-        from ..io.lut3d_file import read_png8
+        from ..io.lut3d_file import pil_image, read_png8
 
-        try:
-            img = read_png8(cand)
-        except ValueError:
-            return None
-        if img.shape[-1] == 3:  # PIL's convert("RGBA"): opaque
-            img = np.concatenate(
-                [img, np.full(img.shape[:2] + (1,), 255, np.uint8)], -1)
+        Image = pil_image()
+        if Image is not None:
+            # whatever PIL fails on is a missing layer, as in the JAX
+            # package
+            try:
+                img = np.asarray(Image.open(cand).convert("RGBA"))
+            except Exception:
+                return None
+        else:
+            try:
+                img = read_png8(cand)
+            except (ValueError, NotImplementedError):
+                return None
+            if img.shape[-1] == 3:  # PIL's convert("RGBA"): opaque
+                img = np.concatenate(
+                    [img, np.full(img.shape[:2] + (1,), 255, np.uint8)], -1)
         rgba = (np.asarray(img, np.float32) / 255.0).transpose(2, 0, 1)
         rgba[:3] *= rgba[3:4]  # premultiply
         return rgba

@@ -13,11 +13,13 @@ DT_JOB_QUEUE_USER_EXPORT); its out-of-memory strategy is halo tiling
   * spatial axis -> `spatial_sharded_pipe`: one image's mosaic
     row-sharded over every device of the mesh; each device computes its
     band of the output rows through the pipe's own backward-ROI walk
-    (`Pipeline(out_window=...)`) from the input window that walk gives,
-    which the call ships to it from the whole mosaic it holds.  JAX
-    partitions its graph with GSPMD and switches fusion off, since
-    Pallas cannot be auto-partitioned; the port has no partitioner and
-    keeps its kernels.
+    (`Pipeline(out_window=..., exact_window=True)`) from the input
+    window that walk gives, which the call ships to it from the whole
+    mosaic it holds; a stage that reads a whole-frame statistic makes
+    that window the whole frame, so each band repeats the work up to
+    it.  JAX partitions its graph with GSPMD and switches fusion off,
+    since Pallas cannot be auto-partitioned; the port has no partitioner
+    and keeps its kernels.
 
 Neither holds a collective, so the devices' pipes are enqueued from the
 caller's thread, each on its shard's stream (`mesh.map_shards`).
@@ -122,11 +124,14 @@ def spatial_sharded_pipe(meta: RawMeta, history: List[HistoryItem],
                          mesh: Mesh):
     """A single-image pipe with the mosaic row-sharded over all the
     mesh's devices (dp x sp, row-major): the big-image path.  Device k
-    plans the pipe for its band of the output rows (`out_window`); the
-    backward-ROI walk gives the input window that band needs (the whole
-    frame where a stage demands it), which `call` ships to the device.
-    Any pipe, size-changing and full-frame ones included: each band
-    computes what the unsharded pipe computes on its rows.  -> (call,
+    plans the pipe for its band of the output rows (`out_window`,
+    `exact_window`); the backward-ROI walk gives the input window that
+    band needs, which `call` ships to the device.  Under `exact_window` a
+    stage that reads a whole-frame statistic (denoiseprofile's wavelets,
+    full green equilibration) computes the whole frame on every band, and
+    each demosaic method's window covers its own reach.  Any pipe,
+    size-changing and full-frame ones included: each band computes what
+    the unsharded pipe computes on its rows.  -> (call,
     pipe): `call(raw)` returns the output's logical frame (C, Ho, Wo) on
     the mesh's first device, its rows concatenated from the devices'
     bands; `pipe` is the unsharded Pipeline."""
@@ -142,7 +147,8 @@ def spatial_sharded_pipe(meta: RawMeta, history: List[HistoryItem],
     for d, (y0, y1) in zip(devices, bands):
         shard = CompiledPipe(Pipeline(meta, history, device=d,
                                       out_window=(y0, 0, y1 - y0, Wo),
-                                      row_align=ROW_ALIGN))
+                                      row_align=ROW_ALIGN,
+                                      exact_window=True))
         s0 = shard.pipe.stages[0].plan.spec_in if shard.pipe.stages \
             else shard.pipe.spec_in
         lo = s0.org_y

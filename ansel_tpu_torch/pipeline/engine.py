@@ -41,7 +41,12 @@ does (`ansel_tpu/pipeline/engine.py:229-238, 249, 323`).
 The multi-device pipes (`parallel/`) plan a window of a larger frame
 (`spec_in`, as the JAX package does), or a band of the output rows whose
 stage windows start on a multiple of `row_align` rows, and run it from
-the rows of its input window alone (`run_steps(x_spec=)`).
+the rows of its input window alone (`run_steps(x_spec=)`).  A band plans
+with `exact_window`, which the ops read from `ctx.notes`: there a stage
+whose window would compute other values than the whole frame's on the
+band's rows (a whole-frame statistic, a stencil wider than the windowed
+pipe's halo) asks for the window that computes the same values, or the
+whole frame.  A plain `out_window` keeps the JAX package's windows.
 
 The JAX engine takes the raw-detail plane at demosaic and keeps each
 raster mask at its source stage's frame; neither follows a later change
@@ -298,7 +303,7 @@ class Pipeline:
                  order_version=None, pipe_type: str = PipeType.EXPORT,
                  out_window: Optional[Tuple[int, int, int, int]] = None,
                  roi: bool = True, spec_in: Optional[ImageSpec] = None,
-                 row_align: int = 1):
+                 row_align: int = 1, exact_window: bool = False):
         self.device = _check_device(device)
         self.row_align = row_align
         fast = pipe_type in (PipeType.PREVIEW, PipeType.THUMBNAIL)
@@ -320,6 +325,8 @@ class Pipeline:
         self.forms = forms or {}  # drawn-mask forms {id: masks.Form}
         self.ctx.notes["forms"] = self.forms  # spots and retouch read them
         self.ctx.notes["pipe_type"] = pipe_type
+        if exact_window:
+            self.ctx.notes["exact_window"] = True
 
         # spec_in override: a window of a larger frame (org and full dims
         # set), which the row-sharded pipe (parallel/spatial.py) plans for

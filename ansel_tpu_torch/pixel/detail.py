@@ -16,6 +16,10 @@ import torch
 from ..color.transforms import fdiv
 from .shifts import PaddedView
 
+# how far from a pixel the demosaiced image decides its detail mask: 1
+# for the Scharr gradient, 4 for the 9x9 blur
+MASK_REACH = 5
+
 
 def _blur_9x9_kernel(sigma: float = 2.0) -> np.ndarray:
     k = np.zeros((9, 9), np.float32)

@@ -143,10 +143,13 @@ entry points a user calls, at their full frames:
     config 18's denoise stack on config 2's noisy mosaic (one halo
     exchange, denoiseprofile's statistic summed over the shards) within
     1/255 of the single pipe; (c) `spatial_sharded_pipe` over (dp 2, sp
-    2), config 1's history within 1e-5; each with img/s beside the single
-    pipe's, peak memory and launches, and RCD, EAW, NLM and the chains
-    held against their twins on a shard's arguments (sp shard 1's
-    window, whose origin is row 708); then `dryrun_multichip(4)`
+    2), config 1's history within 1e-5, then config 1's develop behind
+    denoiseprofile's wavelets and green equilibration 2 on the noisy
+    mosaic within 1e-5 (each band computes the frame up to demosaic,
+    whose stages read whole-frame statistics); each with img/s beside
+    the single pipe's, peak memory and launches, and RCD, EAW, NLM and
+    the chains held against their twins on a shard's arguments (sp shard
+    1's window, whose origin is row 708); then `dryrun_multichip(4)`
     (`[dryrun]`);
   * the port's config 19 (`[pipe19]`), a Lightroom roll: config 5's
     Bayer and X-Trans images beside Lightroom sidecars (written on a
@@ -155,7 +158,10 @@ entry points a user calls, at their full frames:
     and uploaded by `store_piwigo` to a mock ws.php this script serves on
     127.0.0.1, each render within 1/255 of a single pipe of the parsed
     history: RCD, Markesteijn, the warp on clipping's map, grain's blurs
-    and two interpreted chains against their twins.
+    and two interpreted chains against their twins;
+  * `[lut3d-pil]`: a Hald CLUT written by PIL as a palette PNG and as a
+    JPEG, read through PIL by the lut3d op of a 24 MP pipe on the card,
+    and the same history on the card and on the CPU on a crop.
 
 Each path runs with the launch counts set to 0 just before it and read
 just after.  Every chain each config builds is also timed on its own
@@ -4678,6 +4684,44 @@ def run_config18(card, record, raw_dev, meta, phases):
         record["chain18c"] = check_chains(
             1, [calls_c["chain"][0]], [[s.name for s in pipe.stages[4:]]])[0]
         del call, pipe, calls_c
+    # -- (c) on a history whose stages read whole-frame statistics: every
+    # band computes the frame up to demosaic
+    with timed(phases, "pipe18 sharded frame"):
+        hist = [port.HistoryItem(op, dict(p))
+                for op, p in configs.HISTORY18_FRAME]
+        noisy = noisy_like(raw_dev, NOISE_SIGMA)
+        call, pipe = spatial_sharded_pipe(meta, hist, mesh)
+        single = engine.CompiledPipe(pipe)
+        reset_launches()
+        want = single.run_padded(noisy)[:, :H, :W]
+        torch.cuda.synchronize()
+        one_launches = read_launches()
+        reset_launches()
+        got = call(noisy)
+        torch.cuda.synchronize()
+        launches["c frame"] = read_launches()
+        expect(launches["c frame"] == {k: 4 * v
+                                       for k, v in one_launches.items()}
+               and one_launches["eaw"] > 0 and one_launches["rcd"] == 1,
+               f"[pipe18] (c) frame launches {launches['c frame']}, the "
+               f"single pipe's {one_launches}")
+        err = (got - want).abs().max().item()
+        expect(bool(torch.isfinite(got).all()) and err <= SHARDED18_TOL,
+               f"[pipe18] (c) frame vs the single pipe: max {err}")
+        del got, want
+        rate, peak, held = mesh_rate(lambda: call(noisy), 1)
+        one = 1.0 / time_pipe(single, noisy, 3, warmups=1)
+        print(f"[pipe18] (c) spatial_sharded_pipe, config 1's develop behind "
+              f"denoiseprofile's wavelets and green equilibration 2 on the "
+              f"noisy mosaic over (dp 2, sp 2) on {how}: each band computes "
+              f"the frame up to demosaic, launches {launches['c frame']} (4 "
+              f"x the single pipe's), vs the single pipe max {err:.3g} (tol "
+              f"{SHARDED18_TOL:g}) | {rate:.2f} img/s (the single pipe "
+              f"{one:.2f} img/s), peak device memory {peak:.3f} GB "
+              f"({held:.3f} GB held before) on {card}", flush=True)
+        record["pipe18c_frame"] = dict(max_abs_err=err, img_s=rate,
+                                       single=one, peak_gb=peak)
+        del call, pipe, single, noisy
     return launches
 
 
@@ -4690,6 +4734,74 @@ def run_dryrun(phases):
         print(f"[dryrun] dryrun_multichip(4) on the card: batch, sharded "
               f"bands, shifted windows, config 13's history over dp, all "
               f"held | {time.perf_counter() - t:.1f} s", flush=True)
+
+
+# --- Hald CLUTs through PIL ----------------------------------------------------
+def write_halds(directory):
+    """A level-16 Hald CLUT (a 64 x 64 image) of a warm look, written by
+    PIL as a palette PNG and as a JPEG: -> {form: path}."""
+    from PIL import Image
+
+    g = np.linspace(0.0, 1.0, 16)
+    b, gg, r = np.meshgrid(g, g, g, indexing="ij")  # [b][g][r], r fastest
+    look = np.stack([r ** 0.8, gg ** 0.95, b ** 1.2], -1).reshape(64, 64, 3)
+    img = Image.fromarray(np.round(look * 255.0).astype(np.uint8), "RGB")
+    paths = {"palette PNG": os.path.join(directory, "hald.png"),
+             "JPEG": os.path.join(directory, "hald.jpg")}
+    img.quantize(256).save(paths["palette PNG"])
+    img.save(paths["JPEG"], quality=95)
+    return paths
+
+
+def run_lut3d_pil(card, record, raw, meta, phases):
+    """The lut3d op on a Hald CLUT of each form PIL writes (a palette PNG,
+    a JPEG), read through PIL: the table equal to PIL's RGB image / 255;
+    the history [lut3d] on the card at 24 MP with launches counted, and
+    against the same history on the CPU on a crop of the mosaic (a frame
+    of its own) within 1/255."""
+    from PIL import Image
+
+    y0, x0, h, w = CROP_BAYER
+    crop = np.ascontiguousarray(raw[y0:y0 + h, x0:x0 + w])
+    meta_crop = dataclasses.replace(meta, width=w, height=h)
+    with timed(phases, "lut3d-pil"), tempfile.TemporaryDirectory() as tmp:
+        plain = port.compile_pipeline(meta, []).output_array(raw)
+        for form, path in write_halds(tmp).items():
+            hist = [port.HistoryItem("lut3d", {"filepath": path})]
+            pipe = port.compile_pipeline(meta, hist)
+            stage = next(s for s in pipe.pipe.stages if s.name == "lut3d")
+            mode = Image.open(path).mode
+            want = np.asarray(Image.open(path).convert("RGB"),
+                              np.float32) / 255.0
+            expect(stage.plan.static[2] == 16 and np.array_equal(
+                stage.plan.aux["clut"].reshape(-1, 3), want.reshape(-1, 3)),
+                f"[lut3d-pil] the {form} table")
+            reset_launches()
+            out = pipe.output_array(raw)
+            launches = read_launches()
+            expect(launches["rcd"] == 1 and launches["chain"] >= 1,
+                   f"[lut3d-pil] launches {launches}")
+            expect(out.shape == (3, H, W) and bool(np.isfinite(out).all()),
+                   f"[lut3d-pil] {form}: output {out.shape}")
+            moved = float(np.abs(out - plain).max())
+            expect(moved > PIPE_TOL, f"[lut3d-pil] {form}: the look moved "
+                   f"the image by {moved} only")
+            per_img = time_pipe(pipe, torch.from_numpy(
+                pad_to(raw, pipe.pipe.spec_in)).cuda(), 3, warmups=1)
+            got = port.compile_pipeline(meta_crop, hist).output_array(crop)
+            cpu = port.compile_pipeline(meta_crop, hist,
+                                        device="cpu").output_array(crop)
+            err = float(np.abs(got - cpu).max())
+            expect(err <= PIPE_TOL, f"[lut3d-pil] {form}: card vs CPU max "
+                   f"{err}")
+            print(f"[lut3d-pil] a Hald CLUT of level 16 as a {form} (PIL "
+                  f"mode {mode}), read through PIL: the table equal to "
+                  f"PIL's RGB / 255; [lut3d] at {H}x{W} launches {launches}, "
+                  f"{1.0 / per_img:.2f} img/s, the look moves the output by "
+                  f"{moved:.3g}; on a {h}x{w} crop the card vs the CPU max "
+                  f"{err:.3g} (tol 1/255) on {card}", flush=True)
+            record[f"lut3d-pil {form}"] = dict(max_abs_err=err,
+                                               img_s=1.0 / per_img)
 
 
 # --- config 19: a Lightroom roll ------------------------------------------------
@@ -5027,6 +5139,7 @@ def main(argv=None):
         run_dryrun(phases)
         launches19 = run_config19(card, record, phases, root19, roll19)
         slice20_s = time.perf_counter() - t20
+        run_lut3d_pil(card, record, raw, meta, phases)
     # launches per image: config 2's for the first five kernels, config
     # 3's for the IIR and diffuse kernels, config 4's for Markesteijn and
     # the warp, config 7's for the grid slice

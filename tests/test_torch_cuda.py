@@ -1930,3 +1930,23 @@ def test_spatial_sharded_pipe_on_a_virtual_card_mesh(cuda):
     assert rcd.LAUNCHES == 4
     want = port.CompiledPipe(pipe)(raw)[:, :256, :384]
     assert (got - want).abs().max().item() <= 1e-5
+
+
+def test_spatial_sharded_pipe_frame_statistics_on_a_virtual_card_mesh(cuda):
+    """Config 18 (c)'s second history at 256 x 384 over (dp 2, sp 2) on
+    cuda:0: denoiseprofile's wavelets and green equilibration 2 read the
+    whole frame, which every band computes; within 1e-5 of the single
+    pipe, each band's kernels launched."""
+    from ansel_tpu_torch.parallel.batch import make_mesh, spatial_sharded_pipe
+
+    raw, meta, _ = synth_raw(h=256, w=384, kind="gradients")
+    hist = [port.HistoryItem(op, dict(p))
+            for op, p in configs.HISTORY18_FRAME]
+    call, pipe = spatial_sharded_pipe(
+        meta, hist, make_mesh(4, spatial=2, devices=_virtual(4)))
+    rcd.LAUNCHES = eaw.LAUNCHES = 0
+    got = call(raw)
+    assert rcd.LAUNCHES == 4 and eaw.LAUNCHES == 4 * pipe.stages[[
+        s.name for s in pipe.stages].index("denoiseprofile")].plan.static[0]
+    want = port.CompiledPipe(pipe)(raw)[:, :256, :384]
+    assert (got - want).abs().max().item() <= 1e-5

@@ -2,7 +2,8 @@
 
 `plan().static` and `coeffs()` equal the JAX package's for a layer saved
 as an HWC and as a CHW `.npz` and as an 8-bit RGBA or RGB PNG (read by
-PIL there, by the port's PNG reader here, premultiplied alike); a
+PIL in both, premultiplied alike; tests/test_torch_pil_images.py holds
+the other forms and the port's PNG reader without PIL); a
 missing named layer raises ValueError while planning in both packages
 and an empty name plans a no-op.  `apply` composites the layer
 source-over after `jax.image.resize`'s bilinear resize, upsampling and

@@ -262,7 +262,9 @@ def test_cli_refuses_what_is_not_ported(tmp_path, op, params, args, bp,
     were ported).  The "active-blend" case refused an active blend until
     blends were ported; it now carries one on a branch the port has not
     ported (lut3d's TIFF Hald CLUT; rawdenoiseai, relight and drawlayer
-    until they were ported)."""
+    until they were ported).  Since the port reads a Hald CLUT through
+    PIL as the JAX package does, the CLI runs as on a machine without PIL,
+    where the port's own PNG reader refuses these forms."""
     from test_torch_pipeline import write_hald_forms
 
     write_hald_forms(str(tmp_path))
@@ -270,7 +272,10 @@ def test_cli_refuses_what_is_not_ported(tmp_path, op, params, args, bp,
     xmp = str(tmp_path / "h.xmp")
     write_xmp(xmp, [engine.HistoryItem(op, params, blend_params=bp)])
     out = str(tmp_path / "out.png")
-    proc = _run(["-m", "ansel_tpu_torch.cli", "synth:128x64", xmp, out,
+    without_pil = ("import runpy, sys; sys.modules['PIL'] = None; "
+                   "runpy.run_module('ansel_tpu_torch.cli', "
+                   "run_name='__main__')")
+    proc = _run(["-c", without_pil, "synth:128x64", xmp, out,
                  "--bpp", "16", "--no-icc", "--device", "cpu", *args])
     assert proc.returncode != 0
     assert "NotImplementedError" in proc.stderr and message in proc.stderr

@@ -7,8 +7,9 @@ against ansel_tpu on the CPU.
   measured 1.2e-7 on values in [0, 1]).
 * The loaders: a .cube, a .3dl, a .gmz archive, inline keypoints and an
   8-bit Hald PNG written by PIL give the JAX package's tables bit for
-  bit; a 16-bit Hald PNG and a Hald JPEG are refused (NotImplementedError,
-  not the identity), a missing file is the identity in both packages.
+  bit; a 16-bit Hald PNG and a Hald JPEG are read through PIL as the JAX
+  package reads them, and refused without PIL (NotImplementedError, not
+  the identity); a missing file is the identity in both packages.
 * The op: `plan().static` and `coeffs()` equal the JAX package's for
   each source of a table (file, .gmz by name, inline keypoints, a
   relative path under ANSEL_TPU_LUT_ROOT, a missing file) and for the
@@ -18,6 +19,7 @@ against ansel_tpu on the CPU.
 
 import dataclasses
 import struct
+import sys
 import zlib
 
 import jax
@@ -122,18 +124,24 @@ def test_gmz_and_inline_keypoints_equal_the_jax_package(tables):
     assert gmz.clut_from_params(kp.tobytes()[:-1], len(kp)) is None
 
 
-def test_other_hald_forms_are_refused(tables):
-    """PIL reads them in the JAX package; the port refuses rather than
-    render the identity.  A file that is missing is an OSError in both,
-    which the op turns into the identity."""
+def test_other_hald_forms_are_refused(tables, monkeypatch):
+    """PIL reads them in both packages alike; without PIL the port
+    refuses rather than render the identity.  A file that is missing is
+    an OSError in both, which the op turns into the identity."""
     for kind in ("hald16", "jpg"):
-        assert ref_file.load_lut3d(tables[kind]).shape[0] == 16
-        with pytest.raises(NotImplementedError):
-            lut3d_file.load_lut3d(tables[kind])
+        want = ref_file.load_lut3d(tables[kind])
+        assert want.shape[0] == 16
+        assert np.array_equal(lut3d_file.load_lut3d(tables[kind]), want)
     missing = tables["jpg"][:-4] + "-missing.jpg"
     for loader in (lut3d_file.load_lut3d, ref_file.load_lut3d):
         with pytest.raises(OSError):
             loader(missing)
+    monkeypatch.setitem(sys.modules, "PIL", None)
+    for kind in ("hald16", "jpg"):
+        with pytest.raises(NotImplementedError):
+            lut3d_file.load_lut3d(tables[kind])
+    with pytest.raises(OSError):
+        lut3d_file.load_lut3d(missing)
     with pytest.raises(NotImplementedError):
         lut3d.Lut3D().plan(None, None, params_class("lut3d")(
             filepath=tables["hald16"]))

@@ -240,15 +240,35 @@ def test_batch_rejects_a_spatial_mesh():
                       make_mesh(8, spatial=2, devices=cpus(8)))
 
 
+# histories whose bands differed from the whole pipe before the bands
+# planned with `exact_window`, each a single stage at the defaults
+F9_STAGES = {
+    # full green equilibration: one green ratio over the frame
+    "green-eq-2": ("demosaic", {"green_eq": 2}),
+    "green-eq-3": ("demosaic", {"green_eq": 3}),
+    # AMaZE's row recurrences reach past the windowed pipe's 18 px
+    "amaze": ("demosaic", {"demosaicing_method": 1}),
+}
+
+
 @pytest.mark.parametrize("config,h,w,spatial", [
     (None, 128, 128, 2),    # tests/test_multichip.py's case
     (1, 256, 384, 2),       # config 1's history, RCD at every band
     ("ppg", 64, 128, 2),    # __graft_entry__.py's phase 2: PPG (R18)
+    # denoiseprofile's wavelets: a detail variance over the frame a scale
+    (2, 192, 256, 1),
+    (18, 192, 256, 1),
+    # green equilibration 3 and the dual blend on a clipped mosaic
+    (15, 192, 256, 1),
+    ("green-eq-2", 192, 256, 1),
+    ("green-eq-3", 192, 256, 1),
+    ("amaze", 192, 256, 1),
 ])
 def test_spatial_sharded_pipe_matches_the_single_pipe(config, h, w, spatial):
     """Each band computes what the whole pipe computes on its rows; PPG's
     shifts wrap round the frame, so its top and bottom bands demosaic
-    the whole frame (R18)."""
+    the whole frame (R18), and a stage that reads a whole-frame
+    statistic computes the frame on every band."""
     raw, meta, _ = synth_raw(h=h, w=w, kind="gradients")
     if config == "ppg":
         hist = items(ansel_tpu_torch, [
@@ -256,8 +276,12 @@ def test_spatial_sharded_pipe_matches_the_single_pipe(config, h, w, spatial):
             ("demosaic", {"demosaicing_method": 0})])
     elif config is None:
         hist = items(ansel_tpu_torch, [("filmicrgb", {})])
+    elif config in F9_STAGES:
+        hist = items(ansel_tpu_torch, [F9_STAGES[config]])
     else:
         hist = configs.history(config)
+    if config == 15:
+        raw = configs.mosaic15(raw, meta)
     call, pipe = spatial_sharded_pipe(
         meta, hist, make_mesh(4 * spatial, spatial=spatial,
                               devices=cpus(4 * spatial)))

@@ -207,9 +207,9 @@ def _xtrans(meta):
 
 
 def write_hald_forms(directory):
-    """Hald CLUT files of the forms the port's reader refuses (ROADMAP
-    Queue 1 item 7), each 8 x 8 (level 4) in `directory`: a 16-bit PNG,
-    an interlaced 8-bit PNG and a TIFF."""
+    """Hald CLUT files of the forms the port's own PNG reader refuses
+    (where PIL is not installed), each 8 x 8 (level 4) in `directory`: a
+    16-bit PNG, an interlaced 8-bit PNG and a TIFF."""
     import struct
     import zlib
 
@@ -235,10 +235,12 @@ def write_hald_forms(directory):
     ([("lut3d", {"filepath": "hald-interlaced.png"})], None, {}),
     ([("lut3d", {"filepath": "hald.tif"})], None, {}),
 ], ids=["lut3d-16-bit-png", "lut3d-interlaced-png", "lut3d-tiff"])
-def test_unported_branches_raise_at_plan_time(items, meta_fn, kw, tmp_path):
-    """Each branch the port has not ported raises NotImplementedError
-    while planning: lut3d's Hald CLUT in any form but an 8-bit RGB or RGBA,
-    non-interlaced PNG (the JAX package reads them through PIL).  PPG, the
+def test_unported_branches_raise_at_plan_time(items, meta_fn, kw, tmp_path,
+                                             monkeypatch):
+    """Each branch the port cannot run raises NotImplementedError while
+    planning: on a machine without PIL, lut3d's Hald CLUT in any form but
+    an 8-bit RGB or RGBA, non-interlaced PNG (with PIL the port reads them
+    as the JAX package does: tests/test_torch_pil_images.py).  PPG, the
     bilinear fallback, the ICC profiles, lut3d, drawlayer, the preview
     pipe, the demosaic methods and post passes, the highlight modes,
     blurs, filmic rgb's colour sciences v1-v5, channelmixer, borders,
@@ -251,6 +253,7 @@ def test_unported_branches_raise_at_plan_time(items, meta_fn, kw, tmp_path):
     _, meta, _ = synth_raw(h=64, w=128)
     if meta_fn is not None:
         meta = meta_fn(meta)
+    monkeypatch.setitem(sys.modules, "PIL", None)
     with pytest.raises(NotImplementedError, match="lut3d"):
         ansel_tpu_torch.Pipeline(meta, _hist(ansel_tpu_torch, items),
                                  device="cpu", **kw)
