@@ -50,12 +50,19 @@
 //
 // Patch radii above MAX_P (the register strips and shuffles above are
 // templated on P) take nlm_wide_kernel: P at run time, a 32 x 32 tile a
-// block, and per offset the d2 plane of the tile and its ring in shared
-// memory, then the column sums over 2P + 1 rows, then each pixel's row
-// of 2P + 1 column sums, all in the twin's order, with the offsets read
-// from device memory (any count in one launch).  Three barriers per
-// offset and (2P + 1)(1 + 2P / 32) additions a pixel for the column sums:
-// slow, but the planners bound neither K nor P.
+// block, the offsets read from device memory (any count in one launch).
+// Per offset the tile's d2 plane, (32 + 2P)^2 from (y0 - P, x0 - P), is
+// never held whole: it streams through shared memory in 64 x 64 pieces,
+// columns in chunks of 64 and, inside a chunk, rows in bands of 64 (one
+// of each up to P 16).  Each thread keeps the column sums of eight rows
+// r of one chunk column (rows r .. r + 2P, each begun at its own first
+// row and added in row order as the bands pass), which go to shared
+// memory at the chunk's end; then each pixel adds the chunk's columns of
+// its row, in column order.  So the sums are the twin's, term for term,
+// and shared memory (25 KB) does not grow with P: every patch radius
+// runs, as the JAX package's XLA path takes every one.  Two barriers per
+// band and two per chunk, (32 + 2P)^2 d2 evaluations and
+// (2P + 1)(32 + 2P) / 8 + 4 (2P + 1) additions a thread per offset.
 
 #include <cuda_runtime.h>
 #include <stddef.h>
@@ -74,8 +81,8 @@ constexpr unsigned FULL = 0xffffffffu;
 constexpr int MODE_LOAD = 1;       // start from the scratch's sums
 constexpr int MODE_FINAL = 2;      // normalise into out (else store sums)
 constexpr int WIDE_T = 32;         // nlm_wide_kernel's tile side
+constexpr int WIDE_B = 64;         // its chunks' columns and bands' rows
 constexpr int WIDE_NT = 256;
-constexpr int WIDE_MAX_P = 96;     // its d2 tile and column sums fit 227 KB
 
 struct Offsets {
   int o[MAX_OFFSETS];  // (dy << 16) | (dx & 0xffff)
@@ -254,15 +261,21 @@ __global__ void __launch_bounds__(WIDE_NT)
                     int P, float n0, float n1, float n2,
                     const float* __restrict__ sharp_p, float cp_norm,
                     float inv1cw, int variant) {
-  extern __shared__ float wide_smem[];
-  const int S = WIDE_T + 2 * P;
-  float* d2s = wide_smem;          // S x S: d2 on the tile and its ring
-  float* rs = wide_smem + S * S;   // WIDE_T x S: the column sums
+  __shared__ float band[WIDE_B][WIDE_B + 1];  // d2: band rows x chunk cols
+  __shared__ float cs[WIDE_T][WIDE_B + 1];    // column sums: rows x chunk cols
+  // the tile's d2 plane spans S x S from (y0 - P, x0 - P); its column
+  // sums of rows r .. r + 2P and row sums of columns c .. c + 2P are
+  // taken in chunks of WIDE_B columns and bands of WIDE_B rows
+  const int S = WIDE_T + 2 * P, P2 = 2 * P;
   const int t = threadIdx.x, tx = t % WIDE_T, ty = t / WIDE_T;
   const int x0 = blockIdx.x * WIDE_T, y0 = blockIdx.y * WIDE_T;
   const size_t plane = (size_t)h * w;
   const float sharp = *sharp_p;
-  constexpr int ROWS = WIDE_T * WIDE_T / WIDE_NT;  // pixels a thread
+  constexpr int G = WIDE_NT / WIDE_T;     // row groups
+  constexpr int ROWS = WIDE_T / G;        // pixels a thread: rows ty + G k
+  // the column sums' threads: chunk column cc of rows cg + CG k
+  constexpr int CG = WIDE_NT / WIDE_B, CROWS = WIDE_T / CG;
+  const int cc = t % WIDE_B, cg = t / WIDE_B;
   float acc0[ROWS], acc1[ROWS], acc2[ROWS], wsum[ROWS];
 #pragma unroll
   for (int k = 0; k < ROWS; ++k) acc0[k] = acc1[k] = acc2[k] = wsum[k] = 0.0f;
@@ -270,36 +283,72 @@ __global__ void __launch_bounds__(WIDE_NT)
     const int packed = offs[it];
     const int dy = packed >> 16;
     const int dx = (int)(short)(packed & 0xffff);
-    for (int i = t; i < S * S; i += WIDE_NT) {
-      const int qy = y0 - P + i / S, qx = x0 - P + i % S;
-      const size_t a = (size_t)clampi(qy, h - 1) * w + clampi(qx, w - 1);
-      const size_t b =
-          (size_t)clampi(qy + dy, h - 1) * w + clampi(qx + dx, w - 1);
-      const float e0 = x[a] - x[b], e1 = x[plane + a] - x[plane + b],
-                  e2 = x[2 * plane + a] - x[2 * plane + b];
-      d2s[i] = n0 * (e0 * e0) + n1 * (e1 * e1) + n2 * (e2 * e2);
+    float ssd[ROWS] = {};
+    for (int cb = 0; cb < S; cb += WIDE_B) {
+      // chunk column cc: the sums of d2 rows r .. r + 2P for r = cg + CG k,
+      // each from its first row on, the rows streamed in bands in order
+      float col[CROWS] = {};
+      const int nc = min(WIDE_B, S - cb);  // the chunk's columns
+      for (int qb = 0; qb < S; qb += WIDE_B) {
+        // the band's nq x nc patch distances, spread over every thread
+        const int nq = min(WIDE_B, S - qb);
+        for (int i = t; i < nq * nc; i += WIDE_NT) {
+          const int r = i / nc, c = i % nc;
+          const int qy = y0 - P + qb + r, qx = x0 - P + cb + c;
+          const size_t a = (size_t)clampi(qy, h - 1) * w + clampi(qx, w - 1);
+          const size_t b =
+              (size_t)clampi(qy + dy, h - 1) * w + clampi(qx + dx, w - 1);
+          const float e0 = x[a] - x[b], e1 = x[plane + a] - x[plane + b],
+                      e2 = x[2 * plane + a] - x[2 * plane + b];
+          band[r][c] = n0 * (e0 * e0) + n1 * (e1 * e1) + n2 * (e2 * e2);
+        }
+        __syncthreads();
+        if (cc < nc) {
+#pragma unroll
+          for (int k = 0; k < CROWS; ++k) {
+            const int r = cg + CG * k;
+            const int lo = max(qb, r), hi = min(qb + nq - 1, r + P2);
+            for (int q = lo; q <= hi; ++q) {
+              const float v = band[q - qb][cc];
+              col[k] = q == r ? v : col[k] + v;
+            }
+          }
+        }
+        __syncthreads();
+      }
+      if (cc < nc) {
+#pragma unroll
+        for (int k = 0; k < CROWS; ++k) cs[cg + CG * k][cc] = col[k];
+      }
+      __syncthreads();
+      // pixel (ty + G k, tx): its columns tx .. tx + 2P that fall in
+      // this chunk, in order
+#pragma unroll
+      for (int k = 0; k < ROWS; ++k) {
+        const int r = ty + G * k;
+        const int lo = max(tx, cb), hi = min(cb + nc - 1, tx + P2);
+        for (int c = lo; c <= hi; ++c) {
+          const float v = cs[r][c - cb];
+          ssd[k] = c == tx ? v : ssd[k] + v;
+        }
+      }
+      __syncthreads();
     }
-    __syncthreads();
-    for (int i = t; i < WIDE_T * S; i += WIDE_NT) {
-      const int r0 = i / S, c = i % S;
-      float r = d2s[r0 * S + c];
-      for (int a = 1; a <= 2 * P; ++a) r = r + d2s[(r0 + a) * S + c];
-      rs[i] = r;
-    }
-    __syncthreads();
 #pragma unroll
     for (int k = 0; k < ROWS; ++k) {
-      const int r0 = ty + k * (WIDE_NT / WIDE_T);
-      const int py = y0 + r0, px = x0 + tx;
-      const float* rr = rs + r0 * S + tx;
-      float ssd = rr[0];
-      for (int b = 1; b <= 2 * P; ++b) ssd = ssd + rr[b];
+      const int py = y0 + ty + G * k, px = x0 + tx;
       float wt;
       if (variant == 0) {
-        wt = dt_fast_mexp2f(ssd * sharp);
+        wt = dt_fast_mexp2f(ssd[k] * sharp);
       } else {
-        const float dis =
-            (ssd + d2s[(r0 + P) * S + tx + P] * cp_norm) * inv1cw;
+        // the pixel's own d2, as the plane above forms it
+        const size_t a = (size_t)clampi(py, h - 1) * w + clampi(px, w - 1);
+        const size_t b =
+            (size_t)clampi(py + dy, h - 1) * w + clampi(px + dx, w - 1);
+        const float e0 = x[a] - x[b], e1 = x[plane + a] - x[plane + b],
+                    e2 = x[2 * plane + a] - x[2 * plane + b];
+        const float d2 = n0 * (e0 * e0) + n1 * (e1 * e1) + n2 * (e2 * e2);
+        const float dis = (ssd[k] + d2 * cp_norm) * inv1cw;
         wt = dt_fast_mexp2f(jmax(0.0f, dis * sharp - 2.0f));
       }
       const size_t q =
@@ -309,11 +358,10 @@ __global__ void __launch_bounds__(WIDE_NT)
       acc2[k] = acc2[k] + x[2 * plane + q] * wt;
       wsum[k] = wsum[k] + wt;
     }
-    __syncthreads();
   }
 #pragma unroll
   for (int k = 0; k < ROWS; ++k) {
-    const int py = y0 + ty + k * (WIDE_NT / WIDE_T), px = x0 + tx;
+    const int py = y0 + ty + G * k, px = x0 + tx;
     if (py >= h || px >= w) continue;
     const float inv = 1.0f / jmax(wsum[k], 1e-12f);
     const size_t q = (size_t)py * w + px;
@@ -321,11 +369,6 @@ __global__ void __launch_bounds__(WIDE_NT)
     out[plane + q] = acc1[k] * inv;
     out[2 * plane + q] = acc2[k] * inv;
   }
-}
-
-int wide_smem_bytes(int P) {
-  const int S = WIDE_T + 2 * P;
-  return (S * S + WIDE_T * S) * (int)sizeof(float);
 }
 
 // shared bytes of a path: the resident window, or the streaming path's
@@ -368,13 +411,12 @@ int launch(bool resident, const float* x, float* out, int h, int w,
 extern "C" {
 
 void nlm_limits(int* max_p, int* max_offsets, int* tile_h, int* warps_x,
-                int* max_smem, int* wide_max_p) {
+                int* max_smem) {
   *max_p = MAX_P;
   *max_offsets = MAX_OFFSETS;
   *tile_h = TH;
   *warps_x = NWX;
   *max_smem = MAX_SMEM;
-  *wide_max_p = WIDE_MAX_P;
 }
 
 // x, out: (3, h, w) float32 on the device; offsets: n_off packed (dy, dx)
@@ -416,22 +458,16 @@ int nlm(const float* x, float* out, int h, int w, const int* offsets,
   }
 }
 
-// patch radius P in (MAX_P, WIDE_MAX_P]: x, out as above; offsets: n_off
-// packed (dy, dx) in device memory; one launch for the whole lattice.
+// patch radius P > MAX_P (any): x, out as above; offsets: n_off packed
+// (dy, dx) in device memory; one launch for the whole lattice.
 int nlm_wide(const float* x, float* out, int h, int w, const int* offsets,
              int n_off, int P, float n0, float n1, float n2,
              const float* sharp, float cp_norm, float inv1cw, int variant,
              void* stream) {
-  if (n_off < 1 || P < 0 || P > WIDE_MAX_P || h < 1 || w < 1)
+  if (n_off < 1 || P < 0 || P > (1 << 20) || h < 1 || w < 1)
     return (int)cudaErrorInvalidValue;
-  const int smem = wide_smem_bytes(P);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        nlm_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return (int)err;
-  }
   const dim3 grid((w + WIDE_T - 1) / WIDE_T, (h + WIDE_T - 1) / WIDE_T);
-  nlm_wide_kernel<<<grid, WIDE_NT, smem, (cudaStream_t)stream>>>(
+  nlm_wide_kernel<<<grid, WIDE_NT, 0, (cudaStream_t)stream>>>(
       x, out, h, w, offsets, n_off, P, n0, n1, n2, sharp, cp_norm, inv1cw,
       variant);
   return (int)cudaGetLastError();

@@ -24,8 +24,10 @@ patch radius up to MAX_P with at most MAX_OFFSETS offsets is one launch;
 more offsets run as chunks of at most MAX_OFFSETS, launched in order,
 which carry their float32 sums in a (4, H, W) scratch and normalise once
 (the same additions in the same order, so still bit-exact); a patch
-radius above MAX_P (up to WIDE_MAX_P) runs the kernel's wide form, P at
-run time, every offset in one launch.
+radius above MAX_P runs the kernel's wide form, P at run time, every
+offset in one launch, whose shared memory does not grow with P: so the
+card takes every patch radius, as the JAX package's XLA path does
+(`route`).
 """
 
 from __future__ import annotations
@@ -40,7 +42,6 @@ from ._build import COUNT_LOCK
 
 MAX_P = 8           # keep in step with csrc/nlm.cu, which checks them
 MAX_OFFSETS = 900
-WIDE_MAX_P = 96     # the wide form's patch radii (shared memory)
 MODE_LOAD, MODE_FINAL = 1, 2
 # the kernel's tile: 32 rows, and WARPS_X warps across, each 32 - 2P
 # columns wide; a float4 per staged pixel; the shared memory a block may
@@ -112,6 +113,17 @@ def plan(P: int, reach: int):
     return False, 2 * (TILE_H + 2 * P) * (tile_w(P) + 2 * P) * PIXEL_BYTES
 
 
+def route(P: int, offsets) -> str:
+    """The kernel's form for a patch radius and lattice: "resident" or
+    "streamed" (P <= MAX_P, a launch per MAX_OFFSETS offsets; `plan`), or
+    "wide" (any larger P, one launch)."""
+    if P < 0:
+        raise ValueError(f"nlm: patch radius {P} < 0")
+    if P > MAX_P:
+        return "wide"
+    return "resident" if plan(P, _reach(offsets))[0] else "streamed"
+
+
 def _pack(dy: int, dx: int) -> int:
     """(dy, dx) as two int16 in one signed int32, dy in the high half."""
     v = ((dy & 0xFFFF) << 16) | (dx & 0xFFFF)
@@ -129,14 +141,14 @@ def _lib():
         lib.nlm.restype = ctypes.c_int
         lib.nlm_wide.argtypes = [p, p, i, i, p, i, i, f, f, f, p, f, f, i, p]
         lib.nlm_wide.restype = ctypes.c_int
-        lib.nlm_limits.argtypes = [p] * 6
+        lib.nlm_limits.argtypes = [p] * 5
         lib.nlm_limits.restype = None
-        got = [ctypes.c_int() for _ in range(6)]
+        got = [ctypes.c_int() for _ in range(5)]
         lib.nlm_limits(*[ctypes.byref(v) for v in got])
         if [v.value for v in got] != [MAX_P, MAX_OFFSETS, TILE_H, WARPS_X,
-                                      MAX_SMEM, WIDE_MAX_P]:
+                                      MAX_SMEM]:
             raise RuntimeError("csrc/nlm.cu and kernels/nlm.py disagree on "
-                               "MAX_P, MAX_OFFSETS, WIDE_MAX_P or the tile")
+                               "MAX_P, MAX_OFFSETS or the tile")
         lib._typed = True
     return lib
 
@@ -158,9 +170,8 @@ def nlm(img: torch.Tensor, offsets, P: int, norm, sharpness, cp_norm: float,
         raise ValueError("nlm: needs a contiguous non-empty (3, H, W) "
                          f"float32 tensor, got {img.dtype} "
                          f"{tuple(img.shape)}")
-    if not 0 <= P <= WIDE_MAX_P or variant not in (0, 1):
-        raise ValueError(f"nlm: P = {P} outside [0, {WIDE_MAX_P}] or variant "
-                         f"{variant} not 0/1")
+    if P < 0 or variant not in (0, 1):
+        raise ValueError(f"nlm: P = {P} < 0 or variant {variant} not 0/1")
     if not offsets or _reach(offsets) > 32767:
         raise ValueError(f"nlm: {len(offsets)} offsets of reach "
                          f"{_reach(offsets)}; the kernel takes at least one "
@@ -179,7 +190,7 @@ def nlm(img: torch.Tensor, offsets, P: int, norm, sharpness, cp_norm: float,
     packed = [_pack(a, b) for a, b in offsets]
     with torch.cuda.device(img.device):
         stream = torch.cuda.current_stream().cuda_stream
-        if P > MAX_P:
+        if route(P, offsets) == "wide":
             dev_offs = torch.tensor(packed, dtype=torch.int32).to(img.device)
             rc = lib.nlm_wide(img.data_ptr(), out.data_ptr(), h, w,
                               dev_offs.data_ptr(), len(offsets), P, n0, n1,

@@ -14,7 +14,7 @@ closed-form map evaluated per output pixel, with four maps:
   outside mask folded in likewise;
 * liquify's brush displacement (`ansel_tpu/ops/liquify.py` `_dmap`): the
   sum over its stamps at each pixel of the stamp-union window, the
-  window sampled from the whole frame and pasted into a copy of it.
+  window sampled from the whole frame, the rest of the frame copied.
 
 On the TPU the JAX package resamples with the two-pass Pallas warp
 (`ansel_tpu/kernels/warp_pallas.py:warp_bilinear`, driven by
@@ -31,7 +31,12 @@ rounds the float64 Python constants of their maps.
 
 `lens_warp`, `clip_warp`, `homography_warp` and `liquify_warp` launch
 the kernel for a CUDA tensor and run their `*_reference` twins for a CPU
-tensor.
+tensor.  Lens's kernel gathers each pixel's corners from device memory.
+The other three stage each output tile's source box in shared memory
+where it fits the staging budget (`TILE`) and sample device memory
+directly where it does not; `tile_plan` is that decision on the host,
+and `direct_tiles` reads how many tiles the kernel sent down the direct
+path.
 """
 
 from __future__ import annotations
@@ -57,6 +62,14 @@ MODIFY_DISTORTION = 8
 # to 0, and the same per map ("lens", "clip", "homography", "liquify")
 LAUNCHES = 0
 MAP_LAUNCHES = collections.Counter()
+
+# the staged maps' output tile (rows, columns) and staging budget in
+# floats, as the launches pass it (csrc/warp.cu's warp_limits: the tile
+# and the largest budget, its shared buffer)
+TILE = (16, 32, 6144)
+# per staged map and device, an int32 counter on the device of the tiles
+# that sampled device memory directly
+_DIRECT = {}
 
 # clipping's float32 constants, in the order of csrc/warp.cu's ClipMap
 CLIP_CONSTS = ("c_px", "c_py", "t_px", "t_py", "k_h", "k_v", "m0", "m1",
@@ -258,6 +271,95 @@ def liquify_warp_reference(x: torch.Tensor, stamps: torch.Tensor,
     return out
 
 
+def corners(sy: torch.Tensor, sx: torch.Tensor, h: int, w: int):
+    """The top-left corners (row, column) the sampler reads at (sy, sx)
+    of an (h, w) plane, int64: clip(floor(s), 0, n - 2), NaN as 0 (the
+    kernel's fmaxf)."""
+    def one(s, n):
+        f = torch.nan_to_num(torch.floor(s), nan=0.0)
+        return torch.clamp(f, 0, n - 2).long()
+    return one(sy, h), one(sx, w)
+
+
+def tile_plan(sets, valid: torch.Tensor, h: int, w: int, c: int,
+              vec: bool):
+    """The kernel's staging decision for each tile (`TILE`) of a staged
+    map's output, whose pixel (y, x), where `valid` (oh, ow), samples c
+    planes of (h, w) at each (sy, sx) of `sets` (each (oh, ow)): -> (y0,
+    rows, x0, cols, staged), each (tiles down, tiles across).  The box
+    holds every corner the tile's pixels read; its columns widen to
+    multiples of 4 when `vec` (the input's rows 16-byte aligned); a tile
+    that reads nothing has rows 0 and is staged; a box whose c planes
+    exceed the budget is not (the tile samples device memory directly)."""
+    th, tw, budget = TILE
+    oh, ow = valid.shape
+    nty, ntx = -(-oh // th), -(-ow // tw)
+    big = 1 << 40
+
+    def fold(v, fill, lo):
+        p = torch.full((nty * th, ntx * tw), fill, dtype=torch.int64,
+                       device=v.device)
+        p[:oh, :ow] = torch.where(valid, v, torch.full_like(v, fill))
+        p = p.reshape(nty, th, ntx, tw)
+        return p.amin(dim=(1, 3)) if lo else p.amax(dim=(1, 3))
+
+    parts = []
+    for sy, sx in sets:
+        iy, ix = corners(sy.expand(oh, ow), sx.expand(oh, ow), h, w)
+        parts.append((fold(iy, big, True), fold(iy + 1, -big, False),
+                      fold(ix, big, True), fold(ix + 1, -big, False)))
+    ylo, yhi, xlo, xhi = (torch.stack(p).amin(0) if i % 2 == 0
+                          else torch.stack(p).amax(0)
+                          for i, p in enumerate(zip(*parts)))
+    empty = ylo > yhi
+    x0 = torch.bitwise_and(xlo, ~3) if vec else xlo
+    cols = (torch.bitwise_and(xhi + 4, ~3) if vec else xhi + 1) - x0
+    rows = yhi - ylo + 1
+    staged = empty | (c * rows * cols <= budget)
+    zero = torch.zeros_like(rows)
+    return (torch.where(empty, zero, ylo), torch.where(empty, zero, rows),
+            torch.where(empty, zero, x0), torch.where(empty, zero, cols),
+            staged)
+
+
+def liquify_positions(stamps: torch.Tensor, win, h: int, w: int):
+    """liquify's source positions on the whole (h, w) frame: (sy, sx,
+    in the window), the positions 0 outside it; `tile_plan`'s input."""
+    y0, y1, x0, x1 = win
+    ax, ay, yy, xx = liquify_displacement(stamps, win)
+    sy = torch.zeros((h, w), dtype=torch.float32, device=stamps.device)
+    sx = torch.zeros_like(sy)
+    sy[y0:y1, x0:x1] = yy + ay
+    sx[y0:y1, x0:x1] = xx + ax
+    valid = torch.zeros((h, w), dtype=torch.bool, device=stamps.device)
+    valid[y0:y1, x0:x1] = True
+    return sy, sx, valid
+
+
+def _direct(kind: str, device) -> torch.Tensor:
+    with COUNT_LOCK:
+        buf = _DIRECT.get((kind, device))
+        if buf is None:
+            buf = _DIRECT[(kind, device)] = torch.zeros(
+                1, dtype=torch.int32, device=device)
+    return buf
+
+
+def direct_tiles() -> collections.Counter:
+    """{map: tiles that sampled device memory directly} since
+    reset_direct_tiles(); reads the device counters (a synchronisation)."""
+    direct = collections.Counter()
+    for (kind, _), buf in list(_DIRECT.items()):
+        direct[kind] += int(buf.item())
+    return direct
+
+
+def reset_direct_tiles():
+    with COUNT_LOCK:
+        for buf in _DIRECT.values():
+            buf.zero_()
+
+
 def _lib():
     from . import _build
 
@@ -266,21 +368,27 @@ def _lib():
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.lens_warp.argtypes = [p, p, p, i, i, i, i, f, f, f, p]
         lib.lens_warp.restype = ctypes.c_int
-        lib.clip_warp.argtypes = [p, p, i, i, i, i, i, p, i, p]
+        lib.clip_warp.argtypes = [p, p, i, i, i, i, i, p, i, i, p, p]
         lib.clip_warp.restype = ctypes.c_int
-        lib.homography_warp.argtypes = [p, p, i, i, i, i, i, p, p]
+        lib.homography_warp.argtypes = [p, p, i, i, i, p, i, p, p]
         lib.homography_warp.restype = ctypes.c_int
-        lib.liquify_warp.argtypes = [p, p, i, i, i, i, i, i, i, p, i, p]
+        lib.liquify_warp.argtypes = [p, p, i, i, i, i, i, i, i, p, i, i, p,
+                                     p]
         lib.liquify_warp.restype = ctypes.c_int
         for fn in ("clip_warp_nconsts", "homography_warp_nconsts",
                    "liquify_stamp_floats"):
             getattr(lib, fn).argtypes = []
             getattr(lib, fn).restype = ctypes.c_int
-        if (lib.clip_warp_nconsts(), lib.homography_warp_nconsts(),
-                lib.liquify_stamp_floats()) != (
-                    len(CLIP_CONSTS), HOMOGRAPHY_CONSTS, STAMP):
+        lib.warp_limits.argtypes = [p, p, p]
+        lib.warp_limits.restype = None
+        tile = [ctypes.c_int() for _ in range(3)]
+        lib.warp_limits(*[ctypes.byref(v) for v in tile])
+        if ((lib.clip_warp_nconsts(), lib.homography_warp_nconsts(),
+             lib.liquify_stamp_floats()) != (len(CLIP_CONSTS),
+                                             HOMOGRAPHY_CONSTS, STAMP)
+                or tuple(v.value for v in tile) != TILE):
             raise RuntimeError("csrc/warp.cu and kernels/warp.py disagree on "
-                               "the maps' constants")
+                               "the maps' constants or tiles")
         lib._typed = True
     return lib
 
@@ -313,10 +421,12 @@ def clip_warp(x: torch.Tensor, k: torch.Tensor, k_apply: int, oh: int,
     lib = _lib()
     c, h, w = x.shape
     out = torch.empty((c, oh, ow), dtype=x.dtype, device=x.device)
+    direct = _direct("clip", x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.clip_warp(x.data_ptr(), out.data_ptr(), c, h, w, oh, ow,
-                           k.data_ptr(), int(bool(k_apply)), stream)
+                           k.data_ptr(), int(bool(k_apply)), TILE[2],
+                           direct.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"warp: CUDA launch failed ({rc})")
     with COUNT_LOCK:
@@ -343,10 +453,12 @@ def homography_warp(x: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     lib = _lib()
     c, h, w = x.shape
     out = torch.empty_like(x)
+    direct = _direct("homography", x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.homography_warp(x.data_ptr(), out.data_ptr(), c, h, w, h,
-                                 w, k.data_ptr(), stream)
+        rc = lib.homography_warp(x.data_ptr(), out.data_ptr(), c, h, w,
+                                 k.data_ptr(), TILE[2], direct.data_ptr(),
+                                 stream)
     if rc != 0:
         raise RuntimeError(f"warp: CUDA launch failed ({rc})")
     with COUNT_LOCK:
@@ -360,9 +472,9 @@ def liquify_warp(x: torch.Tensor, stamps: torch.Tensor,
     """liquify's warp of a (C, H, W) float32 image: the window (y0, y1,
     x0, x1) resampled at each pixel displaced by the sum of the stamps
     (`pack_stamps`, (K, STAMP) float32 on the image's device), the rest a
-    copy.  A CPU tensor runs the plain version; a CUDA tensor copies the
-    image and launches csrc/warp.cu over the window, reading the image
-    and writing the copy."""
+    copy.  A CPU tensor runs the plain version; a CUDA tensor launches
+    csrc/warp.cu once over the whole frame, which writes every pixel of
+    the output."""
     y0, y1, x0, x1 = (int(v) for v in win)
     if x.device.type == "cpu":
         return liquify_warp_reference(x, stamps, (y0, y1, x0, x1))
@@ -379,12 +491,14 @@ def liquify_warp(x: torch.Tensor, stamps: torch.Tensor,
                          "image's device")
     global LAUNCHES
     lib = _lib()
-    out = x.clone()
+    out = torch.empty_like(x)
+    direct = _direct("liquify", x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.liquify_warp(x.data_ptr(), out.data_ptr(), c, h, w, y0, x0,
                               y1 - y0, x1 - x0, stamps.data_ptr(),
-                              stamps.shape[0], stream)
+                              stamps.shape[0], TILE[2], direct.data_ptr(),
+                              stream)
     if rc != 0:
         raise RuntimeError(f"warp: CUDA launch failed ({rc})")
     with COUNT_LOCK:

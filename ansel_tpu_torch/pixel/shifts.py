@@ -4,8 +4,10 @@
 slices.  `sep_filter` is the edge-padded dilated separable FIR: it hands
 every tensor to the sepblur wrapper (`kernels/sepblur.py`), which runs
 the kernel on the card at every size (the JAX package's 1 MP floor and
-8-plane cap are TPU tiling matters) and raises on what the kernel cannot
-take, and runs the plain shifted adds for a CPU tensor.
+8-plane cap are TPU tiling matters) and runs the plain shifted adds for a
+CPU tensor.  The kernel takes (C, H, W) or (H, W); a tensor of more axes
+has its leading axes folded into C and back, so every rank the JAX
+package's `sep_filter` takes runs.
 """
 
 from __future__ import annotations
@@ -54,9 +56,15 @@ class PaddedView:
 
 
 def sep_filter(x: torch.Tensor, taps, dilation: int = 1) -> torch.Tensor:
-    """Separable odd-length FIR at spacing `dilation` over (C, H, W) or
-    (H, W), edge-padded: the vertical pass, then the horizontal pass, each
-    summed in tap order."""
+    """Separable odd-length FIR at spacing `dilation` over the last two
+    axes of (..., H, W), edge-padded: the vertical pass, then the
+    horizontal pass, each summed in tap order.  The blur is per plane, so
+    folding the leading axes of a tensor of more than three into one
+    changes no value."""
     from ..kernels import sepblur
 
-    return sepblur.sep_blur(x.contiguous(), taps, dilation)
+    x = x.contiguous()
+    if x.dim() <= 3:
+        return sepblur.sep_blur(x, taps, dilation)
+    planes = x.reshape((-1,) + tuple(x.shape[-2:]))
+    return sepblur.sep_blur(planes, taps, dilation).reshape(x.shape)

@@ -229,6 +229,7 @@ from ansel_tpu_torch.parallel.spatial import SpatialPipeline
 from ansel_tpu_torch.pipeline.export import ExportSettings, export_image
 from ansel_tpu_torch.pixel import prng
 from ansel_tpu_torch.pixel.nlmeans import search_offsets
+from ansel_tpu_torch.pixel.shifts import sep_filter
 
 H, W = configs.BENCH_H, configs.BENCH_W
 H3, W3 = configs.BENCH3_H, configs.BENCH3_W
@@ -1048,6 +1049,19 @@ def check_sepblur(inputs, record):
           f"{STENCIL_TOL:g}); conv2d vs plain max {lib_err:.3g} | ms "
           f"kernel/plain/conv2d: {', '.join(rows)} | bound {b_ms:.4f} ms "
           f"({b_by})", flush=True)
+    # a 4-D stack through sep_filter: its leading axes folded into one
+    stack = torch.stack([inputs[0][1][1][0], inputs[1][1][1][0]])
+    before = sepblur.LAUNCHES
+    got = sep_filter(stack, taps, 4)
+    launches = sepblur.LAUNCHES - before
+    per_plane = torch.stack([sepblur.sep_blur(p, taps, 4) for p in stack])
+    expect(torch.equal(got, per_plane) and launches == 1,
+           f"sep_filter 4-D: {launches} launches, not the per-plane blurs")
+    expect(torch.equal(got, sepblur.sep_blur_reference(stack, taps, 4)),
+           "sep_filter 4-D: not the twin")
+    print(f"[sepblur-4d] sep_filter on the clean and noisy stacks as one "
+          f"{tuple(stack.shape)} tensor, d=4: one launch, bit-equal to the "
+          f"per-stack blurs and to the twin", flush=True)
 
 
 def check_eaw(inputs, record):
@@ -1132,7 +1146,9 @@ def check_nlm_wide(call, record):
     carried in float32 scratch) at its P 1, and a patch radius of 9 (the
     wide form, P at run time) over K 3.  Each is held bit for bit against
     the twin on a 1000 x 1504 crop (the twin walks 961 offsets over whole
-    planes) and timed at 24 MP."""
+    planes) and timed at 24 MP.  Then a patch radius of 97 over K 1 (the
+    wide form past the 96 its shared memory used to bound), bit for bit
+    against the twin on the whole 24 MP frame."""
     v, offs, P, norm, sharp, cp_norm, inv1cw, variant = call
     center = 1.0 / inv1cw - 1.0
     rows = []
@@ -1160,6 +1176,30 @@ def check_nlm_wide(call, record):
                     f"on (3, 1000, 1504), plain there {plain_ms:.1f} ms | "
                     f"kernel {ms:.3f} ms on {tuple(v.shape)}, bound "
                     f"{b_ms:.3f} ms ({b_by})")
+    p = 97
+    lattice = search_offsets(1)
+    n = 2 * p + 1
+    # a patch sums (2P + 1)^2 distances: the sharpness scaled to match
+    args = (lattice, p, norm, sharp * 9.0 / (n * n), center * n * n, inv1cw,
+            variant)
+    expect(nlm.route(p, lattice) == "wide", "P 97 not on the wide form")
+    before = nlm.LAUNCHES
+    got = nlm.nlm(v, *args)
+    launches = nlm.LAUNCHES - before
+    want = nlm.nlm_reference(v, *args)
+    mx, _ = compare(got, want)
+    expect(torch.equal(got, want) and launches == 1,
+           f"nlm P 97: max {mx}, {launches} launches")
+    moved = (got - v).abs().max().item()
+    del got, want
+    ms = median_ms(lambda: nlm.nlm(v, *args), 3)
+    b_ms, _ = bound(2 * nbytes(v),
+                    FLOPS_NLM_PER_OFFSET * len(lattice) * v[0].numel())
+    wide["P 97"] = dict(max_abs_err=mx, ms=ms, bound_ms=b_ms,
+                        launches_per_call=launches)
+    rows.append(f"P 97 ({len(lattice)} offsets, 1 launch, moved up to "
+                f"{moved:.3g}): bit-equal on {tuple(v.shape)} | kernel "
+                f"{ms:.3f} ms")
     record["nlm"]["wide"] = wide
     print(f"[nlm-wide] variant {variant}: {'; '.join(rows)}", flush=True)
 
@@ -1456,9 +1496,85 @@ def check_markesteijn(calls, record):
           flush=True)
 
 
+def warp_tiles(kind, call, sets, valid, x, c):
+    """One call of the warp on map `kind` with the direct-tile counters
+    reset: its output and, of the tiles that read the source, (staged,
+    direct), the direct count the kernel's, held against `warp.tile_plan`
+    of the twin's source positions."""
+    warp.reset_direct_tiles()
+    out = call()
+    direct = warp.direct_tiles()[kind]
+    _, h, w = x.shape
+    vec = w % 4 == 0 and x.data_ptr() % 16 == 0
+    _, rows, _, _, staged = warp.tile_plan(sets, valid, h, w, c, vec)
+    planned = int((~staged).sum())
+    expect(direct == planned,
+           f"warp {kind}: {direct} direct tiles, {planned} planned")
+    return out, (int((staged & (rows > 0)).sum()), direct)
+
+
+# cases whose source boxes overflow the staging budget on some tiles: a
+# 45-degree clipping behind a strong quad keystone, a strong ashift, a
+# liquify stroke whose falloff moves pixels by up to 300 px
+STRONG_CLIP = {"angle": 45.0, "k_type": 0, "k_apply": 1, "kxa": 0.1,
+               "kya": 0.1, "kxb": 0.9, "kyb": 0.4, "kxc": 0.9, "kyc": 0.6,
+               "kxd": 0.1, "kyd": 0.9}
+STRONG_ASHIFT = {"rotation": 30.0, "lensshift_v": 1.0, "lensshift_h": 1.0}
+STROKE_PUSH, STROKE_RADIUS = 600.0, 150.0
+
+
+def clip_args(params, h, w):
+    """(constants, k_apply, oh, ow) of clipping's map with `params` on an
+    (h, w) frame."""
+    from ansel_tpu_torch.core.types import Colorspace, ImageSpec
+    from ansel_tpu_torch.ops import clipping
+
+    p = dataclasses.replace(clipping.ClippingParams(), **params)
+    full = ImageSpec(width=w, height=h, colorspace=Colorspace.CAMERA_RGB)
+    plan = clipping.Clipping().plan(
+        engine.PlanContext(meta=RawMeta(width=w, height=h)), full, p)
+    so = plan.spec_out
+    k, k_apply = clipping.clip_map(dict(plan.static), full, so)
+    return torch.from_numpy(k), k_apply, so.pad_h, so.pad_w
+
+
+def ashift_consts(params, h, w):
+    from ansel_tpu_torch.core.types import Colorspace, ImageSpec
+    from ansel_tpu_torch.ops.ashift import homography_consts
+
+    op = port.ops.base.get_op("ashift")
+    p = dataclasses.replace(op.default_params(None), **params)
+    spec = ImageSpec(width=w, height=h, colorspace=Colorspace.CAMERA_RGB)
+    plan = op.plan(port.ops.base.PlanContext(meta=None), spec, p)
+    return torch.from_numpy(homography_consts(plan.static[0]))
+
+
+def stroke_stamps(h, w, device):
+    """One linear liquify stamp at the frame's centre pushing STROKE_PUSH
+    px at radius STROKE_RADIUS: (stamps, window)."""
+    from ansel_tpu_torch.core.types import Colorspace, ImageSpec
+    from ansel_tpu_torch.ops import liquify
+
+    pt = complex(w / 2, h / 2)
+    blob = configs.liquify_node(configs.PATH_MOVE, -1, -1, pt,
+                                pt + STROKE_PUSH, pt + STROKE_RADIUS,
+                                configs.WARP_LINEAR)
+    p = liquify.LiquifyParams(
+        blob + b"\0" * (76 * configs.LIQUIFY_NODES - len(blob)))
+    c = liquify.Liquify()._warp_arrays(p)
+    spec = ImageSpec(width=w, height=h, colorspace=Colorspace.CAMERA_RGB,
+                     pad_w=w, pad_h=h)
+    plan = liquify.Liquify().plan(port.ops.base.PlanContext(meta=None), spec,
+                                  p)
+    return (warp.pack_stamps({k: torch.from_numpy(np.asarray(v)).to(device)
+                              for k, v in c.items()}), plan.static[4])
+
+
 def check_warp(calls, record):
-    """Config 4's lens warp on the demosaiced (3, 4000, 6016) image, and
-    grid_sample on the same per-channel coordinates as the yardstick."""
+    """Config 4's lens warp on the demosaiced (3, 4000, 6016) image (a
+    pixel a thread, its corners gathered from device memory: nothing
+    staged), and grid_sample on the same per-channel coordinates as the
+    yardstick."""
     x, k, model, flags, cy, cx, rn = calls[0]
     mx, mean = compare(warp.lens_warp(x, k, model, flags, cy, cx, rn),
                        warp.lens_warp_reference(x, k, model, flags, cy, cx,
@@ -2037,17 +2153,33 @@ def captured9(pipe, raw_dev):
     return calls
 
 
-def check_warp_clip(calls, record, key="warp-clip", tag="[warp-clip]"):
+def check_warp_clip(calls, record, key="warp-clip", tag="[warp-clip]",
+                    forced=True):
     """clipping's map on the (3, 6016, 4000) flipped RGB config 9's pipe
     hands the warp (a window of it, as the ROI walk cuts it), against the
     twin bit for bit, and grid_sample on the same source coordinates as
-    the yardstick; into record[key]."""
+    the yardstick; into record[key].  With `forced`, also STRONG_CLIP on
+    the input, whose tiles partly take the direct path, bit for bit."""
     (x, k, k_apply, oh, ow), = calls
-    got = warp.clip_warp(x, k, k_apply, oh, ow)
-    want = warp.clip_warp_reference(x, k, k_apply, oh, ow)
-    mx, mean = compare(got, want)
-    expect(torch.equal(got, want), f"warp-clip: max {mx}")
-    del got, want
+
+    def clip_tiles(xx, kk, ka, h_out, w_out):
+        sy, sx, inside = warp.clip_coords(kk, ka, h_out, w_out, xx.device)
+        got, counts = warp_tiles(
+            "clip", lambda: warp.clip_warp(xx, kk, ka, h_out, w_out),
+            [(sy, sx)], inside, xx, xx.shape[0])
+        want = warp.clip_warp_reference(xx, kk, ka, h_out, w_out)
+        err, mean = compare(got, want)
+        expect(torch.equal(got, want), f"{key}: max {err}")
+        return err, mean, counts
+
+    mx, mean, counts = clip_tiles(x, k, k_apply, oh, ow)
+    tiles = f"tiles staged/direct {counts}"
+    if forced:
+        ks, kas, ohs, ows = clip_args(STRONG_CLIP, *x.shape[1:])
+        *_, s_counts = clip_tiles(x, ks, kas, ohs, ows)
+        expect(s_counts[1] > 0, "the strong keystone staged every tile")
+        tiles += (f"; 45 degrees behind a strong keystone -> (3, {ohs}, "
+                  f"{ows}): {s_counts}, bit-equal")
     ms = median_ms(lambda: warp.clip_warp(x, k, k_apply, oh, ow))
     plain_ms = median_ms(lambda: warp.clip_warp_reference(
         x, k, k_apply, oh, ow), PLAIN_REPEATS)
@@ -2073,7 +2205,8 @@ def check_warp_clip(calls, record, key="warp-clip", tag="[warp-clip]"):
                        library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
     print(f"{tag} {tuple(x.shape)} -> (3, {oh}, {ow}) clipping's map "
           f"(keystone {bool(k_apply)}), kernel vs plain: max {mx:.3g} mean "
-          f"{mean:.3g} (bit-equal); grid_sample vs plain max {lx:.3g} | "
+          f"{mean:.3g} (bit-equal); {tiles}; grid_sample vs plain max "
+          f"{lx:.3g} | "
           f"kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, grid_sample "
           f"{lib_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by})", flush=True)
 
@@ -2379,16 +2512,26 @@ def check_warp_ashift(calls, record):
     coordinates (the grid precomputed, the mask applied after) as the
     yardstick."""
     (x, k), = calls
-    got = warp.homography_warp(x, k)
-    want = warp.homography_warp_reference(x, k)
-    mx, mean = compare(got, want)
-    expect(torch.equal(got, want), f"warp-ashift: max {mx}")
+    _, h, w = x.shape
+
+    def ashift_tiles(kk):
+        sy, sx, inside = warp.homography_coords(kk, h, w, x.device)
+        got, counts = warp_tiles(
+            "homography", lambda: warp.homography_warp(x, kk), [(sy, sx)],
+            inside, x, 3)
+        want = warp.homography_warp_reference(x, kk)
+        err, mean = compare(got, want)
+        expect(torch.equal(got, want), f"warp-ashift: max {err}")
+        return got, want, err, mean, counts
+
+    got, want, mx, mean, counts = ashift_tiles(k)
     zero = (got == 0).all(dim=0).float().mean().item()
     del got
+    *_, s_counts = ashift_tiles(ashift_consts(STRONG_ASHIFT, h, w))
+    expect(s_counts[1] > 0, "the strong ashift staged every tile")
     ms = median_ms(lambda: warp.homography_warp(x, k))
     plain_ms = median_ms(lambda: warp.homography_warp_reference(x, k),
                          PLAIN_REPEATS)
-    _, h, w = x.shape
     sy, sx, inside = warp.homography_coords(k, h, w, x.device)
     grid = torch.stack([sx / (w - 1) * 2 - 1, sy / (h - 1) * 2 - 1],
                        -1)[None]
@@ -2410,7 +2553,9 @@ def check_warp_ashift(calls, record):
                                  bound_by=b_by)
     print(f"[warp-ashift] {tuple(x.shape)} ashift's inverse homography, "
           f"{zero:.1%} of the frame outside the source, kernel vs plain: "
-          f"max {mx:.3g} mean {mean:.3g} (bit-equal); grid_sample vs plain "
+          f"max {mx:.3g} mean {mean:.3g} (bit-equal); tiles staged/direct "
+          f"{counts}; {STRONG_ASHIFT}: {s_counts}, bit-equal; "
+          f"grid_sample vs plain "
           f"max {lx:.3g} | kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, "
           f"grid_sample {lib_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by})",
           flush=True)
@@ -2437,23 +2582,38 @@ def liquify_pairs(stamps, win):
 
 def check_warp_liquify(calls, record):
     """liquify's warp on config 11's ashift output: its stamps over the
-    stamp-union window, pasted into a copy of the frame; against the twin
-    bit for bit; the wrapper timed (the frame's copy and the window's
-    kernel); grid_sample of the window at the twin's displaced positions
-    (the grid precomputed) as the yardstick."""
+    stamp-union window, the rest of the frame copied, in one launch;
+    against the twin bit for bit, and a stroke moving pixels by up to 300
+    px, whose tiles partly take the direct path; grid_sample of the window
+    at the twin's displaced positions (the grid precomputed) as the
+    yardstick."""
     (x, stamps, win), = calls
     y0, y1, x0, x1 = win
-    got = warp.liquify_warp(x, stamps, win)
-    want = warp.liquify_warp_reference(x, stamps, win)
-    mx, mean = compare(got, want)
-    expect(torch.equal(got, want), f"warp-liquify: max {mx}")
+    _, h, w = x.shape
+
+    def liquify_tiles(st, wi):
+        sy, sx, valid = warp.liquify_positions(st, wi, h, w)
+        got, counts = warp_tiles(
+            "liquify", lambda: warp.liquify_warp(x, st, wi), [(sy, sx)],
+            valid, x, 3)
+        want = warp.liquify_warp_reference(x, st, wi)
+        err, mean = compare(got, want)
+        expect(torch.equal(got, want), f"warp-liquify: max {err}")
+        return got, want, err, mean, counts
+
+    got, want, mx, mean, counts = liquify_tiles(stamps, win)
     moved = (got - x).abs().max().item()
     expect(moved > 1e-3, "liquify moved nothing")
     del got
+    stroke, stroke_win = stroke_stamps(h, w, x.device)
+    *_, s_counts = liquify_tiles(stroke, stroke_win)
+    s_moved = torch.hypot(*warp.liquify_displacement(stroke, stroke_win)[:2]
+                          ).max().item()
+    expect(s_counts[1] > 0 and s_moved > 290, "the strong stroke staged every "
+           f"tile or moved {s_moved:.1f} px")
     ms = median_ms(lambda: warp.liquify_warp(x, stamps, win))
     plain_ms = median_ms(lambda: warp.liquify_warp_reference(x, stamps, win),
                          PLAIN_REPEATS)
-    _, h, w = x.shape
     ax, ay, yy, xx = warp.liquify_displacement(stamps, win)
     sx, sy = xx + ax, yy + ay
     grid = torch.stack([sx / (w - 1) * 2 - 1, sy / (h - 1) * 2 - 1],
@@ -2479,9 +2639,12 @@ def check_warp_liquify(calls, record):
     print(f"[warp-liquify] {tuple(x.shape)} {stamps.shape[0]} stamps over "
           f"the window {win} ({wpx / 1e6:.2f} MP; {pairs / wpx:.1f} stamps "
           f"a pixel on average), kernel vs plain: max {mx:.3g} mean "
-          f"{mean:.3g} (bit-equal), moved up to {moved:.3g} | kernel (copy "
-          f"and window) {ms:.3f} ms, plain {plain_ms:.1f} ms, grid_sample "
-          f"(the window) {lib_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by}; "
+          f"{mean:.3g} (bit-equal), moved up to {moved:.3g}; tiles of the "
+          f"window staged/direct {counts}; a stroke moving pixels up to "
+          f"{s_moved:.1f} px: {s_counts}, bit-equal | kernel (the whole "
+          f"frame, one launch) {ms:.3f} ms, plain {plain_ms:.1f} ms, "
+          f"grid_sample (the window) {lib_ms:.3f} ms, bound {b_ms:.3f} ms "
+          f"({b_by}; "
           f"{flops / 1e9:.2f} G float32 operations)", flush=True)
 
 
@@ -4978,7 +5141,7 @@ def run_config19(card, record, phases, root, roll):
                                "[pipe19] Markesteijn on config 19's X-Trans "
                                "mosaic")
         check_warp_clip(calls["clip"], record, "warp19",
-                        "[pipe19] the warp on clipping's map")
+                        "[pipe19] the warp on clipping's map", forced=False)
         rows, err, tot, b_by, x = sepblur_per_image(
             [calls["sepblur"][0] + (1,)])
         record["sepblur19"] = dict(max_abs_err=err, bound_by=b_by, **tot)

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Times the RCD, Markesteijn, diffuse-iteration, NLM, sepblur, EAW,
-chain, IIR and grid-slice kernels of this checkout against those of
-another checkout, on one GPU, in turns.
+chain, IIR, grid-slice and warp kernels of this checkout against those
+of another checkout, on one GPU, in turns.
 
     python3 scripts/kernel_ab.py --other DIR
 
@@ -21,12 +21,18 @@ guided mask) and its four chains; that config 2's pipe hands NLM
 scales 0, 3 and 6 ((3, 4000, 6016)); the five grid slices of config 7
 (bilateral's three at 32 bins, ss 15, on (4005, 6030); shadhi's three
 channels at 4 bins, ss 100, on (4000, 6100); bilat's 6 bins, ss 50, on
-(4000, 6050)); and the chains of configs 1, 2, 4
+(4000, 6050)); the chains of configs 1, 2, 4
 and 7 ((3, 4000, 6016); this tree runs each through its specialised
-program).  It first prints what `nvcc -Xptxas -v` reports
-(registers, shared memory, spills) for both trees' rcd.cu,
+program); and the warp's four maps: config 4's lens map on its
+demosaiced (3, 4000, 6016), config 9's clipping map on its flipped
+window, config 11's ashift homography on (3, 4000, 6016) and its liquify
+stamps over the ashift output; the last three also with this tree's
+staging budget set to 0 (`warp.TILE`), every tile that reads the source
+gathering from device memory, which times staging against the same tiles
+without it.  It first prints what `nvcc -Xptxas -v`
+reports (registers, shared memory, spills) for both trees' rcd.cu,
 markesteijn.cu, diffuse.cu, nlm.cu, sepblur.cu, eaw.cu,
-pointwise_chain.cu, iir.cu and bgrid.cu.  Then each kernel's output is
+pointwise_chain.cu, iir.cu, bgrid.cu and warp.cu.  Then each kernel's output is
 held bit for bit against the other tree's and timed in the order other,
 this, this, other (each the median of REPEATS calls, device time between
 CUDA events behind a spin kernel, as chip_smoke.py times its kernels),
@@ -35,7 +41,8 @@ in launch order with its time (torch.profiler).  Before the kernels, the
 pipes of configs 1, 2, 3, 4 and 7 of both trees run through `run_padded`
 on the same raw in the same order (img/s, and the peak device memory
 of one image of each; this tree's launch counts checked against
-chip_smoke.py's).  Needs a CUDA device.
+chip_smoke.py's; configs 9 and 11 from their histories on synth_raw
+mosaics).  Needs a CUDA device.
 """
 
 import argparse
@@ -57,28 +64,30 @@ import ansel_tpu_torch as port  # noqa: E402
 from ansel_tpu_torch.io import configs  # noqa: E402
 from ansel_tpu_torch.io.synthetic import synth_raw  # noqa: E402
 from ansel_tpu_torch.kernels import (  # noqa: E402
-    _build, bgrid, diffuse, eaw, iir, markesteijn, nlm, rcd, sepblur)
+    _build, bgrid, diffuse, eaw, iir, markesteijn, nlm, rcd, sepblur, warp)
 from ansel_tpu_torch.kernels import pointwise as pw  # noqa: E402
 from ansel_tpu_torch.ops.base import pad_to  # noqa: E402
 from chip_smoke import (  # noqa: E402
-    LAUNCHES1, LAUNCHES2, LAUNCHES3, LAUNCHES4, LAUNCHES7, PIPE2_REPEATS,
-    PIPE3_REPEATS, PIPE4_REPEATS, PIPE7_REPEATS, REPEATS, card_line,
-    median_ms, pipe_peak, read_launches, reset_launches, swapped, time_pipe)
+    LAUNCHES1, LAUNCHES2, LAUNCHES3, LAUNCHES4, LAUNCHES7, LAUNCHES9,
+    LAUNCHES11, PIPE2_REPEATS, PIPE3_REPEATS, PIPE4_REPEATS, PIPE7_REPEATS,
+    PIPE9_REPEATS, REPEATS, card_line, median_ms, pipe_peak, read_launches,
+    reset_launches, swapped, time_pipe)
 
 # each config's launch counts per image and run_padded repeats per turn,
 # as chip_smoke.py runs them
 PIPES = {1: (LAUNCHES1, REPEATS), 2: (LAUNCHES2, PIPE2_REPEATS),
          3: (LAUNCHES3, PIPE3_REPEATS), 4: (LAUNCHES4, PIPE4_REPEATS),
-         7: (LAUNCHES7, PIPE7_REPEATS)}
+         7: (LAUNCHES7, PIPE7_REPEATS), 9: (LAUNCHES9, PIPE9_REPEATS),
+         11: (LAUNCHES11, REPEATS)}
 
 
 SOURCES = ("rcd", "markesteijn", "diffuse", "nlm", "sepblur", "eaw",
-           "pointwise_chain", "iir", "bgrid")
+           "pointwise_chain", "iir", "bgrid", "warp")
 
 
 def other_kernels(root):
-    """The RCD, Markesteijn, diffuse, NLM, sepblur, EAW, chain, IIR and
-    grid-slice wrapper modules of the tree at `root`."""
+    """The RCD, Markesteijn, diffuse, NLM, sepblur, EAW, chain, IIR,
+    grid-slice and warp wrapper modules of the tree at `root`."""
     init = os.path.join(root, "ansel_tpu_torch", "__init__.py")
     spec = importlib.util.spec_from_file_location(
         "other_port", init, submodule_search_locations=[os.path.dirname(init)])
@@ -87,7 +96,7 @@ def other_kernels(root):
     spec.loader.exec_module(mod)
     return [importlib.import_module(f"other_port.kernels.{name}")
             for name in ("rcd", "markesteijn", "diffuse", "nlm", "sepblur",
-                         "eaw", "pointwise", "iir", "bgrid")]
+                         "eaw", "pointwise", "iir", "bgrid", "warp")]
 
 
 def ptxas(trees):
@@ -107,6 +116,14 @@ def ptxas(trees):
         jobs = [pool.submit(run, label, root, name, tmp)
                 for label, root in trees for name in SOURCES]
         return [line for job in jobs for line in job.result()]
+
+
+def all_direct(fn):
+    """fn with the warp's staging budget 0: every tile direct."""
+    def run(*args):
+        with swapped([(warp, "TILE", warp.TILE[:2] + (0,))]):
+            return fn(*args)
+    return run
 
 
 def launch_times(fn):
@@ -191,7 +208,7 @@ def main():
     for line in ptxas((("this", ROOT), ("other", args.other))):
         print(line, flush=True)
     (o_rcd, o_mark, o_diffuse, o_nlm, o_sepblur, o_eaw, o_pw, o_iir,
-     o_bgrid) = other_kernels(args.other)
+     o_bgrid, o_warp) = other_kernels(args.other)
     pipe_ab(card, sys.modules["other_port"])
     diffuse3, blur3, chain3, rcd3, iir3 = captured(3, [
         (diffuse, "diffuse_iteration"), (sepblur, "sep_blur"),
@@ -202,8 +219,12 @@ def main():
         (pw, "pointwise_chain")])
     chain1, rcd1 = captured(1, [(pw, "pointwise_chain"),
                                 (rcd, "rcd_demosaic")])
-    chain4, mark4 = captured(4, [(pw, "pointwise_chain"),
-                                 (markesteijn, "xtrans_markesteijn")])
+    chain4, mark4, lens4 = captured(4, [
+        (pw, "pointwise_chain"), (markesteijn, "xtrans_markesteijn"),
+        (warp, "lens_warp")])
+    clip9, = captured(9, [(warp, "clip_warp")])
+    ashift11, liquify11 = captured(11, [(warp, "homography_warp"),
+                                        (warp, "liquify_warp")])
     chain7, slices7 = captured(7, [(pw, "pointwise_chain"),
                                    (bgrid, "slice_grid")])
     chains = {1: chain1, 2: chain2, 3: chain3, 4: chain4, 7: chain7}
@@ -238,9 +259,27 @@ def main():
         (f"chain config {n}.{i}", call, pw.pointwise_chain,
          o_pw.pointwise_chain)
         for n in sorted(chains) for i, call in enumerate(chains[n])
+    ] + [
+        ("warp lens config 4", lens4[0], warp.lens_warp, o_warp.lens_warp),
+        ("warp clipping config 9", clip9[0], warp.clip_warp,
+         o_warp.clip_warp),
+        ("warp ashift config 11", ashift11[0], warp.homography_warp,
+         o_warp.homography_warp),
+        ("warp liquify config 11", liquify11[0], warp.liquify_warp,
+         o_warp.liquify_warp),
+    ] + [
+        (f"warp {name}, every tile direct", call, all_direct(fn), other_fn)
+        for name, call, fn, other_fn in (
+            ("clipping config 9", clip9[0], warp.clip_warp,
+             o_warp.clip_warp),
+            ("ashift config 11", ashift11[0], warp.homography_warp,
+             o_warp.homography_warp),
+            ("liquify config 11", liquify11[0], warp.liquify_warp,
+             o_warp.liquify_warp))
     ]
     del diffuse3, blur3, chain3, rcd3, iir3, nlm2, blur2, eaw2, chain2
-    del chains, chain1, rcd1, chain4, mark4, chain7, slices7
+    del chains, chain1, rcd1, chain4, mark4, chain7, slices7, lens4, clip9
+    del ashift11, liquify11
     for name, call, this_fn, other_fn in cases:
         x = call[0]
         got, want = this_fn(*call), other_fn(*call)

@@ -1021,6 +1021,12 @@ CLIP_CASES = {
                       "kya": 0.15, "kxb": 0.85, "kyb": 0.1, "kxc": 0.9,
                       "kyc": 0.9, "kxd": 0.15, "kyd": 0.85},
     "mirrored": {"angle": 4.0, "cw": -0.9, "ch": -0.8},
+    # 45 degrees behind a strong quad keystone: some tiles' source boxes
+    # overflow the warp's staging budget
+    "rotate45-strong-keystone": {"angle": 45.0, "k_type": 0, "k_apply": 1,
+                                 "kxa": 0.1, "kya": 0.1, "kxb": 0.9,
+                                 "kyb": 0.4, "kxc": 0.9, "kyc": 0.6,
+                                 "kxd": 0.1, "kyd": 0.9},
 }
 
 
@@ -1077,10 +1083,13 @@ def test_clip_warp_kernel_at_24_mp(cuda):
 @pytest.mark.parametrize("hw", [(5, 7), (136, 400)])
 @pytest.mark.parametrize("variant,P,K,launches", [
     (0, 1, 15, 2), (1, 1, 15, 2), (0, 2, 20, 2), (1, 2, 20, 2),
-    (0, 9, 3, 1), (1, 9, 3, 1), (0, 12, 2, 1), (1, 12, 2, 1)])
+    (0, 9, 3, 1), (1, 9, 3, 1), (0, 12, 2, 1), (1, 12, 2, 1),
+    (0, 97, 1, 1), (1, 130, 1, 1)])
 def test_nlm_kernel_on_wide_lattices(cuda, hw, variant, P, K, launches):
     """Lattices past MAX_OFFSETS run in chunks carried in float32
-    scratch, patch radii past MAX_P through the wide form: bit for bit."""
+    scratch, patch radii past MAX_P through the wide form, whose shared
+    memory does not grow with P (97 and 130: past the 96 it used to
+    take): bit for bit."""
     x = _noisy((3,) + hw, K, cuda)
     offs = search_offsets(K)
     if variant == 1:
@@ -1950,3 +1959,79 @@ def test_spatial_sharded_pipe_frame_statistics_on_a_virtual_card_mesh(cuda):
         s.name for s in pipe.stages].index("denoiseprofile")].plan.static[0]
     want = port.CompiledPipe(pipe)(raw)[:, :256, :384]
     assert (got - want).abs().max().item() <= 1e-5
+
+
+# --- slice 22: the warp's staged and direct tiles, sep_filter past 3-D ------
+
+def _warp_case(kind, h, w, cuda):
+    """(call, twin, positions, valid, input) of map `kind` on an (h, w)
+    frame, with arguments whose source boxes overflow the staging budget
+    on some tiles (`warp.TILE`): a 45-degree clipping behind a strong
+    keystone, a strong ashift, a liquify stroke moving pixels by up to 300
+    px."""
+    gen = torch.Generator(device=cuda).manual_seed(22)
+    x = torch.rand((3, h, w), generator=gen, device=cuda)
+    if kind == "clip":
+        k, k_apply, _, (oh, ow) = _clip_args("rotate45-strong-keystone", h,
+                                             w)
+        sy, sx, inside = warp.clip_coords(k, k_apply, oh, ow, cuda)
+        return (lambda: warp.clip_warp(x, k, k_apply, oh, ow),
+                lambda: warp.clip_warp_reference(x, k, k_apply, oh, ow),
+                [(sy, sx)], inside, x)
+    if kind == "homography":
+        k = _ashift_consts({"rotation": 30.0, "lensshift_v": 1.0,
+                            "lensshift_h": 1.0}, h, w)
+        sy, sx, inside = warp.homography_coords(k, h, w, cuda)
+        return (lambda: warp.homography_warp(x, k),
+                lambda: warp.homography_warp_reference(x, k), [(sy, sx)],
+                inside, x)
+    from ansel_tpu_torch.ops import liquify
+
+    pt = complex(w / 2, h / 2)
+    blob = configs.liquify_node(configs.PATH_MOVE, -1, -1, pt, pt + 600,
+                                pt + 150.0, configs.WARP_LINEAR)
+    blob += b"\0" * (76 * configs.LIQUIFY_NODES - len(blob))
+    stamps = _stamps(blob, cuda)
+    spec = ImageSpec(width=w, height=h, colorspace=Colorspace.CAMERA_RGB,
+                     pad_w=w, pad_h=h)
+    win = liquify.Liquify().plan(port.ops.base.PlanContext(meta=None), spec,
+                                 liquify.LiquifyParams(blob)).static[4]
+    sy, sx, valid = warp.liquify_positions(stamps, win, h, w)
+    return (lambda: warp.liquify_warp(x, stamps, win),
+            lambda: warp.liquify_warp_reference(x, stamps, win), [(sy, sx)],
+            valid, x)
+
+
+@pytest.mark.parametrize("kind", ["clip", "homography", "liquify"])
+@pytest.mark.parametrize("hw", [(600, 1000), (601, 999)])
+def test_warp_staged_and_direct_tiles(cuda, kind, hw):
+    """Maps whose tiles partly overflow the staging budget: one launch,
+    bit for bit, the direct tiles the kernel counts those
+    `warp.tile_plan` plans from the twin's positions, on a frame whose
+    rows are 16-byte aligned and one whose are not."""
+    call, twin, sets, valid, x = _warp_case(kind, *hw, cuda)
+    warp.reset_direct_tiles()
+    before = warp.LAUNCHES
+    got = call()
+    assert warp.LAUNCHES == before + 1
+    direct = warp.direct_tiles()[kind]
+    want = twin()
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    plan = warp.tile_plan(sets, valid, *hw, 3,
+                          hw[1] % 4 == 0 and x.data_ptr() % 16 == 0)
+    assert direct == int((~plan[4]).sum()) > 0
+
+
+def test_sep_filter_on_a_4d_tensor(cuda):
+    """sep_filter folds the leading axes of a 4-D tensor into one: one
+    launch, bit for bit against the per-plane blurs and the twin."""
+    from ansel_tpu_torch.pixel.shifts import sep_filter
+
+    x = _noisy((2, 3, 136, 400), 4, cuda)
+    before = sepblur.LAUNCHES
+    got = sep_filter(x, B3, 4)
+    assert sepblur.LAUNCHES == before + 1
+    want = torch.stack([sepblur.sep_blur(p, B3, 4) for p in x])
+    assert torch.equal(got, want)
+    assert torch.equal(got, sepblur.sep_blur_reference(x, B3, 4))
